@@ -29,8 +29,5 @@ class ExecutionPolicy:
                              f"expected one of {BACKENDS}")
         object.__setattr__(self, "device", torch.device(self.device))
 
-    def with_(self, **kw) -> "ExecutionPolicy":
-        return dataclasses.replace(self, **kw)
-
 
 STRUCTURED = ExecutionPolicy()

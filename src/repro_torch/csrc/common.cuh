@@ -23,6 +23,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(v);
 }
 
+// *p, or zero where ``ok`` is false (the address is then not read)
+__device__ __forceinline__ float load_or_zero(const float* p, bool ok) {
+  return ok ? *p : 0.f;
+}
+__device__ __forceinline__ __nv_bfloat16 load_or_zero(const __nv_bfloat16* p,
+                                                     bool ok) {
+  return ok ? *p : __ushort_as_bfloat16(static_cast<unsigned short>(0));
+}
+
 // round an f32 value to T's precision and back (the reference's
 // ``.astype(x.dtype)`` on an f32 intermediate)
 template <typename T> __device__ __forceinline__ float round_to(float v) {

@@ -12,7 +12,7 @@ reference returns a new cache); the step returns the same dict.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -130,12 +130,11 @@ def attention_params(gen, cfg: ArchConfig, *, lead: Tuple[int, ...] = ()):
     }
 
 
-def attention(p, x, cfg: ArchConfig, *, causal: bool = True,
-              cache: Optional[dict] = None, pos=0,
+def attention(p, x, cfg: ArchConfig, *, cache: dict,
               policy: ExecutionPolicy = STRUCTURED, adapter_tiles=None):
-    """Multi-head GQA attention. ``cache`` (decode): {"k": [B,Hkv,S,D],
-    "v": ..., "len": int32 [B] per-slot lengths (or a scalar)}; k/v are
-    written at ``len`` in place and ``len`` advances by N in place."""
+    """Causal GQA attention over a per-slot KV cache (decode): ``cache`` is
+    {"k": [B,Hkv,S,D], "v": ..., "len": int32 [B]}. New k/v are written at
+    each slot's ``len`` in place, and ``len`` advances by N in place."""
     B, N, _ = x.shape
     hd = cfg.resolved_head_dim
     lin = functools.partial(apply_linear, cfg=cfg, policy=policy,
@@ -144,53 +143,40 @@ def attention(p, x, cfg: ArchConfig, *, causal: bool = True,
     k = lin(p["k"], x).reshape(B, N, cfg.n_kv_heads, hd)
     v = lin(p["v"], x).reshape(B, N, cfg.n_kv_heads, hd)
 
-    parr = torch.as_tensor(pos, device=x.device)
-    off = parr[..., None] if parr.ndim else parr
-    qpos = torch.arange(N, device=x.device) + off
+    ln = cache["len"]
+    qpos = torch.arange(N, device=x.device) + ln[:, None]
     q = rope(q, qpos, cfg.rope_theta)
     k = rope(k, qpos, cfg.rope_theta)
 
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B,H,N,D]
-
-    if cache is not None:
-        ln = cache["len"]
-        kc = _cache_write(cache["k"], k, ln)
-        vc = _cache_write(cache["v"], v, ln)
-        out = structured.sdpa(q, kc, vc, 0, causal, ln, ln + N)
-        cache["len"] += N
-    else:
-        out = structured.sdpa(q, k, v, 0, causal)
+    kc = _cache_write(cache["k"], k, ln)
+    vc = _cache_write(cache["v"], v, ln)
+    out = structured.sdpa(q, kc, vc, 0, True, ln, ln + N)
+    cache["len"] += N
 
     out = out.transpose(1, 2).reshape(B, N, cfg.n_heads * hd)
     return lin(p["o"], out), cache
 
 
 def _cache_write(c, u, ln):
-    """Write ``u`` [B,Hkv,N,D] into cache ``c`` [B,Hkv,S,D] in place at
-    offset ``ln``: a Python int (whole batch at one position) or a [B]
-    tensor (continuous batching: every slot at its own length)."""
-    N = u.shape[2]
-    if isinstance(ln, int):
-        c[:, :, ln:ln + N] = u
-        return c
+    """Write ``u`` [B,Hkv,N,D] into cache ``c`` [B,Hkv,S,D] in place, each
+    slot b at its own offset ``ln[b]`` (continuous batching)."""
     rows = torch.arange(c.shape[0], device=c.device)
-    for n in range(N):
+    for n in range(u.shape[2]):
         c[rows, :, ln + n] = u[:, :, n]
     return c
 
 
 def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
-                  per_slot: bool = False, lead: Tuple[int, ...] = (),
-                  device="cpu") -> dict:
-    """Zeroed KV cache; ``per_slot`` keeps a [B] length vector so
-    continuous batching can hold every slot at its own position."""
+                  lead: Tuple[int, ...] = (), device="cpu") -> dict:
+    """Zeroed per-slot KV cache: a [B] length vector holds every slot at
+    its own position (the reference's ``per_slot=True``)."""
     hd = cfg.resolved_head_dim
     shape = (*lead, batch, cfg.n_kv_heads, max_len, hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
-        "len": torch.zeros((*lead, batch) if per_slot else lead,
-                           dtype=torch.int32, device=device),
+        "len": torch.zeros((*lead, batch), dtype=torch.int32, device=device),
     }
 
 
@@ -224,11 +210,7 @@ def mlp(p, x, cfg: ArchConfig, *, policy: ExecutionPolicy = STRUCTURED,
 
 
 def embed_params(gen, cfg: ArchConfig):
-    p = {"tok": _randn(gen, (cfg.vocab, cfg.d_model), _dtype(cfg)) * 0.02}
-    if not cfg.tie_embeddings:
-        p["head"] = (_randn(gen, (cfg.d_model, cfg.vocab), _dtype(cfg))
-                     * (cfg.d_model ** -0.5))
-    return p
+    return {"tok": _randn(gen, (cfg.vocab, cfg.d_model), _dtype(cfg)) * 0.02}
 
 
 def embed(p, tokens, cfg: ArchConfig):
@@ -236,5 +218,5 @@ def embed(p, tokens, cfg: ArchConfig):
 
 
 def unembed(p, x, cfg: ArchConfig):
-    w = p["tok"].T if cfg.tie_embeddings else p["head"]
-    return (x @ w).float()
+    """Tied head: logits = x @ tokᵀ, in f32."""
+    return (x @ p["tok"].T).float()

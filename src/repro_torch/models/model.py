@@ -15,17 +15,17 @@ from repro_torch.models import layers
 
 
 def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family != "dense" or not cfg.tie_embeddings:
         raise NotImplementedError(
-            f"the port runs the dense family so far, not {cfg.family!r}")
+            "the port runs dense models with tied embeddings so far, not "
+            f"{cfg.name!r}")
 
 
-def dense_block(bp, x, cfg: ArchConfig, *,
-                policy: ExecutionPolicy = STRUCTURED, cache=None, pos=0,
-                adapter_tiles=None):
+def dense_block(bp, x, cfg: ArchConfig, *, cache,
+                policy: ExecutionPolicy = STRUCTURED, adapter_tiles=None):
     h, new_cache = layers.attention(
         bp["attn"], layers.norm(bp["ln1"], x, cfg, policy=policy), cfg,
-        cache=cache, pos=pos, policy=policy, adapter_tiles=adapter_tiles)
+        cache=cache, policy=policy, adapter_tiles=adapter_tiles)
     x = x + h
     x = x + layers.mlp(bp["mlp"],
                        layers.norm(bp["ln2"], x, cfg, policy=policy),
@@ -52,13 +52,13 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator):
     }
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, *,
-               per_slot: bool = True, device="cpu"):
-    """Stacked per-layer KV caches {"blocks": {"k", "v": [L,B,Hkv,S,D],
-    "len": [L,B] (per_slot) or [L]}}."""
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cpu"):
+    """Stacked per-layer, per-slot KV caches (the reference's
+    ``init_cache(per_slot=True)``): {"blocks": {"k", "v": [L,B,Hkv,S,D],
+    "len": [L,B]}}."""
     _require_dense(cfg)
     return {"blocks": layers.make_kv_cache(
-        cfg, batch, max_len, getattr(torch, cfg.dtype), per_slot=per_slot,
+        cfg, batch, max_len, getattr(torch, cfg.dtype),
         lead=(cfg.n_layers,), device=device)}
 
 
@@ -75,17 +75,15 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *,
     the cache advanced in place.
 
     ``adapter_tiles``: int32 device tensor [B // bm] routing each slot tile
-    to its resident adapter for tenant-stacked LoRA params; it needs a
-    ``per_slot`` cache so co-batched requests sit at their own positions.
+    to its resident adapter for tenant-stacked LoRA params.
     """
     _require_dense(cfg)
     x = layers.embed(params["embed"], tokens, cfg)
     blocks, cblocks = params["blocks"], cache["blocks"]
     for i in range(cfg.n_layers):
         lc = _layer(cblocks, i)
-        x, _ = dense_block(_layer(blocks, i), x, cfg, policy=policy,
-                           cache=lc, pos=lc["len"],
-                           adapter_tiles=adapter_tiles)
+        x, _ = dense_block(_layer(blocks, i), x, cfg, cache=lc,
+                           policy=policy, adapter_tiles=adapter_tiles)
     x = layers.norm(params["final_norm"], x, cfg, policy=policy)
     return layers.unembed(params["embed"], x, cfg), cache
 

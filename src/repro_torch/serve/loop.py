@@ -87,7 +87,7 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.policy = policy
         self.device = policy.device
-        self.cache = model_lib.init_cache(cfg, slots, max_len, per_slot=True,
+        self.cache = model_lib.init_cache(cfg, slots, max_len,
                                           device=self.device)
         self.alloc = PagedKVAllocator(slots * max_len // page_size, page_size)
         self.tile_adapter: List[Optional[str]] = [None] * self.n_tiles

@@ -145,7 +145,7 @@ def _jax_run(params, policy, steps, toks):
 
 
 def _torch_run(params, policy, steps, toks):
-    cache = TM.init_cache(TCFG, B, MAX_LEN, per_slot=True)
+    cache = TM.init_cache(TCFG, B, MAX_LEN)
     cache["blocks"]["len"][:] = torch.from_numpy(LENS)
     out = []
     for s in range(steps):
