@@ -1,15 +1,19 @@
 #!/usr/bin/env python3
 """Chip check of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-card: the quickest proof that the port builds and serves on the GPU.
+card: the quickest proof that the port builds, serves and trains on the GPU.
 
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (one
    ``nvcc`` per source, in parallel).
-2. Holds each kernel against its plain PyTorch version on the card, in
-   bf16, at the qwen2.5-0.5b decode shapes, and times the kernel, the plain
-   version and (for RMSNorm) ``F.rms_norm`` as a library yardstick, beside
-   the bound from bytes and operations.
+2. Holds each kernel against its plain PyTorch version on the card and
+   times the kernel and the plain version beside the bound from bytes and
+   operations: the serving kernels in bf16 at the qwen2.5-0.5b decode
+   shapes (with ``F.rms_norm`` as a library yardstick), the training
+   kernels (LoRA forward, dx, dA/dB, RMSNorm backward) in bf16 and f32 at
+   the training shapes, 192 rows (batch 4 x seq 48), with
+   ``torch.matmul``'s time for the dominant x@W0 / g@W0^T product as
+   context (no single PyTorch call computes those functions).
 3. Serves full-width qwen2.5-0.5b (24 layers, random weights from a seed)
    through ``repro_torch.launch.serve``: 8 slots in tiles of 2, 4 tenants,
    a store of 4, 8 requests of 8 prompt + 16 new tokens. The launch
@@ -19,14 +23,25 @@ card: the quickest proof that the port builds and serves on the GPU.
 4. Replays the first 4 steps (all prefill, so the inputs are fixed)
    through the kernels, through the plain functions, and through the plain
    functions in f32, and compares the logits.
+5. Trains full-width qwen2.5-0.5b through ``repro_torch.launch.train``:
+   engine mesp_cuda, batch 4 x seq 48, 4 SGD steps. The counters are zeroed
+   just before and read just after; each step must launch exactly the
+   counts of ``TRAIN_PER_STEP``, and every loss must be finite.
+6. One ``value_and_grad`` on the same full-width weights with every LoRA B
+   drawn nonzero, through the kernels, the plain (autograd) backend in
+   bf16, and the plain backend in f32: the loss and each LoRA gradient
+   leaf (relative L2) are compared in the logit check's scheme. Then the
+   peak ``torch.cuda.max_memory_allocated`` of one ``value_and_grad`` for
+   each engine (mesp_cuda, mesp, mebp, store_h): a measurement.
 
-Prints one ``{"kernels": [...]}`` line, one ``{"serve": ...}`` line, the
-card's name and power limit, and last ``{"ok": true, "device": ...}``.
-Any mismatch or exception exits non-zero. Imports nothing of JAX or of the
-JAX package ``repro``.
+Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}`` and
+``{"train": ...}`` line each, the card's name and power limit, and last
+``{"ok": true, "device": ...}``. Any mismatch or exception exits non-zero.
+Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -39,6 +54,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12         # outside the tensor cores
 L2_BYTES = 50 * 2**20
 
 M, BM, R, RANK = 8, 2, 4, 8           # decode: 8 slots, tile 2, 4 adapters
@@ -63,6 +79,42 @@ KERNEL_TOL = dict(rtol=2.0 ** -6, atol=1e-2)
 # no further from those than twice the plain bf16 functions are.
 LOGIT_TOL = 0.1
 
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 48, 4
+TM = TRAIN_BATCH * TRAIN_SEQ          # rows through every linear: 192
+# (K, N) -> LoRA linears of that shape in a layer: q,o / k,v / gate,up / down
+LINEARS = {(D_MODEL, D_MODEL): 2, (D_MODEL, KV): 2, (D_MODEL, D_FF): 2,
+           (D_FF, D_MODEL): 1}
+# block 0's q/k/v take the frozen embedding through the frozen ln1: no
+# input gradient, so no dx launch (ctx.needs_input_grad)
+NO_DX_IN_BLOCK0 = {(D_MODEL, D_MODEL): 1, (D_MODEL, KV): 2}
+# launches per training step of each kernel at each (K, N): every block's
+# forward runs twice (torch.utils.checkpoint recomputes it in the backward)
+TRAIN_SHAPES = {
+    "lora_fused_fwd": {s: 2 * n * N_LAYERS for s, n in LINEARS.items()},
+    "lora_dx": {s: n * N_LAYERS - NO_DX_IN_BLOCK0.get(s, 0)
+                for s, n in LINEARS.items()},
+    "lora_dab": {s: n * N_LAYERS for s, n in LINEARS.items()},
+}
+TRAIN_PER_STEP = {
+    **{k: sum(v.values()) for k, v in TRAIN_SHAPES.items()},
+    # ln1, ln2 twice per block (recompute) + the final norm
+    "rmsnorm_fwd": 4 * N_LAYERS + 1,
+    # ln2 of every block, ln1 of blocks 1.. (block 0's input needs no
+    # gradient), the final norm
+    "rmsnorm_bwd": 2 * N_LAYERS,
+    "lora_grouped_fwd": 0,
+}
+# B of the value_and_grad comparison: nonzero, at the size B reaches when
+# fine-tuned from zero
+B_SCALE = 0.02
+# LoRA gradients, relative L2 per leaf, kernels vs the plain bf16 backend:
+# both round in bf16 at different points through 24 layers and back (see
+# PERF.md for the measured distances). Both are also held against the f32
+# plain backend: the kernels may be no further from it than twice the plain
+# bf16 backend is (plus 1e-3 for leaves where both are very close).
+GRAD_TOL = 0.5
+LOSS_TOL = 1e-2
+
 
 def _check_close(got, want, tol, what):
     import torch
@@ -86,7 +138,11 @@ def _time_ms(fn, sets):
     """Device time of one call: a CUDA graph of one call per input set,
     replayed, timed with CUDA events (host launch cost excluded)."""
     import torch
-    s = torch.cuda.Stream()
+    # one side stream for every timing: cuBLAS keeps a workspace for each
+    # stream it has run on until the process ends
+    s = getattr(_time_ms, "stream", None)
+    if s is None:
+        s = _time_ms.stream = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
         for args in sets[:3]:
@@ -179,32 +235,266 @@ def check_rmsnorm(torch, rn):
 
 
 def kernel_entry(name, source, replaces, tpu_kernel, shapes, launches,
-                 steps):
-    """One kernel's line entry: figures per decode step (each shape's
-    per-launch figure times its launches per step), shapes in full."""
-    def per_step(key):
-        vals = [s[key] for s in shapes]
+                 steps, step="decode", **extra):
+    """One kernel's line entry: figures per ``step`` (decode or train; each
+    shape's per-launch figure times its launches per step), shapes in
+    full. ``launches``: {path: launches in that path's run}; ``steps``:
+    the run's steps of the ``step`` kind."""
+    key = f"launches_per_{step}_step"
+
+    def per_step(field):
+        vals = [s[field] for s in shapes]
         if any(v is None for v in vals):
             return None
-        return sum(v * s["launches_per_decode_step"]
-                   for v, s in zip(vals, shapes))
-    t_bytes = sum(s["bytes"] * s["launches_per_decode_step"]
-                  for s in shapes) / HBM_BYTES_PER_S * 1e3
-    t_ops = sum(s["flops"] * s["launches_per_decode_step"]
-                for s in shapes) / BF16_FLOPS_PER_S * 1e3
+        return sum(v * s[key] for v, s in zip(vals, shapes))
+    t_bytes = sum(s["bytes"] * s[key] for s in shapes) / HBM_BYTES_PER_S
+    t_ops = sum(s["flops"] * s[key] for s in shapes) / BF16_FLOPS_PER_S
     err = max(s["max_abs_err"] for s in shapes)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
-            "launches": launches,
-            "launches_per_decode_step": launches / steps,
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            key: launches[{"decode": "serve"}.get(step, step)] / steps,
             "max_abs_err": err, "max_err": err, "tol": KERNEL_TOL,
-            "unit": "ms per decode step: per-launch time x launches per "
-                    "step, summed over shapes",
+            "unit": f"ms per {step} step, bf16: per-launch time x launches "
+                    "per step, summed over shapes",
             "ms": per_step("ms"), "plain_ms": per_step("plain_ms"),
             "library_ms": per_step("library_ms"),
-            "bound_ms": max(t_bytes, t_ops),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "shapes": shapes}
+            **extra, "shapes": shapes}
+
+
+# ---------------------------------------------------------------- training
+
+
+def _train_cases(torch, gen, dtype, K, N):
+    """make() of the inputs of the LoRA kernels at one training shape:
+    x [TM, K], w0 [K, N], a [K, r], b [r, N] (nonzero), g [TM, N]."""
+    def make():
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        return tuple(t.to(dtype) for t in (
+            rn(TM, K), rn(K, N) * K ** -0.5, rn(K, RANK) * RANK ** -0.5,
+            rn(RANK, N) * 0.1, rn(TM, N)))
+    return make
+
+
+def _close_scaled(got, want, tol, what):
+    """_check_close with the absolute floor relative to the output's
+    largest magnitude (at least 1): dA and dB are sums over all 192 rows,
+    and in bf16 a rounding of h or dh that falls the other way on one row
+    moves that row's outputs by about one step of h's rounding times B."""
+    scale = max(1.0, float(want.float().abs().max()))
+    return _check_close(got, want, dict(rtol=tol["rtol"],
+                                        atol=tol["atol"] * scale), what)
+
+
+def check_training_kernels(torch, lf, rn):
+    """The LoRA training kernels and the RMSNorm backward against their
+    plain versions at the training shapes, in bf16 and f32 (f32: summation
+    order only, rtol = atol = 1e-4); times, bounds and the matmul context
+    in bf16. Returns {kernel: [shape figures]}."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {k: [] for k in ("lora_fused_fwd", "lora_dx", "lora_dab",
+                           "rmsnorm_bwd")}
+    f32_tol = dict(rtol=1e-4, atol=1e-4)
+    calls = {
+        "lora_fused_fwd": (lambda x, w, a, b, g: lf.lora_fused(x, w, a, b),
+                           lambda x, w, a, b, g: lf.lora_fused_ref(
+                               x, w, a, b),
+                           lambda x, w, a, b, g: torch.matmul(x, w)),
+        "lora_dx": (lambda x, w, a, b, g: lf.lora_dx(g, w, a, b),
+                    lambda x, w, a, b, g: lf.lora_dx_ref(g, w, a, b),
+                    lambda x, w, a, b, g: torch.matmul(g, w.T)),
+        "lora_dab": (lambda x, w, a, b, g: lf.lora_dab(x, g, a, b),
+                     lambda x, w, a, b, g: lf.lora_dab_ref(x, g, a, b),
+                     None),
+    }
+    for (K, N) in LINEARS:
+        errs = {}
+        for dtype, tol in ((torch.float32, f32_tol),
+                           (torch.bfloat16, KERNEL_TOL)):
+            args = _train_cases(torch, gen, dtype, K, N)()
+            for name, (kern, plain, _) in calls.items():
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                if name != "lora_dab":
+                    got, want = (got,), (want,)
+                errs[(name, dtype)] = max(
+                    _close_scaled(u, v, tol, f"{name} {dtype} K={K} N={N}")
+                    for u, v in zip(got, want))
+        make = _train_cases(torch, gen, torch.bfloat16, K, N)
+        base = 2 * (TM * K + K * N + K * RANK + RANK * N + TM * N)
+        sets = _cold_sets(make, base)
+        for name, (kern, plain, mm) in calls.items():
+            if name == "lora_dab":   # reads x, g, A, B; writes dA, dB
+                nbytes = 2 * (TM * K + TM * N + 2 * (K * RANK + RANK * N))
+                flops = 4 * TM * RANK * (K + N)
+            else:   # reads x (or g), W0, A, B; writes y (or dx)
+                nbytes, flops = base, (2 * TM * K * N
+                                       + 2 * TM * RANK * (K + N))
+            bound, by = _bound_ms(nbytes, flops)
+            out[name].append({
+                "K": K, "N": N, "M": TM, "r": RANK,
+                "launches_per_train_step": TRAIN_SHAPES[name][(K, N)],
+                "max_abs_err": errs[(name, torch.bfloat16)],
+                "max_abs_err_f32": errs[(name, torch.float32)],
+                "ms": _time_ms(kern, sets), "plain_ms": _time_ms(plain, sets),
+                "library_ms": None,
+                "matmul_ms": _time_ms(mm, sets) if mm else None,
+                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                "flops": flops})
+
+    def make_rms(dtype=torch.bfloat16):
+        rn_ = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        return ((rn_(TM, D_MODEL) * 3).to(dtype), rn_(D_MODEL).to(dtype),
+                rn_(TM, D_MODEL).to(dtype))
+    errs = {}
+    for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-5)),
+                       (torch.bfloat16, KERNEL_TOL)):
+        x, w, g = make_rms(dtype)
+        dx, dw = rn.rmsnorm_bwd(x, w, g, 1e-6)
+        torch.cuda.synchronize()
+        wdx, wdw = rn.rmsnorm_bwd_ref(x, w, g, 1e-6)
+        errs[dtype] = max(_check_close(dx, wdx, tol, f"rmsnorm_bwd {dtype}"),
+                          _close_scaled(dw, wdw, tol,
+                                        f"rmsnorm_bwd dw {dtype}"))
+    nbytes = 2 * (3 * TM * D_MODEL + D_MODEL)
+    bound, by = _bound_ms(nbytes, 10 * TM * D_MODEL)
+    # the path asks for no dw (no norm weight trains): time it that way
+    bwd = lambda x, w, g: rn.rmsnorm_bwd(x, w, g, 1e-6, need_dw=False)
+    plain = lambda x, w, g: rn.rmsnorm_bwd_ref(x, w, g, 1e-6)[0]
+    sets = [make_rms()] * 256     # warm: g was just written by the step
+    out["rmsnorm_bwd"].append({
+        "M": TM, "d": D_MODEL,
+        "launches_per_train_step": TRAIN_PER_STEP["rmsnorm_bwd"],
+        "max_abs_err": errs[torch.bfloat16],
+        "max_abs_err_f32": errs[torch.float32],
+        "ms": _time_ms(bwd, sets), "plain_ms": _time_ms(plain, sets),
+        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "bytes": nbytes, "flops": 10 * TM * D_MODEL})
+    return out
+
+
+def rmsnorm_train_shape(torch, rn):
+    """The RMSNorm forward at the training shape [192, 896], bf16, warm."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = (torch.randn(TM, D_MODEL, generator=gen, device="cuda") * 3
+         ).bfloat16()
+    w = torch.randn(D_MODEL, generator=gen, device="cuda").bfloat16()
+    err = _check_close(rn.rmsnorm(x, w, 1e-6), rn.rmsnorm_ref(x, w, 1e-6),
+                       KERNEL_TOL, "rmsnorm_fwd train shape")
+    nbytes = 2 * (2 * TM * D_MODEL + D_MODEL)
+    bound, by = _bound_ms(nbytes, 4 * TM * D_MODEL)
+    sets = [(x, w)] * 256
+    return {"M": TM, "d": D_MODEL,
+            "launches_per_train_step": TRAIN_PER_STEP["rmsnorm_fwd"],
+            "max_abs_err": err,
+            "ms": _time_ms(lambda x, w: rn.rmsnorm(x, w, 1e-6), sets),
+            "plain_ms": _time_ms(lambda x, w: rn.rmsnorm_ref(x, w, 1e-6),
+                                 sets),
+            "library_ms": _time_ms(
+                lambda x, w: F.rms_norm(x, (D_MODEL,), w, 1e-6), sets),
+            "bound_ms": bound, "bound_by": by}
+
+
+def _with_b(torch, tree, gen):
+    """``tree`` with every LoRA B redrawn nonzero from ``gen`` (B = 0 at
+    init would leave dA and the h@B term untested)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _with_b(torch, v, gen)
+        elif k == "b":
+            out[k] = (torch.randn(v.shape, generator=gen, device=v.device)
+                      * B_SCALE).to(v.dtype)
+        else:
+            out[k] = v
+    return out
+
+
+def _grad_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_grad_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {} if tree is None else {prefix: tree.float()}
+
+
+def compare_grads(torch, cfg, params, batch):
+    """One value_and_grad through the kernels, the plain backend in bf16
+    and the plain backend in f32, on the same (bf16-valued) weights.
+    Returns the loss and per-leaf relative L2 distances."""
+    import dataclasses
+    from repro_torch.api.policy import ExecutionPolicy
+    from repro_torch.core import mesp
+    runs = {"kernels": ("cuda", cfg, params),
+            "plain": ("plain", cfg, params),
+            "f32": ("plain", dataclasses.replace(cfg, dtype="float32"),
+                    _f32(params))}
+    loss, grads = {}, {}
+    for name, (backend, c, p) in runs.items():
+        l, g = mesp.value_and_grad(p, c, batch, policy=ExecutionPolicy(
+            backend=backend, device="cuda"))
+        loss[name], grads[name] = float(l), _grad_leaves(g)
+        if not math.isfinite(loss[name]) or not all(
+                bool(torch.isfinite(t).all()) for t in grads[name].values()):
+            raise AssertionError(f"{name}: non-finite loss or gradient")
+    rel = lambda u, v: float(torch.linalg.vector_norm(u - v)
+                             / torch.linalg.vector_norm(v))
+    leaves = {}
+    for path in grads["f32"]:
+        k, p, f = (grads[n][path] for n in ("kernels", "plain", "f32"))
+        leaves[path] = {"kernels_vs_plain": rel(k, p),
+                        "kernels_vs_f32": rel(k, f),
+                        "plain_vs_f32": rel(p, f)}
+    bad = {path: e for path, e in leaves.items()
+           if e["kernels_vs_plain"] > GRAD_TOL
+           or e["kernels_vs_f32"] > 2 * e["plain_vs_f32"] + 1e-3}
+    if bad or len(leaves) != 14:
+        raise AssertionError(
+            f"LoRA gradients: kernels vs plain bf16 over {GRAD_TOL}, or "
+            f"further from f32 than twice the plain bf16 backend: {bad}; "
+            f"all leaves: {leaves}")
+    loss_err = {"kernels_vs_plain": abs(loss["kernels"] - loss["plain"]),
+                "kernels_vs_f32": abs(loss["kernels"] - loss["f32"]),
+                "plain_vs_f32": abs(loss["plain"] - loss["f32"])}
+    if loss_err["kernels_vs_plain"] > LOSS_TOL * abs(loss["f32"]):
+        raise AssertionError(f"losses differ: {loss} (rtol {LOSS_TOL})")
+    worst = {k: max(e[k] for e in leaves.values()) for k in
+             ("kernels_vs_plain", "kernels_vs_f32", "plain_vs_f32")}
+    return {"loss": loss, "loss_abs_err": loss_err, "worst": worst,
+            "leaves": leaves}
+
+
+def _release(torch):
+    """Free what earlier phases left for the collector (the timing graphs
+    and their inputs), so a peak reads the phase's own memory."""
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def peak_memory(torch, cfg, params, batch):
+    """Peak allocated bytes of one value_and_grad per engine (and above
+    what was allocated before it: weights, batch)."""
+    from repro_torch.api.engines import ENGINES
+    from repro_torch.api.policy import ExecutionPolicy
+    from repro_torch.core import mesp
+    out = {}
+    for engine in ("mesp_cuda", "mesp", "mebp", "store_h"):
+        _release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        loss, grads = mesp.value_and_grad(
+            params, cfg, batch,
+            policy=ExecutionPolicy(backend=ENGINES[engine], device="cuda"))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        out[engine] = {"peak_bytes": peak, "above_start_bytes": peak - base}
+        del loss, grads
+    return out
 
 
 def _f32(tree):
@@ -277,10 +567,12 @@ def main() -> int:
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels import lora_fused as lf
     from repro_torch.kernels import lora_grouped as lg
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch import train as train_cli
 
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -300,8 +592,12 @@ def main() -> int:
 
     grouped = check_grouped(torch, lg)
     rms = check_rmsnorm(torch, rn)
+    training = check_training_kernels(torch, lf, rn)
+    rms_train = rmsnorm_train_shape(torch, rn)
 
     # the main path: counts zeroed just before, read just after
+    _release(torch)
+    serve_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     out = serve_cli.serve([
@@ -312,7 +608,8 @@ def main() -> int:
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = out["steps"] + out["warmup_steps"]
-    want = {"lora_grouped_fwd": GROUPED_PER_STEP * steps,
+    want = {**{k: 0 for k in counts},
+            "lora_grouped_fwd": GROUPED_PER_STEP * steps,
             "rmsnorm_fwd": RMS_PER_STEP * steps}
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want} for "
@@ -322,19 +619,70 @@ def main() -> int:
                              f"{out['tokens']} tokens, expected 8 / 128")
 
     logit_err = compare_logits(torch, out["cfg"], out["params"])
+    serve_peak, cfg = peak, out["cfg"]
+    del out["params"], out["batcher"]
 
+    # the training path: counts zeroed just before, read just after
+    ops.reset_launch_counts()
+    tr = train_cli.train([
+        "--arch", "qwen2.5-0.5b", "--engine", "mesp_cuda", "--device",
+        "cuda", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+        "--steps", str(TRAIN_STEPS), "--seed", "0"])
+    tcounts = ops.launch_counts()
+    twant = {k: v * TRAIN_STEPS for k, v in TRAIN_PER_STEP.items()}
+    if tcounts != twant:
+        raise AssertionError(f"training launch counts {tcounts}, expected "
+                             f"{twant} for {TRAIN_STEPS} steps")
+    if len(tr["losses"]) != TRAIN_STEPS or \
+            not all(map(math.isfinite, tr["losses"])):
+        raise AssertionError(f"training losses {tr['losses']}")
+    del tr["params"]
+
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.models import model as model_lib
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _with_b(torch, model_lib.init_params(cfg, generator=gen), gen)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+        make_batch_iterator(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH,
+                            seed=0)).items()}
+    grads = compare_grads(torch, cfg, params, batch)
+    peaks = peak_memory(torch, cfg, params, batch)
+
+    paths = lambda k: {"serve": counts[k], "train": tcounts[k]}
+    train_entry = lambda name, cu, line, fn: kernel_entry(
+        name, f"src/repro_torch/csrc/{cu}", line, fn, training[name],
+        paths(name), TRAIN_STEPS, step="train",
+        matmul_ms=sum((s.get("matmul_ms") or 0.0)
+                      * s["launches_per_train_step"]
+                      for s in training[name]) or None)
     kernels = [
         kernel_entry("lora_grouped_fwd",
                      "src/repro_torch/csrc/lora_grouped_fwd.cu",
                      "src/repro/kernels/lora_grouped.py:183",
                      "src/repro/kernels/lora_grouped.py:lora_grouped "
                      "(_grouped_fwd_kernel :69)", grouped,
-                     counts["lora_grouped_fwd"], steps),
+                     paths("lora_grouped_fwd"), steps),
         kernel_entry("rmsnorm_fwd", "src/repro_torch/csrc/rmsnorm_fwd.cu",
                      "src/repro/kernels/rmsnorm.py:26",
                      "src/repro/kernels/rmsnorm.py:rmsnorm "
-                     "(_rmsnorm_kernel :19)", rms, counts["rmsnorm_fwd"],
-                     steps),
+                     "(_rmsnorm_kernel :19)", rms, paths("rmsnorm_fwd"),
+                     steps, train_shape=rms_train),
+        train_entry("lora_fused_fwd", "lora_fused_fwd.cu",
+                    "src/repro/kernels/lora_fused.py:87",
+                    "src/repro/kernels/lora_fused.py:lora_fused "
+                    "(_lora_fused_kernel :39)"),
+        train_entry("lora_dx", "lora_dx.cu",
+                    "src/repro/kernels/lora_fused.py:146",
+                    "src/repro/kernels/lora_fused.py:lora_dx "
+                    "(_lora_dx_kernel :106)"),
+        train_entry("lora_dab", "lora_dab.cu",
+                    "src/repro/kernels/lora_fused.py:225",
+                    "src/repro/kernels/lora_fused.py:lora_dab "
+                    "(_lora_dab_kernel :175)"),
+        train_entry("rmsnorm_bwd", "rmsnorm_bwd.cu",
+                    "src/repro/kernels/rmsnorm.py:61",
+                    "src/repro/kernels/rmsnorm.py:rmsnorm_bwd "
+                    "(_rmsnorm_bwd_kernel :48)"),
     ]
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))
@@ -344,9 +692,20 @@ def main() -> int:
         "steps": out["steps"], "warmup_steps": out["warmup_steps"],
         "seconds": out["seconds"], "tok_s": out["tokens"] / out["seconds"],
         "ms_per_step": 1e3 * out["seconds"] / out["steps"],
-        "max_memory_allocated": peak, "launches": counts,
+        "max_memory_allocated": serve_peak,
+        "allocated_at_start": serve_start, "launches": counts,
         "logits_max_rel_err": logit_err, "logits_tol": LOGIT_TOL,
         "device": name}}))
+    secs = tr["seconds"]
+    print(json.dumps({"train": {
+        "arch": "qwen2.5-0.5b", "engine": "mesp_cuda", "dtype": "bfloat16",
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "losses": tr["losses"], "seconds": secs,
+        "ms_per_step": 1e3 * sum(secs[1:]) / max(1, len(secs) - 1),
+        "first_step_ms": 1e3 * secs[0], "launches": tcounts,
+        "launches_per_step": TRAIN_PER_STEP, "grads_vs_plain": grads,
+        "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, "b_scale": B_SCALE,
+        "peak_memory_one_value_and_grad": peaks, "device": name}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -6,6 +6,9 @@ This package imports ``torch``, numpy and the standard library only: never
 each module's counterpart sits at the same path there.
 
 Ported so far: the multi-tenant LoRA serving path of a dense model
-(``repro_torch.launch.serve``), with the grouped-LoRA and RMSNorm forward
-kernels written by hand in CUDA for Hopper (``repro_torch/csrc``).
+(``repro_torch.launch.serve``) and the MeSP training step of that model
+(``repro_torch.launch.train``, sequences under 64 tokens on the kernel
+path), with the grouped-LoRA, LoRA forward / dx / dA-dB and RMSNorm forward
+/ backward kernels written by hand in CUDA for Hopper
+(``repro_torch/csrc``).
 """

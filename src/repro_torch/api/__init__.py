@@ -1,3 +1,4 @@
-from .policy import BACKENDS, STRUCTURED, ExecutionPolicy
+from .engines import ENGINES
+from .policy import BACKENDS, PLAIN, STRUCTURED, ExecutionPolicy
 
-__all__ = ["BACKENDS", "STRUCTURED", "ExecutionPolicy"]
+__all__ = ["BACKENDS", "ENGINES", "PLAIN", "STRUCTURED", "ExecutionPolicy"]

@@ -1,12 +1,18 @@
 """ExecutionPolicy: which implementation the model's ops run on, and where.
 
 * ``backend``:
-    - ``structured``: plain PyTorch, the forwards of ``core/structured.py``
-      (the counterpart of the reference's ``structured`` backend);
-    - ``cuda``: the kernels written by hand for Hopper in ``kernels/``
-      (the counterpart of ``pallas``). A tensor on the CPU takes each
-      kernel's plain version; a CUDA tensor launches the kernel or raises.
+    - ``structured``: the hand-derived autograd Functions of
+      ``core/structured.py`` (MeSP: h recomputed; the counterpart of the
+      reference's ``structured`` backend);
+    - ``cuda``: the same rules through the kernels written by hand for
+      Hopper in ``kernels/`` (the counterpart of ``pallas``). A tensor on
+      the CPU takes each kernel's plain version; a CUDA tensor launches the
+      kernel or raises;
+    - ``plain``: autograd of plain forwards (the MeBP baseline);
+    - ``store_h``: MeSP with ``h = x @ A`` saved (paper Table 5 ablation).
 * ``device``: where parameters, caches and inputs are made.
+* ``remat``: recompute each block in the backward from its stored input
+  (``torch.utils.checkpoint`` per block, the paper's §4.3 schedule).
 """
 from __future__ import annotations
 
@@ -15,13 +21,14 @@ import dataclasses
 import torch
 
 #: valid ``backend`` values
-BACKENDS = ("structured", "cuda")
+BACKENDS = ("structured", "cuda", "plain", "store_h")
 
 
 @dataclasses.dataclass(frozen=True)
 class ExecutionPolicy:
     backend: str = "structured"
     device: torch.device = torch.device("cpu")
+    remat: bool = True
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -31,3 +38,4 @@ class ExecutionPolicy:
 
 
 STRUCTURED = ExecutionPolicy()
+PLAIN = ExecutionPolicy(backend="plain")

@@ -1,9 +1,15 @@
-"""Forwards of the structured ops (``repro.core.structured``), in PyTorch.
+"""Hand-derived structured backward passes (``repro.core.structured``), in
+PyTorch.
 
-Serving needs no gradients, so these are plain functions on tensors; the
-``torch.autograd.Function``s with MeSP's residual contract (h = x@A never
-saved) come with the training slice. Each forward repeats the reference's
-arithmetic and dtype steps, so the f32 results agree to rounding.
+Every op is a ``torch.autograd.Function`` whose ``save_for_backward`` set
+is the tensor-lifecycle contract, as the reference's custom_vjp residuals
+are: what is saved survives the forward pass, everything else is freed and
+recomputed in the backward. :func:`lora_linear` saves x (needed for dA
+anyway) and NOT ``h = x @ A``, which its backward recomputes (paper §4.1);
+:func:`sdpa` saves q, k, v and not the probabilities. Each forward and
+backward repeats the reference's arithmetic and dtype steps, so f32 results
+agree to rounding. Frozen inputs (W0, bias, norm weights) get ``None``
+gradients, and ``ctx.needs_input_grad`` skips work no one needs.
 """
 from __future__ import annotations
 
@@ -13,23 +19,148 @@ from typing import Optional
 import torch
 
 
+def _flat2(x):
+    return x.reshape(-1, x.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# LoRA linear (Appendix A.1)
+#
+#   y = x @ W0 + s * (x @ A) @ B           h := x @ A   (NOT stored)
+#   dB = hᵀ (s g),  dh = (s g) Bᵀ,  dA = xᵀ dh,  dx = dh Aᵀ + g W0ᵀ
+# ---------------------------------------------------------------------------
+
+
+def _lora_fwd(x, w0, a, b, bias, scale, h=None):
+    if h is None:
+        h = x @ a
+    y = x @ w0 + scale * (h @ b)
+    return y + bias if bias is not None else y
+
+
+def _lora_bwd(ctx, x, w0, a, b, h, g):
+    gx = g.to(x.dtype)
+    sg = ctx.scale * gx
+    dh = sg @ b.T                                    # (A.1 eq 11)
+    dx = da = db = None
+    if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+        if h is None:
+            h = x @ a                                # recompute (paper §4.1)
+        db = (_flat2(h).T @ _flat2(sg)).to(b.dtype)  # (A.1 eq 10)
+        da = (_flat2(x).T @ _flat2(dh)).to(a.dtype)  # (A.1 eq 12)
+    if ctx.needs_input_grad[0]:
+        dx = dh @ a.T + gx @ w0.T                    # (A.1 eq 13)
+    return dx, None, da, db, None, None
+
+
+class _LoRALinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w0, a, b, bias, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(x, w0, a, b)           # h deliberately not
+        return _lora_fwd(x, w0, a, b, bias, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w0, a, b = ctx.saved_tensors
+        return _lora_bwd(ctx, x, w0, a, b, None, g)
+
+
+class _LoRALinearStoreH(torch.autograd.Function):
+    """Ablation (paper §5.7 / Table 5): identical math, but h IS saved."""
+
+    @staticmethod
+    def forward(ctx, x, w0, a, b, bias, scale):
+        ctx.scale = scale
+        h = x @ a
+        ctx.save_for_backward(x, w0, a, b, h)
+        return _lora_fwd(x, w0, a, b, bias, scale, h)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w0, a, b, h = ctx.saved_tensors
+        return _lora_bwd(ctx, x, w0, a, b, h, g)
+
+
 def lora_linear(x, w0, a, b, bias, scale: float):
-    """LoRA-adapted linear: ``x @ w0 + scale * (x @ a) @ b [+ bias]``."""
-    y = x @ w0 + scale * ((x @ a) @ b)
-    if bias is not None:
-        y = y + bias
-    return y
+    """LoRA-adapted linear: ``x @ w0 + scale * (x @ a) @ b [+ bias]``;
+    saves x, w0, a, b."""
+    return _LoRALinear.apply(x, w0, a, b, bias, scale)
+
+
+def lora_linear_store_h(x, w0, a, b, bias, scale: float):
+    """:func:`lora_linear` that also saves ``h = x @ a``."""
+    return _LoRALinearStoreH.apply(x, w0, a, b, bias, scale)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm (Appendix A.3)
+#
+#   rms = sqrt(mean(x^2) + eps);  xhat = x / rms;  y = xhat * w
+#   dx = (g w - xhat * mean(g w ⊙ xhat)) / rms;    dw = sum_rows(g ⊙ xhat)
+# ---------------------------------------------------------------------------
+
+
+def _rms(xf, eps):
+    return torch.sqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, w)      # rms / xhat recomputed in backward
+        xf = x.float()
+        return ((xf / _rms(xf, eps)) * w.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        xf, gf = x.float(), g.float()
+        rms = _rms(xf, ctx.eps)
+        xhat = xf / rms
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dxhat = gf * w.float()
+            dx = ((dxhat - xhat * torch.mean(dxhat * xhat, -1, keepdim=True))
+                  / rms).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (_flat2(gf) * _flat2(xhat)).sum(0).to(w.dtype)
+        return dx, dw, None
 
 
 def rmsnorm(x, w, eps: float = 1e-6):
-    """``x / sqrt(mean(x²) + eps) * w`` in f32, cast back to x's dtype."""
-    xf = x.float()
-    rms = torch.sqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
-    return ((xf / rms) * w.float()).to(x.dtype)
+    """``x / sqrt(mean(x²) + eps) * w`` in f32, cast back to x's dtype;
+    saves x, w."""
+    return _RMSNorm.apply(x, w, eps)
+
+
+# ---------------------------------------------------------------------------
+# SiLU (Appendix A.4): silu'(x) = σ(x)(1 + x(1 − σ(x))); saves x only
+# ---------------------------------------------------------------------------
+
+
+class _SiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return x * torch.sigmoid(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        s = torch.sigmoid(x)
+        return g * s * (1 + x * (1 - s))
 
 
 def silu(x):
-    return x * torch.sigmoid(x)
+    return _SiLU.apply(x)
+
+
+# ---------------------------------------------------------------------------
+# Scaled-dot-product attention (Appendix A.2), GQA + causal/windowed masks.
+# Saves q, k, v only: the [*, n, n] probabilities are recomputed.
+# ---------------------------------------------------------------------------
 
 
 def _attn_mask(n_q: int, n_k: int, window: int, causal: bool, q_offset,
@@ -68,24 +199,99 @@ def _sdpa_mask(Nq: int, Nk: int, window: int, causal: bool, q_offset,
     return mask
 
 
+def _probs(qg, k, window, causal, q_offset, kv_len):
+    """Softmax probabilities [B, Hkv, G, Nq, Nk] in f32."""
+    D, Nq = qg.shape[-1], qg.shape[-2]
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(),
+                          k.float()) / math.sqrt(D)
+    scores = scores + _sdpa_mask(Nq, k.shape[2], window, causal, q_offset,
+                                 kv_len, qg.device)
+    return torch.softmax(scores, -1)
+
+
 def _sdpa_ref(q, k, v, window: int, causal: bool, q_offset, kv_len):
     """Plain attention forward. q:[B,H,Nq,D] k,v:[B,Hkv,Nk,D] ->
     [B,H,Nq,D]. Products take the operands' values in f32 (the reference's
     f32 accumulation); the probabilities are rounded to v's dtype first,
     as in the reference."""
     B, H, Nq, D = q.shape
-    Hkv = k.shape[1]
-    G = H // Hkv
-    qg = q.reshape(B, Hkv, G, Nq, D).float()
-    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) / math.sqrt(D)
-    scores = scores + _sdpa_mask(Nq, k.shape[2], window, causal, q_offset,
-                                 kv_len, q.device)
-    probs = torch.softmax(scores, -1)
+    G = H // k.shape[1]
+    probs = _probs(q.reshape(B, -1, G, Nq, D), k, window, causal, q_offset,
+                   kv_len)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(v.dtype).float(),
                        v.float())
     return out.reshape(B, H, Nq, D).to(q.dtype)
 
 
+class _SDPA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal, q_offset, kv_len):
+        ctx.window, ctx.causal = window, causal
+        ctx.q_offset, ctx.kv_len = q_offset, kv_len
+        ctx.save_for_backward(q, k, v)   # probabilities NOT saved
+        return _sdpa_ref(q, k, v, window, causal, q_offset, kv_len)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        B, H, Nq, D = q.shape
+        Hkv = k.shape[1]
+        G = H // Hkv
+        qg = q.reshape(B, Hkv, G, Nq, D)
+        gg = g.reshape(B, Hkv, G, Nq, D).to(q.dtype).float()
+        probs = _probs(qg, k, ctx.window, ctx.causal, ctx.q_offset,
+                       ctx.kv_len)                             # recomputed
+        pl = probs.to(q.dtype).float()
+        dv = torch.einsum("bhgqk,bhgqd->bhkd", pl, gg)         # eq 17
+        dprobs = torch.einsum("bhgqd,bhkd->bhgqk", gg, v.float())  # eq 18
+        dscores = probs * (dprobs - torch.sum(dprobs * probs, -1,
+                                              keepdim=True))   # eq 19
+        dsl = dscores.to(q.dtype).float()
+        dq = torch.einsum("bhgqk,bhkd->bhgqd", dsl,
+                          k.float()) / math.sqrt(D)            # eq 20
+        dk = torch.einsum("bhgqk,bhgqd->bhkd", dsl,
+                          qg.float()) / math.sqrt(D)           # eq 21
+        return (dq.reshape(B, H, Nq, D).to(q.dtype), dk.to(k.dtype),
+                dv.to(v.dtype), None, None, None, None)
+
+
 def sdpa(q, k, v, window: int = 0, causal: bool = True, q_offset=0,
          kv_len: Optional[torch.Tensor] = None):
-    return _sdpa_ref(q, k, v, window, causal, q_offset, kv_len)
+    """Attention with the structured backward; saves q, k, v."""
+    return _SDPA.apply(q, k, v, window, causal, q_offset, kv_len)
+
+
+# ---------------------------------------------------------------------------
+# Cross-entropy: saves the logits and labels, not the [B, N, V] softmax
+# ---------------------------------------------------------------------------
+
+
+class _SoftmaxXent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, labels):
+        ctx.save_for_backward(logits, labels)
+        lf = logits.float()
+        valid = labels >= 0
+        safe = torch.where(valid, labels, 0)
+        lse = torch.logsumexp(lf, -1)
+        ll = torch.gather(lf, -1, safe[..., None].long())[..., 0]
+        n = valid.sum().clamp(min=1)
+        return ((lse - ll) * valid).sum() / n
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, labels = ctx.saved_tensors
+        valid = labels >= 0
+        safe = torch.where(valid, labels, 0)
+        p = torch.softmax(logits.float(), -1)                  # recomputed
+        p.scatter_add_(-1, safe[..., None].long(),
+                       torch.full(safe.shape + (1,), -1.0, device=p.device))
+        n = valid.sum().clamp(min=1)
+        dlogits = (g / n) * p * valid[..., None]
+        return dlogits.to(logits.dtype), None
+
+
+def softmax_xent(logits, labels):
+    """Mean token cross-entropy; positions with label == -1 are ignored.
+    logits [B, N, V] (any dtype), labels [B, N] int."""
+    return _SoftmaxXent.apply(logits, labels)

@@ -1,0 +1,220 @@
+// The tiled product shared by the LoRA forward (lora_fused_fwd.cu) and the
+// LoRA input gradient (lora_dx.cu), written by hand for Hopper:
+//
+//   y[m, n] = sum_k P[m, k] Q[k, n]  +  s * sum_j L[m, j] R[j, n]
+//
+// with f32 sums and y rounded once to T. The two callers differ only in
+// where Q, L and R come from:
+//
+//   forward (DX = false): P = x [M, K], Q = W0 [K, N] as stored,
+//     L = h = x @ A summed in the same K loop as x @ W0 and rounded to T
+//     (A [K, r]; h never leaves the chip), R = B [r, N], s = the LoRA scale.
+//   dx (DX = true): P = g [M, N], Q = W0^T read in place from W0 [K, N]
+//     (no transposed copy), L = dh [M, r] given, R = A^T read from A [K, r],
+//     s = 1.
+//
+// Design (simple and right first, CUDA cores, f32 or bf16 in):
+// * A block of 256 threads owns a BM x BN = 64 x 64 tile of y and walks the
+//   contraction in slabs of BK = 32. Each thread sums a 4 x 4 micro-tile in
+//   registers from f32 copies of the slab in shared memory.
+// * The next slab's loads are started into registers, in the raw type, before
+//   the current slab is multiplied, so their latency hides behind the
+//   arithmetic; they are converted only when stored to shared memory.
+// * Ragged edges (any M, K, N) are masked on load and store; nothing is
+//   padded in device memory.
+// * The low-rank term is added in the epilogue from shared memory: L's
+//   64 x r rows and R's r x 64 columns (r <= RMAX).
+// Not yet: tensor cores (mma / wgmma), TMA, split-K for the narrow outputs.
+#pragma once
+
+#include "common.cuh"
+
+namespace lora_gemm {
+
+constexpr int BM = 64, BN = 64, BK = 32, THREADS = 256;
+constexpr int RMAX = 32;            // largest LoRA rank the kernels take
+constexpr int PER = BM * BK / THREADS;   // slab elements loaded per thread
+constexpr int LPER = BK * RMAX / THREADS;  // A-slab elements per thread (fwd)
+
+template <typename T, bool DX>
+struct Slab {
+  T p[PER], q[PER], l[LPER];
+
+  // Start the loads of the slab that begins at k0 (masked, raw type).
+  __device__ __forceinline__ void load(const T* __restrict__ P,
+                                       const T* __restrict__ Q,
+                                       const T* __restrict__ lo_in, int M,
+                                       int Kc, int Nout, int r, int m0,
+                                       int n0, int k0) {
+    const int tid = threadIdx.x;
+    {  // P [M, Kc]: thread -> row tid / 4, 8 contiguous k
+      const int m = m0 + (tid >> 2), kk = k0 + (tid & 3) * PER;
+#pragma unroll
+      for (int e = 0; e < PER; ++e)
+        p[e] = load_or_zero(P + (size_t)m * Kc + kk + e,
+                            m < M && kk + e < Kc);
+    }
+    if (!DX) {  // Q = W0 [Kc, Nout]: thread -> k row tid / 8, 8 contiguous n
+      const int k = k0 + (tid >> 3), n = n0 + (tid & 7) * PER;
+#pragma unroll
+      for (int e = 0; e < PER; ++e)
+        q[e] = load_or_zero(Q + (size_t)k * Nout + n + e,
+                            k < Kc && n + e < Nout);
+#pragma unroll
+      for (int e = 0; e < LPER; ++e) {  // A [Kc, r] rows k0 .. k0 + BK
+        const int i = tid + e * THREADS, k = k0 + i / RMAX, j = i % RMAX;
+        l[e] = load_or_zero(lo_in + (size_t)k * r + j, j < r && k < Kc);
+      }
+    } else {  // Q = W0^T from W0 [Nout, Kc]: thread -> n row tid / 4
+      const int n = n0 + (tid >> 2), kk = k0 + (tid & 3) * PER;
+#pragma unroll
+      for (int e = 0; e < PER; ++e)
+        q[e] = load_or_zero(Q + (size_t)n * Kc + kk + e,
+                            n < Nout && kk + e < Kc);
+    }
+  }
+
+  __device__ __forceinline__ void store(float (*Ps)[BM], float (*Qs)[BN],
+                                        float (*Ls)[RMAX]) const {
+    const int tid = threadIdx.x;
+    {
+      const int row = tid >> 2, kk = (tid & 3) * PER;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) Ps[kk + e][row] = to_f(p[e]);
+    }
+    if (!DX) {
+      const int kk = tid >> 3, nn = (tid & 7) * PER;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) Qs[kk][nn + e] = to_f(q[e]);
+#pragma unroll
+      for (int e = 0; e < LPER; ++e) {
+        const int i = tid + e * THREADS;
+        Ls[i / RMAX][i % RMAX] = to_f(l[e]);
+      }
+    } else {
+      const int nn = tid >> 2, kk = (tid & 3) * PER;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) Qs[kk + e][nn] = to_f(q[e]);
+    }
+  }
+};
+
+// P, Q as above; lo_in = A [Kc, r] (fwd) or dh [M, r] (dx);
+// lo_out = B [r, Nout] (fwd) or A [Nout, r] (dx); y [M, Nout].
+template <typename T, bool DX>
+__global__ void __launch_bounds__(THREADS, 2)
+    lora_gemm_kernel(const T* __restrict__ P, const T* __restrict__ Q,
+                     const T* __restrict__ lo_in, const T* __restrict__ lo_out,
+                     T* __restrict__ y, int M, int Kc, int Nout, int r,
+                     float scale) {
+  __shared__ __align__(16) float Ps[BK][BM];   // P slab, transposed: [k][m]
+  __shared__ __align__(16) float Qs[BK][BN];   // Q slab: [k][n]
+  __shared__ float Ls[BK][RMAX];               // A slab (fwd)
+  __shared__ float Hs[BM][RMAX + 1];           // L rows of the tile
+  __shared__ float Rs[RMAX][BN];               // R columns of the tile
+
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tm = tid >> 4, tn = tid & 15;      // 4 x 4 micro-tile
+  const int hm = tid >> 2, hj = tid & 3;       // h sums (fwd): row, rank lane
+  const int hgroups = (r + 3) / 4;             // rank lanes in use (uniform)
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float hacc[RMAX / 4];
+#pragma unroll
+  for (int i = 0; i < RMAX / 4; ++i) hacc[i] = 0.f;
+
+  Slab<T, DX> slab;
+  slab.load(P, Q, lo_in, M, Kc, Nout, r, m0, n0, 0);
+  for (int k0 = 0; k0 < Kc; k0 += BK) {
+    slab.store(Ps, Qs, Ls);
+    __syncthreads();
+    if (k0 + BK < Kc)
+      slab.load(P, Q, lo_in, M, Kc, Nout, r, m0, n0, k0 + BK);
+#pragma unroll 8
+    for (int kk = 0; kk < BK; ++kk) {
+      const float4 pv = *reinterpret_cast<const float4*>(&Ps[kk][tm * 4]);
+      const float4 qv = *reinterpret_cast<const float4*>(&Qs[kk][tn * 4]);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pa[i], qa[j], acc[i][j]);
+    }
+    if (!DX) {
+#pragma unroll 4
+      for (int kk = 0; kk < BK; ++kk) {
+        const float xv = Ps[kk][hm];
+#pragma unroll
+        for (int i = 0; i < RMAX / 4; ++i)
+          if (i < hgroups) hacc[i] = fmaf(xv, Ls[kk][hj + 4 * i], hacc[i]);
+      }
+    }
+    __syncthreads();
+  }
+
+  // epilogue: the tile's low-rank factors into shared memory
+  if (!DX) {
+#pragma unroll
+    for (int i = 0; i < RMAX / 4; ++i) Hs[hm][hj + 4 * i] = round_to<T>(hacc[i]);
+  } else {
+    for (int i = tid; i < BM * r; i += THREADS) {
+      const int row = i / r, j = i % r, m = m0 + row;
+      Hs[row][j] = m < M ? to_f(lo_in[(size_t)m * r + j]) : 0.f;
+    }
+  }
+  for (int i = tid; i < r * BN; i += THREADS) {
+    const int j = i / BN, nn = i % BN, n = n0 + nn;
+    float v = 0.f;
+    if (n < Nout)
+      v = to_f(DX ? lo_out[(size_t)n * r + j] : lo_out[(size_t)j * Nout + n]);
+    Rs[j][nn] = v;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = tm * 4 + i, m = m0 + row;
+    if (m >= M) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = tn * 4 + c, n = n0 + col;
+      if (n >= Nout) continue;
+      float d = 0.f;
+      for (int j = 0; j < r; ++j) d = fmaf(Hs[row][j], Rs[j][col], d);
+      y[(size_t)m * Nout + n] = from_f<T>(acc[i][c] + scale * d);
+    }
+  }
+}
+
+template <bool DX>
+int launch(int dtype, const void* P, const void* Q, const void* lo_in,
+           const void* lo_out, void* y, int M, int Kc, int Nout, int r,
+           float scale, void* stream) {
+  if (M < 0 || Kc < 1 || Nout < 1 || r < 1 || r > RMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (M == 0) return 0;
+  const dim3 grid((Nout + BN - 1) / BN, (M + BM - 1) / BM);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == DTYPE_BF16) {
+    using T = __nv_bfloat16;
+    lora_gemm_kernel<T, DX><<<grid, THREADS, 0, s>>>(
+        static_cast<const T*>(P), static_cast<const T*>(Q),
+        static_cast<const T*>(lo_in), static_cast<const T*>(lo_out),
+        static_cast<T*>(y), M, Kc, Nout, r, scale);
+  } else if (dtype == DTYPE_F32) {
+    lora_gemm_kernel<float, DX><<<grid, THREADS, 0, s>>>(
+        static_cast<const float*>(P), static_cast<const float*>(Q),
+        static_cast<const float*>(lo_in), static_cast<const float*>(lo_out),
+        static_cast<float*>(y), M, Kc, Nout, r, scale);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace lora_gemm

@@ -37,6 +37,7 @@ BUILD_INFO: Dict[str, dict] = {}
 C_PTR = ctypes.c_void_p
 C_INT = ctypes.c_int
 C_FLOAT = ctypes.c_float
+C_LONGLONG = ctypes.c_longlong
 
 
 def nvcc() -> str:
@@ -91,10 +92,11 @@ def build_all() -> Dict[str, Path]:
     return out
 
 
-def function(lib_name: str, fn: str, argtypes: Sequence):
+def function(lib_name: str, fn: str, argtypes: Sequence, restype=C_INT):
     """The C entry point ``fn`` of library ``lib_name``, with its argument
     types set (``c_void_p`` for pointers and the stream, ``c_int`` for
-    ints) and an ``int`` result (the CUDA error code)."""
+    ints) and its result type (by default an ``int``: the CUDA error
+    code)."""
     lib = _LIBS.get(lib_name)
     if lib is None:
         lib = _LIBS[lib_name] = ctypes.CDLL(str(build_all()[lib_name]))
@@ -102,7 +104,7 @@ def function(lib_name: str, fn: str, argtypes: Sequence):
         lib.cuda_error_string.restype = ctypes.c_char_p
     f = getattr(lib, fn)
     f.argtypes = list(argtypes)
-    f.restype = C_INT
+    f.restype = restype
     return f
 
 

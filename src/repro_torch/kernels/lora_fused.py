@@ -1,0 +1,172 @@
+"""The LoRA linear's three training kernels: the CUDA sources
+``csrc/lora_fused_fwd.cu``, ``csrc/lora_dx.cu`` and ``csrc/lora_dab.cu``,
+their wrappers, and their plain PyTorch versions.
+
+Replace the TPU kernels of ``src/repro/kernels/lora_fused.py``:
+
+* :func:`lora_fused` (``lora_fused``, ``_lora_fused_kernel``):
+  ``y = x@W0 + s·round(x@A)@B``, h summed on chip and never stored;
+* :func:`lora_dx` (``lora_dx``, ``_lora_dx_kernel``):
+  ``dx = g@W0ᵀ + dh@Aᵀ`` with ``dh = round((s·g)@Bᵀ)``, the thin product
+  the TPU wrapper also computed outside its kernel; W0 is read in place;
+* :func:`lora_dab` (``lora_dab``, ``_lora_dab_kernel``):
+  ``dA = xᵀ·dh``, ``dB = hᵀ·round(s·g)`` with h and dh recomputed per row
+  tile, reduced over tiles in a fixed order (no atomics).
+
+"round" is a rounding to x's dtype, where the TPU kernels round; every sum
+is f32. What bounds each kernel on the H100 and how its design answers it
+is in its source's header.
+
+Each wrapper launches its kernel for CUDA tensors and raises on what the
+kernel does not take; a tensor on the CPU gets the plain version
+(``*_ref``). ``<wrapper>.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: largest LoRA rank the kernels take (``RMAX`` in the sources)
+MAX_RANK = 32
+
+_P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
+_FWD_ARGS = [_I] + [_P] * 5 + [_I] * 4 + [_F, _P]
+_DX_ARGS = [_I] + [_P] * 5 + [_I] * 4 + [_P]
+_DAB_ARGS = [_I] + [_P] * 7 + [_I] * 4 + [_F, _P]
+
+
+# ------------------------------------------------------------ plain versions
+
+
+def _dh(g, b, scale: float):
+    """``dh = round((s·g)@Bᵀ)``: s·g rounded to g's dtype, f32 sum."""
+    return ((scale * g).float() @ b.float().T).to(g.dtype)
+
+
+def lora_fused_ref(x, w0, a, b, scale: float = 2.0):
+    """Plain version of the forward, in the TPU kernel's roundings."""
+    xf = x.float()
+    h = (xf @ a.float()).to(x.dtype)
+    return (xf @ w0.float() + scale * (h.float() @ b.float())).to(x.dtype)
+
+
+def lora_dx_ref(g, w0, a, b, scale: float = 2.0):
+    """Plain version of dx, in the TPU kernel's roundings."""
+    dh = _dh(g, b, scale)
+    return (g.float() @ w0.float().T + dh.float() @ a.float().T).to(g.dtype)
+
+
+def lora_dab_ref(x, g, a, b, scale: float = 2.0):
+    """Plain version of (dA, dB), in the TPU kernel's roundings."""
+    sg = (scale * g.float()).to(x.dtype).float()
+    h = (x.float() @ a.float()).to(x.dtype).float()
+    dh = (sg @ b.float().T).to(x.dtype).float()
+    return (x.float().T @ dh).to(a.dtype), (h.T @ sg).to(b.dtype)
+
+
+# ------------------------------------------------------------------ wrappers
+
+
+def _validate(what, x, mats, shapes):
+    """x and ``mats`` ({name: tensor}) on one device, contiguous, of x's
+    dtype (f32 or bf16), with the given shapes ({name: shape})."""
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what} kernel takes f32 or bf16, not {x.dtype}")
+    for name, t in mats.items():
+        if t.dtype != x.dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected "
+                            f"{x.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected "
+                             f"{x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if tuple(t.shape) != tuple(shapes[name]):
+            raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shapes[name])}")
+
+
+def _dims(x, w0, a):
+    if x.ndim != 2 or w0.ndim != 2 or a.ndim != 2:
+        raise ValueError("expected 2-D operands")
+    r = a.shape[1]
+    if not 1 <= r <= MAX_RANK:
+        raise ValueError(f"LoRA rank {r} outside 1..{MAX_RANK}")
+    return r
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def lora_fused(x, w0, a, b, scale: float = 2.0):
+    """x [M,K], w0 [K,N], a [K,r], b [r,N] -> y [M,N] in x's dtype."""
+    if not x.is_cuda:
+        return lora_fused_ref(x, w0, a, b, scale)
+    r = _dims(x, w0, a)
+    M, K = x.shape
+    N = w0.shape[1]
+    _validate("lora_fused_fwd", x,
+              {"x": x, "w0": w0, "a": a, "b": b},
+              {"x": (M, K), "w0": (K, N), "a": (K, r), "b": (r, N)})
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    fn = _build.function("lora_fused_fwd", "lora_fused_fwd", _FWD_ARGS)
+    with torch.cuda.device(x.device):
+        rc = fn(_DTYPES[x.dtype], x.data_ptr(), w0.data_ptr(), a.data_ptr(),
+                b.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
+                _stream())
+    _build.check("lora_fused_fwd", rc, "lora_fused_fwd launch")
+    lora_fused.launches += 1
+    return y
+
+
+def lora_dx(g, w0, a, b, scale: float = 2.0):
+    """g [M,N], w0 [K,N], a [K,r], b [r,N] -> dx [M,K] in g's dtype."""
+    if not g.is_cuda:
+        return lora_dx_ref(g, w0, a, b, scale)
+    r = _dims(g, w0, a)
+    M, N = g.shape
+    K = w0.shape[0]
+    _validate("lora_dx", g, {"g": g, "w0": w0, "a": a, "b": b},
+              {"g": (M, N), "w0": (K, N), "a": (K, r), "b": (r, N)})
+    dh = _dh(g, b, scale)
+    dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    fn = _build.function("lora_dx", "lora_dx", _DX_ARGS)
+    with torch.cuda.device(g.device):
+        rc = fn(_DTYPES[g.dtype], g.data_ptr(), w0.data_ptr(), a.data_ptr(),
+                dh.data_ptr(), dx.data_ptr(), M, K, N, r, _stream())
+    _build.check("lora_dx", rc, "lora_dx launch")
+    lora_dx.launches += 1
+    return dx
+
+
+def lora_dab(x, g, a, b, scale: float = 2.0):
+    """x [M,K], g [M,N], a [K,r], b [r,N] -> (dA [K,r], dB [r,N]) in a's
+    and b's dtype (which is x's)."""
+    if not x.is_cuda:
+        return lora_dab_ref(x, g, a, b, scale)
+    r = _dims(x, g, a)
+    M, K = x.shape
+    N = g.shape[1]
+    _validate("lora_dab", x, {"x": x, "g": g, "a": a, "b": b},
+              {"x": (M, K), "g": (M, N), "a": (K, r), "b": (r, N)})
+    size = _build.function("lora_dab", "lora_dab_workspace",
+                           [_I] * 4, restype=_build.C_LONGLONG)(M, K, N, r)
+    ws = torch.empty(size, dtype=torch.float32, device=x.device)
+    da = torch.empty((K, r), dtype=a.dtype, device=x.device)
+    db = torch.empty((r, N), dtype=b.dtype, device=x.device)
+    fn = _build.function("lora_dab", "lora_dab", _DAB_ARGS)
+    with torch.cuda.device(x.device):
+        rc = fn(_DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), a.data_ptr(),
+                b.data_ptr(), ws.data_ptr(), da.data_ptr(), db.data_ptr(),
+                M, K, N, r, float(scale), _stream())
+    _build.check("lora_dab", rc, "lora_dab launch")
+    lora_dab.launches += 1
+    return da, db
+
+
+lora_fused.launches = 0
+lora_dx.launches = 0
+lora_dab.launches = 0

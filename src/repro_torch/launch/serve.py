@@ -26,6 +26,7 @@ import time
 
 import torch
 
+from repro_torch.api.engines import ENGINES as _ALL_ENGINES
 from repro_torch.api.policy import ExecutionPolicy
 from repro_torch.configs import REGISTRY, get_config
 from repro_torch.models import model as model_lib
@@ -34,8 +35,8 @@ from repro_torch.serve import (AdapterStore, ContinuousBatcher, Request,
 
 log = logging.getLogger("repro_torch.serve")
 
-#: engine -> ExecutionPolicy backend
-ENGINES = {"mesp": "structured", "mesp_cuda": "cuda"}
+#: engine -> ExecutionPolicy backend, for the engines that serve
+ENGINES = {k: _ALL_ENGINES[k] for k in ("mesp", "mesp_cuda")}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:

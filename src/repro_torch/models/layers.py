@@ -1,7 +1,13 @@
-"""Shared model components (``repro.models.layers``) for the dense serving
-path: LoRA-adapted linears (single and tenant-stacked), RMSNorm, RoPE,
-GQA attention over a per-slot KV cache, the SwiGLU MLP and the tied
-embedding.
+"""Shared model components (``repro.models.layers``) for the dense family:
+LoRA-adapted linears (single and tenant-stacked), RMSNorm, RoPE, GQA
+attention (full-sequence for training, or over a per-slot KV cache for
+decode), the SwiGLU MLP and the tied embedding.
+
+Every trainable-path op takes an :class:`ExecutionPolicy` whose backend
+selects the backward regime: ``structured`` (the hand-derived autograd
+Functions of ``core/structured.py``), ``cuda`` (the same rules through the
+CUDA kernels, ``kernels/ops.py``), ``plain`` (autograd of plain forwards,
+MeBP) or ``store_h`` (Table 5 ablation).
 
 Parameters are plain nested dicts of tensors with the reference's keys;
 LoRA linears carry ``{"w", "a", "b"[, "bias"]}``. Layouts are the
@@ -52,11 +58,14 @@ def linear_params(gen, d_in: int, d_out: int, cfg: ArchConfig, *,
 
 def apply_linear(p, x, cfg: ArchConfig, *,
                  policy: ExecutionPolicy = STRUCTURED, adapter_tiles=None):
-    """LoRA linear. When ``p["a"]``/``p["b"]`` are tenant-stacked resident
-    sets ([R, d_in, r] / [R, r, d_out], from the AdapterStore), the int32
-    device tensor ``adapter_tiles`` routes each slot tile to its adapter
-    through ``kernels/ops.lora_grouped_decode``. Decode only: x is
-    [B, 1, d]."""
+    """LoRA linear. ``policy.backend``: "structured" (MeSP: h recomputed),
+    "cuda" (MeSP through the LoRA kernels), "store_h" (h saved), "plain"
+    (MeBP: autograd).
+
+    When ``p["a"]``/``p["b"]`` are tenant-stacked resident sets
+    ([R, d_in, r] / [R, r, d_out], from the AdapterStore), the int32 device
+    tensor ``adapter_tiles`` routes each slot tile to its adapter through
+    ``kernels/ops.lora_grouped_decode``. Decode only: x is [B, 1, d]."""
     bias = p.get("bias")
     if "a" in p and p["a"].ndim == 3:
         if adapter_tiles is None:
@@ -72,21 +81,35 @@ def apply_linear(p, x, cfg: ArchConfig, *,
                                      bm=bm, policy=policy)
         return y.reshape(*lead, y.shape[-1])
     if "a" in p:
-        if policy.backend == "cuda" and x.is_cuda:
-            raise NotImplementedError(
-                "single-adapter LoRA linears run the lora_fused kernel, "
-                "which the port has not written yet")
-        return structured.lora_linear(x, p["w"], p["a"], p["b"], bias,
-                                      cfg.lora.scale)
+        backend, s = policy.backend, cfg.lora.scale
+        if backend == "cuda":
+            return kops.lora_linear(x, p["w"], p["a"], p["b"], bias, s)
+        if backend == "plain":
+            y = x @ p["w"] + s * ((x @ p["a"]) @ p["b"])
+            return y + bias if bias is not None else y
+        fn = structured.lora_linear_store_h if backend == "store_h" \
+            else structured.lora_linear
+        return fn(x, p["w"], p["a"], p["b"], bias, s)
     y = x @ p["w"]
     return y + bias if bias is not None else y
 
 
 def norm(p, x, cfg: ArchConfig, *, policy: ExecutionPolicy = STRUCTURED):
-    """RMSNorm: the CUDA kernel (``cuda``) or the structured forward."""
+    """RMSNorm: the CUDA kernels (``cuda``), plain autograd (``plain``) or
+    the structured Function (saves x; rms recomputed)."""
+    if policy.backend == "plain":
+        xf = x.float()
+        rms = torch.sqrt(torch.mean(xf * xf, -1, keepdim=True)
+                         + cfg.norm_eps)
+        return ((xf / rms) * p.float()).to(x.dtype)
     if policy.backend == "cuda":
         return kops.rmsnorm(x, p, cfg.norm_eps)
     return structured.rmsnorm(x, p, cfg.norm_eps)
+
+
+def act_silu(x, policy: ExecutionPolicy):
+    return x * torch.sigmoid(x) if policy.backend == "plain" \
+        else structured.silu(x)
 
 
 # ---------------------------------------------------------------------------
@@ -130,11 +153,17 @@ def attention_params(gen, cfg: ArchConfig, *, lead: Tuple[int, ...] = ()):
     }
 
 
-def attention(p, x, cfg: ArchConfig, *, cache: dict,
+def attention(p, x, cfg: ArchConfig, *, cache=None,
               policy: ExecutionPolicy = STRUCTURED, adapter_tiles=None):
-    """Causal GQA attention over a per-slot KV cache (decode): ``cache`` is
-    {"k": [B,Hkv,S,D], "v": ..., "len": int32 [B]}. New k/v are written at
-    each slot's ``len`` in place, and ``len`` advances by N in place."""
+    """Causal GQA attention. Without ``cache`` (training) over the whole
+    sequence x [B, N, d] at positions 0..N-1. With one (decode): ``cache``
+    is {"k": [B,Hkv,S,D], "v": ..., "len": int32 [B]}; new k/v are written
+    at each slot's ``len`` in place, and ``len`` advances by N in place.
+
+    Training attention: ``plain`` autograd of the plain forward, ``cuda``
+    the kernel dispatch (``kops.sdpa``), else the structured Function at
+    every length (the reference's structured backend switches to its
+    chunked flash path from 1024 rows, same values; not ported yet)."""
     B, N, _ = x.shape
     hd = cfg.resolved_head_dim
     lin = functools.partial(apply_linear, cfg=cfg, policy=policy,
@@ -142,6 +171,20 @@ def attention(p, x, cfg: ArchConfig, *, cache: dict,
     q = lin(p["q"], x).reshape(B, N, cfg.n_heads, hd)
     k = lin(p["k"], x).reshape(B, N, cfg.n_kv_heads, hd)
     v = lin(p["v"], x).reshape(B, N, cfg.n_kv_heads, hd)
+
+    if cache is None:
+        qpos = torch.arange(N, device=x.device)
+        q = rope(q, qpos, cfg.rope_theta).transpose(1, 2)   # [B,H,N,D]
+        k = rope(k, qpos, cfg.rope_theta).transpose(1, 2)
+        v = v.transpose(1, 2)
+        if policy.backend == "plain":
+            out = structured._sdpa_ref(q, k, v, 0, True, 0, None)
+        elif policy.backend == "cuda":
+            out = kops.sdpa(q, k, v, causal=True)
+        else:
+            out = structured.sdpa(q, k, v, 0, True)
+        out = out.transpose(1, 2).reshape(B, N, cfg.n_heads * hd)
+        return lin(p["o"], out), None
 
     ln = cache["len"]
     qpos = torch.arange(N, device=x.device) + ln[:, None]
@@ -201,7 +244,7 @@ def mlp(p, x, cfg: ArchConfig, *, policy: ExecutionPolicy = STRUCTURED,
                             adapter_tiles=adapter_tiles)
     g = lin(p["gate"], x)
     u = lin(p["up"], x)
-    return lin(p["down"], structured.silu(g) * u)
+    return lin(p["down"], act_silu(g, policy) * u)
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,23 @@
 """Model assembly (``repro.models.model``) for the dense family: init,
-per-slot decode cache, and the multi-tenant decode step.
+the full-sequence forward and loss for training, the per-slot decode cache
+and the multi-tenant decode step.
 
 Block parameters are stacked ``[L, ...]`` as in the reference's tree (the
-weight bridge relies on it); the decode step walks the layers in a Python
-loop where the reference scans. The cache is written in place.
+weight bridge relies on it). The forward and the decode step walk the
+layers in a Python loop where the reference scans; in training each block
+runs under ``torch.utils.checkpoint`` when ``policy.remat`` is set, so only
+block inputs are stored across the forward (the reference's
+``jax.checkpoint`` around its scan body, paper §4.3). The cache is written
+in place.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import structured
 from repro_torch.models import layers
 
 
@@ -66,6 +73,43 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _unstack(tree, n: int):
+    """Stacked [L, ...] leaves -> n per-layer trees of views. ``unbind``
+    gives all n views one autograd node, so the gradient of a stacked
+    trainable leaf is assembled once, not summed from n zero-padded
+    copies."""
+    if isinstance(tree, dict):
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return tree.unbind(0)
+
+
+def forward(params, cfg: ArchConfig, tokens, *,
+            policy: ExecutionPolicy = STRUCTURED):
+    """Full-sequence forward -> logits [B, N, vocab] in f32."""
+    _require_dense(cfg)
+    x = layers.embed(params["embed"], tokens, cfg)
+
+    def body(x, bp):
+        return dense_block(bp, x, cfg, cache=None, policy=policy)[0]
+
+    for bp in _unstack(params["blocks"], cfg.n_layers):
+        if policy.remat:
+            x = checkpoint(body, x, bp, use_reentrant=False)
+        else:
+            x = body(x, bp)
+    x = layers.norm(params["final_norm"], x, cfg, policy=policy)
+    return layers.unembed(params["embed"], x, cfg)
+
+
+def loss_fn(params, cfg: ArchConfig, batch: dict, *,
+            policy: ExecutionPolicy = STRUCTURED):
+    """Mean next-token cross-entropy. batch: tokens / labels [B, N]
+    (label -1 is ignored)."""
+    logits = forward(params, cfg, batch["tokens"], policy=policy)
+    return structured.softmax_xent(logits, batch["labels"])
 
 
 @torch.no_grad()

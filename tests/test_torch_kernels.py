@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro_torch.api.policy import ExecutionPolicy
+from repro_torch.kernels import lora_fused as tlf
 from repro_torch.kernels import lora_grouped as tlg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rmsnorm as trn
@@ -29,9 +30,9 @@ def jx():
     pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.api.policy import ExecutionPolicy as JaxPolicy
-    from repro.kernels import lora_grouped, ops, rmsnorm
+    from repro.kernels import lora_fused, lora_grouped, ops, rmsnorm
     return SimpleNamespace(jnp=jnp, Policy=JaxPolicy, lg=lora_grouped,
-                           ops=ops, rn=rmsnorm)
+                           lf=lora_fused, ops=ops, rn=rmsnorm)
 
 
 def _grouped_inputs(seed, M, K, N, R, r, gid):
@@ -109,13 +110,85 @@ def test_rmsnorm_plain_matches_pallas_kernel(jx, M, d):
     np.testing.assert_allclose(got3.numpy(), np.asarray(want3), **TOL)
 
 
+def _fused_inputs(seed, M, K, N, r):
+    """x [M,K], w0 [K,N], a [K,r], b [r,N] (drawn nonzero, so dA and the
+    h@B term are tested), g [M,N]."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return (f(M, K) * 0.3, f(K, N) * K ** -0.5, f(K, r) * 0.3,
+            f(r, N) * 0.3, f(M, N) * 0.3)
+
+
+# (M, K, N, r): none tile-aligned; M = batch 2 x seq 48 of the model tests
+FUSED_CASES = [(96, 160, 192, 8), (37, 72, 40, 4), (5, 33, 129, 16)]
+
+
+@pytest.mark.parametrize("M,K,N,r", FUSED_CASES)
+def test_lora_fused_plain_matches_pallas_kernel(jx, M, K, N, r):
+    x, w0, a, b, _ = _fused_inputs(10, M, K, N, r)
+    jnp = jx.jnp
+    want = jx.lf.lora_fused(*map(jnp.asarray, (x, w0, a, b)), 2.0,
+                            interpret=True)
+    got = tlf.lora_fused(*_t(x, w0, a, b), 2.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("M,K,N,r", FUSED_CASES)
+def test_lora_dx_plain_matches_pallas_kernel(jx, M, K, N, r):
+    x, w0, a, b, g = _fused_inputs(11, M, K, N, r)
+    jnp = jx.jnp
+    want = jx.lf.lora_dx(*map(jnp.asarray, (g, w0, a, b)), 2.0,
+                         interpret=True)
+    got = tlf.lora_dx(*_t(g, w0, a, b), 2.0)
+    assert got.shape == (M, K)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("M,K,N,r", FUSED_CASES)
+def test_lora_dab_plain_matches_pallas_kernel(jx, M, K, N, r):
+    x, w0, a, b, g = _fused_inputs(12, M, K, N, r)
+    jnp = jx.jnp
+    wda, wdb = jx.lf.lora_dab(*map(jnp.asarray, (x, g, a, b)), 2.0,
+                              interpret=True)
+    da, db = tlf.lora_dab(*_t(x, g, a, b), 2.0)
+    assert np.abs(np.asarray(wda)).max() > 0.1      # B != 0: dA is tested
+    np.testing.assert_allclose(da.numpy(), np.asarray(wda), **TOL)
+    np.testing.assert_allclose(db.numpy(), np.asarray(wdb), **TOL)
+
+
+@pytest.mark.parametrize("M,d", [(96, 160), (10, 72), (1, 33)])
+def test_rmsnorm_bwd_plain_matches_pallas_kernel(jx, M, d):
+    jnp = jx.jnp
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((M, d)).astype(np.float32) * 3
+    w = rng.standard_normal(d).astype(np.float32)
+    g = rng.standard_normal((M, d)).astype(np.float32)
+    wdx, wdw = jx.rn.rmsnorm_bwd(*map(jnp.asarray, (x, w, g)), 1e-6,
+                                 interpret=True)
+    dx, dw = trn.rmsnorm_bwd(*_t(x, w, g), 1e-6)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(wdx), **TOL)
+    np.testing.assert_allclose(dw.numpy(), np.asarray(wdw), **TOL)
+    dx2, none = trn.rmsnorm_bwd(*_t(x, w, g), 1e-6, need_dw=False)
+    assert none is None and torch.equal(dx2, dx)
+
+
 def test_cpu_tensors_never_launch_kernels():
     tops.reset_launch_counts()
     x, w0, a, b, g, bias = _grouped_inputs(4, 8, 16, 24, 2, 4, [0, 1, 1, 0])
     tops.lora_grouped_decode(*_t(x, w0, a, b, g), torch.from_numpy(bias),
                              bm=2, policy=CUDA_POLICY)
     tops.rmsnorm(torch.from_numpy(x), torch.ones(16))
-    assert tops.launch_counts() == {"lora_grouped_fwd": 0, "rmsnorm_fwd": 0}
+    fx, fw0, fa, fb, fg = _t(*_fused_inputs(4, 6, 16, 24, 4))
+    fx.requires_grad_(True)
+    fa.requires_grad_(True)
+    y = tops.lora_linear(fx, fw0, fa, fb, None, 2.0)
+    xn = tops.rmsnorm(fx, torch.ones(16))
+    torch.autograd.grad((y * fg).sum() + xn.sum(), (fx, fa))
+    counts = tops.launch_counts()
+    assert set(counts) == {"lora_grouped_fwd", "rmsnorm_fwd",
+                           "lora_fused_fwd", "lora_dx", "lora_dab",
+                           "rmsnorm_bwd"}
+    assert set(counts.values()) == {0}
 
 
 # ------------------------------------------------------------- card only
@@ -182,3 +255,87 @@ def test_rmsnorm_kernel_matches_plain_on_card(M, d, dtype):
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else \
         dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+def _assert_close_scaled(got, want, tol):
+    """assert_close with the absolute floor taken relative to the output's
+    largest magnitude (at least 1): dA, dB and dw are sums over all rows,
+    whose size grows with M, and an entry near zero is a cancellation of
+    such terms."""
+    scale = max(1.0, float(want.float().abs().max()))
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol["rtol"],
+                               atol=tol["atol"] * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,K,N,r", FUSED_CASES + [
+    (192, 896, 896, 8), (192, 896, 128, 8), (192, 896, 4864, 8),
+    (192, 4864, 896, 8), (130, 300, 70, 32), (64, 64, 64, 1),
+])
+def test_lora_training_kernels_match_plain_on_card(M, K, N, r, dtype):
+    """lora_fused_fwd, lora_dx and lora_dab against their plain versions.
+    f32: summation order only. bf16: one output rounding (2^-8 relative),
+    doubled where a rounding of h or dh flips, and an absolute floor for
+    outputs near zero: the tolerance of the serving kernel's check."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    x, w0, a, b, g = [t.to(dt).cuda() for t in _t(*_fused_inputs(
+        14, M, K, N, r))]
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=2.0 ** -6, atol=1e-2)
+    counts = (tlf.lora_fused.launches, tlf.lora_dx.launches,
+              tlf.lora_dab.launches)
+    y = tlf.lora_fused(x, w0, a, b, 2.0)
+    dx = tlf.lora_dx(g, w0, a, b, 2.0)
+    da, db = tlf.lora_dab(x, g, a, b, 2.0)
+    torch.cuda.synchronize()
+    assert (tlf.lora_fused.launches, tlf.lora_dx.launches,
+            tlf.lora_dab.launches) == tuple(c + 1 for c in counts)
+    assert y.dtype == dx.dtype == da.dtype == db.dtype == dt
+    wda, wdb = tlf.lora_dab_ref(x, g, a, b, 2.0)
+    for got, want in ((y, tlf.lora_fused_ref(x, w0, a, b, 2.0)),
+                      (dx, tlf.lora_dx_ref(g, w0, a, b, 2.0)),
+                      (da, wda), (db, wdb)):
+        _assert_close_scaled(got, want, tol)
+    # deterministic: the partials are reduced in a fixed order
+    da2, db2 = tlf.lora_dab(x, g, a, b, 2.0)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+def test_lora_training_kernels_reject_bad_input():
+    _need_card()
+    x, w0, a, b, g = [t.cuda() for t in _t(*_fused_inputs(15, 8, 32, 40, 4))]
+    with pytest.raises(TypeError, match="expected"):
+        tlf.lora_fused(x, w0.bfloat16(), a, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        tlf.lora_dx(g, w0.T.contiguous().T, a, b)
+    with pytest.raises(ValueError, match="rank"):
+        tlf.lora_dab(x, g, torch.zeros(32, 33, device="cuda"),
+                     torch.zeros(33, 40, device="cuda"))
+    with pytest.raises(ValueError, match="shape"):
+        tlf.lora_fused(x, w0, a, b[:, :39].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,d", [(192, 896), (3, 1000), (64, 72)])
+def test_rmsnorm_bwd_kernel_matches_plain_on_card(M, d, dtype):
+    _need_card()
+    dt = getattr(torch, dtype)
+    gen = torch.Generator().manual_seed(8)
+    x = (torch.randn(M, d, generator=gen) * 3).to(dt).cuda()
+    w = torch.randn(d, generator=gen).to(dt).cuda()
+    g = torch.randn(M, d, generator=gen).to(dt).cuda()
+    before = trn.rmsnorm_bwd.launches
+    dx, dw = trn.rmsnorm_bwd(x, w, g, 1e-6)
+    torch.cuda.synchronize()
+    assert trn.rmsnorm_bwd.launches == before + 1
+    wdx, wdw = trn.rmsnorm_bwd_ref(x, w, g, 1e-6)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else \
+        dict(rtol=2.0 ** -6, atol=1e-2)
+    _assert_close_scaled(dx, wdx, tol)
+    _assert_close_scaled(dw, wdw, tol)
+    dx2, none = trn.rmsnorm_bwd(x, w, g, 1e-6, need_dw=False)
+    assert none is None and torch.equal(dx2, dx)

@@ -181,7 +181,7 @@ def test_batcher_matches_reference(backend):
     assert got == want
     assert tbat.metrics() == jbat.metrics()
     assert tbat.metrics()["store.evictions"] >= 1      # 4 tenants, 3 slots
-    assert tops.launch_counts() == {"lora_grouped_fwd": 0, "rmsnorm_fwd": 0}
+    assert set(tops.launch_counts().values()) == {0}
 
 
 # --------------------------------------------------------------------- CLI
