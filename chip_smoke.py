@@ -33,9 +33,24 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    leaf (relative L2) are compared in the logit check's scheme. Then the
    peak ``torch.cuda.max_memory_allocated`` of one ``value_and_grad`` for
    each engine (mesp_cuda, mesp, mebp, store_h): a measurement.
+7. Holds the three flash-attention kernels (forward, dq, dk/dv) against
+   their plain versions in bf16 and f32 at the training path's shape
+   (B*H 14, B*Hkv 2, N 256, D 64, causal) and at edge cases (window,
+   non-causal, ragged N, Nq != Nk, rows that see no key, G 1, D 40 and
+   128, RoPE on and off), and times them at the path's shape beside their
+   plain versions, ``F.scaled_dot_product_attention`` (forward, and forward
+   plus backward) and the bound.
+8. Trains at the paper's setting through ``repro_torch.launch.train``:
+   engine mesp_cuda, batch 1 x seq 256, 4 steps, counts zeroed just before
+   and read just after (each step: ``PAPER_PER_STEP``, the flash kernels
+   48 / 24 / 24 on top of step 5's counts); then 2 steps with
+   ``--fuse-rope``, with the same counts and losses within ``LOSS_TOL`` of
+   the unfused run. Then step 6's gradient comparison at batch 1 x seq 256,
+   and the peak memory of one ``value_and_grad`` at that setting for each
+   engine with remat on, and for mesp_cuda and mebp with remat off.
 
-Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}`` and
-``{"train": ...}`` line each, the card's name and power limit, and last
+Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
+``{"train": ...}`` and ``{"train_paper": ...}`` line each, the card's name and power limit, and last
 ``{"ok": true, "device": ...}``. Any mismatch or exception exits non-zero.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -103,6 +118,36 @@ TRAIN_PER_STEP = {
     # gradient), the final norm
     "rmsnorm_bwd": 2 * N_LAYERS,
     "lora_grouped_fwd": 0,
+    # below 64 query rows attention takes the structured sdpa
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+}
+# the paper's setting, where attention runs the flash kernels
+PAPER_BATCH, PAPER_SEQ, PAPER_STEPS, ROPE_STEPS = 1, 256, 4, 2
+N_HEADS, N_KV_HEADS, HEAD_DIM = 14, 2, 64
+# every block's flash forward runs twice (checkpoint recompute), its
+# backward once; the LoRA and norm launches do not depend on seq
+FLASH_PER_STEP = {"flash_fwd": 2 * N_LAYERS, "flash_bwd_dq": N_LAYERS,
+                  "flash_bwd_dkv": N_LAYERS}
+PAPER_PER_STEP = {**TRAIN_PER_STEP, **FLASH_PER_STEP}
+# flash kernels vs their plain versions: bf16 in KERNEL_TOL's scheme with
+# the absolute floor relative to each output's largest magnitude (p and ds
+# are rounded to bf16 from f32 values whose summation order differs, so a
+# rounding may fall the other way); f32 summation order only. lse is f32 in
+# both and must be exactly -1e30 on the same rows.
+FLASH_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+LSE_TOL = dict(rtol=1e-4, atol=1e-4)
+# (B*Hkv, G, Nq, Nk, D, causal, window, rope): the path's shape and edges
+FLASH_CASES = {
+    "path": (2, 7, 256, 256, 64, True, 0, False),
+    "path_rope": (2, 7, 256, 256, 64, True, 0, True),
+    "window32": (2, 7, 256, 256, 64, True, 32, False),
+    "non_causal": (2, 7, 256, 256, 64, False, 0, True),
+    "ragged300": (2, 7, 300, 300, 64, True, 0, True),
+    "nq_ne_nk": (2, 7, 200, 136, 64, True, 0, False),
+    "dead_rows": (2, 7, 384, 128, 64, True, 64, False),
+    "G1": (14, 1, 256, 256, 64, True, 0, False),
+    "d40": (2, 7, 256, 256, 40, True, 32, True),
+    "d128": (2, 7, 256, 256, 128, True, 0, True),
 }
 # B of the value_and_grad comparison: nonzero, at the size B reaches when
 # fine-tuned from zero
@@ -120,7 +165,8 @@ def _check_close(got, want, tol, what):
     import torch
     err = (got.float() - want.float()).abs()
     lim = tol["atol"] + tol["rtol"] * want.float().abs()
-    if not bool(torch.isfinite(got).all()) or bool((err > lim).any()):
+    if not bool(torch.isfinite(got).all()) or \
+            not bool(torch.isfinite(want).all()) or bool((err > lim).any()):
         raise AssertionError(f"{what}: max |err| {float(err.max())} over "
                              f"tolerance {tol}")
     return float(err.max())
@@ -235,12 +281,14 @@ def check_rmsnorm(torch, rn):
 
 
 def kernel_entry(name, source, replaces, tpu_kernel, shapes, launches,
-                 steps, step="decode", **extra):
+                 steps, step="decode", path=None, **extra):
     """One kernel's line entry: figures per ``step`` (decode or train; each
     shape's per-launch figure times its launches per step), shapes in
     full. ``launches``: {path: launches in that path's run}; ``steps``:
-    the run's steps of the ``step`` kind."""
+    the steps of ``path``'s run (by default the serve run for decode, the
+    seq-48 training run for train)."""
     key = f"launches_per_{step}_step"
+    path = path or {"decode": "serve"}.get(step, step)
 
     def per_step(field):
         vals = [s[field] for s in shapes]
@@ -253,7 +301,7 @@ def kernel_entry(name, source, replaces, tpu_kernel, shapes, launches,
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "tpu_kernel": tpu_kernel,
             "launches": sum(launches.values()), "launches_by_path": launches,
-            key: launches[{"decode": "serve"}.get(step, step)] / steps,
+            key: launches[path] / steps,
             "max_abs_err": err, "max_err": err, "tol": KERNEL_TOL,
             "unit": f"ms per {step} step, bf16: per-launch time x launches "
                     "per step, summed over shapes",
@@ -398,6 +446,124 @@ def rmsnorm_train_shape(torch, rn):
             "bound_ms": bound, "bound_by": by}
 
 
+# ------------------------------------------------------- flash attention
+
+
+def _flash_inputs(torch, gen, dtype, BHkv, G, nq, nk, D):
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda") * 0.7
+    return tuple(t.to(dtype) for t in (rn(BHkv * G, nq, D), rn(BHkv, nk, D),
+                                       rn(BHkv, nk, D), rn(BHkv * G, nq, D)))
+
+
+def check_flash(torch, fa, rope_tables):
+    """The flash kernels against their plain versions on every case of
+    ``FLASH_CASES`` in f32 and bf16 (the backward's plain version from the
+    kernel's own out and lse), dk/dv's bits on a repeated call; then their
+    times at the path's shape in bf16. Returns {kernel: [shape figures]}."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = {(n, d): 0.0 for n in FLASH_PER_STEP
+            for d in (torch.float32, torch.bfloat16)}
+    for case, (BHkv, G, nq, nk, D, causal, window, rope) in \
+            FLASH_CASES.items():
+        tabs = tuple(t.cuda() for t in rope_tables(
+            torch.arange(nq), 10000.0, D)) if rope else None
+        kw = dict(causal=causal, window=window, q_per_kv=G)
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = FLASH_F32_TOL if dtype == torch.float32 else KERNEL_TOL
+            what = f"{case} {dtype}"
+            q, k, v, g = _flash_inputs(torch, gen, dtype, BHkv, G, nq, nk, D)
+            out, lse = fa.flash_attention_fwd(q, k, v, tabs, return_lse=True,
+                                              **kw)
+            delta, gq = fa.bwd_delta(g, out), g.to(dtype)
+            dq = fa.flash_bwd_dq(q, k, v, gq, lse, delta, tabs, **kw)
+            dk, dv = fa.flash_bwd_dkv(q, k, v, gq, lse, delta, tabs, **kw)
+            dk2, dv2 = fa.flash_bwd_dkv(q, k, v, gq, lse, delta, tabs, **kw)
+            torch.cuda.synchronize()
+            if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+                raise AssertionError(f"flash_bwd_dkv {what}: repeated "
+                                     "calls differ")
+            wout, wlse = fa.flash_attention_fwd_ref(q, k, v, tabs,
+                                                    return_lse=True, **kw)
+            if not torch.equal(lse == fa.NEG_INF, wlse == fa.NEG_INF):
+                raise AssertionError(f"flash_fwd {what}: rows without a key "
+                                     "differ from the plain version's")
+            e = max(_close_scaled(out, wout, tol, f"flash_fwd out {what}"),
+                    _check_close(lse, wlse, LSE_TOL, f"flash_fwd lse {what}"))
+            errs[("flash_fwd", dtype)] = max(errs[("flash_fwd", dtype)], e)
+            wdq = fa.flash_bwd_dq_ref(q, k, v, gq, lse, delta, tabs, **kw)
+            e = _close_scaled(dq, wdq, tol, f"flash_bwd_dq {what}")
+            errs[("flash_bwd_dq", dtype)] = max(errs[("flash_bwd_dq", dtype)],
+                                                e)
+            wdk, wdv = fa.flash_bwd_dkv_ref(q, k, v, gq, lse, delta, tabs,
+                                            **kw)
+            e = max(_close_scaled(dk, wdk, tol, f"flash_bwd_dkv dk {what}"),
+                    _close_scaled(dv, wdv, tol, f"flash_bwd_dkv dv {what}"))
+            errs[("flash_bwd_dkv", dtype)] = max(
+                errs[("flash_bwd_dkv", dtype)], e)
+
+    # times at the path's shape, bf16; warm: q, k, v were just written by
+    # the q/k/v linears, g by the o linear's backward
+    BHkv, G, N, _, D, causal, window, _ = FLASH_CASES["path"]
+    BH = BHkv * G
+    kw = dict(causal=causal, window=window, q_per_kv=G)
+    q, k, v, g = _flash_inputs(torch, gen, torch.bfloat16, BHkv, G, N, N, D)
+    out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    delta = fa.bwd_delta(g, out)
+    sets = [(q, k, v, g, lse, delta)] * 64
+    # the pairs this mask leaves (the work depends on it) and the bytes of
+    # each input read once and each output written once
+    pos = torch.arange(N)
+    pairs = BH * int((pos[:, None] >= pos[None, :]).sum())     # causal
+    tile, kv, rows = 2 * BH * N * D, 2 * BHkv * N * D, 4 * BH * N
+    work = {"flash_fwd": (2 * tile + 2 * kv + rows, 4 * D * pairs),
+            "flash_bwd_dq": (3 * tile + 2 * kv + 2 * rows, 6 * D * pairs),
+            "flash_bwd_dkv": (2 * tile + 4 * kv + 2 * rows, 8 * D * pairs)}
+    calls = {
+        "flash_fwd": (
+            lambda q, k, v, g, l, d: fa.flash_attention_fwd(
+                q, k, v, return_lse=True, **kw),
+            lambda q, k, v, g, l, d: fa.flash_attention_fwd_ref(
+                q, k, v, return_lse=True, **kw)),
+        "flash_bwd_dq": (
+            lambda q, k, v, g, l, d: fa.flash_bwd_dq(q, k, v, g, l, d, **kw),
+            lambda q, k, v, g, l, d: fa.flash_bwd_dq_ref(q, k, v, g, l, d,
+                                                         **kw)),
+        "flash_bwd_dkv": (
+            lambda q, k, v, g, l, d: fa.flash_bwd_dkv(q, k, v, g, l, d, **kw),
+            lambda q, k, v, g, l, d: fa.flash_bwd_dkv_ref(q, k, v, g, l, d,
+                                                          **kw)),
+    }
+    # the library yardstick, never called on the path: one PyTorch call,
+    # forward, and forward plus backward through autograd
+    q4, k4, v4, g4 = (t.view(1, -1, N, D) for t in (q, k, v, g))
+    lib_fwd = lambda q, k, v, g: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True)
+    leaves = tuple(t.detach().clone().requires_grad_(True)
+                   for t in (q4, k4, v4))
+
+    def lib_fwd_bwd(q, k, v, g):
+        return torch.autograd.grad(lib_fwd(q, k, v, g), (q, k, v), g)
+    library = {"fwd_ms": _time_ms(lib_fwd, [(q4, k4, v4, g4)] * 64),
+               "fwd_bwd_ms": _time_ms(lib_fwd_bwd, [(*leaves, g4)] * 64)}
+    figures = {}
+    for name, (kern, plain) in calls.items():
+        nbytes, flops = work[name]
+        bound, by = _bound_ms(nbytes, flops)
+        figures[name] = [{
+            "BH": BH, "BHkv": BHkv, "N": N, "D": D, "causal": causal,
+            "window": window, "dtype": "bfloat16",
+            "launches_per_train_step": FLASH_PER_STEP[name],
+            "max_abs_err": errs[(name, torch.bfloat16)],
+            "max_abs_err_f32": errs[(name, torch.float32)],
+            "ms": _time_ms(kern, sets), "plain_ms": _time_ms(plain, sets),
+            "library_ms": library["fwd_ms"] if name == "flash_fwd" else None,
+            "library_fwd_bwd_ms": library["fwd_bwd_ms"],
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": flops}]
+    return figures
+
+
 def _with_b(torch, tree, gen):
     """``tree`` with every LoRA B redrawn nonzero from ``gen`` (B = 0 at
     init would leave dA and the h@B term untested)."""
@@ -476,23 +642,30 @@ def _release(torch):
     torch.cuda.empty_cache()
 
 
-def peak_memory(torch, cfg, params, batch):
-    """Peak allocated bytes of one value_and_grad per engine (and above
-    what was allocated before it: weights, batch)."""
+ENGINE_NAMES = ("mesp_cuda", "mesp", "mebp", "store_h")
+
+
+def peak_memory(torch, cfg, params, batch, runs=None):
+    """Peak allocated bytes of one value_and_grad per (engine, remat) of
+    ``runs`` (by default each engine with remat on), and above what was
+    allocated before it (weights, batch). Keys: the engine, with
+    "/remat_off" appended when remat is off."""
     from repro_torch.api.engines import ENGINES
     from repro_torch.api.policy import ExecutionPolicy
     from repro_torch.core import mesp
     out = {}
-    for engine in ("mesp_cuda", "mesp", "mebp", "store_h"):
+    for engine, remat in runs or [(e, True) for e in ENGINE_NAMES]:
         _release(torch)
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         loss, grads = mesp.value_and_grad(
             params, cfg, batch,
-            policy=ExecutionPolicy(backend=ENGINES[engine], device="cuda"))
+            policy=ExecutionPolicy(backend=ENGINES[engine], device="cuda",
+                                   remat=remat))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
-        out[engine] = {"peak_bytes": peak, "above_start_bytes": peak - base}
+        key = engine if remat else f"{engine}/remat_off"
+        out[key] = {"peak_bytes": peak, "above_start_bytes": peak - base}
         del loss, grads
     return out
 
@@ -567,10 +740,12 @@ def main() -> int:
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
         return 1
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lora_fused as lf
     from repro_torch.kernels import lora_grouped as lg
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels.rope import rope_tables
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
 
@@ -594,6 +769,7 @@ def main() -> int:
     rms = check_rmsnorm(torch, rn)
     training = check_training_kernels(torch, lf, rn)
     rms_train = rmsnorm_train_shape(torch, rn)
+    flash = check_flash(torch, fa, rope_tables)
 
     # the main path: counts zeroed just before, read just after
     _release(torch)
@@ -648,13 +824,56 @@ def main() -> int:
     grads = compare_grads(torch, cfg, params, batch)
     peaks = peak_memory(torch, cfg, params, batch)
 
-    paths = lambda k: {"serve": counts[k], "train": tcounts[k]}
+    # the paper's setting: counts zeroed just before, read just after each
+    # run, first as the CLI runs by default, then with --fuse-rope
+    paper_cmd = ["--arch", "qwen2.5-0.5b", "--engine", "mesp_cuda",
+                 "--device", "cuda", "--batch", str(PAPER_BATCH), "--seq",
+                 str(PAPER_SEQ), "--seed", "0"]
+    paper, pcounts = {}, {}
+    for run, steps, extra in (("paper", PAPER_STEPS, []),
+                              ("paper_rope", ROPE_STEPS, ["--fuse-rope"])):
+        _release(torch)
+        ops.reset_launch_counts()
+        paper[run] = train_cli.train(paper_cmd + ["--steps", str(steps)]
+                                     + extra)
+        pcounts[run] = ops.launch_counts()
+        del paper[run]["params"]
+        pwant = {k: v * steps for k, v in PAPER_PER_STEP.items()}
+        if pcounts[run] != pwant:
+            raise AssertionError(f"{run}: launch counts {pcounts[run]}, "
+                                 f"expected {pwant} for {steps} steps")
+        if len(paper[run]["losses"]) != steps or \
+                not all(map(math.isfinite, paper[run]["losses"])):
+            raise AssertionError(f"{run}: losses {paper[run]['losses']}")
+    rope_err = [abs(u - w) / abs(w) for u, w in zip(
+        paper["paper_rope"]["losses"], paper["paper"]["losses"])]
+    if max(rope_err) > LOSS_TOL:
+        raise AssertionError(f"--fuse-rope losses {paper['paper_rope']} "
+                             f"differ from {paper['paper']} over {LOSS_TOL}")
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+        make_batch_iterator(cfg.vocab, PAPER_SEQ, PAPER_BATCH,
+                            seed=0)).items()}
+    paper_grads = compare_grads(torch, cfg, params, batch)
+    paper_peaks = peak_memory(
+        torch, cfg, params, batch,
+        [(e, True) for e in ENGINE_NAMES]
+        + [("mesp_cuda", False), ("mebp", False)])
+    del params, batch
+
+    paths = lambda k: {"serve": counts[k], "train": tcounts[k],
+                       **{run: c[k] for run, c in pcounts.items()}}
     train_entry = lambda name, cu, line, fn: kernel_entry(
         name, f"src/repro_torch/csrc/{cu}", line, fn, training[name],
         paths(name), TRAIN_STEPS, step="train",
         matmul_ms=sum((s.get("matmul_ms") or 0.0)
                       * s["launches_per_train_step"]
                       for s in training[name]) or None)
+    flash_entry = lambda name, cu, line, fn: kernel_entry(
+        name, f"src/repro_torch/csrc/{cu}", line, fn, flash[name],
+        paths(name), PAPER_STEPS, step="train", path="paper",
+        train_step=f"batch {PAPER_BATCH} x seq {PAPER_SEQ}",
+        library_fwd_bwd_ms=flash[name][0]["library_fwd_bwd_ms"] * N_LAYERS,
+        tol_f32=FLASH_F32_TOL)
     kernels = [
         kernel_entry("lora_grouped_fwd",
                      "src/repro_torch/csrc/lora_grouped_fwd.cu",
@@ -683,6 +902,18 @@ def main() -> int:
                     "src/repro/kernels/rmsnorm.py:61",
                     "src/repro/kernels/rmsnorm.py:rmsnorm_bwd "
                     "(_rmsnorm_bwd_kernel :48)"),
+        flash_entry("flash_fwd", "flash_fwd.cu",
+                    "src/repro/kernels/flash_attention.py:216",
+                    "src/repro/kernels/flash_attention.py:"
+                    "flash_attention_fwd (_fwd_kernel :92)"),
+        flash_entry("flash_bwd_dq", "flash_bwd.cu",
+                    "src/repro/kernels/flash_attention.py:488",
+                    "src/repro/kernels/flash_attention.py:"
+                    "flash_attention_bwd (_bwd_dq_kernel :260)"),
+        flash_entry("flash_bwd_dkv", "flash_bwd.cu",
+                    "src/repro/kernels/flash_attention.py:488",
+                    "src/repro/kernels/flash_attention.py:"
+                    "flash_attention_bwd (_bwd_dkv_kernel :318)"),
     ]
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))
@@ -706,6 +937,22 @@ def main() -> int:
         "launches_per_step": TRAIN_PER_STEP, "grads_vs_plain": grads,
         "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, "b_scale": B_SCALE,
         "peak_memory_one_value_and_grad": peaks, "device": name}}))
+    psecs = paper["paper"]["seconds"]
+    print(json.dumps({"train_paper": {
+        "arch": "qwen2.5-0.5b", "engine": "mesp_cuda", "dtype": "bfloat16",
+        "batch": PAPER_BATCH, "seq": PAPER_SEQ, "steps": PAPER_STEPS,
+        "losses": paper["paper"]["losses"], "seconds": psecs,
+        "ms_per_step": 1e3 * sum(psecs[1:]) / max(1, len(psecs) - 1),
+        "first_step_ms": 1e3 * psecs[0], "launches": pcounts["paper"],
+        "launches_per_step": PAPER_PER_STEP,
+        "fuse_rope": {"steps": ROPE_STEPS,
+                      "losses": paper["paper_rope"]["losses"],
+                      "seconds": paper["paper_rope"]["seconds"],
+                      "loss_rel_err": rope_err,
+                      "launches": pcounts["paper_rope"]},
+        "grads_vs_plain": paper_grads, "grad_tol": GRAD_TOL,
+        "loss_tol": LOSS_TOL, "b_scale": B_SCALE,
+        "peak_memory_one_value_and_grad": paper_peaks, "device": name}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

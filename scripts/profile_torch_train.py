@@ -1,14 +1,17 @@
 """Where a training step of the port spends its time, on the card.
 
 Builds full-width qwen2.5-0.5b (bf16, random weights from seed 0), takes
-batches of 4 x 48 tokens from the port's data pipeline, as ``chip_smoke.py``
-trains it, runs two warm SGD steps, then traces ``--steps`` steps with
+batches of ``--batch`` x ``--seq`` tokens from the port's data pipeline (by
+default 4 x 48, as ``chip_smoke.py`` first trains it; ``--batch 1 --seq
+256`` is the paper's setting, where attention runs the flash kernels),
+runs two warm SGD steps, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON line: wall ms per step, device busy
 ms per step (the union of kernel intervals on the card's timeline), the
 device idle share, device kernels launched per step, and the kernels that
 took the most device time.
 
-    PYTHONPATH=src python scripts/profile_torch_train.py [--engine mesp_cuda]
+    PYTHONPATH=src python scripts/profile_torch_train.py [--engine mesp_cuda] \
+        [--batch 1 --seq 256]
 """
 from __future__ import annotations
 

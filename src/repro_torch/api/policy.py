@@ -13,6 +13,11 @@
 * ``device``: where parameters, caches and inputs are made.
 * ``remat``: recompute each block in the backward from its stored input
   (``torch.utils.checkpoint`` per block, the paper's §4.3 schedule).
+* ``fuse_rope``: ``cuda`` backend only: rotate q and k inside the flash
+  kernels (the [N, D/2] cos/sin tables are read per tile; the rotated q
+  and k never reach device memory) instead of a separate RoPE pass. The
+  gradients are the same; other backends ignore it, as the reference's
+  backends other than ``pallas`` do.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ class ExecutionPolicy:
     backend: str = "structured"
     device: torch.device = torch.device("cpu")
     remat: bool = True
+    fuse_rope: bool = False
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

@@ -8,7 +8,10 @@ The autograd Functions here pair kernel forwards with kernel backwards that
 follow the paper's structured rules, as the reference's custom_vjps do:
 :func:`lora_linear` is ``lora_fused_fwd`` forward and ``lora_dx`` +
 ``lora_dab`` backward, saving x (h is recomputed on chip); :func:`rmsnorm`
-is ``rmsnorm_fwd`` forward and ``rmsnorm_bwd`` backward, saving x.
+is ``rmsnorm_fwd`` forward and ``rmsnorm_bwd`` backward, saving x;
+:func:`sdpa` from 64 query rows is ``flash_fwd`` forward and
+``flash_bwd_dq`` + ``flash_bwd_dkv`` backward, saving q, k, v, out and the
+row logsumexp (the probabilities are recomputed on chip).
 """
 from __future__ import annotations
 
@@ -16,9 +19,11 @@ import torch
 
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.core import structured
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lora_fused as _lf
 from repro_torch.kernels import lora_grouped as _lg
 from repro_torch.kernels import rmsnorm as _rn
+from repro_torch.kernels import rope as _rope
 
 #: query rows from which the reference runs its flash-attention kernels
 #: (``PALLAS_ATTN_MIN_SEQ``); below it both take the structured sdpa
@@ -112,24 +117,64 @@ def rmsnorm(x, w, eps: float = 1e-6):
 
 
 # ---------------------------------------------------------------------------
-# attention
+# attention: the flash kernels (forward + lse-driven backward), the
+# structured sdpa below ATTN_MIN_SEQ query rows
 # ---------------------------------------------------------------------------
 
 
-def sdpa(q, k, v, *, causal: bool = True, window: int = 0):
-    """Attention dispatch, as the reference's ``attention_supported``:
-    below :data:`ATTN_MIN_SEQ` query rows the structured sdpa (saves q, k,
-    v; the probabilities are recomputed). From there on the reference runs
-    its flash-attention kernels, which the port has not written yet: that
-    raises, on the card and on the CPU, rather than run plain attention in
-    the kernels' place."""
-    if q.shape[2] >= ATTN_MIN_SEQ:
-        raise NotImplementedError(
-            f"attention over {q.shape[2]} >= {ATTN_MIN_SEQ} query rows runs "
-            "the flash-attention kernels (the reference's "
-            "flash_attention_fwd / flash_attention_bwd), which the port has "
-            "not written yet; use --seq < 64 or another engine")
-    return structured.sdpa(q, k, v, window, causal)
+class _FlashAttention(torch.autograd.Function):
+    """q [B,H,Nq,D], k/v [B,Hkv,Nk,D] -> out [B,H,Nq,D]. Saves exactly
+    (q, k, v, out, lse) in the kernels' [B·H, N, D] layout: never the
+    probabilities, and never a rotated q or k (with ``rope`` the kernels
+    rotate on load). The rope tables are constants with no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rope, causal, window):
+        B, H, Nq, D = q.shape
+        Hkv, Nk = k.shape[1], k.shape[2]
+        q3 = q.reshape(B * H, Nq, D).contiguous()
+        k3 = k.reshape(B * Hkv, Nk, D).contiguous()
+        v3 = v.reshape(B * Hkv, Nk, D).contiguous()
+        out, lse = _fa.flash_attention_fwd(
+            q3, k3, v3, rope, causal=causal, window=window,
+            q_per_kv=H // Hkv, return_lse=True)
+        ctx.save_for_backward(q3, k3, v3, out, lse)
+        ctx.rope, ctx.causal, ctx.window = rope, causal, window
+        ctx.shapes = (q.shape, k.shape)
+        return out.view(B, H, Nq, D)
+
+    @staticmethod
+    def backward(ctx, g):
+        q3, k3, v3, out, lse = ctx.saved_tensors
+        qs, ks = ctx.shapes
+        dq, dk, dv = _fa.flash_attention_bwd(
+            q3, k3, v3, out, lse, g.reshape(out.shape), ctx.rope,
+            causal=ctx.causal, window=ctx.window, q_per_kv=qs[1] // ks[1])
+        return dq.view(qs), dk.view(ks), dv.view(ks), None, None, None
+
+
+def attention_supported(q, k) -> bool:
+    """The reference's test for its flash path: [B,H,N,D] layouts, whole
+    GQA groups and at least :data:`ATTN_MIN_SEQ` query rows."""
+    if q.ndim != 4 or k.ndim != 4:
+        return False
+    H, Hkv = q.shape[1], k.shape[1]
+    return Hkv >= 1 and H % Hkv == 0 and q.shape[2] >= ATTN_MIN_SEQ
+
+
+def sdpa(q, k, v, *, causal: bool = True, window: int = 0, rope=None):
+    """Attention dispatch, as the reference's: from :data:`ATTN_MIN_SEQ`
+    query rows the flash kernels (:class:`_FlashAttention`), below it (or
+    for a partial GQA group) the structured sdpa, which saves q, k, v and
+    recomputes the probabilities. ``rope=(cos, sin)`` ([N, D/2] f32)
+    arrives unapplied: the kernels rotate q and k tiles on load; the
+    structured path applies the same tables first."""
+    if not attention_supported(q, k):
+        if rope is not None:
+            q = _rope.apply_rope_tables(q, *rope)
+            k = _rope.apply_rope_tables(k, *rope)
+        return structured.sdpa(q, k, v, window, causal)
+    return _FlashAttention.apply(q, k, v, rope, causal, window)
 
 
 # ---------------------------------------------------------------------------
@@ -138,7 +183,10 @@ def sdpa(q, k, v, *, causal: bool = True, window: int = 0):
 
 _COUNTED = {"lora_grouped_fwd": _lg.lora_grouped, "rmsnorm_fwd": _rn.rmsnorm,
             "lora_fused_fwd": _lf.lora_fused, "lora_dx": _lf.lora_dx,
-            "lora_dab": _lf.lora_dab, "rmsnorm_bwd": _rn.rmsnorm_bwd}
+            "lora_dab": _lf.lora_dab, "rmsnorm_bwd": _rn.rmsnorm_bwd,
+            "flash_fwd": _fa.flash_attention_fwd,
+            "flash_bwd_dq": _fa.flash_bwd_dq,
+            "flash_bwd_dkv": _fa.flash_bwd_dkv}
 
 
 def launch_counts() -> dict:

@@ -4,16 +4,18 @@ port supports).
 
 ``--engine`` picks the backward regime (``repro_torch.api.engines``):
 ``mesp_cuda`` runs every LoRA linear through the LoRA kernels (forward,
-dx, dA/dB) and every norm through the RMSNorm kernels, ``mesp`` the
-hand-derived structured backward in plain PyTorch, ``mebp`` autograd of the
-plain forwards, ``store_h`` the Table 5 ablation. ``mesp_cuda`` takes
-sequences shorter than 64 tokens: from 64 on, attention runs the
-flash-attention kernels, which the port has not written yet, and the run
-raises. The run happens on the card unless ``--device cpu`` is given; with
-no card visible the default fails rather than falling back.
+dx, dA/dB), every norm through the RMSNorm kernels and, from 64 tokens on,
+attention through the flash-attention kernels (forward, dq, dk/dv);
+``mesp`` the hand-derived structured backward in plain PyTorch, ``mebp``
+autograd of the plain forwards, ``store_h`` the Table 5 ablation. The
+defaults are the paper's batch 1 x seq 256. ``--fuse-rope`` rotates q and
+k inside the flash kernels (``mesp_cuda`` only, as the reference applies
+it only to its kernel backend). The run happens on the card unless
+``--device cpu`` is given; with no card visible the default fails rather
+than falling back.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \\
-        --engine mesp_cuda --batch 4 --seq 48 --steps 4
+        --engine mesp_cuda --steps 4 [--fuse-rope]
 
 The reference's Trainer facade (checkpoints, the step guard, the
 degradation ladder, telemetry) is not ported yet.
@@ -51,6 +53,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--fuse-rope", action="store_true",
+                    help="mesp_cuda: apply RoPE inside the flash kernels "
+                         "(q and k rotated on load, never stored rotated)")
     return ap
 
 
@@ -72,7 +77,8 @@ def train(argv=None) -> dict:
     cfg = get_config(ns.arch)
     if ns.reduced:
         cfg = cfg.reduced()
-    policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device)
+    policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
+                             fuse_rope=ns.fuse_rope)
     opt = optimizers.make_optimizer(ns.optimizer, schedules.constant(ns.lr))
 
     gen = torch.Generator(device=device).manual_seed(ns.seed)
@@ -80,8 +86,9 @@ def train(argv=None) -> dict:
     state = opt.init(params)
     data = make_batch_iterator(cfg.vocab, ns.seq, ns.batch, seed=ns.seed)
     log.info("arch=%s layers=%d d_model=%d engine=%s backend=%s device=%s "
-             "batch=%d seq=%d", cfg.name, cfg.n_layers, cfg.d_model,
-             ns.engine, policy.backend, device, ns.batch, ns.seq)
+             "batch=%d seq=%d fuse_rope=%s", cfg.name, cfg.n_layers,
+             cfg.d_model, ns.engine, policy.backend, device, ns.batch,
+             ns.seq, ns.fuse_rope)
 
     losses, seconds = [], []
     for step in range(ns.steps):

@@ -26,6 +26,7 @@ from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import structured
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import rope as krope
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -119,18 +120,8 @@ def act_silu(x, policy: ExecutionPolicy):
 
 def rope(x, positions, theta: float):
     """x: [B, N, H, D] (D even), positions: [N] or [B, N]."""
-    D = x.shape[-1]
-    half = D // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
-    ang = positions.float()[..., None] * freqs
-    if ang.ndim == 2:
-        ang = ang[None]
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    xf1, xf2 = x[..., :half].float(), x[..., half:].float()
-    out = torch.cat([xf1 * cos - xf2 * sin, xf2 * cos + xf1 * sin], -1)
-    return out.to(x.dtype)
+    cos, sin = krope.rope_tables(positions, theta, x.shape[-1])
+    return krope.apply_rope_tables(x, cos[..., None, :], sin[..., None, :])
 
 
 # ---------------------------------------------------------------------------
@@ -161,9 +152,13 @@ def attention(p, x, cfg: ArchConfig, *, cache=None,
     at each slot's ``len`` in place, and ``len`` advances by N in place.
 
     Training attention: ``plain`` autograd of the plain forward, ``cuda``
-    the kernel dispatch (``kops.sdpa``), else the structured Function at
+    the kernel dispatch (``kops.sdpa``: the flash kernels from 64 query
+    rows, the structured Function below), else the structured Function at
     every length (the reference's structured backend switches to its
-    chunked flash path from 1024 rows, same values; not ported yet)."""
+    chunked flash path from 1024 rows, same values; not ported yet). Under
+    ``cuda`` with ``policy.fuse_rope`` q and k reach ``kops.sdpa``
+    unrotated, with the RoPE tables, and the flash kernels rotate them on
+    load."""
     B, N, _ = x.shape
     hd = cfg.resolved_head_dim
     lin = functools.partial(apply_linear, cfg=cfg, policy=policy,
@@ -174,13 +169,17 @@ def attention(p, x, cfg: ArchConfig, *, cache=None,
 
     if cache is None:
         qpos = torch.arange(N, device=x.device)
-        q = rope(q, qpos, cfg.rope_theta).transpose(1, 2)   # [B,H,N,D]
-        k = rope(k, qpos, cfg.rope_theta).transpose(1, 2)
-        v = v.transpose(1, 2)
+        fuse = policy.backend == "cuda" and policy.fuse_rope
+        if not fuse:
+            q = rope(q, qpos, cfg.rope_theta)
+            k = rope(k, qpos, cfg.rope_theta)
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # [B,H,N,D]
         if policy.backend == "plain":
             out = structured._sdpa_ref(q, k, v, 0, True, 0, None)
         elif policy.backend == "cuda":
-            out = kops.sdpa(q, k, v, causal=True)
+            tabs = krope.rope_tables(qpos, cfg.rope_theta, hd) if fuse \
+                else None
+            out = kops.sdpa(q, k, v, causal=True, rope=tabs)
         else:
             out = structured.sdpa(q, k, v, 0, True)
         out = out.transpose(1, 2).reshape(B, N, cfg.n_heads * hd)

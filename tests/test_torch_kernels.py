@@ -183,11 +183,15 @@ def test_cpu_tensors_never_launch_kernels():
     fa.requires_grad_(True)
     y = tops.lora_linear(fx, fw0, fa, fb, None, 2.0)
     xn = tops.rmsnorm(fx, torch.ones(16))
-    torch.autograd.grad((y * fg).sum() + xn.sum(), (fx, fa))
+    # from 64 query rows the dispatch takes the flash Function
+    q = torch.randn(1, 2, 64, 8).requires_grad_(True)
+    o = tops.sdpa(q, torch.randn(1, 1, 64, 8), torch.randn(1, 1, 64, 8))
+    torch.autograd.grad((y * fg).sum() + xn.sum() + o.sum(), (fx, fa, q))
     counts = tops.launch_counts()
     assert set(counts) == {"lora_grouped_fwd", "rmsnorm_fwd",
                            "lora_fused_fwd", "lora_dx", "lora_dab",
-                           "rmsnorm_bwd"}
+                           "rmsnorm_bwd", "flash_fwd", "flash_bwd_dq",
+                           "flash_bwd_dkv"}
     assert set(counts.values()) == {0}
 
 

@@ -1,9 +1,11 @@
 """The port's training slice against the JAX reference (f32, CPU).
 
 Shapes are deliberately not tile-aligned, as in ``test_pallas_mode.py``
-(d_model 160, d_ff 192, vocab 97, qkv bias, 2 layers, batch 2, seq 48:
-below the 64 query rows from which the reference runs flash attention), and
-every LoRA B is drawn nonzero so that dA and the h@B term are tested. The
+(d_model 160, 4 heads over 2 KV heads of 40, d_ff 192, vocab 97, qkv bias,
+2 layers, batch 2, seq 48: below the 64 query rows from which both packages
+run flash attention; and seq 96, above them, with RoPE applied before
+attention or fused into the flash kernels), and every LoRA B is drawn
+nonzero so that dA and the h@B term are tested. The
 weights are the reference's ``init_params(PRNGKey(0))`` with B redrawn from
 numpy, bridged to the port through numpy. One JAX computation per backend is
 shared through module-scoped fixtures.
@@ -44,6 +46,8 @@ _FIELDS = dict(name="train-test", family="dense", n_layers=2, d_model=160,
 JCFG = JaxArchConfig(**_FIELDS)
 TCFG = ArchConfig(**_FIELDS)
 BATCH, SEQ, RANK = 2, 48, TCFG.lora.rank
+#: a length from which attention runs the flash kernels (ATTN_MIN_SEQ = 64)
+FLASH_SEQ = 96
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: the port's backend -> the reference backend it is held against
 JAX_BACKEND = {"structured": "structured", "cuda": "pallas",
@@ -277,13 +281,18 @@ def test_train_step_lands_on_reference_params(np_params, np_batch, jax_runs,
 # ------------------------------------------------------- residual contract
 
 
-def _saved(params, backend, remat, seq=SEQ):
+def _saved(params, backend, remat, seq=SEQ, weights=True):
     """Shapes of every tensor the outer forward hands to autograd to keep,
-    seen through ``saved_tensors_hooks``."""
+    seen through ``saved_tensors_hooks``; with ``weights=False`` those that
+    share storage with a parameter are left out (at seq 96 the down
+    projection's A, [192, r], has the rows of an h)."""
     shapes = []
+    stores = {t.untyped_storage().data_ptr()
+              for t in _leaves(params).values()}
 
     def pack(t):
-        shapes.append(tuple(t.shape))
+        if weights or t.untyped_storage().data_ptr() not in stores:
+            shapes.append(tuple(t.shape))
         return t
 
     batch = _tbatch(next(tpipe.make_batch_iterator(
@@ -294,13 +303,13 @@ def _saved(params, backend, remat, seq=SEQ):
     return shapes
 
 
-def _is_h(shape):
+def _is_h(shape, seq=SEQ):
     """An [..., r] activation: h = x@A, rows of batch x seq."""
-    return shape[-1] == RANK and int(np.prod(shape[:-1])) == BATCH * SEQ
+    return shape[-1] == RANK and int(np.prod(shape[:-1])) == BATCH * seq
 
 
-def _is_probs(shape):
-    return len(shape) >= 4 and shape[-2:] == (SEQ, SEQ)
+def _is_probs(shape, seq=SEQ):
+    return len(shape) >= 2 and shape[-2:] == (seq, seq)
 
 
 @pytest.mark.parametrize("engine,backend,saves_h,saves_probs", [
@@ -336,17 +345,70 @@ def test_remat_outer_forward_keeps_block_inputs_and_head_residuals(
     assert len(_saved(_tparams(np_params), backend, remat=False)) > 50
 
 
-def test_cuda_backend_raises_from_64_query_rows(np_params):
-    """At seq 96 the reference runs its flash kernels, which the port has
-    not written: the cuda backend raises instead of running plain
-    attention in their place. The structured backend runs."""
-    batch = _tbatch(next(tpipe.make_batch_iterator(TCFG.vocab, 96, BATCH,
-                                                   seed=6, n_tokens=4096)))
-    with pytest.raises(NotImplementedError, match="flash"):
-        mesp.value_and_grad(_tparams(np_params), TCFG, batch,
-                            policy=ExecutionPolicy(backend="cuda"))
-    loss, _ = mesp.value_and_grad(_tparams(np_params), TCFG, batch)
-    assert np.isfinite(float(loss))
+@pytest.mark.parametrize("engine,backend,saves_h,saves_probs", [
+    ("mesp", "structured", False, False),
+    ("mesp_cuda", "cuda", False, False),
+    ("store_h", "store_h", True, False),
+    ("mebp", "plain", True, True),
+])
+def test_saved_tensors_follow_the_residual_contract_at_flash_lengths(
+        np_params, engine, backend, saves_h, saves_probs):
+    """The residual contract at seq 96, where ``cuda`` runs the flash
+    Function: remat off, no [..., N, N] tensor and no [..., r] h under
+    MeSP; each layer's flash Function saves its q, k, v, out and lse in
+    the kernels' [B·H, N, D] layout."""
+    shapes = _saved(_tparams(np_params), backend, remat=False,
+                    seq=FLASH_SEQ, weights=False)
+    assert any(_is_h(s, FLASH_SEQ) for s in shapes) == saves_h, engine
+    assert any(_is_probs(s, FLASH_SEQ) for s in shapes) == saves_probs
+    if backend == "cuda":
+        H, Hkv, D = TCFG.n_heads, TCFG.n_kv_heads, TCFG.resolved_head_dim
+        L, N = TCFG.n_layers, FLASH_SEQ
+        assert shapes.count((BATCH * H, N)) == L                  # lse
+        assert shapes.count((BATCH * H, N, D)) == 2 * L           # q, out
+        assert shapes.count((BATCH * Hkv, N, D)) == 2 * L         # k, v
+
+
+@pytest.fixture(scope="module")
+def flash_batch():
+    return next(tpipe.make_batch_iterator(TCFG.vocab, FLASH_SEQ, BATCH,
+                                          seed=6, n_tokens=4096))
+
+
+@pytest.mark.parametrize("fuse_rope", [False, True])
+def test_cuda_backend_matches_pallas_from_64_query_rows(
+        np_params, flash_batch, monkeypatch, fuse_rope):
+    """At seq 96 both packages run flash attention: the port's ``cuda``
+    backend (the flash Function, whose wrappers take their plain versions
+    here) against the reference's ``pallas`` backend in interpret mode,
+    with RoPE applied before attention or fused into the kernels (as
+    ``test_pallas_mode.py`` checks ``fuse_rope``): the loss at rtol 1e-5
+    and every LoRA gradient leaf at relative L2 1e-5."""
+    jp = jax.tree_util.tree_map(jnp.asarray, np_params)
+    jb = {k: jnp.asarray(v) for k, v in flash_batch.items()}
+    jloss, jgrads = jmesp.value_and_grad(jp, JCFG, jb, policy=JaxPolicy(
+        backend="pallas", interpret=True, fuse_rope=fuse_rope))
+    calls, fwd = [], tops._fa.flash_attention_fwd
+    monkeypatch.setattr(tops._fa, "flash_attention_fwd",
+                        lambda *a, **kw: calls.append(a[3]) or fwd(*a, **kw))
+    loss, grads = mesp.value_and_grad(
+        _tparams(np_params), TCFG, _tbatch(flash_batch),
+        policy=ExecutionPolicy(backend="cuda", fuse_rope=fuse_rope))
+    # every block's forward twice (remat), with tables only when fused
+    assert len(calls) == 2 * TCFG.n_layers
+    assert all((t is not None) == fuse_rope for t in calls)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    tg, jg = _leaves(grads), _leaves(jgrads)
+    assert tg.keys() == jg.keys()
+    n_lora = 0
+    for path, want in jg.items():
+        if want is None:
+            assert tg[path] is None, path
+            continue
+        n_lora += 1
+        err = _rel(tg[path].numpy(), np.asarray(want))
+        assert err <= 1e-5, (path, err)
+    assert n_lora == 14
 
 
 # -------------------------------------------------------------- pipeline
@@ -401,6 +463,30 @@ def test_train_cli_engines_give_one_loss_curve(cli_losses, engine):
     assert len(cli_losses[engine]) == 3
     assert all(np.isfinite(cli_losses[engine]))
     np.testing.assert_allclose(cli_losses[engine], cli_losses["mesp_cuda"],
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def cli_losses_at_flash_seq():
+    run = ["--reduced", "--device", "cpu", "--seq", str(FLASH_SEQ),
+           "--steps", "3"]
+    out = {e: ttrain.train(run + ["--engine", e])["losses"]
+           for e in ("mesp_cuda", "mesp", "mebp", "store_h")}
+    out["mesp_cuda --fuse-rope"] = ttrain.train(
+        run + ["--engine", "mesp_cuda", "--fuse-rope"])["losses"]
+    return out
+
+
+@pytest.mark.parametrize("engine", ["mesp", "mebp", "store_h",
+                                    "mesp_cuda --fuse-rope"])
+def test_train_cli_engines_give_one_loss_curve_at_flash_lengths(
+        cli_losses_at_flash_seq, engine):
+    """f32, seq 96: ``mesp_cuda`` runs the flash Function (its plain
+    versions here), with or without fused RoPE, and gives every other
+    engine's curve."""
+    losses = cli_losses_at_flash_seq
+    assert len(losses[engine]) == 3 and all(np.isfinite(losses[engine]))
+    np.testing.assert_allclose(losses[engine], losses["mesp_cuda"],
                                rtol=1e-5, atol=1e-5)
 
 
