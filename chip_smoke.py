@@ -48,14 +48,29 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    the unfused run. Then step 6's gradient comparison at batch 1 x seq 256,
    and the peak memory of one ``value_and_grad`` at that setting for each
    engine with remat on, and for mesp_cuda and mebp with remat off.
+9. The quantized frozen base: holds the quantized LoRA kernels (int8
+   forward and dx; packed forward and dx, int4 and nf4) against their plain
+   versions in bf16 and f32 at the paper path's shapes (M 256) and a ragged
+   odd-K case, and times them beside their plain versions, the bound and
+   ``torch.matmul`` of x@W0 (or g@W0^T) over the dequantized W0 as context.
+   Then trains through ``repro_torch.launch.train --quantize int8`` and
+   ``--quantize nf4`` (mesp_cuda, batch 1 x seq 256, 3 steps each, counts
+   zeroed just before and read just after: ``quant_per_step``, the
+   quantized forward and dx in place of the dense ones), compares loss and
+   LoRA gradients with the plain backend over the same nf4 weights in bf16
+   and f32, and prints the peak memory of one ``value_and_grad`` over the
+   nf4 base per engine, remat on and off, beside what was allocated at the
+   start.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
-``{"train": ...}`` and ``{"train_paper": ...}`` line each, the card's name and power limit, and last
+``{"train": ...}``, ``{"train_paper": ...}`` and ``{"train_quant": ...}``
+line each, the card's name and power limit, and last
 ``{"ok": true, "device": ...}``. Any mismatch or exception exits non-zero.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -120,6 +135,8 @@ TRAIN_PER_STEP = {
     "lora_grouped_fwd": 0,
     # below 64 query rows attention takes the structured sdpa
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    # a dense base runs no quantized kernel
+    "lora_fused_q": 0, "lora_dx_q": 0, "lora_fused_q4": 0, "lora_dx_q4": 0,
 }
 # the paper's setting, where attention runs the flash kernels
 PAPER_BATCH, PAPER_SEQ, PAPER_STEPS, ROPE_STEPS = 1, 256, 4, 2
@@ -129,6 +146,27 @@ N_HEADS, N_KV_HEADS, HEAD_DIM = 14, 2, 64
 FLASH_PER_STEP = {"flash_fwd": 2 * N_LAYERS, "flash_bwd_dq": N_LAYERS,
                   "flash_bwd_dkv": N_LAYERS}
 PAPER_PER_STEP = {**TRAIN_PER_STEP, **FLASH_PER_STEP}
+# the quantized base at the paper's setting: --quantize runs, 3 steps each
+QUANT_RUNS, QUANT_STEPS = ("int8", "nf4"), 3
+QM = PAPER_BATCH * PAPER_SEQ          # rows through every linear: 256
+# method -> (forward, dx) kernel over that base
+QUANT_KERNELS = {"int8": ("lora_fused_q", "lora_dx_q"),
+                 "int4": ("lora_fused_q4", "lora_dx_q4"),
+                 "nf4": ("lora_fused_q4", "lora_dx_q4")}
+# the ragged odd-K case of the quantized kernels' check: (M, K, N)
+QUANT_RAGGED = (50, 97, 131)
+
+
+def quant_per_step(method):
+    """Launches per step with ``--quantize method``: the paper path's, with
+    the quantized forward and dx in place of the dense ones (dA/dB keep
+    ``lora_dab``, which never reads W0)."""
+    fwd, dx = QUANT_KERNELS[method]
+    return {**PAPER_PER_STEP, "lora_fused_fwd": 0, "lora_dx": 0,
+            fwd: TRAIN_PER_STEP["lora_fused_fwd"],
+            dx: TRAIN_PER_STEP["lora_dx"]}
+
+
 # flash kernels vs their plain versions: bf16 in KERNEL_TOL's scheme with
 # the absolute floor relative to each output's largest magnitude (p and ds
 # are rounded to bf16 from f32 values whose summation order differs, so a
@@ -180,9 +218,10 @@ def _cold_sets(make, nbytes):
     return [first] + [tuple(t.clone() for t in first) for _ in range(n - 1)]
 
 
-def _time_ms(fn, sets):
+def _time_ms(fn, sets, calls=2000):
     """Device time of one call: a CUDA graph of one call per input set,
-    replayed, timed with CUDA events (host launch cost excluded)."""
+    replayed until about ``calls`` calls, timed with CUDA events (host
+    launch cost excluded)."""
     import torch
     # one side stream for every timing: cuBLAS keeps a workspace for each
     # stream it has run on until the process ends
@@ -201,7 +240,7 @@ def _time_ms(fn, sets):
             fn(*args)
     g.replay()
     torch.cuda.synchronize()
-    reps = max(1, 2000 // len(sets))
+    reps = max(1, calls // len(sets))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -446,6 +485,120 @@ def rmsnorm_train_shape(torch, rn):
             "bound_ms": bound, "bound_by": by}
 
 
+# ------------------------------------------------------ quantized base
+
+#: calls per timing of a quantized kernel or its plain version (each call
+#: at the path's shapes takes a fraction of a millisecond)
+QUANT_CALLS = 400
+
+
+def _quant_cases(torch, quant, gen, dtype, method, M, K, N):
+    """make() of the quantized kernels' inputs at one shape: x [M, K], the
+    codes and scale of a random W0 [K, N] in ``method``'s format, a [K, r],
+    b [r, N] (nonzero), g [M, N], and W0 dequantized to ``dtype`` (the
+    operand of the matmul context)."""
+    key = "q" if method == "int8" else "q4"
+
+    def make():
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        leaf = quant.quantize_leaf(rn(K, N) * K ** -0.5, method)
+        return (rn(M, K).to(dtype), leaf[key], leaf["scale"],
+                (rn(K, RANK) * RANK ** -0.5).to(dtype),
+                (rn(RANK, N) * 0.1).to(dtype), rn(M, N).to(dtype),
+                quant.maybe_dequant(leaf, dtype))
+    return make
+
+
+def _quant_calls(torch, lq, lp4, method):
+    """{kernel: (kernel, plain version, matmul context)}, each a call on
+    the inputs of ``_quant_cases``."""
+    if method == "int8":
+        fwd, dx = lq.lora_fused_q, lq.lora_dx_q
+        fwd_ref, dx_ref = lq.lora_fused_q_ref, lq.lora_dx_q_ref
+    else:
+        fwd, dx, fwd_ref, dx_ref = (
+            functools.partial(f, method=method) for f in (
+                lp4.lora_fused_q4, lp4.lora_dx_q4, lp4.lora_fused_q4_ref,
+                lp4.lora_dx_q4_ref))
+    f, d = QUANT_KERNELS[method]
+    return {f: (lambda x, q, s, a, b, g, w: fwd(x, q, s, a, b),
+                lambda x, q, s, a, b, g, w: fwd_ref(x, q, s, a, b),
+                lambda x, q, s, a, b, g, w: torch.matmul(x, w)),
+            d: (lambda x, q, s, a, b, g, w: dx(g, q, s, a, b),
+                lambda x, q, s, a, b, g, w: dx_ref(g, q, s, a, b),
+                lambda x, q, s, a, b, g, w: torch.matmul(g, w.T))}
+
+
+def check_quant_kernels(torch, quant, lq, lp4):
+    """The quantized LoRA kernels against their plain versions for int8,
+    int4 and nf4, in f32 (summation order only, rtol = atol = 1e-4) and
+    bf16, at the paper path's shapes (M 256) and the ragged odd-K case;
+    times, bounds and the matmul context in bf16 at the path's shapes.
+    Returns ({(kernel, method): [shape figures]}, {(kernel, method):
+    ragged-case errors})."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    f32_tol = dict(rtol=1e-4, atol=1e-4)
+    figures, ragged = {}, {}
+    for method in QUANT_KERNELS:
+        calls = _quant_calls(torch, lq, lp4, method)
+        for name in calls:
+            figures[(name, method)] = []
+        for M_, K, N in [(QM, K, N) for K, N in LINEARS] + [QUANT_RAGGED]:
+            errs = {}
+            for dtype, tol in ((torch.float32, f32_tol),
+                               (torch.bfloat16, KERNEL_TOL)):
+                args = _quant_cases(torch, quant, gen, dtype, method, M_, K,
+                                    N)()
+                for name, (kern, plain, _) in calls.items():
+                    got, want = kern(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    errs[(name, dtype)] = _close_scaled(
+                        got, want, tol,
+                        f"{name} {method} {dtype} M={M_} K={K} N={N}")
+            if (M_, K, N) == QUANT_RAGGED:
+                for name in calls:
+                    ragged[(name, method)] = {
+                        "M": M_, "K": K, "N": N,
+                        "max_abs_err": errs[(name, torch.bfloat16)],
+                        "max_abs_err_f32": errs[(name, torch.float32)]}
+                continue
+            # reads x (or g), the codes, the scale, A and B; writes y (dx)
+            codes = K * N if method == "int8" else (K + 1) // 2 * N
+            nbytes = 2 * M_ * (K + N) + codes + 4 * N \
+                + 2 * (K * RANK + RANK * N)
+            flops = 2 * M_ * K * N + 2 * M_ * RANK * (K + N)
+            bound, by = _bound_ms(nbytes, flops)
+            sets = _cold_sets(_quant_cases(torch, quant, gen, torch.bfloat16,
+                                           method, M_, K, N), nbytes)
+            for name, (kern, plain, mm) in calls.items():
+                dense = "lora_fused_fwd" if name.startswith("lora_fused") \
+                    else "lora_dx"
+                figures[(name, method)].append({
+                    "K": K, "N": N, "M": M_, "r": RANK, "method": method,
+                    "launches_per_train_step": TRAIN_SHAPES[dense][(K, N)],
+                    "max_abs_err": errs[(name, torch.bfloat16)],
+                    "max_abs_err_f32": errs[(name, torch.float32)],
+                    "ms": _time_ms(kern, sets, QUANT_CALLS),
+                    "plain_ms": _time_ms(plain, sets, QUANT_CALLS),
+                    "library_ms": None,
+                    "matmul_ms": _time_ms(mm, sets, QUANT_CALLS),
+                    "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                    "flops": flops})
+            del sets
+    return figures, ragged
+
+
+def _tree_bytes(tree, only_quantized=False):
+    """Bytes of a parameter tree's tensors (with ``only_quantized``, of its
+    quantized weight leaves alone)."""
+    from repro_torch.core import quant
+    if isinstance(tree, dict):
+        if quant.is_quantized(tree) or quant.is_packed(tree):
+            return sum(t.numel() * t.element_size() for t in tree.values())
+        return sum(_tree_bytes(v, only_quantized) for v in tree.values())
+    return 0 if only_quantized else tree.numel() * tree.element_size()
+
+
 # ------------------------------------------------------- flash attention
 
 
@@ -588,10 +741,11 @@ def _grad_leaves(tree, prefix=""):
     return {} if tree is None else {prefix: tree.float()}
 
 
-def compare_grads(torch, cfg, params, batch):
+def compare_grads(torch, cfg, params, batch, quantize="none"):
     """One value_and_grad through the kernels, the plain backend in bf16
-    and the plain backend in f32, on the same (bf16-valued) weights.
-    Returns the loss and per-leaf relative L2 distances."""
+    and the plain backend in f32, on the same (bf16-valued) weights, whose
+    frozen base is in the ``quantize`` format. Returns the loss and
+    per-leaf relative L2 distances."""
     import dataclasses
     from repro_torch.api.policy import ExecutionPolicy
     from repro_torch.core import mesp
@@ -602,7 +756,7 @@ def compare_grads(torch, cfg, params, batch):
     loss, grads = {}, {}
     for name, (backend, c, p) in runs.items():
         l, g = mesp.value_and_grad(p, c, batch, policy=ExecutionPolicy(
-            backend=backend, device="cuda"))
+            backend=backend, device="cuda", quantize=quantize))
         loss[name], grads[name] = float(l), _grad_leaves(g)
         if not math.isfinite(loss[name]) or not all(
                 bool(torch.isfinite(t).all()) for t in grads[name].values()):
@@ -645,11 +799,12 @@ def _release(torch):
 ENGINE_NAMES = ("mesp_cuda", "mesp", "mebp", "store_h")
 
 
-def peak_memory(torch, cfg, params, batch, runs=None):
+def peak_memory(torch, cfg, params, batch, runs=None, quantize="none"):
     """Peak allocated bytes of one value_and_grad per (engine, remat) of
-    ``runs`` (by default each engine with remat on), and above what was
-    allocated before it (weights, batch). Keys: the engine, with
-    "/remat_off" appended when remat is off."""
+    ``runs`` (by default each engine with remat on) over a frozen base in
+    the ``quantize`` format, and above what was allocated before it
+    (weights, batch). Keys: the engine, with "/remat_off" appended when
+    remat is off."""
     from repro_torch.api.engines import ENGINES
     from repro_torch.api.policy import ExecutionPolicy
     from repro_torch.core import mesp
@@ -661,19 +816,22 @@ def peak_memory(torch, cfg, params, batch, runs=None):
         loss, grads = mesp.value_and_grad(
             params, cfg, batch,
             policy=ExecutionPolicy(backend=ENGINES[engine], device="cuda",
-                                   remat=remat))
+                                   remat=remat, quantize=quantize))
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         key = engine if remat else f"{engine}/remat_off"
-        out[key] = {"peak_bytes": peak, "above_start_bytes": peak - base}
+        out[key] = {"peak_bytes": peak, "above_start_bytes": peak - base,
+                    "start_bytes": base}
         del loss, grads
     return out
 
 
 def _f32(tree):
+    """Floating leaves in f32; a quantized leaf's integer codes stay as
+    they are (the f32 run dequantizes the same bytes to f32)."""
     if isinstance(tree, dict):
         return {k: _f32(v) for k, v in tree.items()}
-    return tree.float()
+    return tree.float() if tree.is_floating_point() else tree
 
 
 def compare_logits(torch, cfg, params, steps=4):
@@ -742,7 +900,10 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lora_fused as lf
+    from repro_torch.core import quant
     from repro_torch.kernels import lora_grouped as lg
+    from repro_torch.kernels import lora_pack4 as lp4
+    from repro_torch.kernels import lora_quant as lq
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels.rope import rope_tables
@@ -770,6 +931,7 @@ def main() -> int:
     training = check_training_kernels(torch, lf, rn)
     rms_train = rmsnorm_train_shape(torch, rn)
     flash = check_flash(torch, fa, rope_tables)
+    qfig, qragged = check_quant_kernels(torch, quant, lq, lp4)
 
     # the main path: counts zeroed just before, read just after
     _release(torch)
@@ -860,8 +1022,52 @@ def main() -> int:
         + [("mesp_cuda", False), ("mebp", False)])
     del params, batch
 
+    # the quantized base at the paper's setting: counts zeroed just before,
+    # read just after each run
+    qruns, qcounts = {}, {}
+    for method in QUANT_RUNS:
+        _release(torch)
+        ops.reset_launch_counts()
+        run = train_cli.train(paper_cmd + ["--steps", str(QUANT_STEPS),
+                                           "--quantize", method])
+        qcounts[method] = ops.launch_counts()
+        qwant = {k: v * QUANT_STEPS for k, v in quant_per_step(method).items()}
+        if qcounts[method] != qwant:
+            raise AssertionError(f"--quantize {method}: launch counts "
+                                 f"{qcounts[method]}, expected {qwant} for "
+                                 f"{QUANT_STEPS} steps")
+        if len(run["losses"]) != QUANT_STEPS or \
+                not all(map(math.isfinite, run["losses"])):
+            raise AssertionError(f"--quantize {method}: losses "
+                                 f"{run['losses']}")
+        qsecs = run["seconds"]
+        qruns[method] = {
+            "losses": run["losses"], "seconds": qsecs,
+            "ms_per_step": 1e3 * sum(qsecs[1:]) / max(1, len(qsecs) - 1),
+            "first_step_ms": 1e3 * qsecs[0], "launches": qcounts[method],
+            "launches_per_step": quant_per_step(method),
+            "params_bytes": _tree_bytes(run["params"]),
+            "frozen_base_bytes": _tree_bytes(run["params"], True)}
+        del run
+    _release(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qparams = _with_b(torch, model_lib.init_params(
+        cfg, generator=gen, quantize="nf4"), gen)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+        make_batch_iterator(cfg.vocab, PAPER_SEQ, PAPER_BATCH,
+                            seed=0)).items()}
+    quant_grads = compare_grads(torch, cfg, qparams, batch, "nf4")
+    quant_peaks = peak_memory(
+        torch, cfg, qparams, batch,
+        [(e, True) for e in ("mesp_cuda", "mesp", "mebp")]
+        + [(e, False) for e in ("mesp_cuda", "mesp", "mebp")], "nf4")
+    quant_params_bytes = {"params_bytes": _tree_bytes(qparams),
+                          "frozen_base_bytes": _tree_bytes(qparams, True)}
+    del qparams, batch
+
     paths = lambda k: {"serve": counts[k], "train": tcounts[k],
-                       **{run: c[k] for run, c in pcounts.items()}}
+                       **{run: c[k] for run, c in pcounts.items()},
+                       **{f"train_{m}": c[k] for m, c in qcounts.items()}}
     train_entry = lambda name, cu, line, fn: kernel_entry(
         name, f"src/repro_torch/csrc/{cu}", line, fn, training[name],
         paths(name), TRAIN_STEPS, step="train",
@@ -874,6 +1080,31 @@ def main() -> int:
         train_step=f"batch {PAPER_BATCH} x seq {PAPER_SEQ}",
         library_fwd_bwd_ms=flash[name][0]["library_fwd_bwd_ms"] * N_LAYERS,
         tol_f32=FLASH_F32_TOL)
+
+
+    def quant_entry(name, cu, line, fn, method):
+        shapes = qfig[(name, method)]
+        extra = {}
+        if method == "nf4":     # the same kernel body over int4 codes
+            int4 = qfig[(name, "int4")]
+            extra = {"int4_shapes": int4, "int4_ms": sum(
+                s["ms"] * s["launches_per_train_step"] for s in int4),
+                "int4_max_abs_err": max(s["max_abs_err"] for s in int4),
+                "ragged_int4": qragged[(name, "int4")]}
+        e = kernel_entry(
+            name, f"src/repro_torch/csrc/{cu}", line, fn, shapes,
+            paths(name), QUANT_STEPS, step="train", path=f"train_{method}",
+            train_step=f"batch {PAPER_BATCH} x seq {PAPER_SEQ}, --quantize "
+                       f"{method}", method=method,
+            matmul_ms=sum(s["matmul_ms"] * s["launches_per_train_step"]
+                          for s in shapes),
+            ragged=qragged[(name, method)], **extra)
+        e["max_abs_err"] = max(
+            [e["max_abs_err"], qragged[(name, method)]["max_abs_err"]]
+            + ([extra["int4_max_abs_err"],
+                extra["ragged_int4"]["max_abs_err"]] if extra else []))
+        return e
+
     kernels = [
         kernel_entry("lora_grouped_fwd",
                      "src/repro_torch/csrc/lora_grouped_fwd.cu",
@@ -914,6 +1145,22 @@ def main() -> int:
                     "src/repro/kernels/flash_attention.py:488",
                     "src/repro/kernels/flash_attention.py:"
                     "flash_attention_bwd (_bwd_dkv_kernel :318)"),
+        quant_entry("lora_fused_q", "lora_quant.cu",
+                    "src/repro/kernels/lora_quant.py:93",
+                    "src/repro/kernels/lora_quant.py:lora_fused_q "
+                    "(_lora_fused_q_kernel :41)", "int8"),
+        quant_entry("lora_dx_q", "lora_quant.cu",
+                    "src/repro/kernels/lora_quant.py:158",
+                    "src/repro/kernels/lora_quant.py:lora_dx_q "
+                    "(_lora_dx_q_kernel :114)", "int8"),
+        quant_entry("lora_fused_q4", "lora_pack4.cu",
+                    "src/repro/kernels/lora_pack4.py:125",
+                    "src/repro/kernels/lora_pack4.py:lora_fused_q4 "
+                    "(_lora_fused_q4_kernel :71, _unpack_tile :54)", "nf4"),
+        quant_entry("lora_dx_q4", "lora_pack4.cu",
+                    "src/repro/kernels/lora_pack4.py:197",
+                    "src/repro/kernels/lora_pack4.py:lora_dx_q4 "
+                    "(_lora_dx_q4_kernel :148)", "nf4"),
     ]
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))
@@ -953,6 +1200,14 @@ def main() -> int:
         "grads_vs_plain": paper_grads, "grad_tol": GRAD_TOL,
         "loss_tol": LOSS_TOL, "b_scale": B_SCALE,
         "peak_memory_one_value_and_grad": paper_peaks, "device": name}}))
+    print(json.dumps({"train_quant": {
+        "arch": "qwen2.5-0.5b", "engine": "mesp_cuda", "dtype": "bfloat16",
+        "batch": PAPER_BATCH, "seq": PAPER_SEQ, "steps": QUANT_STEPS,
+        "runs": qruns, "nf4": {
+            **quant_params_bytes, "grads_vs_plain": quant_grads,
+            "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, "b_scale": B_SCALE,
+            "peak_memory_one_value_and_grad": quant_peaks},
+        "device": name}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,15 +3,16 @@
 Builds full-width qwen2.5-0.5b (bf16, random weights from seed 0), takes
 batches of ``--batch`` x ``--seq`` tokens from the port's data pipeline (by
 default 4 x 48, as ``chip_smoke.py`` first trains it; ``--batch 1 --seq
-256`` is the paper's setting, where attention runs the flash kernels),
-runs two warm SGD steps, then traces ``--steps`` steps with
+256`` is the paper's setting, where attention runs the flash kernels;
+``--quantize int8|int4|nf4`` keeps the frozen base in that format), runs
+two warm SGD steps, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON line: wall ms per step, device busy
 ms per step (the union of kernel intervals on the card's timeline), the
 device idle share, device kernels launched per step, and the kernels that
 took the most device time.
 
     PYTHONPATH=src python scripts/profile_torch_train.py [--engine mesp_cuda] \
-        [--batch 1 --seq 256]
+        [--batch 1 --seq 256] [--quantize nf4]
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.api.engines import ENGINES
 from repro_torch.api.policy import ExecutionPolicy
 from repro_torch.configs import get_config
-from repro_torch.core import mesp
+from repro_torch.core import mesp, quant
 from repro_torch.data import make_batch_iterator
 from repro_torch.models import model as model_lib
 
@@ -37,14 +38,17 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=48)
+    ap.add_argument("--quantize", default="none", choices=quant.METHODS)
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     device = torch.device("cuda")
     cfg = get_config("qwen2.5-0.5b")
     params = model_lib.init_params(
-        cfg, generator=torch.Generator(device=device).manual_seed(0))
-    policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device)
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        quantize=ns.quantize)
+    policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
+                             quantize=ns.quantize)
     data = make_batch_iterator(cfg.vocab, ns.seq, ns.batch, seed=0)
 
     def step(params):
@@ -72,6 +76,7 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({"profile": {
         "engine": ns.engine, "batch": ns.batch, "seq": ns.seq,
+        "quantize": ns.quantize,
         "steps": ns.steps, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,

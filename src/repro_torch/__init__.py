@@ -7,8 +7,9 @@ each module's counterpart sits at the same path there.
 
 Ported so far: the multi-tenant LoRA serving path of a dense model
 (``repro_torch.launch.serve``) and the MeSP training step of that model
-(``repro_torch.launch.train``, sequences under 64 tokens on the kernel
-path), with the grouped-LoRA, LoRA forward / dx / dA-dB and RMSNorm forward
-/ backward kernels written by hand in CUDA for Hopper
+(``repro_torch.launch.train``) at any sequence length, over a bf16 or a
+quantized (int8, packed int4 / nf4) frozen base, with the grouped-LoRA,
+LoRA forward / dx / dA-dB (dense and quantized), RMSNorm forward / backward
+and flash-attention kernels written by hand in CUDA for Hopper
 (``repro_torch/csrc``).
 """

@@ -10,6 +10,11 @@
       kernel or raises;
     - ``plain``: autograd of plain forwards (the MeBP baseline);
     - ``store_h``: MeSP with ``h = x @ A`` saved (paper Table 5 ablation).
+* ``quantize``: the frozen base's format, one of ``core.quant.METHODS``
+  ("none", "int8", "int4", "nf4"), as ``init_params(quantize=)`` made it.
+  The ops dispatch on the weight leaves themselves; ``mesp.value_and_grad``
+  raises when the params' leaves hold another format, so a run cannot
+  train a base other than the one it asked for.
 * ``device``: where parameters, caches and inputs are made.
 * ``remat``: recompute each block in the backward from its stored input
   (``torch.utils.checkpoint`` per block, the paper's §4.3 schedule).
@@ -25,6 +30,8 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.quant import METHODS
+
 #: valid ``backend`` values
 BACKENDS = ("structured", "cuda", "plain", "store_h")
 
@@ -32,6 +39,7 @@ BACKENDS = ("structured", "cuda", "plain", "store_h")
 @dataclasses.dataclass(frozen=True)
 class ExecutionPolicy:
     backend: str = "structured"
+    quantize: str = "none"
     device: torch.device = torch.device("cpu")
     remat: bool = True
     fuse_rope: bool = False
@@ -40,6 +48,9 @@ class ExecutionPolicy:
         if self.backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}; "
                              f"expected one of {BACKENDS}")
+        if self.quantize not in METHODS:
+            raise ValueError(f"unknown quantize method {self.quantize!r}; "
+                             f"expected one of {METHODS}")
         object.__setattr__(self, "device", torch.device(self.device))
 
 

@@ -5,9 +5,11 @@ The caller converts the JAX tree to numpy arrays on its side
 (``jax.tree_util.tree_map(np.asarray, params)``), so this module needs no
 JAX. Keys and shapes are kept as they are: stacked ``[L, ...]`` block
 leaves, ``{"w", "a", "b"[, "bias"]}`` linears and ``AdapterStore``-stacked
-``[L, R, d, r]`` adapter leaves all come through unchanged. Quantized
-leaves (``{"q", "scale"}`` int8, ``{"q4", "scale", ...}`` packed 4-bit)
-belong to the quantized slice, which is not ported yet: they raise.
+``[L, R, d, r]`` adapter leaves all come through unchanged, and so do
+quantized weight leaves (``core/quant.py``: ``{"q", "scale"}`` int8,
+``{"q4", "scale"[, "code"][, "kpad"]}`` packed 4-bit): their integer bytes
+keep their dtype, and their ``scale`` and ``code`` stay f32 whatever
+``dtype`` is asked for, since they define the dequantization.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-_QUANT_KEYS = ("q", "q4")
+from repro_torch.core import quant
 
 # numpy has no bfloat16; the JAX side hands bf16 leaves over as ml_dtypes'
 # bfloat16, which numpy reports by name and torch cannot read directly
@@ -36,14 +38,13 @@ def _leaf(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def from_numpy_tree(tree, device="cpu", dtype: Optional[torch.dtype] = None):
     """Nested dicts/lists of numpy arrays -> the same nesting of tensors on
-    ``device``; floating leaves are cast to ``dtype`` when it is given."""
+    ``device``; floating leaves are cast to ``dtype`` when it is given,
+    except inside a quantized weight leaf, which keeps its dtypes."""
     if isinstance(tree, dict):
         # a quantized leaf holds "scale" beside "q"/"q4"; a bare "q" key is
         # the attention's query linear
-        if "scale" in tree and any(k in tree for k in _QUANT_KEYS):
-            raise NotImplementedError(
-                "quantized weight leaves (int8 {'q','scale'} / packed "
-                "{'q4','scale'}) wait for the port's quantized slice")
+        if quant.is_quantized(tree) or quant.is_packed(tree):
+            return {k: _leaf(v, device, None) for k, v in tree.items()}
         return {k: from_numpy_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy_tree(v, device, dtype) for v in tree)

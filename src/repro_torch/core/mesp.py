@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import quant
 from repro_torch.models import model as model_lib
 from repro_torch.optim import optimizers
 
@@ -26,7 +27,12 @@ def value_and_grad(params, cfg: ArchConfig, batch: dict, *,
                    policy: ExecutionPolicy = STRUCTURED):
     """(loss, grads over the LoRA factors): the grads tree has the params'
     nesting, with None at frozen leaves. ``params`` is left as it is: the
-    trainable leaves are differentiated through detached copies."""
+    trainable leaves are differentiated through detached copies. The
+    frozen base's format must be ``policy.quantize``."""
+    found = quant.tree_method(params)
+    if found != policy.quantize:
+        raise ValueError(f"the frozen base is {found!r} but "
+                         f"policy.quantize is {policy.quantize!r}")
     leaves = []
 
     def lift(tree, mask):

@@ -1,5 +1,7 @@
 // The tiled product shared by the LoRA forward (lora_fused_fwd.cu) and the
-// LoRA input gradient (lora_dx.cu), written by hand for Hopper:
+// LoRA input gradient (lora_dx.cu), and by their variants over a quantized
+// W0 (lora_quant.cu: int8; lora_pack4.cu: packed int4 / nf4), written by
+// hand for Hopper:
 //
 //   y[m, n] = sum_k P[m, k] Q[k, n]  +  s * sum_j L[m, j] R[j, n]
 //
@@ -13,6 +15,22 @@
 //     (no transposed copy), L = dh [M, r] given, R = A^T read from A [K, r],
 //     s = 1.
 //
+// W0's format F (WFmt) is a template parameter. kDense: W0 in T. The
+// quantized formats hold a per-output-channel scale S [N] (f32) beside
+// integer codes: kInt8 one int8 per weight; kInt4 / kNF4 two 4-bit codes
+// per byte along K (byte row j: row 2j in the low nibble, 2j + 1 in the
+// high one; int4 sign-extended, nf4 an index into NF4_CODE). Each code is
+// turned into a weight in T (the integers are exact in T; nf4's codebook
+// entries are rounded to T) and staged in shared memory as f32. The scale
+// is not applied per weight: it commutes with the sum over K, so the
+// forward applies it once per output in the epilogue,
+//   y = round(acc * S[n] + s * (round(h) @ B)),
+// and dx, whose sum runs over N, folds it onto g as P is staged,
+//   P = round_T(g * round_T(S)).
+// Those are the roundings of the TPU kernels (src/repro/kernels/
+// lora_quant.py, lora_pack4.py), kept with __fmul_rn / __fadd_rn where FMA
+// contraction would change the bits.
+//
 // Design (simple and right first, CUDA cores, f32 or bf16 in):
 // * A block of 256 threads owns a BM x BN = 64 x 64 tile of y and walks the
 //   contraction in slabs of BK = 32. Each thread sums a 4 x 4 micro-tile in
@@ -21,13 +39,26 @@
 //   the current slab is multiplied, so their latency hides behind the
 //   arithmetic; they are converted only when stored to shared memory.
 // * Ragged edges (any M, K, N) are masked on load and store; nothing is
-//   padded in device memory.
+//   padded in device memory. A packed W0 with odd K has a pad nibble in its
+//   last byte row; it meets an x column the loader has masked to zero, and
+//   the loader zeroes it too.
 // * The low-rank term is added in the epilogue from shared memory: L's
 //   64 x r rows and R's r x 64 columns (r <= RMAX).
 // Not yet: tensor cores (mma / wgmma), TMA, split-K for the narrow outputs.
 #pragma once
 
+#include <cstdint>
+
 #include "common.cuh"
+
+// *p, or zero where ``ok`` is false, for W0's integer codes (beside the
+// f32 and bf16 overloads of common.cuh)
+__device__ __forceinline__ int8_t load_or_zero(const int8_t* p, bool ok) {
+  return ok ? *p : int8_t(0);
+}
+__device__ __forceinline__ uint8_t load_or_zero(const uint8_t* p, bool ok) {
+  return ok ? *p : uint8_t(0);
+}
 
 namespace lora_gemm {
 
@@ -35,14 +66,54 @@ constexpr int BM = 64, BN = 64, BK = 32, THREADS = 256;
 constexpr int RMAX = 32;            // largest LoRA rank the kernels take
 constexpr int PER = BM * BK / THREADS;   // slab elements loaded per thread
 constexpr int LPER = BK * RMAX / THREADS;  // A-slab elements per thread (fwd)
+// packed W0: a slab's BK x BN (fwd) or BN x BK (dx) weights are
+// BK * BN / 2 bytes, PB contiguous bytes per thread
+constexpr int PB = BK * BN / 2 / THREADS;
 
-template <typename T, bool DX>
+enum class WFmt { kDense, kInt8, kInt4, kNF4 };
+
+__host__ __device__ constexpr bool is_packed(WFmt f) {
+  return f == WFmt::kInt4 || f == WFmt::kNF4;
+}
+
+// W0's stored element type
+template <typename T, WFmt F> struct WStore { using type = T; };
+template <typename T> struct WStore<T, WFmt::kInt8> { using type = int8_t; };
+template <typename T> struct WStore<T, WFmt::kInt4> { using type = uint8_t; };
+template <typename T> struct WStore<T, WFmt::kNF4> { using type = uint8_t; };
+
+// NF4_CODE of src/repro_torch/core/quant.py (each value exact in f32)
+__constant__ float kNF4[16] = {
+    -1.0f, -0.6961928009986877f, -0.5250730514526367f,
+    -0.39491748809814453f, -0.28444138169288635f, -0.18477343022823334f,
+    -0.09105003625154495f, 0.0f, 0.07958029955625534f, 0.16093020141124725f,
+    0.24611230194568634f, 0.33791524171829224f, 0.44070982933044434f,
+    0.5626170039176941f, 0.7229568362236023f, 1.0f};
+
+// one 4-bit code as a weight in T, as f32; cs: the codebook rounded to T
+template <WFmt F>
+__device__ __forceinline__ float nibble_value(unsigned nib, const float* cs) {
+  if constexpr (F == WFmt::kInt4) {
+    return static_cast<float>(static_cast<int>(nib ^ 8u) - 8);
+  } else {
+    return cs[nib];
+  }
+}
+
+template <typename T, bool DX, WFmt F = WFmt::kDense>
 struct Slab {
-  T p[PER], q[PER], l[LPER];
+  using W = typename WStore<T, F>::type;
+  static constexpr int QN = is_packed(F) ? PB : PER;
+  T p[PER];
+  W q[QN];
+  T l[LPER];
+  float sv[PER];  // dx over a quantized W0: S at the slab's P columns
+  bool lo_ok, hi_ok;  // packed W0: this thread's low / high nibbles are in
 
   // Start the loads of the slab that begins at k0 (masked, raw type).
   __device__ __forceinline__ void load(const T* __restrict__ P,
-                                       const T* __restrict__ Q,
+                                       const W* __restrict__ Q,
+                                       const float* __restrict__ S,
                                        const T* __restrict__ lo_in, int M,
                                        int Kc, int Nout, int r, int m0,
                                        int n0, int k0) {
@@ -53,18 +124,35 @@ struct Slab {
       for (int e = 0; e < PER; ++e)
         p[e] = load_or_zero(P + (size_t)m * Kc + kk + e,
                             m < M && kk + e < Kc);
+      if constexpr (DX && F != WFmt::kDense) {
+#pragma unroll
+        for (int e = 0; e < PER; ++e) sv[e] = kk + e < Kc ? S[kk + e] : 0.f;
+      }
     }
-    if (!DX) {  // Q = W0 [Kc, Nout]: thread -> k row tid / 8, 8 contiguous n
+    if constexpr (is_packed(F)) {
+      if (!DX) {  // W0 bytes [ceil(Kc/2), Nout]: byte row tid / 16, 4 n
+        const int j = k0 / 2 + (tid >> 4), n = n0 + (tid & 15) * PB;
+        lo_ok = 2 * j < Kc;
+        hi_ok = 2 * j + 1 < Kc;
+#pragma unroll
+        for (int e = 0; e < PB; ++e)
+          q[e] = load_or_zero(Q + (size_t)j * Nout + n + e,
+                              lo_ok && n + e < Nout);
+      } else {  // W0 bytes [ceil(Nout/2), Kc]: byte row tid / 8, 4 k
+        const int j = n0 / 2 + (tid >> 3), kk = k0 + (tid & 7) * PB;
+        lo_ok = 2 * j < Nout;
+        hi_ok = 2 * j + 1 < Nout;
+#pragma unroll
+        for (int e = 0; e < PB; ++e)
+          q[e] = load_or_zero(Q + (size_t)j * Kc + kk + e,
+                              lo_ok && kk + e < Kc);
+      }
+    } else if (!DX) {  // Q = W0 [Kc, Nout]: thread -> k row tid / 8, 8 n
       const int k = k0 + (tid >> 3), n = n0 + (tid & 7) * PER;
 #pragma unroll
       for (int e = 0; e < PER; ++e)
         q[e] = load_or_zero(Q + (size_t)k * Nout + n + e,
                             k < Kc && n + e < Nout);
-#pragma unroll
-      for (int e = 0; e < LPER; ++e) {  // A [Kc, r] rows k0 .. k0 + BK
-        const int i = tid + e * THREADS, k = k0 + i / RMAX, j = i % RMAX;
-        l[e] = load_or_zero(lo_in + (size_t)k * r + j, j < r && k < Kc);
-      }
     } else {  // Q = W0^T from W0 [Nout, Kc]: thread -> n row tid / 4
       const int n = n0 + (tid >> 2), kk = k0 + (tid & 3) * PER;
 #pragma unroll
@@ -72,52 +160,102 @@ struct Slab {
         q[e] = load_or_zero(Q + (size_t)n * Kc + kk + e,
                             n < Nout && kk + e < Kc);
     }
+    if (!DX) {
+#pragma unroll
+      for (int e = 0; e < LPER; ++e) {  // A [Kc, r] rows k0 .. k0 + BK
+        const int i = tid + e * THREADS, k = k0 + i / RMAX, j = i % RMAX;
+        l[e] = load_or_zero(lo_in + (size_t)k * r + j, j < r && k < Kc);
+      }
+    }
   }
 
+  // cs: the nf4 codebook rounded to T (shared memory; kNF4 only)
   __device__ __forceinline__ void store(float (*Ps)[BM], float (*Qs)[BN],
-                                        float (*Ls)[RMAX]) const {
+                                        float (*Ls)[RMAX],
+                                        const float* cs) const {
     const int tid = threadIdx.x;
     {
       const int row = tid >> 2, kk = (tid & 3) * PER;
+      if constexpr (DX && F != WFmt::kDense) {
+        // g * S in g's type, S rounded to it first
 #pragma unroll
-      for (int e = 0; e < PER; ++e) Ps[kk + e][row] = to_f(p[e]);
+        for (int e = 0; e < PER; ++e)
+          Ps[kk + e][row] =
+              round_to<T>(__fmul_rn(to_f(p[e]), round_to<T>(sv[e])));
+      } else {
+#pragma unroll
+        for (int e = 0; e < PER; ++e) Ps[kk + e][row] = to_f(p[e]);
+      }
     }
-    if (!DX) {
+    if constexpr (is_packed(F)) {
+      if (!DX) {  // byte row jj holds slab rows 2 jj, 2 jj + 1
+        const int jj = tid >> 4, nn = (tid & 15) * PB;
+#pragma unroll
+        for (int e = 0; e < PB; ++e) {
+          const unsigned b = q[e];
+          Qs[2 * jj][nn + e] = lo_ok ? nibble_value<F>(b & 15u, cs) : 0.f;
+          Qs[2 * jj + 1][nn + e] = hi_ok ? nibble_value<F>(b >> 4, cs) : 0.f;
+        }
+      } else {  // byte row jj holds tile columns 2 jj, 2 jj + 1
+        const int jj = tid >> 3, kk = (tid & 7) * PB;
+#pragma unroll
+        for (int e = 0; e < PB; ++e) {
+          const unsigned b = q[e];
+          Qs[kk + e][2 * jj] = lo_ok ? nibble_value<F>(b & 15u, cs) : 0.f;
+          Qs[kk + e][2 * jj + 1] = hi_ok ? nibble_value<F>(b >> 4, cs) : 0.f;
+        }
+      }
+    } else if (!DX) {
       const int kk = tid >> 3, nn = (tid & 7) * PER;
 #pragma unroll
-      for (int e = 0; e < PER; ++e) Qs[kk][nn + e] = to_f(q[e]);
+      for (int e = 0; e < PER; ++e) Qs[kk][nn + e] = wval(q[e]);
+    } else {
+      const int nn = tid >> 2, kk = (tid & 3) * PER;
+#pragma unroll
+      for (int e = 0; e < PER; ++e) Qs[kk + e][nn] = wval(q[e]);
+    }
+    if (!DX) {
 #pragma unroll
       for (int e = 0; e < LPER; ++e) {
         const int i = tid + e * THREADS;
         Ls[i / RMAX][i % RMAX] = to_f(l[e]);
       }
-    } else {
-      const int nn = tid >> 2, kk = (tid & 3) * PER;
-#pragma unroll
-      for (int e = 0; e < PER; ++e) Qs[kk + e][nn] = to_f(q[e]);
     }
+  }
+
+  // a dense or int8 weight as f32 (int8 is exact in T)
+  __device__ __forceinline__ static float wval(T v) { return to_f(v); }
+  __device__ __forceinline__ static float wval(int8_t v) {
+    return static_cast<float>(v);
   }
 };
 
-// P, Q as above; lo_in = A [Kc, r] (fwd) or dh [M, r] (dx);
-// lo_out = B [r, Nout] (fwd) or A [Nout, r] (dx); y [M, Nout].
-template <typename T, bool DX>
-__global__ void __launch_bounds__(THREADS, 2)
-    lora_gemm_kernel(const T* __restrict__ P, const T* __restrict__ Q,
-                     const T* __restrict__ lo_in, const T* __restrict__ lo_out,
-                     T* __restrict__ y, int M, int Kc, int Nout, int r,
-                     float scale) {
+// P, Q as above; S: W0's scale [N] (quantized F; nullptr for kDense);
+// lo_in = A [Kc, r] (fwd) or dh [M, r] (dx); lo_out = B [r, Nout] (fwd) or
+// A [Nout, r] (dx); y [M, Nout].
+template <typename T, bool DX, WFmt F>
+__device__ __forceinline__ void gemm_body(
+    const T* __restrict__ P, const typename WStore<T, F>::type* __restrict__ Q,
+    const float* __restrict__ S, const T* __restrict__ lo_in,
+    const T* __restrict__ lo_out, T* __restrict__ y, int M, int Kc, int Nout,
+    int r, float scale) {
   __shared__ __align__(16) float Ps[BK][BM];   // P slab, transposed: [k][m]
   __shared__ __align__(16) float Qs[BK][BN];   // Q slab: [k][n]
   __shared__ float Ls[BK][RMAX];               // A slab (fwd)
   __shared__ float Hs[BM][RMAX + 1];           // L rows of the tile
   __shared__ float Rs[RMAX][BN];               // R columns of the tile
+  __shared__ float Cs[16];                     // nf4 codebook, rounded to T
 
   const int tid = threadIdx.x;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int tm = tid >> 4, tn = tid & 15;      // 4 x 4 micro-tile
   const int hm = tid >> 2, hj = tid & 3;       // h sums (fwd): row, rank lane
   const int hgroups = (r + 3) / 4;             // rank lanes in use (uniform)
+
+  if constexpr (F == WFmt::kNF4) {
+    if (tid < 16) Cs[tid] = round_to<T>(kNF4[tid]);
+    __syncthreads();
+  }
 
   float acc[4][4];
 #pragma unroll
@@ -128,13 +266,13 @@ __global__ void __launch_bounds__(THREADS, 2)
 #pragma unroll
   for (int i = 0; i < RMAX / 4; ++i) hacc[i] = 0.f;
 
-  Slab<T, DX> slab;
-  slab.load(P, Q, lo_in, M, Kc, Nout, r, m0, n0, 0);
+  Slab<T, DX, F> slab;
+  slab.load(P, Q, S, lo_in, M, Kc, Nout, r, m0, n0, 0);
   for (int k0 = 0; k0 < Kc; k0 += BK) {
-    slab.store(Ps, Qs, Ls);
+    slab.store(Ps, Qs, Ls, Cs);
     __syncthreads();
     if (k0 + BK < Kc)
-      slab.load(P, Q, lo_in, M, Kc, Nout, r, m0, n0, k0 + BK);
+      slab.load(P, Q, S, lo_in, M, Kc, Nout, r, m0, n0, k0 + BK);
 #pragma unroll 8
     for (int kk = 0; kk < BK; ++kk) {
       const float4 pv = *reinterpret_cast<const float4*>(&Ps[kk][tm * 4]);
@@ -186,17 +324,48 @@ __global__ void __launch_bounds__(THREADS, 2)
       if (n >= Nout) continue;
       float d = 0.f;
       for (int j = 0; j < r; ++j) d = fmaf(Hs[row][j], Rs[j][col], d);
-      y[(size_t)m * Nout + n] = from_f<T>(acc[i][c] + scale * d);
+      if constexpr (!DX && F != WFmt::kDense)
+        // acc * S[n] + s * d, each product and the sum rounded apart
+        y[(size_t)m * Nout + n] = from_f<T>(
+            __fadd_rn(__fmul_rn(acc[i][c], S[n]), __fmul_rn(scale, d)));
+      else
+        y[(size_t)m * Nout + n] = from_f<T>(acc[i][c] + scale * d);
     }
   }
+}
+
+template <typename T, bool DX>
+__global__ void __launch_bounds__(THREADS, 2)
+    lora_gemm_kernel(const T* __restrict__ P, const T* __restrict__ Q,
+                     const T* __restrict__ lo_in, const T* __restrict__ lo_out,
+                     T* __restrict__ y, int M, int Kc, int Nout, int r,
+                     float scale) {
+  gemm_body<T, DX, WFmt::kDense>(P, Q, nullptr, lo_in, lo_out, y, M, Kc, Nout,
+                                 r, scale);
+}
+
+template <typename T, bool DX, WFmt F>
+__global__ void __launch_bounds__(THREADS, 2)
+    lora_gemm_q_kernel(const T* __restrict__ P,
+                       const typename WStore<T, F>::type* __restrict__ Q,
+                       const float* __restrict__ S,
+                       const T* __restrict__ lo_in,
+                       const T* __restrict__ lo_out, T* __restrict__ y, int M,
+                       int Kc, int Nout, int r, float scale) {
+  gemm_body<T, DX, F>(P, Q, S, lo_in, lo_out, y, M, Kc, Nout, r, scale);
+}
+
+inline int check_dims(int M, int Kc, int Nout, int r) {
+  if (M < 0 || Kc < 1 || Nout < 1 || r < 1 || r > RMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 template <bool DX>
 int launch(int dtype, const void* P, const void* Q, const void* lo_in,
            const void* lo_out, void* y, int M, int Kc, int Nout, int r,
            float scale, void* stream) {
-  if (M < 0 || Kc < 1 || Nout < 1 || r < 1 || r > RMAX)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (int rc = check_dims(M, Kc, Nout, r)) return rc;
   if (M == 0) return 0;
   const dim3 grid((Nout + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -215,6 +384,38 @@ int launch(int dtype, const void* P, const void* Q, const void* lo_in,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// The quantized variants: Q holds W0's codes in format F, S its scale [N].
+template <bool DX, WFmt F, typename T>
+int launch_q_as(const void* P, const void* Q, const float* S,
+                const void* lo_in, const void* lo_out, void* y, int M, int Kc,
+                int Nout, int r, float scale, cudaStream_t s) {
+  using W = typename WStore<T, F>::type;
+  const dim3 grid((Nout + BN - 1) / BN, (M + BM - 1) / BM);
+  lora_gemm_q_kernel<T, DX, F><<<grid, THREADS, 0, s>>>(
+      static_cast<const T*>(P), static_cast<const W*>(Q), S,
+      static_cast<const T*>(lo_in), static_cast<const T*>(lo_out),
+      static_cast<T*>(y), M, Kc, Nout, r, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DX, WFmt F>
+int launch_q(int dtype, const void* P, const void* Q, const void* S,
+             const void* lo_in, const void* lo_out, void* y, int M, int Kc,
+             int Nout, int r, float scale, void* stream) {
+  static_assert(F != WFmt::kDense, "dense W0 takes launch<DX>");
+  if (int rc = check_dims(M, Kc, Nout, r)) return rc;
+  if (M == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(S);
+  if (dtype == DTYPE_BF16)
+    return launch_q_as<DX, F, __nv_bfloat16>(P, Q, sc, lo_in, lo_out, y, M,
+                                             Kc, Nout, r, scale, s);
+  if (dtype == DTYPE_F32)
+    return launch_q_as<DX, F, float>(P, Q, sc, lo_in, lo_out, y, M, Kc, Nout,
+                                     r, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace lora_gemm

@@ -1,0 +1,55 @@
+// LoRA linear forward and input gradient over a packed 4-bit frozen base
+// (int4 or nf4), written by hand for Hopper.
+//
+// Replace the TPU kernels of src/repro/kernels/lora_pack4.py: lora_fused_q4
+// (_lora_fused_q4_kernel, _unpack_tile) and lora_dx_q4 (_lora_dx_q4_kernel),
+// with the same arithmetic as lora_quant.cu over W0 = w(q4) * s, where
+// q4 uint8 [ceil(K/2), N] packs rows 2j / 2j + 1 into the low / high nibble
+// of byte row j, and w is the sign-extended nibble (int4) or NF4_CODE[nibble]
+// rounded to the activations' type (nf4).
+//
+// What bounds them. At M = 256 a 4-bit product does 1,024 FLOPs per W0
+// byte, above the H100's bf16 ridge of ~295: the least time is that of the
+// FLOPs. These first kernels run on CUDA cores, whose rate limits them.
+//
+// Design: the tiled product of lora_gemm.cuh with W0 in format kInt4 or kNF4
+// (one kernel body, the format a template parameter). A BK = 32 slab of W0
+// is 16 byte rows: the forward's loader gives each thread 4 contiguous bytes
+// of one byte row and writes 8 weights (two k rows) to shared memory; dx
+// reads the packed bytes in place and untransposed, 4 contiguous bytes along
+// n of one byte row per thread, each byte giving two output columns. The
+// nf4 codebook sits in shared memory, rounded to T once per block. Odd K:
+// the pad nibble is masked to zero and meets a masked x column; dx never
+// writes rows at k >= K, which it takes from A. No dense float W0 reaches
+// device memory.
+
+#include "lora_gemm.cuh"
+
+using lora_gemm::WFmt;
+
+// method: 0 int4, 1 nf4. Each returns cudaGetLastError() after the launch.
+extern "C" int lora_fused_q4(int dtype, int method, const void* x,
+                             const void* q4, const void* s, const void* a,
+                             const void* b, void* y, int M, int K, int N,
+                             int r, float scale, void* stream) {
+  if (method == 0)
+    return lora_gemm::launch_q<false, WFmt::kInt4>(dtype, x, q4, s, a, b, y,
+                                                   M, K, N, r, scale, stream);
+  if (method == 1)
+    return lora_gemm::launch_q<false, WFmt::kNF4>(dtype, x, q4, s, a, b, y,
+                                                  M, K, N, r, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int lora_dx_q4(int dtype, int method, const void* g,
+                          const void* q4, const void* s, const void* a,
+                          const void* dh, void* dx, int M, int K, int N, int r,
+                          void* stream) {
+  if (method == 0)
+    return lora_gemm::launch_q<true, WFmt::kInt4>(dtype, g, q4, s, dh, a, dx,
+                                                  M, N, K, r, 1.f, stream);
+  if (method == 1)
+    return lora_gemm::launch_q<true, WFmt::kNF4>(dtype, g, q4, s, dh, a, dx,
+                                                 M, N, K, r, 1.f, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,47 @@
+// LoRA linear forward and input gradient over an int8 frozen base, written
+// by hand for Hopper.
+//
+// Replace the TPU kernels of src/repro/kernels/lora_quant.py: lora_fused_q
+// (_lora_fused_q_kernel) and lora_dx_q (_lora_dx_q_kernel), with the same
+// arithmetic (W0 = q * s per output channel, q int8 [K, N], s f32 [N]):
+//
+//   y  = round(acc * s + s_lora * (round(x @ A) @ B)),  acc = x @ q
+//   dx = round(round(g * round(s)) @ q^T + dh @ A^T),   dh = round((s_lora g) @ B^T)
+//
+//   x [M, K], A [K, r], B [r, N] (r <= 32), g [M, N] in T (f32 or bf16);
+//   f32 sums; "round" is to T where the TPU kernels round; dh is the thin
+//   product the wrapper computes, as the TPU wrapper did.
+//
+// What bounds them. At the paper's batch 1 x seq 256 (M = 256) an int8
+// product does 2 M = 512 FLOPs per one-byte W0 element, above the H100's
+// bf16 tensor-core ridge of ~295 FLOP/byte: the least time is that of the
+// FLOPs. These first kernels run on CUDA cores (f32 FMAs), whose rate limits
+// them.
+//
+// Design: the tiled product of lora_gemm.cuh with W0 in format kInt8. The
+// slab loader reads int8 bytes (a quarter of f32's, half of bf16's) and
+// turns each into a weight in shared memory; the scale is applied once per
+// output in the forward's epilogue and folded onto g as dx stages it. dx
+// reads q in place, [K, N] with contiguous n: the TPU wrapper wrote a
+// transposed int8 copy of q to device memory on every call; this writes
+// none. No dense float W0 reaches device memory.
+
+#include "lora_gemm.cuh"
+
+using lora_gemm::WFmt;
+
+// Each returns cudaGetLastError() after the launch (0 when it was accepted).
+extern "C" int lora_fused_q(int dtype, const void* x, const void* q,
+                            const void* s, const void* a, const void* b,
+                            void* y, int M, int K, int N, int r, float scale,
+                            void* stream) {
+  return lora_gemm::launch_q<false, WFmt::kInt8>(dtype, x, q, s, a, b, y, M,
+                                                 K, N, r, scale, stream);
+}
+
+extern "C" int lora_dx_q(int dtype, const void* g, const void* q,
+                         const void* s, const void* a, const void* dh,
+                         void* dx, int M, int K, int N, int r, void* stream) {
+  return lora_gemm::launch_q<true, WFmt::kInt8>(dtype, g, q, s, dh, a, dx, M,
+                                                N, K, r, 1.f, stream);
+}

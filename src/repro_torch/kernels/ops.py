@@ -7,7 +7,10 @@ There is no shape fallback: what the kernel does not take is an error.
 The autograd Functions here pair kernel forwards with kernel backwards that
 follow the paper's structured rules, as the reference's custom_vjps do:
 :func:`lora_linear` is ``lora_fused_fwd`` forward and ``lora_dx`` +
-``lora_dab`` backward, saving x (h is recomputed on chip); :func:`rmsnorm`
+``lora_dab`` backward, saving x (h is recomputed on chip), or over a
+quantized base ``lora_fused_q``/``lora_fused_q4`` forward and
+``lora_dx_q``/``lora_dx_q4`` + ``lora_dab`` backward, saving the codes and
+the scale (never a dense W0); :func:`rmsnorm`
 is ``rmsnorm_fwd`` forward and ``rmsnorm_bwd`` backward, saving x;
 :func:`sdpa` from 64 query rows is ``flash_fwd`` forward and
 ``flash_bwd_dq`` + ``flash_bwd_dkv`` backward, saving q, k, v, out and the
@@ -18,10 +21,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
-from repro_torch.core import structured
+from repro_torch.core import quant, structured
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lora_fused as _lf
 from repro_torch.kernels import lora_grouped as _lg
+from repro_torch.kernels import lora_pack4 as _lp4
+from repro_torch.kernels import lora_quant as _lq
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import rope as _rope
 
@@ -59,11 +64,69 @@ class _LoRALinearKernel(torch.autograd.Function):
         return dx, None, da, db, None
 
 
+# Over a quantized base: the codes and the scale are frozen (no gradient);
+# dA and dB never read W0, so the dense lora_dab kernel serves every format.
+
+
+def _quant_backward(ctx, g, dx_fn):
+    x, q, s, a, b = ctx.saved_tensors
+    g2 = _flat(g).to(x.dtype).contiguous()
+    dx = da = db = None
+    if ctx.needs_input_grad[0]:
+        dx = dx_fn(g2, q, s, a, b, ctx.scale).reshape(x.shape)
+    if ctx.needs_input_grad[3] or ctx.needs_input_grad[4]:
+        da, db = _lf.lora_dab(_flat(x).contiguous(), g2, a, b, ctx.scale)
+    return dx, None, None, da, db
+
+
+class _LoRALinearKernelQ(torch.autograd.Function):
+    """int8 base {"q": [K,N], "scale": [1,N]}: saves exactly (x, q, s, a, b)."""
+
+    @staticmethod
+    def forward(ctx, x, q, s, a, b, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(x, q, s, a, b)
+        y = _lq.lora_fused_q(_flat(x).contiguous(), q, s, a, b, scale)
+        return y.reshape(*x.shape[:-1], q.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*_quant_backward(ctx, g, _lq.lora_dx_q), None)
+
+
+class _LoRALinearKernelP4(torch.autograd.Function):
+    """Packed 4-bit base {"q4": [ceil(K/2),N], "scale": [1,N], ...}: saves
+    exactly (x, q4, s, a, b)."""
+
+    @staticmethod
+    def forward(ctx, x, q4, s, a, b, scale, method):
+        ctx.scale, ctx.method = scale, method
+        ctx.save_for_backward(x, q4, s, a, b)
+        y = _lp4.lora_fused_q4(_flat(x).contiguous(), q4, s, a, b, scale,
+                               method=method)
+        return y.reshape(*x.shape[:-1], q4.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        def dx_fn(*args):
+            return _lp4.lora_dx_q4(*args, method=ctx.method)
+        return (*_quant_backward(ctx, g, dx_fn), None, None)
+
+
 def lora_linear(x, w0, a, b, bias=None, scale: float = 2.0):
     """``x@w0 + scale·(x@a)@b [+ bias]`` through the LoRA kernels, any
-    leading dims on x. The bias is frozen: a plain add after the kernel,
-    as in the reference, saves nothing."""
-    y = _LoRALinearKernel.apply(x, w0, a, b, scale)
+    leading dims on x. ``w0`` is a dense matrix, an int8 ``{"q", "scale"}``
+    leaf or a packed 4-bit ``{"q4", "scale", ...}`` leaf, as in the
+    reference's dispatch; a quantized leaf goes to the quantized kernels
+    and is never dequantized here. The bias is frozen: a plain add after
+    the kernel, as in the reference, saves nothing."""
+    if quant.is_packed(w0):
+        y = _LoRALinearKernelP4.apply(x, w0["q4"], w0["scale"], a, b, scale,
+                                      quant.packed_method(w0))
+    elif quant.is_quantized(w0):
+        y = _LoRALinearKernelQ.apply(x, w0["q"], w0["scale"], a, b, scale)
+    else:
+        y = _LoRALinearKernel.apply(x, w0, a, b, scale)
     return y + bias if bias is not None else y
 
 
@@ -75,7 +138,13 @@ def lora_grouped_decode(x, w0, a, b, tile_gid, bias=None, scale: float = 2.0,
     b [R,r,N], and ``tile_gid`` int32 [M // bm], a device tensor holding
     each slot tile's AdapterStore slot. The ``structured`` backend runs the
     gather reference (same math, plain PyTorch). The bias is added after
-    the kernel."""
+    the kernel. A quantized base raises under every backend: the grouped
+    kernels over int8 and packed bases (the reference's ``lora_grouped_q``
+    and ``lora_grouped_q4``) are not ported yet."""
+    if quant.is_quantized(w0) or quant.is_packed(w0):
+        raise NotImplementedError(
+            "grouped decode over a quantized base (the reference's "
+            "lora_grouped_q / lora_grouped_q4 kernels) is not ported yet")
     M, K = x.shape
     if M % bm:
         raise ValueError(f"decode rows {M} not a multiple of tile {bm}")
@@ -184,6 +253,9 @@ def sdpa(q, k, v, *, causal: bool = True, window: int = 0, rope=None):
 _COUNTED = {"lora_grouped_fwd": _lg.lora_grouped, "rmsnorm_fwd": _rn.rmsnorm,
             "lora_fused_fwd": _lf.lora_fused, "lora_dx": _lf.lora_dx,
             "lora_dab": _lf.lora_dab, "rmsnorm_bwd": _rn.rmsnorm_bwd,
+            "lora_fused_q": _lq.lora_fused_q, "lora_dx_q": _lq.lora_dx_q,
+            "lora_fused_q4": _lp4.lora_fused_q4,
+            "lora_dx_q4": _lp4.lora_dx_q4,
             "flash_fwd": _fa.flash_attention_fwd,
             "flash_bwd_dq": _fa.flash_bwd_dq,
             "flash_bwd_dkv": _fa.flash_bwd_dkv}

@@ -10,12 +10,15 @@ attention through the flash-attention kernels (forward, dq, dk/dv);
 autograd of the plain forwards, ``store_h`` the Table 5 ablation. The
 defaults are the paper's batch 1 x seq 256. ``--fuse-rope`` rotates q and
 k inside the flash kernels (``mesp_cuda`` only, as the reference applies
-it only to its kernel backend). The run happens on the card unless
+it only to its kernel backend). ``--quantize int8|int4|nf4`` keeps every
+frozen linear's W0 in that format (``core/quant.py``); under ``mesp_cuda``
+the quantized kernels read it as stored, the other engines dequantize it
+first. The run happens on the card unless
 ``--device cpu`` is given; with no card visible the default fails rather
 than falling back.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \\
-        --engine mesp_cuda --steps 4 [--fuse-rope]
+        --engine mesp_cuda --steps 4 [--fuse-rope] [--quantize nf4]
 
 The reference's Trainer facade (checkpoints, the step guard, the
 degradation ladder, telemetry) is not ported yet.
@@ -31,7 +34,7 @@ import torch
 from repro_torch.api.engines import ENGINES
 from repro_torch.api.policy import ExecutionPolicy
 from repro_torch.configs import REGISTRY, get_config
-from repro_torch.core import mesp
+from repro_torch.core import mesp, quant
 from repro_torch.data import make_batch_iterator
 from repro_torch.models import model as model_lib
 from repro_torch.optim import optimizers, schedules
@@ -56,6 +59,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--fuse-rope", action="store_true",
                     help="mesp_cuda: apply RoPE inside the flash kernels "
                          "(q and k rotated on load, never stored rotated)")
+    ap.add_argument("--quantize", default="none", choices=quant.METHODS,
+                    help="format of the frozen base weights")
     return ap
 
 
@@ -78,17 +83,17 @@ def train(argv=None) -> dict:
     if ns.reduced:
         cfg = cfg.reduced()
     policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
-                             fuse_rope=ns.fuse_rope)
+                             fuse_rope=ns.fuse_rope, quantize=ns.quantize)
     opt = optimizers.make_optimizer(ns.optimizer, schedules.constant(ns.lr))
 
     gen = torch.Generator(device=device).manual_seed(ns.seed)
-    params = model_lib.init_params(cfg, generator=gen)
+    params = model_lib.init_params(cfg, generator=gen, quantize=ns.quantize)
     state = opt.init(params)
     data = make_batch_iterator(cfg.vocab, ns.seq, ns.batch, seed=ns.seed)
     log.info("arch=%s layers=%d d_model=%d engine=%s backend=%s device=%s "
-             "batch=%d seq=%d fuse_rope=%s", cfg.name, cfg.n_layers,
-             cfg.d_model, ns.engine, policy.backend, device, ns.batch,
-             ns.seq, ns.fuse_rope)
+             "batch=%d seq=%d fuse_rope=%s quantize=%s", cfg.name,
+             cfg.n_layers, cfg.d_model, ns.engine, policy.backend, device,
+             ns.batch, ns.seq, ns.fuse_rope, ns.quantize)
 
     losses, seconds = [], []
     for step in range(ns.steps):

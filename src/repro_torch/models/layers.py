@@ -10,7 +10,8 @@ CUDA kernels, ``kernels/ops.py``), ``plain`` (autograd of plain forwards,
 MeBP) or ``store_h`` (Table 5 ablation).
 
 Parameters are plain nested dicts of tensors with the reference's keys;
-LoRA linears carry ``{"w", "a", "b"[, "bias"]}``. Layouts are the
+LoRA linears carry ``{"w", "a", "b"[, "bias"]}``, where ``w`` may be a
+quantized leaf (``core/quant.py``). Layouts are the
 reference's: q/k/v are ``[B, H, N, D]`` and a cache is ``[B, Hkv, S, D]``.
 Unlike the reference, a decode step writes the cache in place (the
 reference returns a new cache); the step returns the same dict.
@@ -24,7 +25,7 @@ import torch
 
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import structured
+from repro_torch.core import quant, structured
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rope as krope
 
@@ -63,6 +64,12 @@ def apply_linear(p, x, cfg: ArchConfig, *,
     "cuda" (MeSP through the LoRA kernels), "store_h" (h saved), "plain"
     (MeBP: autograd).
 
+    ``p["w"]`` is a dense frozen matrix, an int8 ``{"q", "scale"}`` leaf or
+    a packed 4-bit ``{"q4", "scale", ...}`` leaf. The ``cuda`` backend hands
+    a quantized leaf to the quantized kernels, which never write a dense W0;
+    the other backends dequantize it first (``quant.maybe_dequant``): the
+    same values, with W0 materialised, as in the reference.
+
     When ``p["a"]``/``p["b"]`` are tenant-stacked resident sets
     ([R, d_in, r] / [R, r, d_out], from the AdapterStore), the int32 device
     tensor ``adapter_tiles`` routes each slot tile to its adapter through
@@ -85,13 +92,14 @@ def apply_linear(p, x, cfg: ArchConfig, *,
         backend, s = policy.backend, cfg.lora.scale
         if backend == "cuda":
             return kops.lora_linear(x, p["w"], p["a"], p["b"], bias, s)
+        w = quant.maybe_dequant(p["w"], x.dtype)
         if backend == "plain":
-            y = x @ p["w"] + s * ((x @ p["a"]) @ p["b"])
+            y = x @ w + s * ((x @ p["a"]) @ p["b"])
             return y + bias if bias is not None else y
         fn = structured.lora_linear_store_h if backend == "store_h" \
             else structured.lora_linear
-        return fn(x, p["w"], p["a"], p["b"], bias, s)
-    y = x @ p["w"]
+        return fn(x, w, p["a"], p["b"], bias, s)
+    y = x @ quant.maybe_dequant(p["w"], x.dtype)
     return y + bias if bias is not None else y
 
 

@@ -17,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import structured
+from repro_torch.core import quant, structured
 from repro_torch.models import layers
 
 
@@ -40,23 +40,27 @@ def dense_block(bp, x, cfg: ArchConfig, *, cache,
     return x, new_cache
 
 
-def init_params(cfg: ArchConfig, *, generator: torch.Generator):
+def init_params(cfg: ArchConfig, *, generator: torch.Generator,
+                quantize=None):
     """Random parameters at the reference's scales, made on the generator's
     device in ``cfg.dtype``. The values differ from ``jax.random``'s; tests
-    that compare the two packages bridge the reference's parameters."""
+    that compare the two packages bridge the reference's parameters.
+    ``quantize`` ("int8", or packed "int4"/"nf4") turns every frozen ``w``
+    leaf into its ``core/quant`` format; LoRA factors, biases, norms and the
+    embedding stay in ``cfg.dtype``."""
     _require_dense(cfg)
     gen = generator
     dtype = getattr(torch, cfg.dtype)
     L, d = cfg.n_layers, cfg.d_model
     ones = lambda *s: torch.ones(s, dtype=dtype, device=gen.device)
-    return {
+    return quant.quantize_params({
         "embed": layers.embed_params(gen, cfg),
         "final_norm": ones(d),
         "blocks": {"ln1": ones(L, d),
                    "attn": layers.attention_params(gen, cfg, lead=(L,)),
                    "ln2": ones(L, d),
                    "mlp": layers.mlp_params(gen, cfg, lead=(L,))},
-    }
+    }, quantize)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cpu"):

@@ -191,7 +191,8 @@ def test_cpu_tensors_never_launch_kernels():
     assert set(counts) == {"lora_grouped_fwd", "rmsnorm_fwd",
                            "lora_fused_fwd", "lora_dx", "lora_dab",
                            "rmsnorm_bwd", "flash_fwd", "flash_bwd_dq",
-                           "flash_bwd_dkv"}
+                           "flash_bwd_dkv", "lora_fused_q", "lora_dx_q",
+                           "lora_fused_q4", "lora_dx_q4"}
     assert set(counts.values()) == {0}
 
 

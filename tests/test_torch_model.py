@@ -80,7 +80,9 @@ def test_init_params_same_tree_and_scales_as_reference():
 
 
 def test_bridge_keeps_stacked_leaves_and_rejects_quantized(jparams):
-    tp = bridge.from_numpy_tree(_np(jparams))
+    """Stacked leaves come through unchanged, and so do quantized leaves:
+    the bridge no longer rejects them (the name is older than that)."""
+    tp =bridge.from_numpy_tree(_np(jparams))
     a = tp["blocks"]["attn"]["q"]["a"]
     assert a.shape == (JCFG.n_layers, 3, JCFG.d_model, JCFG.lora.rank)
     np.testing.assert_array_equal(a.numpy(),
@@ -91,9 +93,14 @@ def test_bridge_keeps_stacked_leaves_and_rejects_quantized(jparams):
     half = bridge.from_numpy_tree({"w": np.ones((2, 2), np.float32)},
                                   dtype=torch.float16)
     assert half["w"].dtype == torch.float16
-    with pytest.raises(NotImplementedError, match="quantized"):
-        bridge.from_numpy_tree({"w": {"q": np.zeros((2, 2), np.int8),
-                                      "scale": np.ones((1, 2), np.float32)}})
+    # quantized leaves now come through (tests/test_torch_quant.py holds
+    # their bytes): the codes keep their dtype and the scale stays f32
+    # under a cast
+    ql = bridge.from_numpy_tree({"w": {"q": np.zeros((2, 2), np.int8),
+                                       "scale": np.ones((1, 2), np.float32)}},
+                                dtype=torch.bfloat16)
+    assert ql["w"]["q"].dtype == torch.int8
+    assert ql["w"]["scale"].dtype == torch.float32
 
 
 def test_rope_per_slot_positions_match_reference():
