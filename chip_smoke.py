@@ -61,10 +61,26 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    and f32, and prints the peak memory of one ``value_and_grad`` over the
    nf4 base per engine, remat on and off, beside what was allocated at the
    start.
+10. Serving over a quantized frozen base: holds the quantized grouped
+   kernels (``lora_grouped_q`` over int8, ``lora_grouped_q4`` over int4 and
+   nf4) against their plain versions in bf16 and f32 at the decode shapes
+   (8 slots in tiles of 2) and at the edges of ``GROUPED_Q_EDGES`` (odd K,
+   ragged N, ranks 3 and 16, two row blocks, repeated slots, a bad gid
+   that gives NaN rows), and times them beside their plain versions, the
+   bound and ``torch.matmul`` of x@W0 over the dequantized W0 as context.
+   Then serves step 3's trace through ``repro_torch.launch.serve
+   --quantize int8`` and ``--quantize nf4``, counts zeroed just before and
+   read just after each run (every decode step: 168 launches of the base's
+   grouped kernel, 49 RMSNorm, 0 of the float grouped kernel), replays each
+   run's first 4 steps as step 4 does over the same codes, and prints what
+   ``init_params`` leaves allocated for a bf16, int8 and nf4 base beside
+   ``serve/residency.serve_residency``'s modelled ``weights_mb``, and each
+   run's peak.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
-``{"train": ...}``, ``{"train_paper": ...}`` and ``{"train_quant": ...}``
-line each, the card's name and power limit, and last
+``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}`` and
+``{"train_quant": ...}`` line each, the card's name and power limit, and
+last
 ``{"ok": true, "device": ...}``. Any mismatch or exception exits non-zero.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -135,8 +151,9 @@ TRAIN_PER_STEP = {
     "lora_grouped_fwd": 0,
     # below 64 query rows attention takes the structured sdpa
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-    # a dense base runs no quantized kernel
+    # a dense base runs no quantized kernel, and training no grouped one
     "lora_fused_q": 0, "lora_dx_q": 0, "lora_fused_q4": 0, "lora_dx_q4": 0,
+    "lora_grouped_q": 0, "lora_grouped_q4": 0,
 }
 # the paper's setting, where attention runs the flash kernels
 PAPER_BATCH, PAPER_SEQ, PAPER_STEPS, ROPE_STEPS = 1, 256, 4, 2
@@ -155,6 +172,27 @@ QUANT_KERNELS = {"int8": ("lora_fused_q", "lora_dx_q"),
                  "nf4": ("lora_fused_q4", "lora_dx_q4")}
 # the ragged odd-K case of the quantized kernels' check: (M, K, N)
 QUANT_RAGGED = (50, 97, 131)
+# the serve phase's command (step 3), and its --quantize runs (step 10)
+SERVE_CMD = ["--arch", "qwen2.5-0.5b", "--engine", "mesp_cuda", "--device",
+             "cuda", "--batch", str(M), "--tile", str(BM), "--adapters", "4",
+             "--store-capacity", "4", "--requests", "8", "--prompt-len", "8",
+             "--max-new", "16", "--max-len", "32", "--seed", "0"]
+SERVE_QUANT_RUNS = ("int8", "nf4")
+# method -> the grouped kernel over that base
+GROUPED_Q_KERNELS = {"int8": "lora_grouped_q", "int4": "lora_grouped_q4",
+                     "nf4": "lora_grouped_q4"}
+# the decode path's routing of 4 tiles (repeated, non-contiguous slots)
+PATH_GID = (3, 0, 3, 1)
+# edges of the quantized grouped kernels' check: (M, bm, K, N, R, r, gid)
+GROUPED_Q_EDGES = {
+    "odd_k_ragged_n": (8, 2, 97, 131, 4, 8, PATH_GID),
+    "odd_k_wide": (8, 2, 4863, 896, 4, 8, PATH_GID),
+    "n130_rank3": (8, 2, 896, 130, 4, 3, (1, 2, 3, 0)),
+    "rank16": (8, 2, 896, 896, 4, 16, PATH_GID),
+    "rows16": (16, 2, 896, 128, 4, 8, (3, 0, 3, 1, 2, 2, 0, 1)),
+    "gid_repeated": (8, 2, 896, 4864, 4, 8, (2, 2, 0, 2)),
+    "bad_gid": (8, 2, 896, 896, 4, 8, (3, 7, 0, -1)),
+}
 
 
 def quant_per_step(method):
@@ -588,15 +626,176 @@ def check_quant_kernels(torch, quant, lq, lp4):
     return figures, ragged
 
 
-def _tree_bytes(tree, only_quantized=False):
-    """Bytes of a parameter tree's tensors (with ``only_quantized``, of its
-    quantized weight leaves alone)."""
-    from repro_torch.core import quant
+# -------------------------------------------- serving over a quantized base
+
+
+def _grouped_q_cases(torch, quant, gen, dtype, method, M_, K, N, R_, r,
+                     gid):
+    """make() of the quantized grouped kernels' inputs: x [M, K], the codes
+    and scale of a random W0 [K, N] in ``method``'s format, a [R, K, r],
+    b [R, r, N] (nonzero), gid, and W0 dequantized to ``dtype`` (the
+    operand of the matmul context)."""
+    key = "q" if method == "int8" else "q4"
+    g = torch.tensor(gid, dtype=torch.int32, device="cuda")
+
+    def make():
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        leaf = quant.quantize_leaf(rn(K, N) * K ** -0.5, method)
+        return (rn(M_, K).to(dtype), leaf[key], leaf["scale"],
+                (rn(R_, K, r) * r ** -0.5).to(dtype),
+                (rn(R_, r, N) * 0.05).to(dtype), g.clone(),
+                quant.maybe_dequant(leaf, dtype))
+    return make
+
+
+def _grouped_q_calls(torch, lg, method, bm):
+    """(kernel, plain version, matmul context), each a call on the inputs
+    of ``_grouped_q_cases``."""
+    if method == "int8":
+        kern, plain = lg.lora_grouped_q, lg.lora_grouped_q_ref
+    else:
+        kern, plain = (functools.partial(f, method=method) for f in (
+            lg.lora_grouped_q4, lg.lora_grouped_q4_ref))
+    return (lambda x, q, s, a, b, g, w: kern(x, q, s, a, b, g, 2.0, bm=bm),
+            lambda x, q, s, a, b, g, w: plain(x, q, s, a, b, g, 2.0, bm=bm),
+            lambda x, q, s, a, b, g, w: torch.matmul(x, w))
+
+
+def check_nf4_codebook_rounding(torch, quant, lg, lp4):
+    """In bf16 the kernel rounds nf4's codebook to bf16 before the product,
+    as the reference's ``_unpack_tile`` does. With A = B = 0 at the widest
+    decode shape its output must lie nearer the plain version (rounded
+    codebook) than a product over the f32 codebook, which a kernel that
+    skipped the rounding would match instead: the mean absolute difference
+    to the first under a quarter of that to the second. Returns both."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    K, N = 896, 4864
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = rn(M, K).to(torch.bfloat16)
+    leaf = quant.quantize_leaf(rn(K, N) * K ** -0.5, "nf4")
+    a = torch.zeros(R, K, RANK, dtype=torch.bfloat16, device="cuda")
+    b = torch.zeros(R, RANK, N, dtype=torch.bfloat16, device="cuda")
+    g = torch.tensor(PATH_GID, dtype=torch.int32, device="cuda")
+    args = (x, leaf["q4"], leaf["scale"], a, b, g, 2.0)
+    got = lg.lora_grouped_q4(*args, bm=BM, method="nf4").float()
+    rounded = lg.lora_grouped_q4_ref(*args, bm=BM, method="nf4").float()
+    w32 = lp4.unpack_weights(leaf["q4"], "nf4", torch.float32, K)
+    unrounded = ((x.float() @ w32) * leaf["scale"]).to(torch.bfloat16).float()
+    torch.cuda.synchronize()
+    out = {"mean_abs_diff_rounded": float((got - rounded).abs().mean()),
+           "mean_abs_diff_unrounded": float((got - unrounded).abs().mean())}
+    if not 4 * out["mean_abs_diff_rounded"] < out["mean_abs_diff_unrounded"]:
+        raise AssertionError(f"lora_grouped_q4 nf4 bf16: the output is not "
+                             f"nearer the bf16-rounded codebook: {out}")
+    return out
+
+
+def check_grouped_quant(torch, quant, lg):
+    """The quantized grouped kernels against their plain versions for int8,
+    int4 and nf4, in f32 (summation order only, rtol = atol = 1e-4) and
+    bf16, at the decode shapes and the edges of ``GROUPED_Q_EDGES``: rows
+    of a gid outside [0, R) must be NaN in both, the others close. Times,
+    bounds and the matmul context in bf16 at the decode shapes. Returns
+    ({method: [shape figures]}, {method: {edge: errors}})."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    f32_tol = dict(rtol=1e-4, atol=1e-4)
+    figures, edges = {}, {}
+    for method, name in GROUPED_Q_KERNELS.items():
+        figures[method], edges[method] = [], {}
+        cases = {(K, N): (M, BM, K, N, R, RANK, PATH_GID)
+                 for K, N in GROUPED_SHAPES}
+        cases.update(GROUPED_Q_EDGES)
+        for case, (M_, bm, K, N, R_, r, gid) in cases.items():
+            kern, plain, mm = _grouped_q_calls(torch, lg, method, bm)
+            bad = torch.tensor([not 0 <= t < R_ for t in gid],
+                               device="cuda").repeat_interleave(bm)
+            errs = {}
+            for dtype, tol in ((torch.float32, f32_tol),
+                               (torch.bfloat16, KERNEL_TOL)):
+                args = _grouped_q_cases(torch, quant, gen, dtype, method, M_,
+                                        K, N, R_, r, gid)()
+                got, want = kern(*args), plain(*args)
+                torch.cuda.synchronize()
+                what = f"{name} {method} {dtype} {case}"
+                for t in (got, want):
+                    if not torch.equal(torch.isnan(t).all(1), bad):
+                        raise AssertionError(f"{what}: NaN rows "
+                                             f"{torch.isnan(t).all(1)}, "
+                                             f"expected {bad}")
+                errs[dtype] = _close_scaled(got[~bad], want[~bad], tol, what)
+            if case not in GROUPED_SHAPES:
+                edges[method][case] = {
+                    "M": M_, "bm": bm, "K": K, "N": N, "R": R_, "r": r,
+                    "gid": list(gid), "max_abs_err": errs[torch.bfloat16],
+                    "max_abs_err_f32": errs[torch.float32]}
+                continue
+            # reads x, the codes, the scale, the A and B of the slots in use
+            # and gid; writes y
+            codes = K * N if method == "int8" else (K + 1) // 2 * N
+            nbytes = 2 * M_ * K + codes + 4 * N \
+                + 2 * len(set(gid)) * (K * r + r * N) + 2 * M_ * N \
+                + 4 * len(gid)
+            flops = 2 * M_ * K * N + 2 * M_ * K * r + 2 * M_ * r * N
+            bound, by = _bound_ms(nbytes, flops)
+            sets = _cold_sets(_grouped_q_cases(
+                torch, quant, gen, torch.bfloat16, method, M_, K, N, R_, r,
+                gid), nbytes)
+            figures[method].append({
+                "K": K, "N": N, "M": M_, "bm": bm, "R": R_, "r": r,
+                "method": method,
+                "launches_per_decode_step": GROUPED_SHAPES[(K, N)],
+                "max_abs_err": errs[torch.bfloat16],
+                "max_abs_err_f32": errs[torch.float32],
+                "ms": _time_ms(kern, sets),
+                "plain_ms": _time_ms(plain, sets, QUANT_CALLS),
+                "library_ms": None, "matmul_ms": _time_ms(mm, sets),
+                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                "flops": flops})
+            del sets
+    return figures, edges
+
+
+def _lora_bytes(tree, key=None):
+    """Bytes of a parameter tree's LoRA factors (its a/b leaves)."""
     if isinstance(tree, dict):
-        if quant.is_quantized(tree) or quant.is_packed(tree):
-            return sum(t.numel() * t.element_size() for t in tree.values())
-        return sum(_tree_bytes(v, only_quantized) for v in tree.values())
-    return 0 if only_quantized else tree.numel() * tree.element_size()
+        return sum(_lora_bytes(v, k) for k, v in tree.items())
+    return tree.numel() * tree.element_size() if key in ("a", "b") else 0
+
+
+def base_memory(torch, cfg):
+    """Per base format (bf16, int8, nf4): what ``init_params`` leaves
+    allocated on the card and the most it held while it ran, the bytes of
+    its tensors, of its frozen ones (all but the LoRA factors) and of the
+    seven linears' W0 (codes, scales and codebook), beside
+    ``serve_residency``'s modelled ``weights_mb`` and ``total_mb`` with no
+    adapter and no page resident (MB of 2^20 bytes)."""
+    from repro_torch.core import quant
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.residency import serve_residency
+    out = {}
+    for method in ("none",) + SERVE_QUANT_RUNS:
+        _release(torch)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        p = model_lib.init_params(
+            cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+            quantize=method)
+        torch.cuda.synchronize()
+        fmt = quant.weights_format(method)
+        modelled = serve_residency(cfg, rank=cfg.lora.rank,
+                                   resident_adapters=0, kv_pages=0,
+                                   page_size=16, batch=M, weights_fmt=fmt)
+        out[fmt] = {"allocated_bytes": torch.cuda.memory_allocated() - before,
+                    "init_peak_bytes": torch.cuda.max_memory_allocated()
+                    - before,
+                    "params_bytes": quant.tree_bytes(p),
+                    "frozen_bytes": quant.tree_bytes(p) - _lora_bytes(p),
+                    "linear_w0_bytes": quant.tree_bytes(p, frozen_base=True),
+                    "modelled_weights_mb": modelled["weights_mb"],
+                    "modelled_weights_bytes": modelled["weights_mb"] * 2**20,
+                    "modelled_total_mb": modelled["total_mb"]}
+        del p
+    return out
 
 
 # ------------------------------------------------------- flash attention
@@ -834,12 +1033,14 @@ def _f32(tree):
     return tree.float() if tree.is_floating_point() else tree
 
 
-def compare_logits(torch, cfg, params, steps=4):
+def compare_logits(torch, cfg, params, steps=4, quantize="none"):
     """The first ``steps`` steps (all prefill: fixed inputs) through the
     kernels, through the plain functions, and through the plain functions
-    in f32 on the same (bf16-valued) params and adapters. Returns the
-    worst relative differences {kernels vs plain, kernels vs f32, plain vs
-    f32}, each over the f32 logits' largest magnitude."""
+    in f32 on the same (bf16-valued) params and adapters, whose frozen base
+    is in the ``quantize`` format (the f32 run dequantizes the same codes
+    to f32). Returns the worst relative differences {kernels vs plain,
+    kernels vs f32, plain vs f32}, each over the f32 logits' largest
+    magnitude."""
     import dataclasses
     from repro_torch.api.policy import ExecutionPolicy
     from repro_torch.launch.serve import request_trace
@@ -857,7 +1058,8 @@ def compare_logits(torch, cfg, params, steps=4):
         bat = ContinuousBatcher(
             c, AdapterStore(p, capacity=4), slots=M, tile=BM, max_len=32,
             page_size=16,
-            policy=ExecutionPolicy(backend=backend, device="cuda"))
+            policy=ExecutionPolicy(backend=backend, device="cuda",
+                                   quantize=quantize))
         for u in uids:
             bat.register_adapter(u, ads[u])
         for req in request_trace(8, uids, 8, 16):
@@ -909,6 +1111,7 @@ def main() -> int:
     from repro_torch.kernels.rope import rope_tables
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
+    from repro_torch.serve.residency import serve_residency
 
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -932,17 +1135,15 @@ def main() -> int:
     rms_train = rmsnorm_train_shape(torch, rn)
     flash = check_flash(torch, fa, rope_tables)
     qfig, qragged = check_quant_kernels(torch, quant, lq, lp4)
+    gq_fig, gq_edges = check_grouped_quant(torch, quant, lg)
+    nf4_rounding = check_nf4_codebook_rounding(torch, quant, lg, lp4)
 
     # the main path: counts zeroed just before, read just after
     _release(torch)
     serve_start = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
-    out = serve_cli.serve([
-        "--arch", "qwen2.5-0.5b", "--engine", "mesp_cuda", "--device",
-        "cuda", "--batch", str(M), "--tile", str(BM), "--adapters", "4",
-        "--store-capacity", "4", "--requests", "8", "--prompt-len", "8",
-        "--max-new", "16", "--max-len", "32", "--seed", "0"])
+    out = serve_cli.serve(SERVE_CMD)
     counts = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     steps = out["steps"] + out["warmup_steps"]
@@ -959,6 +1160,58 @@ def main() -> int:
     logit_err = compare_logits(torch, out["cfg"], out["params"])
     serve_peak, cfg = peak, out["cfg"]
     del out["params"], out["batcher"]
+
+    # the main path over a quantized base: counts zeroed just before, read
+    # just after each run
+    squant, scounts, ssteps = {}, {}, {}
+    for method in SERVE_QUANT_RUNS:
+        _release(torch)
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        run = serve_cli.serve(SERVE_CMD + ["--quantize", method])
+        scounts[method] = ops.launch_counts()
+        torch.cuda.synchronize()
+        rpeak, rend = (torch.cuda.max_memory_allocated(),
+                       torch.cuda.memory_allocated())
+        ssteps[method] = run["steps"] + run["warmup_steps"]
+        want = {**{k: 0 for k in scounts[method]},
+                GROUPED_Q_KERNELS[method]: GROUPED_PER_STEP * ssteps[method],
+                "rmsnorm_fwd": RMS_PER_STEP * ssteps[method]}
+        if scounts[method] != want:
+            raise AssertionError(f"--quantize {method}: launch counts "
+                                 f"{scounts[method]}, expected {want} for "
+                                 f"{ssteps[method]} decode steps")
+        if run["tokens"] != 8 * 16 or run["requests"] != 8:
+            raise AssertionError(f"--quantize {method}: served "
+                                 f"{run['requests']} requests / "
+                                 f"{run['tokens']} tokens, expected 8 / 128")
+        bat = run["batcher"]
+        squant[method] = {
+            "requests": run["requests"], "tokens": run["tokens"],
+            "steps": run["steps"], "warmup_steps": run["warmup_steps"],
+            "seconds": run["seconds"],
+            "tok_s": run["tokens"] / run["seconds"],
+            "ms_per_step": 1e3 * run["seconds"] / run["steps"],
+            "launches": scounts[method],
+            "launches_per_step": {k: v / ssteps[method]
+                                  for k, v in scounts[method].items() if v},
+            "weights_fmt": run["weights_fmt"],
+            "base_bytes": run["base_bytes"],
+            "params_bytes": run["params_bytes"],
+            "allocated_at_start": start, "max_memory_allocated": rpeak,
+            "allocated_at_end": rend,
+            "modelled_at_end": serve_residency(
+                cfg, rank=cfg.lora.rank, resident_adapters=bat.store.resident,
+                kv_pages=bat.alloc.counters["peak_pages"],
+                page_size=bat.alloc.page_size, batch=M,
+                weights_fmt=run["weights_fmt"]),
+            "logits_max_rel_err": compare_logits(
+                torch, run["cfg"], run["params"], quantize=method)}
+        del run, bat
+    base_mem = base_memory(torch, cfg)
+    for method, fig in squant.items():
+        fig["init_peak_bytes"] = base_mem[fig["weights_fmt"]]["init_peak_bytes"]
 
     # the training path: counts zeroed just before, read just after
     ops.reset_launch_counts()
@@ -992,19 +1245,19 @@ def main() -> int:
                  "--device", "cuda", "--batch", str(PAPER_BATCH), "--seq",
                  str(PAPER_SEQ), "--seed", "0"]
     paper, pcounts = {}, {}
-    for run, steps, extra in (("paper", PAPER_STEPS, []),
-                              ("paper_rope", ROPE_STEPS, ["--fuse-rope"])):
+    for run, nsteps, extra in (("paper", PAPER_STEPS, []),
+                               ("paper_rope", ROPE_STEPS, ["--fuse-rope"])):
         _release(torch)
         ops.reset_launch_counts()
-        paper[run] = train_cli.train(paper_cmd + ["--steps", str(steps)]
+        paper[run] = train_cli.train(paper_cmd + ["--steps", str(nsteps)]
                                      + extra)
         pcounts[run] = ops.launch_counts()
         del paper[run]["params"]
-        pwant = {k: v * steps for k, v in PAPER_PER_STEP.items()}
+        pwant = {k: v * nsteps for k, v in PAPER_PER_STEP.items()}
         if pcounts[run] != pwant:
             raise AssertionError(f"{run}: launch counts {pcounts[run]}, "
-                                 f"expected {pwant} for {steps} steps")
-        if len(paper[run]["losses"]) != steps or \
+                                 f"expected {pwant} for {nsteps} steps")
+        if len(paper[run]["losses"]) != nsteps or \
                 not all(map(math.isfinite, paper[run]["losses"])):
             raise AssertionError(f"{run}: losses {paper[run]['losses']}")
     rope_err = [abs(u - w) / abs(w) for u, w in zip(
@@ -1046,8 +1299,9 @@ def main() -> int:
             "ms_per_step": 1e3 * sum(qsecs[1:]) / max(1, len(qsecs) - 1),
             "first_step_ms": 1e3 * qsecs[0], "launches": qcounts[method],
             "launches_per_step": quant_per_step(method),
-            "params_bytes": _tree_bytes(run["params"]),
-            "frozen_base_bytes": _tree_bytes(run["params"], True)}
+            "params_bytes": quant.tree_bytes(run["params"]),
+            "frozen_base_bytes": quant.tree_bytes(run["params"],
+                                                  frozen_base=True)}
         del run
     _release(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1061,11 +1315,14 @@ def main() -> int:
         torch, cfg, qparams, batch,
         [(e, True) for e in ("mesp_cuda", "mesp", "mebp")]
         + [(e, False) for e in ("mesp_cuda", "mesp", "mebp")], "nf4")
-    quant_params_bytes = {"params_bytes": _tree_bytes(qparams),
-                          "frozen_base_bytes": _tree_bytes(qparams, True)}
+    quant_params_bytes = {
+        "params_bytes": quant.tree_bytes(qparams),
+        "frozen_base_bytes": quant.tree_bytes(qparams, frozen_base=True)}
     del qparams, batch
 
-    paths = lambda k: {"serve": counts[k], "train": tcounts[k],
+    paths = lambda k: {"serve": counts[k],
+                       **{f"serve_{m}": c[k] for m, c in scounts.items()},
+                       "train": tcounts[k],
                        **{run: c[k] for run, c in pcounts.items()},
                        **{f"train_{m}": c[k] for m, c in qcounts.items()}}
     train_entry = lambda name, cu, line, fn: kernel_entry(
@@ -1105,6 +1362,29 @@ def main() -> int:
                 extra["ragged_int4"]["max_abs_err"]] if extra else []))
         return e
 
+    def grouped_q_entry(name, line, fn, method):
+        shapes, edges = gq_fig[method], gq_edges[method]
+        extra = {}
+        if method == "nf4":     # the same kernel body over int4 codes
+            int4 = gq_fig["int4"]
+            extra = {"int4_shapes": int4, "int4_ms": sum(
+                s["ms"] * s["launches_per_decode_step"] for s in int4),
+                "int4_max_abs_err": max(
+                    [s["max_abs_err"] for s in int4]
+                    + [v["max_abs_err"] for v in gq_edges["int4"].values()]),
+                "edges_int4": gq_edges["int4"],
+                "bf16_codebook_rounding": nf4_rounding}
+        e = kernel_entry(
+            name, "src/repro_torch/csrc/lora_grouped_fwd.cu", line, fn,
+            shapes, paths(name), ssteps[method], path=f"serve_{method}",
+            method=method, decode_step=f"serve --quantize {method}",
+            matmul_ms=sum(s["matmul_ms"] * s["launches_per_decode_step"]
+                          for s in shapes), edges=edges, **extra)
+        e["max_abs_err"] = e["max_err"] = max(
+            [e["max_abs_err"]] + [v["max_abs_err"] for v in edges.values()]
+            + ([extra["int4_max_abs_err"]] if extra else []))
+        return e
+
     kernels = [
         kernel_entry("lora_grouped_fwd",
                      "src/repro_torch/csrc/lora_grouped_fwd.cu",
@@ -1112,6 +1392,15 @@ def main() -> int:
                      "src/repro/kernels/lora_grouped.py:lora_grouped "
                      "(_grouped_fwd_kernel :69)", grouped,
                      paths("lora_grouped_fwd"), steps),
+        grouped_q_entry("lora_grouped_q",
+                        "src/repro/kernels/lora_grouped.py:205",
+                        "src/repro/kernels/lora_grouped.py:lora_grouped_q "
+                        "(_grouped_fwd_q_kernel :91)", "int8"),
+        grouped_q_entry("lora_grouped_q4",
+                        "src/repro/kernels/lora_grouped.py:227",
+                        "src/repro/kernels/lora_grouped.py:lora_grouped_q4 "
+                        "(_grouped_fwd_q4_kernel :114, lora_pack4.py "
+                        "_unpack_tile :54)", "nf4"),
         kernel_entry("rmsnorm_fwd", "src/repro_torch/csrc/rmsnorm_fwd.cu",
                      "src/repro/kernels/rmsnorm.py:26",
                      "src/repro/kernels/rmsnorm.py:rmsnorm "
@@ -1174,6 +1463,14 @@ def main() -> int:
         "allocated_at_start": serve_start, "launches": counts,
         "logits_max_rel_err": logit_err, "logits_tol": LOGIT_TOL,
         "device": name}}))
+    print(json.dumps({"serve_quant": {
+        "arch": "qwen2.5-0.5b", "dtype": "bfloat16", "slots": M, "tile": BM,
+        "tenants": 4, "runs": squant,
+        "bf16": {"ms_per_step": 1e3 * out["seconds"] / out["steps"],
+                 "max_memory_allocated": serve_peak,
+                 "allocated_at_start": serve_start,
+                 "init_peak_bytes": base_mem["bf16"]["init_peak_bytes"]},
+        "base_memory": base_mem, "logits_tol": LOGIT_TOL, "device": name}}))
     secs = tr["seconds"]
     print(json.dumps({"train": {
         "arch": "qwen2.5-0.5b", "engine": "mesp_cuda", "dtype": "bfloat16",

@@ -1,13 +1,15 @@
 """Where a decode step of the port's serving path spends its time, on the card.
 
-Builds full-width qwen2.5-0.5b (bf16, random weights from seed 0) with 8
+Builds full-width qwen2.5-0.5b (bf16, random weights from seed 0; with
+``--quantize int8|int4|nf4`` the shared frozen base in that format) with 8
 slots in tiles of 2 and 4 tenants, as ``chip_smoke.py`` serves it, runs a
 few warm steps, then traces ``--steps`` decode steps with ``torch.profiler``
 and prints one JSON line: wall ms per step, device busy ms per step (the
 union of kernel intervals on the card's timeline), the device idle share,
 and the kernels that took the most device time.
 
-    PYTHONPATH=src python scripts/profile_torch_serve.py [--engine mesp_cuda]
+    PYTHONPATH=src python scripts/profile_torch_serve.py [--engine mesp_cuda] \
+        [--quantize nf4]
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.api.policy import ExecutionPolicy
 from repro_torch.configs import get_config
+from repro_torch.core import quant
 from repro_torch.launch.serve import ENGINES, request_trace
 from repro_torch.models import model as model_lib
 from repro_torch.serve import (AdapterStore, ContinuousBatcher,
@@ -46,17 +49,20 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--engine", default="mesp_cuda", choices=sorted(ENGINES))
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--quantize", default="none", choices=quant.METHODS)
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     device = torch.device("cuda")
     cfg = get_config("qwen2.5-0.5b")
     params = model_lib.init_params(
-        cfg, generator=torch.Generator(device=device).manual_seed(0))
+        cfg, generator=torch.Generator(device=device).manual_seed(0),
+        quantize=ns.quantize)
     bat = ContinuousBatcher(
         cfg, AdapterStore(params, capacity=4), slots=8, tile=2, max_len=32,
         page_size=16,
-        policy=ExecutionPolicy(backend=ENGINES[ns.engine], device=device))
+        policy=ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
+                               quantize=ns.quantize))
     uids = [f"tenant{i}" for i in range(4)]
     for i, u in enumerate(uids):
         bat.register_adapter(u, synthetic_adapters(params, i))
@@ -81,7 +87,8 @@ def main(argv=None) -> int:
             (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps({"profile": {
-        "engine": ns.engine, "steps": ns.steps, "wall_ms_per_step": wall_ms,
+        "engine": ns.engine, "quantize": ns.quantize, "steps": ns.steps,
+        "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,
         "kernel_launches_per_step": len(kernels) / ns.steps,

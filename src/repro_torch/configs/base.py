@@ -48,6 +48,14 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
 
+    @property
+    def q_size(self) -> int:
+        return self.n_heads * self.resolved_head_dim
+
+    @property
+    def kv_size(self) -> int:
+        return self.n_kv_heads * self.resolved_head_dim
+
     def reduced(self) -> "ArchConfig":
         """A tiny same-family config (the reference's cut for dense archs)."""
         return dataclasses.replace(

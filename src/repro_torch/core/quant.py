@@ -142,7 +142,18 @@ def dequantize_packed(q4, scale, method: str, dtype=torch.bfloat16,
 
 
 def quantize_leaf(w: torch.Tensor, method: str) -> dict:
-    """Dense frozen weight -> the quantized leaf dict of ``method``."""
+    """Dense frozen weight -> the quantized leaf dict of ``method``. A
+    stacked ``[..., K, N]`` weight is quantized one matrix at a time into
+    outputs made once, so the f32 transients stay one matrix's size."""
+    if w.ndim > 2:
+        first = quantize_leaf(w[0], method)
+        out = {k: v.new_empty((w.shape[0], *v.shape))
+               for k, v in first.items()}
+        for i in range(w.shape[0]):
+            part = first if i == 0 else quantize_leaf(w[i], method)
+            for k, v in part.items():
+                out[k][i] = v
+        return out
     if method == "int8":
         q, s = quantize_int8(w)
         return {"q": q, "scale": s}
@@ -206,6 +217,19 @@ def tree_method(params) -> str:
     return found.pop() if found else "none"
 
 
+def tree_bytes(tree, key=None, frozen_base=False) -> int:
+    """Bytes of a parameter tree's tensors; with ``frozen_base``, of its
+    frozen ``w`` leaves alone (dense, or a quantized leaf's codes, scale
+    and codebook)."""
+    if isinstance(tree, dict):
+        if is_quantized(tree) or is_packed(tree):
+            return sum(t.numel() * t.element_size() for t in tree.values())
+        return sum(tree_bytes(v, k, frozen_base) for k, v in tree.items())
+    if frozen_base and key != "w":
+        return 0
+    return tree.numel() * tree.element_size()
+
+
 def maybe_dequant(p, dtype=torch.bfloat16):
     """A (possibly quantized) linear weight leaf as a dense matrix."""
     if is_packed(p):
@@ -237,9 +261,21 @@ def quantize_frozen(params, *, method: str = "int8",
     return one(params, None)
 
 
+def weights_format(method) -> str:
+    """A ``--quantize`` method as the serve accounting's weights format
+    (``serve/residency.py``): "bf16" for None or "none", else the method.
+    The single choke point for that mapping: an unknown method raises
+    rather than being charged as bf16."""
+    m = "none" if method is None else method
+    if m not in METHODS:
+        raise ValueError(f"unknown quantize method {method!r}; "
+                         f"expected one of {METHODS}")
+    return "bf16" if m == "none" else m
+
+
 def quantize_params(params, method):
     """``method`` applied to a parameter tree; None or "none" returns it as
-    it is. The entry point behind ``init_params(quantize=)``."""
+    it is. ``init_params(quantize=)`` makes the same tree leaf by leaf."""
     if method is None or method == "none":
         return params
     if method in METHODS[1:]:

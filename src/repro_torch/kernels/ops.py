@@ -134,26 +134,44 @@ def lora_grouped_decode(x, w0, a, b, tile_gid, bias=None, scale: float = 2.0,
                         *, bm: int = 8,
                         policy: ExecutionPolicy = STRUCTURED):
     """Runtime-routed grouped linear for the serving decode path: a shared
-    frozen base w0 [K,N], a stack of resident adapters a [R,K,r] /
+    frozen base w0 [K,N] (dense, an int8 ``{"q", "scale"}`` leaf or a packed
+    ``{"q4", "scale", ...}`` leaf), a stack of resident adapters a [R,K,r] /
     b [R,r,N], and ``tile_gid`` int32 [M // bm], a device tensor holding
-    each slot tile's AdapterStore slot. The ``structured`` backend runs the
-    gather reference (same math, plain PyTorch). The bias is added after
-    the kernel. A quantized base raises under every backend: the grouped
-    kernels over int8 and packed bases (the reference's ``lora_grouped_q``
-    and ``lora_grouped_q4``) are not ported yet."""
-    if quant.is_quantized(w0) or quant.is_packed(w0):
-        raise NotImplementedError(
-            "grouped decode over a quantized base (the reference's "
-            "lora_grouped_q / lora_grouped_q4 kernels) is not ported yet")
+    each slot tile's AdapterStore slot. The ``cuda`` backend runs the
+    grouped kernel of the base's format (``lora_grouped``,
+    ``lora_grouped_q``, ``lora_grouped_q4``), which reads the codes and
+    never writes a dense W0; the ``structured`` backend runs the gather
+    reference over ``quant.maybe_dequant(w0)`` (same math, plain PyTorch),
+    as the reference's dispatch does. The bias is added after the kernel.
+    A base the grouped path does not take raises under every backend: a
+    per-expert stack (``Ew == E``, MoE) or a packed leaf of another K."""
     M, K = x.shape
     if M % bm:
         raise ValueError(f"decode rows {M} not a multiple of tile {bm}")
+    codes = (w0["q4"] if quant.is_packed(w0) else
+             w0["q"] if quant.is_quantized(w0) else w0)
+    if codes.ndim != 2:
+        raise ValueError(f"grouped decode takes one shared base [K, N], got "
+                         f"{tuple(codes.shape)} (a per-expert base is MoE's)")
+    if quant.is_packed(w0) and quant.packed_k(w0) != K:
+        raise ValueError(f"packed base holds K={quant.packed_k(w0)} rows, "
+                         f"x has {K}")
     if policy.backend == "cuda":
-        y = _lg.lora_grouped(x.contiguous(), w0, a, b, tile_gid, scale, bm=bm)
+        x = x.contiguous()
+        if quant.is_packed(w0):
+            y = _lg.lora_grouped_q4(x, w0["q4"], w0["scale"], a, b, tile_gid,
+                                    scale, bm=bm,
+                                    method=quant.packed_method(w0))
+        elif quant.is_quantized(w0):
+            y = _lg.lora_grouped_q(x, w0["q"], w0["scale"], a, b, tile_gid,
+                                   scale, bm=bm)
+        else:
+            y = _lg.lora_grouped(x, w0, a, b, tile_gid, scale, bm=bm)
     else:
+        w = quant.maybe_dequant(w0, x.dtype)
         row = tile_gid.long().repeat_interleave(bm)
         h = torch.einsum("mk,mkr->mr", x, a[row])
-        y = (x @ w0 + scale * torch.einsum("mr,mrn->mn", h, b[row])
+        y = (x @ w + scale * torch.einsum("mr,mrn->mn", h, b[row])
              ).to(x.dtype)
     return y + bias if bias is not None else y
 
@@ -250,7 +268,10 @@ def sdpa(q, k, v, *, causal: bool = True, window: int = 0, rope=None):
 # launch counters
 # ---------------------------------------------------------------------------
 
-_COUNTED = {"lora_grouped_fwd": _lg.lora_grouped, "rmsnorm_fwd": _rn.rmsnorm,
+_COUNTED = {"lora_grouped_fwd": _lg.lora_grouped,
+            "lora_grouped_q": _lg.lora_grouped_q,
+            "lora_grouped_q4": _lg.lora_grouped_q4,
+            "rmsnorm_fwd": _rn.rmsnorm,
             "lora_fused_fwd": _lf.lora_fused, "lora_dx": _lf.lora_dx,
             "lora_dab": _lf.lora_dab, "rmsnorm_bwd": _rn.rmsnorm_bwd,
             "lora_fused_q": _lq.lora_fused_q, "lora_dx_q": _lq.lora_dx_q,

@@ -8,15 +8,20 @@ them resident, and the :class:`~repro_torch.serve.ContinuousBatcher`
 admits and recycles at step granularity with paged-KV accounting. Under
 ``--engine mesp_cuda`` (the default) every LoRA linear runs the grouped
 LoRA kernel and every norm the RMSNorm kernel; ``--engine mesp`` runs the
-plain PyTorch forwards. The run happens on the card unless ``--device cpu``
-is given; with no card visible the default fails rather than falling back.
+plain PyTorch forwards. ``--quantize int8|int4|nf4`` keeps the shared
+frozen base in that format: under ``mesp_cuda`` the grouped kernels over
+int8 or packed codes run in place of the float one, and ``mesp``
+dequantizes. ``--mem-budget-mb`` admits a request only while the modelled
+resident set (``serve/residency.py``, the base in its format) stays within
+it. The run happens on the card unless ``--device cpu`` is given; with no
+card visible the default fails rather than falling back.
 
 A warmup request is served, synchronised and discarded before the timed
 trace, so the kernel build and first launches are not in tokens/s.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-0.5b \\
         --adapters 4 --batch 8 --tile 2 --requests 8 --prompt-len 8 \\
-        --max-new 16
+        --max-new 16 [--quantize nf4]
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ import torch
 from repro_torch.api.engines import ENGINES as _ALL_ENGINES
 from repro_torch.api.policy import ExecutionPolicy
 from repro_torch.configs import REGISTRY, get_config
+from repro_torch.core import quant
 from repro_torch.models import model as model_lib
 from repro_torch.serve import (AdapterStore, ContinuousBatcher, Request,
                                synthetic_adapters)
@@ -70,6 +76,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
                     help="synthetic prompt tokens per request")
     ap.add_argument("--max-new", type=int, default=None,
                     help="tokens generated per request (default: --steps)")
+    ap.add_argument("--quantize", default="none", choices=quant.METHODS,
+                    help="format of the shared frozen base")
+    ap.add_argument("--mem-budget-mb", type=float, default=None,
+                    help="admission headroom: modelled resident MB the "
+                         "batcher may not exceed (default: no check)")
     return ap
 
 
@@ -90,6 +101,8 @@ def serve(argv=None) -> dict:
     """Parse ``argv``, build the model and store, serve a warmup request
     and then the request trace. Returns the run's figures and objects:
     ``requests``, ``tokens``, ``seconds``, ``steps``, ``warmup_steps``,
+    ``weights_fmt`` (the base's format), ``base_bytes`` (bytes of the
+    frozen ``w`` leaves, codes and scales included), ``params_bytes``,
     ``batcher``, ``params``, ``cfg``."""
     ap = build_arg_parser()
     ns = ap.parse_args(argv)
@@ -103,7 +116,8 @@ def serve(argv=None) -> dict:
     cfg = get_config(ns.arch)
     if ns.reduced:
         cfg = cfg.reduced()
-    policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device)
+    policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
+                             quantize=ns.quantize)
     store_capacity = (ns.store_capacity if ns.store_capacity is not None
                       else min(ns.adapters, 4))
     tile = ns.tile if ns.tile is not None else max(ns.batch // 2, 1)
@@ -114,14 +128,19 @@ def serve(argv=None) -> dict:
                  f"exceeds --max-len {ns.max_len}")
 
     gen = torch.Generator(device=device).manual_seed(ns.seed)
-    params = model_lib.init_params(cfg, generator=gen)
-    log.info("arch=%s engine=%s backend=%s device=%s batch=%d adapters=%d",
-             cfg.name, ns.engine, policy.backend, device, ns.batch,
-             ns.adapters)
+    params = model_lib.init_params(cfg, generator=gen, quantize=ns.quantize)
     store = AdapterStore(params, capacity=store_capacity)
     bat = ContinuousBatcher(cfg, store, slots=ns.batch, tile=tile,
                             max_len=ns.max_len, page_size=ns.page_size,
-                            policy=policy)
+                            policy=policy, mem_budget_mb=ns.mem_budget_mb)
+    weights_fmt = bat.weights_fmt
+    base_bytes = quant.tree_bytes(params, frozen_base=True)
+    params_bytes = quant.tree_bytes(params)
+    log.info("arch=%s engine=%s backend=%s device=%s batch=%d adapters=%d "
+             "base=%s", cfg.name, ns.engine, policy.backend, device,
+             ns.batch, ns.adapters, weights_fmt)
+    log.info("frozen base: %.1f MB resident (%s), all params %.1f MB",
+             base_bytes / 1e6, weights_fmt, params_bytes / 1e6)
     uids = [f"tenant{i}" for i in range(ns.adapters)]
     for i, uid in enumerate(uids):
         bat.register_adapter(uid, synthetic_adapters(params, ns.seed + i))
@@ -150,7 +169,9 @@ def serve(argv=None) -> dict:
              bat.alloc.used_pages, bat.alloc.n_pages)
     return {"requests": len(results), "tokens": served, "seconds": dt,
             "steps": bat.counters["steps"], "warmup_steps": warmup_steps,
-            "batcher": bat, "params": params, "cfg": cfg}
+            "weights_fmt": weights_fmt, "base_bytes": base_bytes,
+            "params_bytes": params_bytes, "batcher": bat, "params": params,
+            "cfg": cfg}
 
 
 def main(argv=None) -> int:

@@ -19,7 +19,7 @@ reference returns a new cache); the step returns the same dict.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -44,11 +44,15 @@ def _randn(gen, shape, dtype):
 
 
 def linear_params(gen, d_in: int, d_out: int, cfg: ArchConfig, *,
-                  lora: bool, bias: bool = False, lead: Tuple[int, ...] = ()):
+                  lora: bool, bias: bool = False, lead: Tuple[int, ...] = (),
+                  quantize: Optional[str] = None):
     """A linear at the reference's scales (W0 ~ N(0, 1/d_in), A ~ N(0, 1/r),
-    B = 0, bias 0). ``lead``: leading stack dims, e.g. ``(n_layers,)``."""
+    B = 0, bias 0). ``lead``: leading stack dims, e.g. ``(n_layers,)``.
+    ``quantize`` ("int8", "int4" or "nf4") turns W0 into that format as
+    soon as it is drawn, so no dense copy of it outlives this call."""
     dtype = _dtype(cfg)
-    p = {"w": _randn(gen, (*lead, d_in, d_out), dtype) * (d_in ** -0.5)}
+    w = _randn(gen, (*lead, d_in, d_out), dtype).mul_(d_in ** -0.5)
+    p = {"w": w if quantize is None else quant.quantize_leaf(w, quantize)}
     if bias:
         p["bias"] = torch.zeros((*lead, d_out), dtype=dtype, device=gen.device)
     if lora:
@@ -137,10 +141,12 @@ def rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 
-def attention_params(gen, cfg: ArchConfig, *, lead: Tuple[int, ...] = ()):
+def attention_params(gen, cfg: ArchConfig, *, lead: Tuple[int, ...] = (),
+                     quantize: Optional[str] = None):
     hd = cfg.resolved_head_dim
     tg = cfg.lora.targets
-    lin = functools.partial(linear_params, gen, cfg=cfg, lead=lead)
+    lin = functools.partial(linear_params, gen, cfg=cfg, lead=lead,
+                            quantize=quantize)
     return {
         "q": lin(cfg.d_model, cfg.n_heads * hd, lora="q" in tg,
                  bias=cfg.qkv_bias),
@@ -235,9 +241,11 @@ def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
 # ---------------------------------------------------------------------------
 
 
-def mlp_params(gen, cfg: ArchConfig, *, lead: Tuple[int, ...] = ()):
+def mlp_params(gen, cfg: ArchConfig, *, lead: Tuple[int, ...] = (),
+               quantize: Optional[str] = None):
     tg = cfg.lora.targets
-    lin = functools.partial(linear_params, gen, cfg=cfg, lead=lead)
+    lin = functools.partial(linear_params, gen, cfg=cfg, lead=lead,
+                            quantize=quantize)
     return {
         "gate": lin(cfg.d_model, cfg.d_ff, lora="gate" in tg),
         "up": lin(cfg.d_model, cfg.d_ff, lora="up" in tg),

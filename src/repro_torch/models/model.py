@@ -46,21 +46,29 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     device in ``cfg.dtype``. The values differ from ``jax.random``'s; tests
     that compare the two packages bridge the reference's parameters.
     ``quantize`` ("int8", or packed "int4"/"nf4") turns every frozen ``w``
-    leaf into its ``core/quant`` format; LoRA factors, biases, norms and the
-    embedding stay in ``cfg.dtype``."""
+    leaf into its ``core/quant`` format as it is drawn (the same values as
+    ``quant.quantize_params`` over the dense tree, without ever holding
+    that tree); LoRA factors, biases, norms and the embedding stay in
+    ``cfg.dtype``."""
     _require_dense(cfg)
     gen = generator
     dtype = getattr(torch, cfg.dtype)
     L, d = cfg.n_layers, cfg.d_model
+    method = None if quantize in (None, "none") else quantize
+    if method is not None and method not in quant.METHODS:
+        raise ValueError(f"unknown quantize method {quantize!r}; "
+                         f"expected one of {quant.METHODS}")
     ones = lambda *s: torch.ones(s, dtype=dtype, device=gen.device)
-    return quant.quantize_params({
+    return {
         "embed": layers.embed_params(gen, cfg),
         "final_norm": ones(d),
         "blocks": {"ln1": ones(L, d),
-                   "attn": layers.attention_params(gen, cfg, lead=(L,)),
+                   "attn": layers.attention_params(gen, cfg, lead=(L,),
+                                                   quantize=method),
                    "ln2": ones(L, d),
-                   "mlp": layers.mlp_params(gen, cfg, lead=(L,))},
-    }, quantize)
+                   "mlp": layers.mlp_params(gen, cfg, lead=(L,),
+                                            quantize=method)},
+    }
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cpu"):

@@ -17,9 +17,10 @@ token. Finished rows recycle at once: pages go back to the allocator, the
 adapter pin drops, and an emptied tile unbinds.
 
 Admission gates, in the reference's order: a compatible tile, room in the
-adapter store, KV pages for ``len(prompt) + max_new``. The reference's
-optional memory-headroom gate (``mem_budget_mb``) needs its memory
-simulator and is not ported yet.
+adapter store, the optional memory headroom (``mem_budget_mb`` against
+``serve/residency.serve_residency``: the base in its own format, the
+resident adapters, the live KV pages and the decode working set, a model
+and not a measurement), KV pages for ``len(prompt) + max_new``.
 """
 from __future__ import annotations
 
@@ -30,8 +31,10 @@ import numpy as np
 import torch
 
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
+from repro_torch.core import quant
 from repro_torch.models import model as model_lib
 from repro_torch.serve.paged import PagedKVAllocator
+from repro_torch.serve.residency import serve_residency
 from repro_torch.serve.store import AdapterStore, StoreFull
 from repro_torch.telemetry.metrics import CounterGroup, MetricRegistry
 
@@ -66,6 +69,12 @@ class ContinuousBatcher:
     ``register_adapter`` publishes a tenant's (A, B) tree to the host-side
     registry; the store pulls it into residency on first admission and
     LRU-evicts it when unpinned and cold.
+
+    ``mem_budget_mb``: admit only while the modelled resident set
+    (``serve_residency`` with the base in ``policy.quantize``'s format and
+    adapters of the config's rank) stays within it; None admits without
+    the check. ``policy.quantize`` must be the store's base format
+    (``quant.tree_method``), as ``mesp.value_and_grad`` holds it.
     """
 
     def __init__(self, cfg, store: AdapterStore, *, slots: int = 8,
@@ -75,10 +84,10 @@ class ContinuousBatcher:
         if slots % tile:
             raise ValueError(f"slots ({slots}) must be a multiple of the "
                              f"tile size ({tile})")
-        if mem_budget_mb is not None:
-            raise NotImplementedError(
-                "the mem_budget_mb headroom gate needs the memory simulator, "
-                "which the port has not ported yet")
+        found = quant.tree_method(store.params)
+        if found != policy.quantize:
+            raise ValueError(f"the frozen base is {found!r} but "
+                             f"policy.quantize is {policy.quantize!r}")
         self.cfg = cfg
         self.store = store
         self.slots = slots
@@ -87,6 +96,8 @@ class ContinuousBatcher:
         self.max_len = max_len
         self.policy = policy
         self.device = policy.device
+        self.mem_budget_mb = mem_budget_mb
+        self.weights_fmt = quant.weights_format(policy.quantize)
         self.cache = model_lib.init_cache(cfg, slots, max_len,
                                           device=self.device)
         self.alloc = PagedKVAllocator(slots * max_len // page_size, page_size)
@@ -147,6 +158,20 @@ class ContinuousBatcher:
                 return t
         return None
 
+    def _headroom_ok(self, extra_adapter: bool, extra_tokens: int) -> bool:
+        """Would the modelled resident set, with one more adapter (if it is
+        not resident) and the pages of ``extra_tokens``, fit the budget?"""
+        if self.mem_budget_mb is None:
+            return True
+        resident = min(self.store.resident + (1 if extra_adapter else 0),
+                       self.store.capacity)
+        pages = self.alloc.used_pages + self.alloc.pages_for(extra_tokens)
+        r = serve_residency(
+            self.cfg, rank=self.cfg.lora.rank, resident_adapters=resident,
+            kv_pages=pages, page_size=self.alloc.page_size,
+            batch=self.slots, weights_fmt=self.weights_fmt)
+        return r["total_mb"] <= self.mem_budget_mb
+
     def _try_place(self, req: Request) -> bool:
         t = self._find_tile(req.adapter)
         if t is None:
@@ -154,6 +179,9 @@ class ContinuousBatcher:
         if not self.store.can_admit(req.adapter):
             return self._reject(req, "store")
         total = len(req.prompt) + req.max_new
+        if not self._headroom_ok(
+                self.store.lookup(req.adapter) is None, total):
+            return self._reject(req, "headroom")
         if not self.alloc.reserve(req.rid, total):
             return self._reject(req, "pages")
         try:

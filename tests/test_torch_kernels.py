@@ -188,7 +188,8 @@ def test_cpu_tensors_never_launch_kernels():
     o = tops.sdpa(q, torch.randn(1, 1, 64, 8), torch.randn(1, 1, 64, 8))
     torch.autograd.grad((y * fg).sum() + xn.sum() + o.sum(), (fx, fa, q))
     counts = tops.launch_counts()
-    assert set(counts) == {"lora_grouped_fwd", "rmsnorm_fwd",
+    assert set(counts) == {"lora_grouped_fwd", "lora_grouped_q",
+                           "lora_grouped_q4", "rmsnorm_fwd",
                            "lora_fused_fwd", "lora_dx", "lora_dab",
                            "rmsnorm_bwd", "flash_fwd", "flash_bwd_dq",
                            "flash_bwd_dkv", "lora_fused_q", "lora_dx_q",

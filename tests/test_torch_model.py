@@ -79,10 +79,9 @@ def test_init_params_same_tree_and_scales_as_reference():
     assert mask["embed"]["tok"] is False
 
 
-def test_bridge_keeps_stacked_leaves_and_rejects_quantized(jparams):
-    """Stacked leaves come through unchanged, and so do quantized leaves:
-    the bridge no longer rejects them (the name is older than that)."""
-    tp =bridge.from_numpy_tree(_np(jparams))
+def test_bridge_keeps_stacked_and_quantized_leaves(jparams):
+    """Stacked leaves come through unchanged, and so do quantized leaves."""
+    tp = bridge.from_numpy_tree(_np(jparams))
     a = tp["blocks"]["attn"]["q"]["a"]
     assert a.shape == (JCFG.n_layers, 3, JCFG.d_model, JCFG.lora.rank)
     np.testing.assert_array_equal(a.numpy(),

@@ -278,15 +278,28 @@ def test_quantized_functions_save_codes_not_w0():
 
 
 def test_grouped_decode_raises_on_a_quantized_base():
+    """The grouped decode path takes a quantized base (its kernels and their
+    parity are in tests/test_torch_serve_quant.py), but only a shared
+    [K, N] one: a per-expert stack (Ew = E, MoE's) or a packed leaf of
+    another K raises under every backend."""
     x, w, *_ = map(torch.from_numpy, _op_inputs(10, 4, 16, 24, 4, "int8"))
     a, b = torch.zeros(2, 16, 4), torch.zeros(2, 4, 24)
     gid = torch.zeros(2, dtype=torch.int32)
     for method in METHODS:
+        stacked = tq.quantize_leaf(torch.stack([w, w]), method)
+        other_k = tq.quantize_leaf(w[:15], method)
         for backend in ("cuda", "structured"):
-            with pytest.raises(NotImplementedError, match="lora_grouped_q"):
-                tops.lora_grouped_decode(
-                    x, tq.quantize_leaf(w, method), a, b, gid, bm=2,
-                    policy=ExecutionPolicy(backend=backend))
+            pol = ExecutionPolicy(backend=backend, quantize=method)
+            with pytest.raises(ValueError, match="per-expert"):
+                tops.lora_grouped_decode(x, stacked, a, b, gid, bm=2,
+                                         policy=pol)
+            if method != "int8":
+                with pytest.raises(ValueError, match="K=15"):
+                    tops.lora_grouped_decode(x, other_k, a, b, gid, bm=2,
+                                             policy=pol)
+            y = tops.lora_grouped_decode(x, tq.quantize_leaf(w, method), a,
+                                         b, gid, bm=2, policy=pol)
+            assert y.shape == (4, 24) and bool(torch.isfinite(y).all())
 
 
 # ------------------------------------------------------------------- model

@@ -142,8 +142,10 @@ def test_batcher_validates_requests(params):
         bat.submit(Request("x", "nobody", (1, 2), 2))
     with pytest.raises(ValueError, match="multiple"):
         ContinuousBatcher(CFG, AdapterStore(params, 1), slots=5, tile=2)
-    with pytest.raises(NotImplementedError, match="mem_budget_mb"):
-        ContinuousBatcher(CFG, AdapterStore(params, 1), mem_budget_mb=10.0)
+    # the headroom gate is ported (tests/test_torch_serve_quant.py holds it
+    # against the reference's); it charges the base in the policy's format
+    bat = ContinuousBatcher(CFG, AdapterStore(params, 1), mem_budget_mb=10.0)
+    assert bat.mem_budget_mb == 10.0 and bat.weights_fmt == "bf16"
 
 
 def test_batcher_admission_rejections(params):
