@@ -76,16 +76,40 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    ``init_params`` leaves allocated for a bf16, int8 and nf4 base beside
    ``serve/residency.serve_residency``'s modelled ``weights_mb``, and each
    run's peak.
+11. MoE training over per-expert stacks: holds the three grouped training
+   kernels (``lora_grouped_gemm``, ``lora_grouped_dx``,
+   ``lora_grouped_dab``) against their plain versions in f32 and bf16 at
+   the MoE path's shapes (E 64, C 40, (K, N) of gate/up and down, r 8) and
+   at ``MOE_EDGES`` (C 13 padded to 16, a 72-row tile over two blocks, odd
+   K and N, ranks 3 and 16, an empty group, a bad gid, a group split in
+   two), and times them beside their plain versions, the bound and
+   ``torch.bmm`` / ``torch.matmul`` of the expert product as context; and
+   the dense kernels on that path at its shapes, in f32 and bf16: the LoRA
+   forward, dx and dA/dB at 256 rows x 2048 x 2048 (q, k, v, o), RMSNorm
+   forward and backward over [256, 2048], flash attention at B*H 16, G 1,
+   N 256, D 128.
+   Then trains full-width OLMoE-1B-7B (16 layers, random weights from a
+   seed) through ``repro_torch.launch.train --arch olmoe-1b-7b``: mesp_cuda,
+   batch 1 x seq 256, 3 steps, counts zeroed just before and read just
+   after (``MOE_PER_STEP``: grouped 96 / 48 / 48 a step). Then the loss and
+   LoRA gradients against the plain backend in bf16 and f32
+   (``compare_grads_moe``: routing differences per layer; gradients with
+   the routing pinned to the kernel run's, at ``GRAD_TOL`` at
+   ``MOE_GRAD_LAYERS`` layers and at cosine ``MOE_COS_FLOOR`` at full
+   depth), two bitwise-equal ``value_and_grad`` calls, and
+   the peak memory of one ``value_and_grad`` for mesp_cuda, mesp and mebp,
+   remat on and off.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
-``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}`` and
-``{"train_quant": ...}`` line each, the card's name and power limit, and
-last
+``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
+``{"train_quant": ...}`` and ``{"train_moe": ...}`` line each, the card's
+name and power limit, and last
 ``{"ok": true, "device": ...}``. Any mismatch or exception exits non-zero.
 Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import gc
 import json
@@ -154,6 +178,8 @@ TRAIN_PER_STEP = {
     # a dense base runs no quantized kernel, and training no grouped one
     "lora_fused_q": 0, "lora_dx_q": 0, "lora_fused_q4": 0, "lora_dx_q4": 0,
     "lora_grouped_q": 0, "lora_grouped_q4": 0,
+    # MoE's grouped training kernels run only on the MoE path
+    "lora_grouped_gemm": 0, "lora_grouped_dx": 0, "lora_grouped_dab": 0,
 }
 # the paper's setting, where attention runs the flash kernels
 PAPER_BATCH, PAPER_SEQ, PAPER_STEPS, ROPE_STEPS = 1, 256, 4, 2
@@ -194,6 +220,53 @@ GROUPED_Q_EDGES = {
     "bad_gid": (8, 2, 896, 896, 4, 8, (3, 7, 0, -1)),
 }
 
+# MoE training: full-width OLMoE-1B-7B at the paper's batch 1 x seq 256
+MOE_ARCH, MOE_STEPS = "olmoe-1b-7b", 3
+MOE_L, MOE_E, MOE_D, MOE_F = 16, 64, 2048, 1024
+# capacity: 256 tokens x top-8 / 64 experts x 1.25 = 40 slots an expert,
+# one tile of bm = 40 rows each (ops.grouped_bm)
+MOE_C = MOE_BM = 40
+# (K, N) -> {kernel: launches a step}: gate and up (d -> d_expert), down
+# (d_expert -> d); every block's forward twice (remat), its backward once
+MOE_SHAPES = {
+    (MOE_D, MOE_F): {"lora_grouped_gemm": 4 * MOE_L,
+                     "lora_grouped_dx": 2 * MOE_L,
+                     "lora_grouped_dab": 2 * MOE_L},
+    (MOE_F, MOE_D): {"lora_grouped_gemm": 2 * MOE_L,
+                     "lora_grouped_dx": MOE_L, "lora_grouped_dab": MOE_L},
+}
+MOE_PER_STEP = {
+    **{k: 0 for k in TRAIN_PER_STEP},
+    # q, k, v, o through the dense LoRA kernels; block 0's q/k/v take the
+    # frozen embedding (no dx)
+    "lora_fused_fwd": 2 * 4 * MOE_L, "lora_dx": 4 * MOE_L - 3,
+    "lora_dab": 4 * MOE_L,
+    "rmsnorm_fwd": 4 * MOE_L + 1, "rmsnorm_bwd": 2 * MOE_L,
+    "flash_fwd": 2 * MOE_L, "flash_bwd_dq": MOE_L, "flash_bwd_dkv": MOE_L,
+    **{k: sum(per[k] for per in MOE_SHAPES.values())
+       for k in ("lora_grouped_gemm", "lora_grouped_dx",
+                 "lora_grouped_dab")},
+}
+# depth of the MoE gradient check at GRAD_TOL: over 16 random layers even
+# the plain bf16 gradients part from the f32 ones by more than 1 (relative
+# L2), with or without the same routing (PERF.md)
+MOE_GRAD_LAYERS = 2
+# at 16 layers, with the routing pinned: the least cosine similarity of a
+# LoRA leaf's gradient through the kernels to the plain bf16 one (a zero or
+# an unrelated gradient reads about 0)
+MOE_COS_FLOOR = 0.2
+# edges of the grouped training kernels' check: (M, bm, K, N, E, r, gid)
+MOE_EDGES = {
+    "c13_padded_to_bm16": (4 * 16, 16, MOE_D, MOE_F, 4, 8, (0, 1, 2, 3)),
+    "bm72_two_row_blocks": (4 * 72, 72, MOE_F, MOE_D, 4, 8, (0, 1, 2, 3)),
+    "odd_k_n": (3 * 40, 40, 97, 131, 3, 8, (0, 1, 2)),
+    "rank3": (4 * 40, 40, MOE_D, MOE_F, 4, 3, (0, 1, 2, 3)),
+    "rank16": (4 * 40, 40, MOE_F, MOE_D, 4, 16, (3, 2, 1, 0)),
+    "ragged_empty_group": (6 * 40, 40, 300, 130, 4, 8, (0, 0, 2, 2, 2, 3)),
+    "bad_gid": (4 * 40, 40, 256, 192, 4, 8, (0, 70, 1, -1)),
+    "split_group": (4 * 40, 40, 256, 192, 3, 8, (1, 0, 1, 2)),
+}
+
 
 def quant_per_step(method):
     """Launches per step with ``--quantize method``: the paper path's, with
@@ -224,6 +297,8 @@ FLASH_CASES = {
     "G1": (14, 1, 256, 256, 64, True, 0, False),
     "d40": (2, 7, 256, 256, 40, True, 32, True),
     "d128": (2, 7, 256, 256, 128, True, 0, True),
+    # OLMoE-1B-7B at batch 1 x seq 256: 16 heads of 128, one a kv head
+    "olmoe": (16, 1, 256, 256, 128, True, 0, False),
 }
 # B of the value_and_grad comparison: nonzero, at the size B reaches when
 # fine-tuned from zero
@@ -392,14 +467,14 @@ def kernel_entry(name, source, replaces, tpu_kernel, shapes, launches,
 # ---------------------------------------------------------------- training
 
 
-def _train_cases(torch, gen, dtype, K, N):
+def _train_cases(torch, gen, dtype, M_, K, N):
     """make() of the inputs of the LoRA kernels at one training shape:
-    x [TM, K], w0 [K, N], a [K, r], b [r, N] (nonzero), g [TM, N]."""
+    x [M, K], w0 [K, N], a [K, r], b [r, N] (nonzero), g [M, N]."""
     def make():
         rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
         return tuple(t.to(dtype) for t in (
-            rn(TM, K), rn(K, N) * K ** -0.5, rn(K, RANK) * RANK ** -0.5,
-            rn(RANK, N) * 0.1, rn(TM, N)))
+            rn(M_, K), rn(K, N) * K ** -0.5, rn(K, RANK) * RANK ** -0.5,
+            rn(RANK, N) * 0.1, rn(M_, N)))
     return make
 
 
@@ -413,12 +488,19 @@ def _close_scaled(got, want, tol, what):
                                         atol=tol["atol"] * scale), what)
 
 
-def check_training_kernels(torch, lf, rn):
+def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
+                           rms_bwd=TRAIN_PER_STEP["rmsnorm_bwd"], seed=3):
     """The LoRA training kernels and the RMSNorm backward against their
-    plain versions at the training shapes, in bf16 and f32 (f32: summation
+    plain versions at a path's shapes, in bf16 and f32 (f32: summation
     order only, rtol = atol = 1e-4); times, bounds and the matmul context
-    in bf16. Returns {kernel: [shape figures]}."""
-    gen = torch.Generator(device="cuda").manual_seed(3)
+    in bf16. ``M_`` rows through every linear; ``linears``: {(K, N):
+    {kernel: launches a step}} (by default the seq-48 training path's);
+    the norm over [M_, d], ``rms_bwd`` launches a step. Returns {kernel:
+    [shape figures]}."""
+    if linears is None:
+        linears = {s: {k: v[s] for k, v in TRAIN_SHAPES.items()}
+                   for s in LINEARS}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     out = {k: [] for k in ("lora_fused_fwd", "lora_dx", "lora_dab",
                            "rmsnorm_bwd")}
     f32_tol = dict(rtol=1e-4, atol=1e-4)
@@ -434,33 +516,34 @@ def check_training_kernels(torch, lf, rn):
                      lambda x, w, a, b, g: lf.lora_dab_ref(x, g, a, b),
                      None),
     }
-    for (K, N) in LINEARS:
+    for (K, N), per in linears.items():
         errs = {}
         for dtype, tol in ((torch.float32, f32_tol),
                            (torch.bfloat16, KERNEL_TOL)):
-            args = _train_cases(torch, gen, dtype, K, N)()
+            args = _train_cases(torch, gen, dtype, M_, K, N)()
             for name, (kern, plain, _) in calls.items():
                 got, want = kern(*args), plain(*args)
                 torch.cuda.synchronize()
                 if name != "lora_dab":
                     got, want = (got,), (want,)
                 errs[(name, dtype)] = max(
-                    _close_scaled(u, v, tol, f"{name} {dtype} K={K} N={N}")
+                    _close_scaled(u, v, tol,
+                                  f"{name} {dtype} M={M_} K={K} N={N}")
                     for u, v in zip(got, want))
-        make = _train_cases(torch, gen, torch.bfloat16, K, N)
-        base = 2 * (TM * K + K * N + K * RANK + RANK * N + TM * N)
+        make = _train_cases(torch, gen, torch.bfloat16, M_, K, N)
+        base = 2 * (M_ * K + K * N + K * RANK + RANK * N + M_ * N)
         sets = _cold_sets(make, base)
         for name, (kern, plain, mm) in calls.items():
             if name == "lora_dab":   # reads x, g, A, B; writes dA, dB
-                nbytes = 2 * (TM * K + TM * N + 2 * (K * RANK + RANK * N))
-                flops = 4 * TM * RANK * (K + N)
+                nbytes = 2 * (M_ * K + M_ * N + 2 * (K * RANK + RANK * N))
+                flops = 4 * M_ * RANK * (K + N)
             else:   # reads x (or g), W0, A, B; writes y (or dx)
-                nbytes, flops = base, (2 * TM * K * N
-                                       + 2 * TM * RANK * (K + N))
+                nbytes, flops = base, (2 * M_ * K * N
+                                       + 2 * M_ * RANK * (K + N))
             bound, by = _bound_ms(nbytes, flops)
             out[name].append({
-                "K": K, "N": N, "M": TM, "r": RANK,
-                "launches_per_train_step": TRAIN_SHAPES[name][(K, N)],
+                "K": K, "N": N, "M": M_, "r": RANK,
+                "launches_per_train_step": per[name],
                 "max_abs_err": errs[(name, torch.bfloat16)],
                 "max_abs_err_f32": errs[(name, torch.float32)],
                 "ms": _time_ms(kern, sets), "plain_ms": _time_ms(plain, sets),
@@ -471,8 +554,8 @@ def check_training_kernels(torch, lf, rn):
 
     def make_rms(dtype=torch.bfloat16):
         rn_ = lambda *s: torch.randn(s, generator=gen, device="cuda")
-        return ((rn_(TM, D_MODEL) * 3).to(dtype), rn_(D_MODEL).to(dtype),
-                rn_(TM, D_MODEL).to(dtype))
+        return ((rn_(M_, d) * 3).to(dtype), rn_(d).to(dtype),
+                rn_(M_, d).to(dtype))
     errs = {}
     for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-5)),
                        (torch.bfloat16, KERNEL_TOL)):
@@ -480,46 +563,51 @@ def check_training_kernels(torch, lf, rn):
         dx, dw = rn.rmsnorm_bwd(x, w, g, 1e-6)
         torch.cuda.synchronize()
         wdx, wdw = rn.rmsnorm_bwd_ref(x, w, g, 1e-6)
-        errs[dtype] = max(_check_close(dx, wdx, tol, f"rmsnorm_bwd {dtype}"),
-                          _close_scaled(dw, wdw, tol,
-                                        f"rmsnorm_bwd dw {dtype}"))
-    nbytes = 2 * (3 * TM * D_MODEL + D_MODEL)
-    bound, by = _bound_ms(nbytes, 10 * TM * D_MODEL)
+        errs[dtype] = max(
+            _check_close(dx, wdx, tol, f"rmsnorm_bwd {dtype} [{M_}, {d}]"),
+            _close_scaled(dw, wdw, tol, f"rmsnorm_bwd dw {dtype} [{M_}, {d}]"))
+    nbytes = 2 * (3 * M_ * d + d)
+    bound, by = _bound_ms(nbytes, 10 * M_ * d)
     # the path asks for no dw (no norm weight trains): time it that way
     bwd = lambda x, w, g: rn.rmsnorm_bwd(x, w, g, 1e-6, need_dw=False)
     plain = lambda x, w, g: rn.rmsnorm_bwd_ref(x, w, g, 1e-6)[0]
     sets = [make_rms()] * 256     # warm: g was just written by the step
     out["rmsnorm_bwd"].append({
-        "M": TM, "d": D_MODEL,
-        "launches_per_train_step": TRAIN_PER_STEP["rmsnorm_bwd"],
+        "M": M_, "d": d, "launches_per_train_step": rms_bwd,
         "max_abs_err": errs[torch.bfloat16],
         "max_abs_err_f32": errs[torch.float32],
         "ms": _time_ms(bwd, sets), "plain_ms": _time_ms(plain, sets),
         "library_ms": None, "bound_ms": bound, "bound_by": by,
-        "bytes": nbytes, "flops": 10 * TM * D_MODEL})
+        "bytes": nbytes, "flops": 10 * M_ * d})
     return out
 
 
-def rmsnorm_train_shape(torch, rn):
-    """The RMSNorm forward at the training shape [192, 896], bf16, warm."""
+def rmsnorm_train_shape(torch, rn, M_=TM, d=D_MODEL,
+                        launches=TRAIN_PER_STEP["rmsnorm_fwd"], seed=4):
+    """The RMSNorm forward at a training shape [M_, d] (by default the
+    seq-48 path's [192, 896]) against its plain version in f32 (rtol = atol
+    = 1e-5) and bf16; times in bf16, warm."""
     import torch.nn.functional as F
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    x = (torch.randn(TM, D_MODEL, generator=gen, device="cuda") * 3
-         ).bfloat16()
-    w = torch.randn(D_MODEL, generator=gen, device="cuda").bfloat16()
-    err = _check_close(rn.rmsnorm(x, w, 1e-6), rn.rmsnorm_ref(x, w, 1e-6),
-                       KERNEL_TOL, "rmsnorm_fwd train shape")
-    nbytes = 2 * (2 * TM * D_MODEL + D_MODEL)
-    bound, by = _bound_ms(nbytes, 4 * TM * D_MODEL)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    errs = {}
+    for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-5)),
+                       (torch.bfloat16, KERNEL_TOL)):
+        x = (torch.randn(M_, d, generator=gen, device="cuda") * 3).to(dtype)
+        w = torch.randn(d, generator=gen, device="cuda").to(dtype)
+        errs[dtype] = _check_close(
+            rn.rmsnorm(x, w, 1e-6), rn.rmsnorm_ref(x, w, 1e-6), tol,
+            f"rmsnorm_fwd {dtype} [{M_}, {d}]")
+    nbytes = 2 * (2 * M_ * d + d)
+    bound, by = _bound_ms(nbytes, 4 * M_ * d)
     sets = [(x, w)] * 256
-    return {"M": TM, "d": D_MODEL,
-            "launches_per_train_step": TRAIN_PER_STEP["rmsnorm_fwd"],
-            "max_abs_err": err,
+    return {"M": M_, "d": d, "launches_per_train_step": launches,
+            "max_abs_err": errs[torch.bfloat16],
+            "max_abs_err_f32": errs[torch.float32],
             "ms": _time_ms(lambda x, w: rn.rmsnorm(x, w, 1e-6), sets),
             "plain_ms": _time_ms(lambda x, w: rn.rmsnorm_ref(x, w, 1e-6),
                                  sets),
             "library_ms": _time_ms(
-                lambda x, w: F.rms_norm(x, (D_MODEL,), w, 1e-6), sets),
+                lambda x, w: F.rms_norm(x, (d,), w, 1e-6), sets),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -811,8 +899,8 @@ def check_flash(torch, fa, rope_tables):
     """The flash kernels against their plain versions on every case of
     ``FLASH_CASES`` in f32 and bf16 (the backward's plain version from the
     kernel's own out and lse), dk/dv's bits on a repeated call; then their
-    times at the path's shape in bf16. Returns {kernel: [shape figures]}."""
-    import torch.nn.functional as F
+    times in bf16 at the Qwen path's shape and at OLMoE's. Returns
+    ({kernel: [Qwen shape figures]}, {kernel: OLMoE shape figures})."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     errs = {(n, d): 0.0 for n in FLASH_PER_STEP
             for d in (torch.float32, torch.bfloat16)}
@@ -854,9 +942,19 @@ def check_flash(torch, fa, rope_tables):
             errs[("flash_bwd_dkv", dtype)] = max(
                 errs[("flash_bwd_dkv", dtype)], e)
 
-    # times at the path's shape, bf16; warm: q, k, v were just written by
-    # the q/k/v linears, g by the o linear's backward
-    BHkv, G, N, _, D, causal, window, _ = FLASH_CASES["path"]
+    qwen = _flash_times(torch, fa, gen, errs, "path", FLASH_PER_STEP)
+    olmoe = _flash_times(torch, fa, gen, errs, "olmoe",
+                         {k: MOE_PER_STEP[k] for k in FLASH_PER_STEP})
+    return qwen, {k: v[0] for k, v in olmoe.items()}
+
+
+def _flash_times(torch, fa, gen, errs, case, per_step):
+    """The flash kernels' figures at ``FLASH_CASES[case]``'s shape, bf16,
+    with ``per_step`` launches a step and the errors of ``check_flash``;
+    warm: q, k, v were just written by the q/k/v linears, g by the o
+    linear's backward."""
+    import torch.nn.functional as F
+    BHkv, G, N, _, D, causal, window, _ = FLASH_CASES[case]
     BH = BHkv * G
     kw = dict(causal=causal, window=window, q_per_kv=G)
     q, k, v, g = _flash_inputs(torch, gen, torch.bfloat16, BHkv, G, N, N, D)
@@ -905,7 +1003,7 @@ def check_flash(torch, fa, rope_tables):
         figures[name] = [{
             "BH": BH, "BHkv": BHkv, "N": N, "D": D, "causal": causal,
             "window": window, "dtype": "bfloat16",
-            "launches_per_train_step": FLASH_PER_STEP[name],
+            "launches_per_train_step": per_step[name],
             "max_abs_err": errs[(name, torch.bfloat16)],
             "max_abs_err_f32": errs[(name, torch.float32)],
             "ms": _time_ms(kern, sets), "plain_ms": _time_ms(plain, sets),
@@ -940,26 +1038,36 @@ def _grad_leaves(tree, prefix=""):
     return {} if tree is None else {prefix: tree.float()}
 
 
-def compare_grads(torch, cfg, params, batch, quantize="none"):
+def _grad_runs(torch, cfg, params, batch, quantize="none", wrap=None):
     """One value_and_grad through the kernels, the plain backend in bf16
     and the plain backend in f32, on the same (bf16-valued) weights, whose
-    frozen base is in the ``quantize`` format. Returns the loss and
-    per-leaf relative L2 distances."""
+    frozen base is in the ``quantize`` format; ``wrap(name, run)`` runs
+    each (by default ``run()``). Returns ({run: loss}, {run: {leaf:
+    grad}})."""
     import dataclasses
     from repro_torch.api.policy import ExecutionPolicy
     from repro_torch.core import mesp
-    runs = {"kernels": ("cuda", cfg, params),
-            "plain": ("plain", cfg, params),
+    # the f32 copy is made for its run and freed after it
+    runs = {"kernels": ("cuda", cfg, lambda: params),
+            "plain": ("plain", cfg, lambda: params),
             "f32": ("plain", dataclasses.replace(cfg, dtype="float32"),
-                    _f32(params))}
+                    lambda: _f32(params))}
+    wrap = wrap or (lambda name, run: run())
     loss, grads = {}, {}
-    for name, (backend, c, p) in runs.items():
-        l, g = mesp.value_and_grad(p, c, batch, policy=ExecutionPolicy(
-            backend=backend, device="cuda", quantize=quantize))
+    for name, (backend, c, make) in runs.items():
+        l, g = wrap(name, lambda: mesp.value_and_grad(
+            make(), c, batch, policy=ExecutionPolicy(
+                backend=backend, device="cuda", quantize=quantize)))
         loss[name], grads[name] = float(l), _grad_leaves(g)
         if not math.isfinite(loss[name]) or not all(
                 bool(torch.isfinite(t).all()) for t in grads[name].values()):
             raise AssertionError(f"{name}: non-finite loss or gradient")
+    return loss, grads
+
+
+def _distances(torch, loss, grads):
+    """The loss and the per-leaf relative L2 distances between the runs of
+    ``_grad_runs``, with the worst leaf of each pair."""
     rel = lambda u, v: float(torch.linalg.vector_norm(u - v)
                              / torch.linalg.vector_norm(v))
     leaves = {}
@@ -967,24 +1075,131 @@ def compare_grads(torch, cfg, params, batch, quantize="none"):
         k, p, f = (grads[n][path] for n in ("kernels", "plain", "f32"))
         leaves[path] = {"kernels_vs_plain": rel(k, p),
                         "kernels_vs_f32": rel(k, f),
-                        "plain_vs_f32": rel(p, f)}
-    bad = {path: e for path, e in leaves.items()
-           if e["kernels_vs_plain"] > GRAD_TOL
-           or e["kernels_vs_f32"] > 2 * e["plain_vs_f32"] + 1e-3}
-    if bad or len(leaves) != 14:
-        raise AssertionError(
-            f"LoRA gradients: kernels vs plain bf16 over {GRAD_TOL}, or "
-            f"further from f32 than twice the plain bf16 backend: {bad}; "
-            f"all leaves: {leaves}")
+                        "plain_vs_f32": rel(p, f),
+                        "cos": {"kernels_vs_plain": _cos(torch, k, p),
+                                "kernels_vs_f32": _cos(torch, k, f),
+                                "plain_vs_f32": _cos(torch, p, f)}}
     loss_err = {"kernels_vs_plain": abs(loss["kernels"] - loss["plain"]),
                 "kernels_vs_f32": abs(loss["kernels"] - loss["f32"]),
                 "plain_vs_f32": abs(loss["plain"] - loss["f32"])}
-    if loss_err["kernels_vs_plain"] > LOSS_TOL * abs(loss["f32"]):
-        raise AssertionError(f"losses differ: {loss} (rtol {LOSS_TOL})")
     worst = {k: max(e[k] for e in leaves.values()) for k in
              ("kernels_vs_plain", "kernels_vs_f32", "plain_vs_f32")}
     return {"loss": loss, "loss_abs_err": loss_err, "worst": worst,
             "leaves": leaves}
+
+
+def _cos(torch, u, v):
+    """Cosine similarity of two gradients, 0 where either is zero."""
+    nu, nv = torch.linalg.vector_norm(u), torch.linalg.vector_norm(v)
+    if not float(nu) or not float(nv):
+        return 0.0
+    return float(torch.sum(u.double() * v.double()) / (nu.double()
+                                                        * nv.double()))
+
+
+def _check_loss(d):
+    if d["loss_abs_err"]["kernels_vs_plain"] > LOSS_TOL * abs(
+            d["loss"]["f32"]):
+        raise AssertionError(f"losses differ: {d['loss']} (rtol {LOSS_TOL})")
+
+
+def _check_grads(d, grad_tol=GRAD_TOL):
+    """Per leaf, kernels vs plain bf16 within ``grad_tol`` and no further
+    from f32 than twice the plain bf16 backend (+1e-3); the loss within
+    ``LOSS_TOL``."""
+    bad = {path: e for path, e in d["leaves"].items()
+           if e["kernels_vs_plain"] > grad_tol
+           or e["kernels_vs_f32"] > 2 * e["plain_vs_f32"] + 1e-3}
+    if bad or len(d["leaves"]) != 14:
+        raise AssertionError(
+            f"LoRA gradients: kernels vs plain bf16 over {grad_tol}, or "
+            f"further from f32 than twice the plain bf16 backend: {bad}; "
+            f"all leaves: {d['leaves']}")
+    _check_loss(d)
+
+
+def compare_grads(torch, cfg, params, batch, quantize="none"):
+    """The loss and LoRA gradients of the kernels against the plain backend
+    in bf16 and f32 (``_grad_runs``), checked: per leaf, kernels vs plain
+    bf16 within ``GRAD_TOL`` and no further from f32 than twice the plain
+    bf16 backend (+1e-3); the loss within ``LOSS_TOL``."""
+    d = _distances(torch, *_grad_runs(torch, cfg, params, batch, quantize))
+    _check_grads(d)
+    return d
+
+
+def _top_k_patched(moe_lib, run, replay=None):
+    """``run()`` with ``moe_lib.top_k`` wrapped: the expert ids of every
+    call are kept, and with ``replay`` (the ids of an earlier run, in call
+    order) each call takes those ids in place of its own choice, its
+    weights gathered from its own probabilities. Returns (run's result,
+    the ids)."""
+    ids, top_k, queue = [], moe_lib.top_k, iter(replay or ())
+
+    def patched(probs, k):
+        if replay is None:
+            vals, idx = top_k(probs, k)
+        else:
+            idx = next(queue)
+            vals = probs.gather(-1, idx)
+        ids.append(idx.detach().clone())
+        return vals, idx
+    moe_lib.top_k = patched
+    try:
+        out = run()
+    finally:
+        moe_lib.top_k = top_k
+    if replay is not None and len(ids) != len(replay):
+        raise AssertionError(f"{len(ids)} routings replayed, {len(replay)} "
+                             "recorded")
+    return out, ids
+
+
+def _check_cosines(d):
+    """Per leaf, the kernels' gradient at cosine ``MOE_COS_FLOOR`` or more
+    from the plain bf16 one (a zero or unrelated gradient reads about 0);
+    the loss within ``LOSS_TOL``."""
+    bad = {path: e["cos"] for path, e in d["leaves"].items()
+           if e["cos"]["kernels_vs_plain"] < MOE_COS_FLOOR}
+    if bad or len(d["leaves"]) != 14:
+        raise AssertionError(
+            f"LoRA gradients: kernels vs plain bf16 at cosine under "
+            f"{MOE_COS_FLOOR}: {bad}; all leaves: {d['leaves']}")
+    _check_loss(d)
+
+
+def compare_grads_moe(torch, moe_lib, cfg, params, batch, grad_tol=None):
+    """``compare_grads`` for an MoE model. Two bf16 implementations route
+    some tokens to other experts, and with random weights a moved token
+    moves others layer by layer (``PERF.md``). So: (1) each run routes
+    freely; the routing differences per layer are counted, every recompute
+    must route as its forward did, and the loss is checked (``LOSS_TOL``);
+    (2) the plain runs take the kernel run's expert ids (their weights from
+    their own router probabilities), so the gradients differ by arithmetic
+    alone, and are checked as ``_check_grads`` checks them at ``grad_tol``;
+    or, with ``grad_tol`` None (full depth, where even the plain bf16
+    gradients lie more than 1 in relative L2 from the f32 ones, so no such
+    bound can fail a wrong gradient), by ``_check_cosines``."""
+    ids = {}
+
+    def free(name, run):
+        out, ids[name] = _top_k_patched(moe_lib, run)
+        return out
+    loose = _distances(torch, *_grad_runs(torch, cfg, params, batch,
+                                          wrap=free))
+    _check_loss(loose)
+    loose["routing"] = routing_differences(torch, ids, cfg.n_layers)
+    pinned = _distances(torch, *_grad_runs(
+        torch, cfg, params, batch,
+        wrap=lambda name, run: _top_k_patched(moe_lib, run,
+                                              ids["kernels"])[0]))
+    if grad_tol is None:
+        _check_cosines(pinned)
+    else:
+        _check_grads(pinned, grad_tol)
+    return {**pinned, "layers": cfg.n_layers, "grad_tol": grad_tol,
+            "cos_floor": MOE_COS_FLOOR if grad_tol is None else None,
+            "routing_pinned_to": "kernels", "free_routing": loose}
 
 
 def _release(torch):
@@ -1094,11 +1309,168 @@ def compare_logits(torch, cfg, params, steps=4, quantize="none"):
     return worst
 
 
+# ------------------------------------------ MoE training over expert stacks
+
+#: calls per timing of a grouped training kernel or its plain version (a
+#: kernel call at the path's shapes takes about a millisecond, a plain one
+#: several: each gathers every tile's W0 and widens it to f32)
+MOE_CALLS = 200
+
+
+def _moe_cases(torch, gen, dtype, M_, K, N, E, r, gid):
+    """make() of the grouped training kernels' inputs: x [M, K], W0 [E, K, N],
+    a [E, K, r], b [E, r, N] (nonzero), g [M, N], gid int32 on the card."""
+    gid = torch.tensor(gid, dtype=torch.int32, device="cuda")
+
+    def make():
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        return tuple(t.to(dtype) for t in (
+            rn(M_, K), rn(E, K, N) * K ** -0.5, rn(E, K, r) * r ** -0.5,
+            rn(E, r, N) * 0.1, rn(M_, N))) + (gid.clone(),)
+    return make
+
+
+def _moe_calls(torch, lg, bm):
+    """{kernel: (kernel, plain version, product context or None)}, each a
+    call on the inputs of ``_moe_cases`` with tiles of ``bm`` rows."""
+    def per_expert(t, w):      # [M, ·] rows as [E, M / E, ·]
+        return t.view(w.shape[0], -1, t.shape[1])
+    return {
+        "lora_grouped_gemm": (
+            lambda x, w, a, b, g, gid: lg.lora_grouped_gemm(
+                x, w, a, b, gid, 2.0, bm=bm),
+            lambda x, w, a, b, g, gid: lg.lora_grouped_gemm_ref(
+                x, w, a, b, gid, 2.0, bm=bm),
+            lambda x, w, a, b, g, gid: torch.bmm(per_expert(x, w), w)),
+        "lora_grouped_dx": (
+            lambda x, w, a, b, g, gid: lg.lora_grouped_dx(
+                g, w, a, b, gid, 2.0, bm=bm),
+            lambda x, w, a, b, g, gid: lg.lora_grouped_dx_ref(
+                g, w, a, b, gid, 2.0, bm=bm),
+            lambda x, w, a, b, g, gid: torch.matmul(per_expert(g, w), w.mT)),
+        "lora_grouped_dab": (
+            lambda x, w, a, b, g, gid: lg.lora_grouped_dab(
+                x, g, a, b, gid, 2.0, bm=bm),
+            lambda x, w, a, b, g, gid: lg.lora_grouped_dab_ref(
+                x, g, a, b, gid, 2.0, bm=bm),
+            None)}
+
+
+def _moe_errors(torch, lg, make_for, bm, what):
+    """Each grouped training kernel against its plain version on the inputs
+    of ``make_for(dtype)``, in f32 (summation order only: 1e-5 relative,
+    the absolute floor relative to the output's largest magnitude) and in
+    bf16 (``KERNEL_TOL``, floored the same way). NaN must fall on the same
+    entries in both. Returns {(kernel, dtype name): max |err|}."""
+    errs = {}
+    for dtype, tol in ((torch.float32, dict(rtol=1e-5, atol=1e-5)),
+                       (torch.bfloat16, KERNEL_TOL)):
+        args = make_for(dtype)()
+        for name, (kern, plain, _) in _moe_calls(torch, lg, bm).items():
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            if name != "lora_grouped_dab":
+                got, want = (got,), (want,)
+            worst = 0.0
+            for u, v in zip(got, want):
+                if not torch.equal(u.isnan(), v.isnan()):
+                    raise AssertionError(f"{name} {what} {dtype}: NaN on "
+                                         "other entries than the plain "
+                                         "version's")
+                ok = ~v.isnan()
+                if bool(ok.any()):
+                    worst = max(worst, _close_scaled(
+                        u[ok], v[ok], tol, f"{name} {what} {dtype}"))
+            errs[(name, str(dtype).split(".")[-1])] = worst
+    return errs
+
+
+def check_grouped_train(torch, lg):
+    """The three grouped training kernels against their plain versions in
+    f32 and bf16 at the MoE path's shapes (E 64, C 40: M 2,560 rows in tiles
+    of 40; (K, N) of gate/up and of down; r 8) and at ``MOE_EDGES``; times,
+    bounds and the batched-product context in bf16 at the path's shapes,
+    inputs cold. Returns ({kernel: [shape figures]}, {edge: errors})."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    figures = {k: [] for k in ("lora_grouped_gemm", "lora_grouped_dx",
+                               "lora_grouped_dab")}
+    path_gid = [e for e in range(MOE_E) for _ in range(MOE_C // MOE_BM)]
+    M_, r = MOE_E * MOE_C, RANK
+    for (K, N), per in MOE_SHAPES.items():
+        errs = _moe_errors(
+            torch, lg, lambda dt: _moe_cases(torch, gen, dt, M_, K, N, MOE_E,
+                                             r, path_gid), MOE_BM,
+            f"K={K} N={N}")
+        T = len(path_gid)
+        stacks = MOE_E * (K * N + K * r + r * N)
+        work = {   # (bytes: inputs once, outputs once; FLOPs)
+            "lora_grouped_gemm": (2 * (M_ * K + stacks + M_ * N) + 4 * T,
+                                  2 * M_ * K * N + 2 * M_ * r * (K + N)),
+            "lora_grouped_dx": (2 * (M_ * N + stacks + M_ * K) + 4 * T,
+                                2 * M_ * K * N + 2 * M_ * r * (K + N)),
+            "lora_grouped_dab": (
+                2 * (M_ * (K + N) + 2 * MOE_E * r * (K + N)) + 4 * T,
+                4 * M_ * r * (K + N))}
+        make = _moe_cases(torch, gen, torch.bfloat16, M_, K, N, MOE_E, r,
+                          path_gid)
+        sets = _cold_sets(make, 2 * (stacks + M_ * (K + N)))
+        for name, (kern, plain, mm) in _moe_calls(torch, lg,
+                                                  MOE_BM).items():
+            nbytes, flops = work[name]
+            bound, by = _bound_ms(nbytes, flops)
+            figures[name].append({
+                "K": K, "N": N, "M": M_, "E": MOE_E, "C": MOE_C, "bm": MOE_BM,
+                "r": r, "launches_per_train_step": per[name],
+                "max_abs_err": errs[(name, "bfloat16")],
+                "max_abs_err_f32": errs[(name, "float32")],
+                "ms": _time_ms(kern, sets, MOE_CALLS),
+                "plain_ms": _time_ms(plain, sets, MOE_CALLS),
+                "library_ms": None,
+                "matmul_ms": _time_ms(mm, sets, MOE_CALLS) if mm else None,
+                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                "flops": flops})
+        del sets
+    edges = {}
+    for case, (M_, bm, K, N, E, r, gid) in MOE_EDGES.items():
+        errs = _moe_errors(
+            torch, lg, lambda dt: _moe_cases(torch, gen, dt, M_, K, N, E, r,
+                                             gid), bm, case)
+        edges[case] = {"M": M_, "bm": bm, "K": K, "N": N, "E": E, "r": r,
+                       "gid": list(gid),
+                       **{f"{k}/{d}": v for (k, d), v in errs.items()}}
+    return figures, edges
+
+
+def routing_differences(torch, ids, layers):
+    """From the expert ids of every routing of each run ({run: ids in call
+    order}; a run routes every layer in the forward, then again, in
+    reverse, as remat recomputes each block): fails unless every recompute
+    routed exactly as its forward did, and returns per layer how many
+    (token, k) choices differ between the runs."""
+    fwd = {}
+    for run, calls in ids.items():
+        if len(calls) != 2 * layers:
+            raise AssertionError(f"{run}: {len(calls)} routings, expected "
+                                 f"{2 * layers}")
+        fwd[run], again = calls[:layers], calls[layers:][::-1]
+        if not all(torch.equal(u, v) for u, v in zip(fwd[run], again)):
+            raise AssertionError(f"{run}: a block's recompute routed "
+                                 "otherwise than its forward")
+    diff = lambda a, b: [int((u != v).sum()) for u, v in zip(fwd[a], fwd[b])]
+    return {"choices_per_layer": fwd["kernels"][0].numel(),
+            "recompute_identical": True,
+            "kernels_vs_plain": diff("kernels", "plain"),
+            "kernels_vs_f32": diff("kernels", "f32"),
+            "plain_vs_f32": diff("plain", "f32")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
         return 1
+    from repro_torch.api.policy import ExecutionPolicy
+    from repro_torch.core import mesp
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import lora_fused as lf
@@ -1111,6 +1483,7 @@ def main() -> int:
     from repro_torch.kernels.rope import rope_tables
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
+    from repro_torch.models import moe as moe_lib
     from repro_torch.serve.residency import serve_residency
 
     smi = subprocess.run(
@@ -1133,10 +1506,20 @@ def main() -> int:
     rms = check_rmsnorm(torch, rn)
     training = check_training_kernels(torch, lf, rn)
     rms_train = rmsnorm_train_shape(torch, rn)
-    flash = check_flash(torch, fa, rope_tables)
+    # the dense kernels at the MoE path's shapes: q, k, v, o (2048 x 2048)
+    # at 256 rows, the norms over [256, 2048]
+    moe_dense = check_training_kernels(
+        torch, lf, rn, QM, {(MOE_D, MOE_D): {
+            k: MOE_PER_STEP[k] for k in ("lora_fused_fwd", "lora_dx",
+                                         "lora_dab")}},
+        MOE_D, MOE_PER_STEP["rmsnorm_bwd"], seed=10)
+    moe_dense["rmsnorm_fwd"] = [rmsnorm_train_shape(
+        torch, rn, QM, MOE_D, MOE_PER_STEP["rmsnorm_fwd"], seed=11)]
+    flash, flash_moe = check_flash(torch, fa, rope_tables)
     qfig, qragged = check_quant_kernels(torch, quant, lq, lp4)
     gq_fig, gq_edges = check_grouped_quant(torch, quant, lg)
     nf4_rounding = check_nf4_codebook_rounding(torch, quant, lg, lp4)
+    moe_fig, moe_edges = check_grouped_train(torch, lg)
 
     # the main path: counts zeroed just before, read just after
     _release(torch)
@@ -1320,23 +1703,83 @@ def main() -> int:
         "frozen_base_bytes": quant.tree_bytes(qparams, frozen_base=True)}
     del qparams, batch
 
+    # MoE training: full-width OLMoE-1B-7B at batch 1 x seq 256, counts
+    # zeroed just before, read just after
+    _release(torch)
+    ops.reset_launch_counts()
+    mrun = train_cli.train(["--arch", MOE_ARCH, "--engine", "mesp_cuda",
+                            "--device", "cuda", "--batch", str(PAPER_BATCH),
+                            "--seq", str(PAPER_SEQ), "--steps",
+                            str(MOE_STEPS), "--seed", "0"])
+    mcounts = ops.launch_counts()
+    mwant = {k: v * MOE_STEPS for k, v in MOE_PER_STEP.items()}
+    if mcounts != mwant:
+        raise AssertionError(f"{MOE_ARCH}: launch counts {mcounts}, expected "
+                             f"{mwant} for {MOE_STEPS} steps")
+    if len(mrun["losses"]) != MOE_STEPS or \
+            not all(map(math.isfinite, mrun["losses"])):
+        raise AssertionError(f"{MOE_ARCH}: losses {mrun['losses']}")
+    mcfg, msecs = mrun["cfg"], mrun["seconds"]
+    moe_params_bytes = quant.tree_bytes(mrun["params"])
+    del mrun["params"]
+    _release(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mparams = _with_b(torch, model_lib.init_params(mcfg, generator=gen), gen)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+        make_batch_iterator(mcfg.vocab, PAPER_SEQ, PAPER_BATCH,
+                            seed=0)).items()}
+    moe_grads = compare_grads_moe(torch, moe_lib, mcfg, mparams, batch)
+    repeat = [mesp.value_and_grad(mparams, mcfg, batch,
+                                  policy=ExecutionPolicy(backend="cuda",
+                                                         device="cuda"))
+              for _ in range(2)]
+    (l1, g1), (l2, g2) = repeat
+    g1, g2 = _grad_leaves(g1), _grad_leaves(g2)
+    if not torch.equal(l1, l2) or g1.keys() != g2.keys() or not all(
+            torch.equal(g1[k], g2[k]) for k in g1):
+        raise AssertionError(f"{MOE_ARCH}: two value_and_grad calls differ")
+    del repeat, g1, g2
+    moe_peaks = peak_memory(
+        torch, mcfg, mparams, batch,
+        [(e, True) for e in ("mesp_cuda", "mesp", "mebp")]
+        + [(e, False) for e in ("mesp_cuda", "mesp", "mebp")])
+    del mparams
+    # the gradients at GRAD_TOL, at full width and a depth where the plain
+    # bf16 gradients still follow the f32 ones
+    _release(torch)
+    cut = dataclasses.replace(mcfg, n_layers=MOE_GRAD_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    moe_grads_cut = compare_grads_moe(
+        torch, moe_lib, cut,
+        _with_b(torch, model_lib.init_params(cut, generator=gen), gen),
+        batch, GRAD_TOL)
+    del batch
+
     paths = lambda k: {"serve": counts[k],
                        **{f"serve_{m}": c[k] for m, c in scounts.items()},
                        "train": tcounts[k],
                        **{run: c[k] for run, c in pcounts.items()},
-                       **{f"train_{m}": c[k] for m, c in qcounts.items()}}
-    train_entry = lambda name, cu, line, fn: kernel_entry(
+                       **{f"train_{m}": c[k] for m, c in qcounts.items()},
+                       "train_moe": mcounts[k]}
+    def with_moe(e, moe_shapes):
+        """``e`` with the kernel's figures at the MoE path's shapes (each
+        per launch, with its launches a step), their errors in its own."""
+        e["train_moe_shapes"] = moe_shapes
+        e["max_abs_err"] = e["max_err"] = max(
+            [e["max_abs_err"]] + [s_["max_abs_err"] for s_ in moe_shapes])
+        return e
+    train_entry = lambda name, cu, line, fn: with_moe(kernel_entry(
         name, f"src/repro_torch/csrc/{cu}", line, fn, training[name],
         paths(name), TRAIN_STEPS, step="train",
         matmul_ms=sum((s.get("matmul_ms") or 0.0)
                       * s["launches_per_train_step"]
-                      for s in training[name]) or None)
-    flash_entry = lambda name, cu, line, fn: kernel_entry(
+                      for s in training[name]) or None), moe_dense[name])
+    flash_entry = lambda name, cu, line, fn: with_moe(kernel_entry(
         name, f"src/repro_torch/csrc/{cu}", line, fn, flash[name],
         paths(name), PAPER_STEPS, step="train", path="paper",
         train_step=f"batch {PAPER_BATCH} x seq {PAPER_SEQ}",
         library_fwd_bwd_ms=flash[name][0]["library_fwd_bwd_ms"] * N_LAYERS,
-        tol_f32=FLASH_F32_TOL)
+        tol_f32=FLASH_F32_TOL), [flash_moe[name]])
 
 
     def quant_entry(name, cu, line, fn, method):
@@ -1385,6 +1828,22 @@ def main() -> int:
             + ([extra["int4_max_abs_err"]] if extra else []))
         return e
 
+    def moe_entry(name, line, fn):
+        shapes, err = moe_fig[name], 0.0
+        for edge in moe_edges.values():
+            err = max([err] + [v for k, v in edge.items()
+                               if k.startswith(name + "/")])
+        e = kernel_entry(
+            name, "src/repro_torch/csrc/lora_grouped_train.cu", line, fn,
+            shapes, paths(name), MOE_STEPS, step="train", path="train_moe",
+            train_step=f"{MOE_ARCH}, batch {PAPER_BATCH} x seq {PAPER_SEQ}",
+            matmul_ms=sum((s_["matmul_ms"] or 0.0)
+                          * s_["launches_per_train_step"]
+                          for s_ in shapes) or None,
+            tol_f32=dict(rtol=1e-5, atol=1e-5), edges=moe_edges)
+        e["max_abs_err"] = e["max_err"] = max(e["max_abs_err"], err)
+        return e
+
     kernels = [
         kernel_entry("lora_grouped_fwd",
                      "src/repro_torch/csrc/lora_grouped_fwd.cu",
@@ -1401,11 +1860,12 @@ def main() -> int:
                         "src/repro/kernels/lora_grouped.py:lora_grouped_q4 "
                         "(_grouped_fwd_q4_kernel :114, lora_pack4.py "
                         "_unpack_tile :54)", "nf4"),
-        kernel_entry("rmsnorm_fwd", "src/repro_torch/csrc/rmsnorm_fwd.cu",
-                     "src/repro/kernels/rmsnorm.py:26",
-                     "src/repro/kernels/rmsnorm.py:rmsnorm "
-                     "(_rmsnorm_kernel :19)", rms, paths("rmsnorm_fwd"),
-                     steps, train_shape=rms_train),
+        with_moe(kernel_entry(
+            "rmsnorm_fwd", "src/repro_torch/csrc/rmsnorm_fwd.cu",
+            "src/repro/kernels/rmsnorm.py:26",
+            "src/repro/kernels/rmsnorm.py:rmsnorm (_rmsnorm_kernel :19)",
+            rms, paths("rmsnorm_fwd"), steps, train_shape=rms_train),
+            moe_dense["rmsnorm_fwd"]),
         train_entry("lora_fused_fwd", "lora_fused_fwd.cu",
                     "src/repro/kernels/lora_fused.py:87",
                     "src/repro/kernels/lora_fused.py:lora_fused "
@@ -1450,6 +1910,15 @@ def main() -> int:
                     "src/repro/kernels/lora_pack4.py:197",
                     "src/repro/kernels/lora_pack4.py:lora_dx_q4 "
                     "(_lora_dx_q4_kernel :148)", "nf4"),
+        moe_entry("lora_grouped_gemm", "src/repro/kernels/lora_grouped.py:183",
+                  "src/repro/kernels/lora_grouped.py:lora_grouped, Ew = E "
+                  "(_grouped_fwd_kernel :69, _w_index :56)"),
+        moe_entry("lora_grouped_dx", "src/repro/kernels/lora_grouped.py:373",
+                  "src/repro/kernels/lora_grouped.py:lora_grouped_dx "
+                  "(_grouped_dx_kernel :254, _grouped_dh :361)"),
+        moe_entry("lora_grouped_dab", "src/repro/kernels/lora_grouped.py:501",
+                  "src/repro/kernels/lora_grouped.py:lora_grouped_dab "
+                  "(_grouped_dab_kernel :444)"),
     ]
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))
@@ -1505,6 +1974,19 @@ def main() -> int:
             "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, "b_scale": B_SCALE,
             "peak_memory_one_value_and_grad": quant_peaks},
         "device": name}}))
+    print(json.dumps({"train_moe": {
+        "arch": MOE_ARCH, "engine": "mesp_cuda", "dtype": "bfloat16",
+        "layers": MOE_L, "experts": MOE_E, "top_k": mcfg.moe.top_k,
+        "capacity": MOE_C, "batch": PAPER_BATCH, "seq": PAPER_SEQ,
+        "steps": MOE_STEPS, "losses": mrun["losses"], "seconds": msecs,
+        "ms_per_step": 1e3 * sum(msecs[1:]) / max(1, len(msecs) - 1),
+        "first_step_ms": 1e3 * msecs[0], "launches": mcounts,
+        "launches_per_step": MOE_PER_STEP, "params_bytes": moe_params_bytes,
+        "grads_vs_plain": moe_grads,
+        f"grads_vs_plain_{MOE_GRAD_LAYERS}_layers": moe_grads_cut,
+        "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, "b_scale": B_SCALE,
+        "repeat_bitwise": True,
+        "peak_memory_one_value_and_grad": moe_peaks, "device": name}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,6 +1,7 @@
 """Where a training step of the port spends its time, on the card.
 
-Builds full-width qwen2.5-0.5b (bf16, random weights from seed 0), takes
+Builds a full-width model (``--arch``, by default qwen2.5-0.5b; also
+olmoe-1b-7b or deepseek-moe-16b; bf16, random weights from seed 0), takes
 batches of ``--batch`` x ``--seq`` tokens from the port's data pipeline (by
 default 4 x 48, as ``chip_smoke.py`` first trains it; ``--batch 1 --seq
 256`` is the paper's setting, where attention runs the flash kernels;
@@ -12,7 +13,7 @@ device idle share, device kernels launched per step, and the kernels that
 took the most device time.
 
     PYTHONPATH=src python scripts/profile_torch_train.py [--engine mesp_cuda] \
-        [--batch 1 --seq 256] [--quantize nf4]
+        [--arch olmoe-1b-7b] [--batch 1 --seq 256] [--quantize nf4]
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.api.engines import ENGINES
 from repro_torch.api.policy import ExecutionPolicy
-from repro_torch.configs import get_config
+from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core import mesp, quant
 from repro_torch.data import make_batch_iterator
 from repro_torch.models import model as model_lib
@@ -34,6 +35,7 @@ from repro_torch.models import model as model_lib
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2.5-0.5b", choices=sorted(REGISTRY))
     ap.add_argument("--engine", default="mesp_cuda", choices=sorted(ENGINES))
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=4)
@@ -43,7 +45,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
     device = torch.device("cuda")
-    cfg = get_config("qwen2.5-0.5b")
+    cfg = get_config(ns.arch)
     params = model_lib.init_params(
         cfg, generator=torch.Generator(device=device).manual_seed(0),
         quantize=ns.quantize)
@@ -75,8 +77,8 @@ def main(argv=None) -> int:
             (e.time_range.end - e.time_range.start)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(json.dumps({"profile": {
-        "engine": ns.engine, "batch": ns.batch, "seq": ns.seq,
-        "quantize": ns.quantize,
+        "arch": ns.arch, "engine": ns.engine, "batch": ns.batch,
+        "seq": ns.seq, "quantize": ns.quantize,
         "steps": ns.steps, "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / wall_ms,

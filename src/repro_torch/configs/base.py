@@ -1,9 +1,9 @@
 """Architecture configuration (the port's own copy of ``repro.configs.base``).
 
-Only what the dense Qwen2.5 serving path reads is kept: :class:`LoRAConfig`
-and the dense fields of :class:`ArchConfig`, with the same ``reduced()``
-cut to size as the reference, so a reduced config names the same shapes in
-both packages.
+Only what the ported families read is kept: :class:`LoRAConfig`,
+:class:`MoEConfig` and the dense and MoE fields of :class:`ArchConfig`,
+with the same ``reduced()`` cut to size as the reference, so a reduced
+config names the same shapes in both packages.
 """
 from __future__ import annotations
 
@@ -26,6 +26,15 @@ class LoRAConfig:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int
+    n_shared: int = 0
+    first_layer_dense: bool = False  # deepseek-moe: layer 0 is a dense FFN
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str
@@ -41,6 +50,7 @@ class ArchConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    moe: Optional[MoEConfig] = None
     lora: LoRAConfig = field(default_factory=LoRAConfig)
     notes: str = ""
 
@@ -56,8 +66,44 @@ class ArchConfig:
     def kv_size(self) -> int:
         return self.n_kv_heads * self.resolved_head_dim
 
+    def _attn_params(self) -> int:
+        hd = self.resolved_head_dim
+        return 2 * self.d_model * self.n_heads * hd \
+            + 2 * self.d_model * self.n_kv_heads * hd
+
+    def _emb_params(self) -> int:
+        return self.vocab * self.d_model * (1 if self.tie_embeddings else 2)
+
+    def n_params(self) -> int:
+        """Approximate parameter count, as the reference counts it (every
+        layer an MoE layer for the MoE family; no biases or norms)."""
+        d = self.d_model
+        if self.moe is not None:
+            m = self.moe
+            ff = 3 * d * m.d_expert * (m.n_experts + m.n_shared) \
+                + d * m.n_experts                    # + the router
+        else:
+            ff = 3 * d * self.d_ff
+        return self._emb_params() + self.n_layers * (self._attn_params() + ff)
+
+    def n_active_params(self) -> int:
+        """Parameters a token meets (MoE: its top-k and the shared
+        experts)."""
+        if self.moe is None:
+            return self.n_params()
+        m = self.moe
+        ff = 3 * self.d_model * m.d_expert * (m.top_k + m.n_shared)
+        return self._emb_params() + self.n_layers * (self._attn_params() + ff)
+
     def reduced(self) -> "ArchConfig":
-        """A tiny same-family config (the reference's cut for dense archs)."""
+        """A tiny same-family config (the reference's cut: for MoE, 4
+        experts, top-2, d_expert 32, at most one shared expert, and a dense
+        layer 0 kept where the full config has one)."""
+        moe = self.moe
+        if moe is not None:
+            moe = MoEConfig(n_experts=4, top_k=2, d_expert=32,
+                            n_shared=min(moe.n_shared, 1),
+                            first_layer_dense=moe.first_layer_dense)
         return dataclasses.replace(
             self,
             n_layers=min(self.n_layers, 2),
@@ -68,5 +114,6 @@ class ArchConfig:
             vocab=256,
             head_dim=16,
             dtype="float32",
+            moe=moe,
             lora=LoRAConfig(rank=4, alpha=8.0, targets=self.lora.targets),
         )

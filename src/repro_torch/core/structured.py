@@ -39,17 +39,25 @@ def _lora_fwd(x, w0, a, b, bias, scale, h=None):
 
 
 def _lora_bwd(ctx, x, w0, a, b, h, g):
+    """A shared weight (w0 [K, N]) flattens x's leading dims into one
+    contraction for dA/dB; per-expert stacks (x [E, C, K], w0 [E, K, N],
+    a [E, K, r], b [E, r, N]) take batched per-expert products, as the
+    reference branches on ``w0.ndim``."""
     gx = g.to(x.dtype)
     sg = ctx.scale * gx
-    dh = sg @ b.T                                    # (A.1 eq 11)
+    dh = sg @ b.mT                                   # (A.1 eq 11)
     dx = da = db = None
     if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
         if h is None:
             h = x @ a                                # recompute (paper §4.1)
-        db = (_flat2(h).T @ _flat2(sg)).to(b.dtype)  # (A.1 eq 10)
-        da = (_flat2(x).T @ _flat2(dh)).to(a.dtype)  # (A.1 eq 12)
+        if w0.ndim == 2:
+            db = _flat2(h).T @ _flat2(sg)            # (A.1 eq 10)
+            da = _flat2(x).T @ _flat2(dh)            # (A.1 eq 12)
+        else:
+            db, da = h.mT @ sg, x.mT @ dh
+        da, db = da.to(a.dtype), db.to(b.dtype)
     if ctx.needs_input_grad[0]:
-        dx = dh @ a.T + gx @ w0.T                    # (A.1 eq 13)
+        dx = dh @ a.mT + gx @ w0.mT                  # (A.1 eq 13)
     return dx, None, da, db, None, None
 
 
@@ -84,7 +92,8 @@ class _LoRALinearStoreH(torch.autograd.Function):
 
 def lora_linear(x, w0, a, b, bias, scale: float):
     """LoRA-adapted linear: ``x @ w0 + scale * (x @ a) @ b [+ bias]``;
-    saves x, w0, a, b."""
+    saves x, w0, a, b. w0 [K, N] is shared by every row of x; a stack
+    w0 [E, K, N] (with a [E, K, r], b [E, r, N]) takes x [E, C, K]."""
     return _LoRALinear.apply(x, w0, a, b, bias, scale)
 
 

@@ -13,124 +13,31 @@
 // per element of x or g, far below the card's ridge, so bytes.
 //
 // Design, two launches on one stream:
-// * Partials. A block owns 8 rows (one warp per row). It recomputes its
-//   rows' h and dh (paper section 4.1: h is never stored): A, then B, is
-//   staged in shared memory a chunk of 256 rows (columns) at a time, every
-//   warp sums its row against the chunk, and a warp sum finishes each of the
-//   r values, rounded as the reference rounds. h and dh stay in shared
-//   memory. The block then writes its f32 partials of dA (threads over k:
-//   x^T dh over the 8 rows) and dB (threads over n: h^T sg) to a workspace.
+// * Partials. A block owns 8 rows and writes the f32 partials of dA and dB
+//   over them to a workspace, with h and dh recomputed on chip
+//   (lora_dab.cuh).
 // * Reduce. One thread per element of dA and dB adds the partials of all
 //   row tiles in a fixed order and casts. No atomics: the result is the same
 //   on every run.
 // The TPU kernel carried dA and dB across its sequential row grid in VMEM;
 // on Hopper the row tiles run in parallel, hence the second pass.
 
-#include "common.cuh"
+#include "lora_dab.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int RB = WARPS;       // rows per block, one warp each
-constexpr int CH = THREADS;     // rows of A (columns of B) per staged chunk
-constexpr int RMAX = 32;
+using dab_rows::RB;
+using dab_rows::RMAX;
+using dab_rows::THREADS;
 
 template <typename T, int RM>
 __global__ void __launch_bounds__(THREADS) lora_dab_partial_kernel(
     const T* __restrict__ x, const T* __restrict__ g, const T* __restrict__ a,
     const T* __restrict__ b, float* __restrict__ ws, int M, int K, int N,
     int r, float scale) {
-  __shared__ float stage[CH * (RMAX + 1)];
-  __shared__ float Hs[RB][RM];
-  __shared__ float Ds[RB][RM];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int m0 = blockIdx.x * RB, m = m0 + warp;
-  const bool row_ok = m < M;
-  const int rs = r | 1;  // odd stride: the lanes of a warp hit distinct banks
-
-  float hp[RM], dp[RM];
-#pragma unroll
-  for (int j = 0; j < RM; ++j) hp[j] = dp[j] = 0.f;
-
-  // h = x @ A for the block's rows, A staged CH rows at a time
-  for (int k0 = 0; k0 < K; k0 += CH) {
-    __syncthreads();
-    const int k = k0 + tid;
-    for (int j = 0; j < r; ++j)
-      stage[tid * rs + j] = k < K ? to_f(a[(size_t)k * r + j]) : 0.f;
-    __syncthreads();
-    if (row_ok) {
-      const int kend = min(CH, K - k0);
-#pragma unroll 2
-      for (int kk = lane; kk < kend; kk += 32) {
-        const float xv = to_f(x[(size_t)m * K + k0 + kk]);
-#pragma unroll
-        for (int j = 0; j < RM; ++j)
-          if (j < r) hp[j] = fmaf(xv, stage[kk * rs + j], hp[j]);
-      }
-    }
-  }
-  // dh = round(s g) @ B^T, B staged CH columns at a time
-  for (int n0 = 0; n0 < N; n0 += CH) {
-    __syncthreads();
-    const int n = n0 + tid;
-    for (int j = 0; j < r; ++j)
-      stage[tid * rs + j] = n < N ? to_f(b[(size_t)j * N + n]) : 0.f;
-    __syncthreads();
-    if (row_ok) {
-      const int nend = min(CH, N - n0);
-#pragma unroll 2
-      for (int nn = lane; nn < nend; nn += 32) {
-        const float sg = round_to<T>(scale * to_f(g[(size_t)m * N + n0 + nn]));
-#pragma unroll
-        for (int j = 0; j < RM; ++j)
-          if (j < r) dp[j] = fmaf(sg, stage[nn * rs + j], dp[j]);
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < RM; ++j) {
-    if (j < r) {  // r is the same for every lane: no divergence
-      const float hv = warp_sum(hp[j]), dv = warp_sum(dp[j]);
-      if (lane == 0) {
-        Hs[warp][j] = row_ok ? round_to<T>(hv) : 0.f;
-        Ds[warp][j] = row_ok ? round_to<T>(dv) : 0.f;
-      }
-    }
-  }
-  __syncthreads();
-
   float* wa = ws + (size_t)blockIdx.x * ((size_t)K * r + (size_t)r * N);
-  float* wb = wa + (size_t)K * r;
-  // dA partial: sum over the block's rows of x[m, k] dh[m, j]
-  for (int k = tid; k < K; k += THREADS) {
-    float xv[RB];
-#pragma unroll
-    for (int w = 0; w < RB; ++w)
-      xv[w] = m0 + w < M ? to_f(x[(size_t)(m0 + w) * K + k]) : 0.f;
-    for (int j = 0; j < r; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < RB; ++w) s = fmaf(xv[w], Ds[w][j], s);
-      wa[(size_t)k * r + j] = s;
-    }
-  }
-  // dB partial: sum over the block's rows of h[m, j] round(s g[m, n])
-  for (int n = tid; n < N; n += THREADS) {
-    float sg[RB];
-#pragma unroll
-    for (int w = 0; w < RB; ++w)
-      sg[w] = m0 + w < M
-                  ? round_to<T>(scale * to_f(g[(size_t)(m0 + w) * N + n]))
-                  : 0.f;
-    for (int j = 0; j < r; ++j) {
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < RB; ++w) s = fmaf(Hs[w][j], sg[w], s);
-      wb[(size_t)j * N + n] = s;
-    }
-  }
+  dab_rows::partial_body<T, RM>(x, g, a, b, wa, wa + (size_t)K * r,
+                                blockIdx.x * RB, M, K, N, r, scale);
 }
 
 template <typename T>
@@ -157,15 +64,8 @@ int launch(const void* x, const void* g, const void* a, const void* b,
   if (tiles > 0) {
     const T *xp = static_cast<const T*>(x), *gp = static_cast<const T*>(g),
             *ap = static_cast<const T*>(a), *bp = static_cast<const T*>(b);
-    if (r <= 8)
-      lora_dab_partial_kernel<T, 8><<<tiles, THREADS, 0, s>>>(
-          xp, gp, ap, bp, ws, M, K, N, r, scale);
-    else if (r <= 16)
-      lora_dab_partial_kernel<T, 16><<<tiles, THREADS, 0, s>>>(
-          xp, gp, ap, bp, ws, M, K, N, r, scale);
-    else
-      lora_dab_partial_kernel<T, 32><<<tiles, THREADS, 0, s>>>(
-          xp, gp, ap, bp, ws, M, K, N, r, scale);
+    LORA_DAB_BY_RANK(lora_dab_partial_kernel, T, r, tiles, s, xp, gp, ap, bp,
+                     ws, M, K, N, r, scale);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }

@@ -1,6 +1,7 @@
 // The tiled product shared by the LoRA forward (lora_fused_fwd.cu) and the
-// LoRA input gradient (lora_dx.cu), and by their variants over a quantized
-// W0 (lora_quant.cu: int8; lora_pack4.cu: packed int4 / nf4), written by
+// LoRA input gradient (lora_dx.cu), by their variants over a quantized
+// W0 (lora_quant.cu: int8; lora_pack4.cu: packed int4 / nf4), and by their
+// grouped forms over per-expert stacks (lora_grouped_train.cu), written by
 // hand for Hopper:
 //
 //   y[m, n] = sum_k P[m, k] Q[k, n]  +  s * sum_j L[m, j] R[j, n]
@@ -201,13 +202,15 @@ struct Slab {
 
 // P, Q as above; S: W0's scale [N] (quantized F; nullptr for kDense);
 // lo_in = A [Kc, r] (fwd) or dh [M, r] (dx); lo_out = B [r, Nout] (fwd) or
-// A [Nout, r] (dx); y [M, Nout].
+// A [Nout, r] (dx); y [M, Nout]. The block owns rows m0 .. m0 + BM - 1 of
+// P and y, those below M (the plain kernels: m0 = blockIdx.y * BM; the
+// grouped ones, lora_grouped_train.cu, end M at the row tile's end).
 template <typename T, bool DX, WFmt F>
 __device__ __forceinline__ void gemm_body(
     const T* __restrict__ P, const typename WStore<T, F>::type* __restrict__ Q,
     const float* __restrict__ S, const T* __restrict__ lo_in,
     const T* __restrict__ lo_out, T* __restrict__ y, int M, int Kc, int Nout,
-    int r, float scale) {
+    int r, float scale, int m0) {
   __shared__ __align__(16) float Ps[BK][BM];   // P slab, transposed: [k][m]
   __shared__ __align__(16) float Qs[BK][BN];   // Q slab: [k][n]
   __shared__ float Ls[BK][RMAX];               // A slab (fwd)
@@ -216,7 +219,7 @@ __device__ __forceinline__ void gemm_body(
   __shared__ float Cs[16];                     // nf4 codebook, rounded to T
 
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int n0 = blockIdx.x * BN;
   const int tm = tid >> 4, tn = tid & 15;      // 4 x 4 micro-tile
   const int hm = tid >> 2, hj = tid & 3;       // h sums (fwd): row, rank lane
   const int hgroups = (r + 3) / 4;             // rank lanes in use (uniform)
@@ -310,7 +313,7 @@ __global__ void __launch_bounds__(THREADS, 2)
                      T* __restrict__ y, int M, int Kc, int Nout, int r,
                      float scale) {
   gemm_body<T, DX, WFmt::kDense>(P, Q, nullptr, lo_in, lo_out, y, M, Kc, Nout,
-                                 r, scale);
+                                 r, scale, blockIdx.y * BM);
 }
 
 template <typename T, bool DX, WFmt F>
@@ -321,7 +324,8 @@ __global__ void __launch_bounds__(THREADS, 2)
                        const T* __restrict__ lo_in,
                        const T* __restrict__ lo_out, T* __restrict__ y, int M,
                        int Kc, int Nout, int r, float scale) {
-  gemm_body<T, DX, F>(P, Q, S, lo_in, lo_out, y, M, Kc, Nout, r, scale);
+  gemm_body<T, DX, F>(P, Q, S, lo_in, lo_out, y, M, Kc, Nout, r, scale,
+                      blockIdx.y * BM);
 }
 
 inline int check_dims(int M, int Kc, int Nout, int r) {

@@ -1,12 +1,15 @@
-"""Grouped LoRA forward for multi-tenant decode: the CUDA kernels of
-``csrc/lora_grouped_fwd.cu``, their wrappers, and their plain PyTorch
-versions.
+"""Grouped LoRA kernels: the CUDA sources ``csrc/lora_grouped_fwd.cu``
+(multi-tenant decode) and ``csrc/lora_grouped_train.cu`` (training over
+per-expert stacks, MoE), their wrappers, and their plain PyTorch versions.
 
-Replace the TPU kernels of ``src/repro/kernels/lora_grouped.py`` in their
-serving form: one shared base W0 (``Ew == 1``), a stack of R resident
-adapters, and an int32 per-tile routing vector that stays on the device::
+Replace the TPU kernels of ``src/repro/kernels/lora_grouped.py``. Rows come
+in tiles of ``bm``, each tile of one group, and an int32 per-tile routing
+vector ``gid`` stays on the device::
 
-    y[m] = x[m] @ W0 + s · (x[m] @ A[g]) @ B[g],   g = gid[m // bm]
+    y[m] = x[m] @ W0[g] + s · (x[m] @ A[g]) @ B[g],   g = gid[m // bm]
+
+Serving (``lora_grouped_fwd.cu``): one shared base W0 (``Ew == 1``) and a
+stack of R resident adapters.
 
 * :func:`lora_grouped` (``lora_grouped``, ``_grouped_fwd_kernel``): W0 in
   x's float type;
@@ -24,7 +27,7 @@ kernel and the scale multiplies the f32 accumulator once per output::
 
 ("round": to x's dtype), the TPU kernels' ``_finish``. The shared base is
 passed as [K, N] (the reference's wrappers take ``quant.add_group_axis``'s
-[1, K, N]); a per-expert base (``Ew == E``) belongs to MoE, not ported.
+[1, K, N]).
 
 What bounds them on the H100: reading W0. Decode multiplies 8 rows by the
 whole frozen base (2·M FLOPs per weight), far below the card's ridge of
@@ -34,10 +37,31 @@ Each W0 element is read once for up to 8 rows, h = x @ A[g] stays in
 shared memory, and the ragged edges are masked instead of padded (the
 source's header has the details).
 
+Training over expert stacks (``lora_grouped_train.cu``): W0 [E, K, N] per
+expert (``Ew == E``), A [E, K, r], B [E, r, N], each tile of ``bm`` rows
+one expert's capacity buffer.
+
+* :func:`lora_grouped_gemm` (``lora_grouped``, ``_grouped_fwd_kernel``
+  with ``_w_index``): the forward above, h rounded to x's dtype before it
+  meets B;
+* :func:`lora_grouped_dx` (``lora_grouped_dx``, ``_grouped_dx_kernel``):
+  ``dx = g @ W0[g]ᵀ + dh @ A[g]ᵀ`` with ``dh = round((s·g) @ B[g]ᵀ)`` per
+  tile, the thin product the TPU wrapper made outside its kernel
+  (``_grouped_dh``), made here in PyTorch too;
+* :func:`lora_grouped_dab` (``lora_grouped_dab``, ``_grouped_dab_kernel``):
+  per group ``dA = xᵀ·dh``, ``dB = round(x@A)ᵀ·round(s·g)`` over the
+  group's tiles, h and dh recomputed on chip; a group with no tile gets
+  zeros.
+
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; a tensor on the CPU gets the plain version
 (``*_ref``). ``<wrapper>.launches`` counts kernel launches. A gid outside
-[0, R) gives NaN rows in the kernels and in the plain versions.
+[0, R) (or [0, E)) gives NaN rows in the kernels and in the plain
+versions; :func:`lora_grouped_dab` adds such a tile to no group. Its
+kernel carries the TPU kernel's contract that each group's tiles are
+contiguous in ``gid``: a group whose tiles are not one run gets NaN in its
+dA and dB, in the kernel and in the plain version (checking the values on
+the host would stall the stream on every call).
 """
 from __future__ import annotations
 
@@ -48,13 +72,18 @@ from repro_torch.kernels.lora_pack4 import METHOD_CODES, unpack_weights
 from repro_torch.kernels.lora_quant import validate_base
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: largest LoRA rank the kernels take (``RMAX`` in the source)
+#: largest LoRA rank the decode kernels take (``RMAX`` in their source)
 MAX_RANK = 16
+#: largest LoRA rank the training kernels take (``lora_gemm.cuh``'s RMAX)
+TRAIN_MAX_RANK = 32
 
 _P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
 _ARGTYPES = [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]
 _Q_ARGTYPES = [_I] + [_P] * 7 + [_I] * 6 + [_F, _P]
 _Q4_ARGTYPES = [_I, _I] + [_P] * 7 + [_I] * 6 + [_F, _P]
+_GEMM_ARGS = [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]
+_GDX_ARGS = [_I] + [_P] * 6 + [_I] * 6 + [_P]
+_GDAB_ARGS = [_I] + [_P] * 8 + [_I] * 6 + [_F, _P]
 
 
 # ------------------------------------------------------------ plain versions
@@ -216,6 +245,213 @@ def lora_grouped_q4(x, q4, s, a, b, gid, scale: float = 2.0, *, bm: int,
     return y
 
 
+
+# ------------------------------------------- training over expert stacks
+
+
+def _tile_groups(gid, E):
+    """(gid clipped into [0, E) as int64, the mask of tiles whose gid lies
+    in [0, E))."""
+    ok = (gid >= 0) & (gid < E)
+    return gid.long().clamp(0, E - 1), ok
+
+
+def _tile_w0(what, w0, e):
+    """Each tile's W0, the stack entry of its group: [T, K, N]."""
+    if w0.ndim != 3:
+        raise ValueError(f"{what}: w0 must be a per-expert stack [E, K, N], "
+                         f"got {tuple(w0.shape)}")
+    return w0[e]
+
+
+def _nan_rows(y, ok, bm):
+    return y.masked_fill(~ok.repeat_interleave(bm)[:, None], float("nan"))
+
+
+def lora_grouped_gemm_ref(x, w0, a, b, gid, scale: float = 2.0, *, bm: int):
+    """Plain version of the forward over stacks, with the kernel's
+    arithmetic: f32 sums, h rounded to x's type before it meets B, output
+    in x's type, rows of a gid outside [0, E) NaN."""
+    T, E = gid.numel(), a.shape[0]
+    e, ok = _tile_groups(gid, E)
+    xt = x.reshape(T, bm, -1).float()
+    h = (xt @ a[e].float()).to(x.dtype)
+    y = xt @ _tile_w0("lora_grouped_gemm", w0, e).float() \
+        + scale * (h.float() @ b[e].float())
+    return _nan_rows(y.reshape(T * bm, -1), ok, bm).to(x.dtype)
+
+
+def _grouped_dh(g, b, gid, scale: float, *, bm: int):
+    """``dh = round(round(s·g) @ B[g]ᵀ)`` per tile, [M, r] in g's dtype
+    (the reference's ``_grouped_dh``): f32 sums; a gid outside [0, E)
+    reads B[0] (its dx rows are NaN)."""
+    T = gid.numel()
+    e, _ = _tile_groups(gid, b.shape[0])
+    sg = (scale * g).reshape(T, bm, -1).float()
+    return (sg @ b[e].float().mT).to(g.dtype).reshape(T * bm, -1)
+
+
+def lora_grouped_dx_ref(g, w0, a, b, gid, scale: float = 2.0, *, bm: int):
+    """Plain version of dx, with the kernel's arithmetic: dh rounded to
+    g's type, f32 sums, one rounding of the output, rows of a gid outside
+    [0, E) NaN."""
+    T, E = gid.numel(), a.shape[0]
+    e, ok = _tile_groups(gid, E)
+    dh = _grouped_dh(g, b, gid, scale, bm=bm).reshape(T, bm, -1).float()
+    w = _tile_w0("lora_grouped_dx", w0, e).float()
+    dx = g.reshape(T, bm, -1).float() @ w.mT + dh @ a[e].float().mT
+    return _nan_rows(dx.reshape(T * bm, -1), ok, bm).to(g.dtype)
+
+
+def lora_grouped_dab_ref(x, g, a, b, gid, scale: float = 2.0, *, bm: int):
+    """Plain version of (dA [E, K, r], dB [E, r, N]): per tile
+    ``sg = round(s·g)``, ``h = round(x@A[g])``, ``dh = round(sg@B[g]ᵀ)``,
+    f32 sums over each group's tiles, cast to A's and B's dtype. A group
+    with no tile gets zeros, a tile with a gid outside [0, E) goes to no
+    group, and a group whose tiles are not one contiguous run gets NaN."""
+    T, (E, K, r), N = gid.numel(), a.shape, b.shape[2]
+    e, ok = _tile_groups(gid, E)
+    xt = x.reshape(T, bm, K).float()
+    sg = (scale * g.float()).to(x.dtype).float().reshape(T, bm, N)
+    h = (xt @ a[e].float()).to(x.dtype).float()
+    dh = (sg @ b[e].float().mT).to(x.dtype).float()
+    # no boolean indexing (a host sync): a tile with no group adds zeros
+    w = ok.float()[:, None, None]
+    da = torch.zeros((E, K, r), device=x.device).index_add_(
+        0, e, (xt.mT @ dh) * w)
+    db = torch.zeros((E, r, N), device=x.device).index_add_(
+        0, e, (h.mT @ sg) * w)
+    t = torch.arange(T, device=x.device)
+    first = torch.full((E,), T, device=x.device).scatter_reduce(
+        0, e, torch.where(ok, t, T), "amin")
+    last = torch.full((E,), -1, device=x.device).scatter_reduce(
+        0, e, torch.where(ok, t, -1), "amax")
+    count = torch.zeros(E, dtype=torch.long, device=x.device).index_add_(
+        0, e, ok.long())
+    split = ((count > 0) & (last - first + 1 != count))[:, None, None]
+    return (da.masked_fill(split, float("nan")).to(a.dtype),
+            db.masked_fill(split, float("nan")).to(b.dtype))
+
+
+def _check_stacks(what, act, w0, a, b, gid, bm):
+    """act [M, ·] (x, or g for dx) in f32 or bf16; a [E, K, r], b [E, r, N]
+    and w0 [E, K, N] (None for dA/dB) of act's dtype; gid int32 [M // bm];
+    all contiguous on act's device. Returns (M, K, N, E, r)."""
+    if act.dtype not in _DTYPES:
+        raise TypeError(f"{what} kernel takes f32 or bf16, not {act.dtype}")
+    mats = {"a": a, "b": b, **({} if w0 is None else {"w0": w0})}
+    for name, t in mats.items():
+        if t.dtype != act.dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, expected "
+                            f"{act.dtype}")
+    if gid.dtype != torch.int32:
+        raise TypeError(f"{what}: gid must be int32, got {gid.dtype}")
+    for name, t in {**mats, "gid": gid}.items():
+        if t.device != act.device:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected "
+                             f"{act.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+    if not act.is_contiguous():
+        raise ValueError(f"{what}: activations must be contiguous")
+    if act.ndim != 2 or a.ndim != 3 or b.ndim != 3 or (
+            w0 is not None and w0.ndim != 3):
+        raise ValueError(f"{what}: expected [M, ·] rows, a [E,K,r], "
+                         "b [E,r,N] and w0 [E,K,N]")
+    (E, K, r), N = a.shape, b.shape[2]
+    if b.shape != (E, r, N) or (w0 is not None and w0.shape != (E, K, N)):
+        raise ValueError(f"{what}: shape mismatch: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}, w0 "
+                         f"{None if w0 is None else tuple(w0.shape)}")
+    M = act.shape[0]
+    if bm < 1 or M % bm or gid.shape != (M // bm,):
+        raise ValueError(f"{what}: rows {M} must be whole tiles of bm={bm}, "
+                         f"one gid per tile (got gid {tuple(gid.shape)})")
+    if not 1 <= r <= TRAIN_MAX_RANK:
+        raise ValueError(f"{what}: LoRA rank {r} outside "
+                         f"1..{TRAIN_MAX_RANK}")
+    return M, K, N, E, r
+
+
+def _cols(what, name, t, n):
+    if t.shape[1] != n:
+        raise ValueError(f"{what}: {name} has {t.shape[1]} columns, "
+                         f"expected {n}")
+
+
+def lora_grouped_gemm(x, w0, a, b, gid, scale: float = 2.0, *, bm: int):
+    """x [M,K] (M % bm == 0), w0 [E,K,N], a [E,K,r], b [E,r,N], gid int32
+    [M // bm] -> y [M,N] in x's dtype."""
+    if not x.is_cuda:
+        return lora_grouped_gemm_ref(x, w0, a, b, gid, scale, bm=bm)
+    M, K, N, E, r = _check_stacks("lora_grouped_gemm", x, w0, a, b, gid, bm)
+    _cols("lora_grouped_gemm", "x", x, K)
+    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    fn = _build.function("lora_grouped_train", "lora_grouped_gemm",
+                         _GEMM_ARGS)
+    with torch.cuda.device(x.device):
+        rc = fn(_DTYPES[x.dtype], x.data_ptr(), w0.data_ptr(), a.data_ptr(),
+                b.data_ptr(), gid.data_ptr(), y.data_ptr(), M, K, N, E, r,
+                bm, float(scale), torch.cuda.current_stream().cuda_stream)
+    _build.check("lora_grouped_train", rc, "lora_grouped_gemm launch")
+    lora_grouped_gemm.launches += 1
+    return y
+
+
+def lora_grouped_dx(g, w0, a, b, gid, scale: float = 2.0, *, bm: int):
+    """g [M,N] (M % bm == 0), w0 [E,K,N], a [E,K,r], b [E,r,N], gid int32
+    [M // bm] -> dx [M,K] in g's dtype. W0 is read in place: no transposed
+    copy is made."""
+    if not g.is_cuda:
+        return lora_grouped_dx_ref(g, w0, a, b, gid, scale, bm=bm)
+    M, K, N, E, r = _check_stacks("lora_grouped_dx", g, w0, a, b, gid, bm)
+    _cols("lora_grouped_dx", "g", g, N)
+    dh = _grouped_dh(g, b, gid, scale, bm=bm)
+    dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
+    fn = _build.function("lora_grouped_train", "lora_grouped_dx", _GDX_ARGS)
+    with torch.cuda.device(g.device):
+        rc = fn(_DTYPES[g.dtype], g.data_ptr(), w0.data_ptr(), a.data_ptr(),
+                dh.data_ptr(), gid.data_ptr(), dx.data_ptr(), M, K, N, E, r,
+                bm, torch.cuda.current_stream().cuda_stream)
+    _build.check("lora_grouped_train", rc, "lora_grouped_dx launch")
+    lora_grouped_dx.launches += 1
+    return dx
+
+
+def lora_grouped_dab(x, g, a, b, gid, scale: float = 2.0, *, bm: int):
+    """x [M,K], g [M,N] (M % bm == 0), a [E,K,r], b [E,r,N], gid int32
+    [M // bm], each group's tiles contiguous -> (dA [E,K,r], dB [E,r,N]) in
+    a's and b's dtype (which is x's)."""
+    if not x.is_cuda:
+        return lora_grouped_dab_ref(x, g, a, b, gid, scale, bm=bm)
+    M, K, N, E, r = _check_stacks("lora_grouped_dab", x, None, a, b, gid, bm)
+    _cols("lora_grouped_dab", "x", x, K)
+    if g.dtype != x.dtype or g.device != x.device or not g.is_contiguous() \
+            or g.shape != (M, N):
+        raise ValueError(f"lora_grouped_dab: g must be a contiguous [{M}, "
+                         f"{N}] {x.dtype} tensor on {x.device}, got "
+                         f"{tuple(g.shape)} {g.dtype} on {g.device}")
+    size = _build.function("lora_grouped_train", "lora_grouped_dab_workspace",
+                           [_I] * 5, restype=_build.C_LONGLONG)(M, K, N, r,
+                                                                bm)
+    ws = torch.empty(size, dtype=torch.float32, device=x.device)
+    da = torch.empty((E, K, r), dtype=a.dtype, device=x.device)
+    db = torch.empty((E, r, N), dtype=b.dtype, device=x.device)
+    fn = _build.function("lora_grouped_train", "lora_grouped_dab",
+                         _GDAB_ARGS)
+    with torch.cuda.device(x.device):
+        rc = fn(_DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), a.data_ptr(),
+                b.data_ptr(), gid.data_ptr(), ws.data_ptr(), da.data_ptr(),
+                db.data_ptr(), M, K, N, E, r, bm, float(scale),
+                torch.cuda.current_stream().cuda_stream)
+    _build.check("lora_grouped_train", rc, "lora_grouped_dab launch")
+    lora_grouped_dab.launches += 1
+    return da, db
+
+
 lora_grouped.launches = 0
 lora_grouped_q.launches = 0
 lora_grouped_q4.launches = 0
+lora_grouped_gemm.launches = 0
+lora_grouped_dx.launches = 0
+lora_grouped_dab.launches = 0

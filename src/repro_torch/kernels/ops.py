@@ -10,13 +10,18 @@ follow the paper's structured rules, as the reference's custom_vjps do:
 ``lora_dab`` backward, saving x (h is recomputed on chip), or over a
 quantized base ``lora_fused_q``/``lora_fused_q4`` forward and
 ``lora_dx_q``/``lora_dx_q4`` + ``lora_dab`` backward, saving the codes and
-the scale (never a dense W0); :func:`rmsnorm`
+the scale (never a dense W0); :func:`lora_grouped_linear` (MoE's expert
+linears over [E, ·, ·] stacks) is ``lora_grouped_gemm`` forward and
+``lora_grouped_dx`` + ``lora_grouped_dab`` backward, saving x, W0, A and B;
+:func:`rmsnorm`
 is ``rmsnorm_fwd`` forward and ``rmsnorm_bwd`` backward, saving x;
 :func:`sdpa` from 64 query rows is ``flash_fwd`` forward and
 ``flash_bwd_dq`` + ``flash_bwd_dkv`` backward, saving q, k, v, out and the
 row logsumexp (the probabilities are recomputed on chip).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -177,6 +182,85 @@ def lora_grouped_decode(x, w0, a, b, tile_gid, bias=None, scale: float = 2.0,
 
 
 # ---------------------------------------------------------------------------
+# Grouped LoRA linear over per-expert stacks (MoE): one launch for all
+# experts, every bm-row tile one expert's, routed by an int32 gid on the
+# device
+# ---------------------------------------------------------------------------
+
+
+def grouped_bm(rows: int) -> int:
+    """Row-tile height for groups of ``rows`` rows: 128-row tiles for big
+    groups, else one tile of ``rows`` rounded up to 8 (the reference's
+    ``_grouped_bm``)."""
+    return 128 if rows >= 128 else -(-max(rows, 1) // 8) * 8
+
+
+@functools.lru_cache(maxsize=None)
+def _expert_gid(E: int, tiles: int, device: torch.device):
+    """int32 [E · tiles]: expert e owns tiles e·tiles .. (e+1)·tiles - 1.
+    Made once per shape and device and shared: never write to it."""
+    return torch.arange(E, dtype=torch.int32, device=device
+                        ).repeat_interleave(tiles)
+
+
+def _pad_rows(t, Cp):
+    """[E, C, ·] -> [E·Cp, ·] rows, zero rows past C (a view when C ==
+    Cp and t is contiguous)."""
+    E, C, n = t.shape
+    if Cp != C:
+        t = torch.nn.functional.pad(t, (0, 0, 0, Cp - C))
+    return t.reshape(E * Cp, n).contiguous()
+
+
+class _GroupedLoRAKernel(torch.autograd.Function):
+    """x [E, C, K], w0 [E, K, N], a [E, K, r], b [E, r, N] -> [E, C, N].
+    Saves exactly (x, w0, a, b): never h, never a copy of the stack."""
+
+    @staticmethod
+    def forward(ctx, x, w0, a, b, scale):
+        E, C, _ = x.shape
+        bm = grouped_bm(C)
+        Cp = -(-C // bm) * bm
+        gid = _expert_gid(E, Cp // bm, x.device)
+        ctx.scale, ctx.bm, ctx.Cp = scale, bm, Cp
+        ctx.save_for_backward(x, w0, a, b)
+        y = _lg.lora_grouped_gemm(_pad_rows(x, Cp), w0, a, b, gid, scale,
+                                  bm=bm)
+        return y.view(E, Cp, -1)[:, :C]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w0, a, b = ctx.saved_tensors
+        E, C, K = x.shape
+        Cp, bm = ctx.Cp, ctx.bm
+        gid = _expert_gid(E, Cp // bm, x.device)
+        g2 = _pad_rows(g.to(x.dtype), Cp)
+        dx = da = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _lg.lora_grouped_dx(g2, w0, a, b, gid, ctx.scale, bm=bm
+                                     ).view(E, Cp, K)[:, :C]
+        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
+            da, db = _lg.lora_grouped_dab(_pad_rows(x, Cp), g2, a, b, gid,
+                                          ctx.scale, bm=bm)
+        return dx, None, da, db, None
+
+
+def lora_grouped_linear(x, w0, a, b, scale: float = 2.0):
+    """The MoE expert linear ``x[e] @ w0[e] + scale·(x[e]@a[e])@b[e]`` for
+    every expert e through the grouped kernels: x [E, C, K] (C rows of each
+    expert's capacity buffer), w0 [E, K, N], a [E, K, r], b [E, r, N] ->
+    [E, C, N]. As the reference's dispatch: tiles of ``grouped_bm(C)`` rows,
+    C padded up to whole tiles, one tile run per expert. Differentiable in
+    x, a and b; W0 is frozen."""
+    if quant.is_quantized(w0) or quant.is_packed(w0):
+        raise NotImplementedError(
+            "the grouped kernels over a quantized expert stack (int8, "
+            "int4, nf4) are the next slice of the port; MoE trains over a "
+            "bf16 or f32 base so far")
+    return _GroupedLoRAKernel.apply(x, w0, a, b, scale)
+
+
+# ---------------------------------------------------------------------------
 # RMSNorm: forward kernel + backward kernel (rms and x̂ recomputed from x)
 # ---------------------------------------------------------------------------
 
@@ -271,6 +355,9 @@ def sdpa(q, k, v, *, causal: bool = True, window: int = 0, rope=None):
 _COUNTED = {"lora_grouped_fwd": _lg.lora_grouped,
             "lora_grouped_q": _lg.lora_grouped_q,
             "lora_grouped_q4": _lg.lora_grouped_q4,
+            "lora_grouped_gemm": _lg.lora_grouped_gemm,
+            "lora_grouped_dx": _lg.lora_grouped_dx,
+            "lora_grouped_dab": _lg.lora_grouped_dab,
             "rmsnorm_fwd": _rn.rmsnorm,
             "lora_fused_fwd": _lf.lora_fused, "lora_dx": _lf.lora_dx,
             "lora_dab": _lf.lora_dab, "rmsnorm_bwd": _rn.rmsnorm_bwd,

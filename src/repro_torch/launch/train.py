@@ -1,6 +1,6 @@
-"""Training launcher of the port: LoRA fine-tuning of a dense model with the
-MeSP engine (``repro.launch.train``, for the subset of its flags that the
-port supports).
+"""Training launcher of the port: LoRA fine-tuning of a dense or MoE model
+with the MeSP engine (``repro.launch.train``, for the subset of its flags
+that the port supports).
 
 ``--engine`` picks the backward regime (``repro_torch.api.engines``):
 ``mesp_cuda`` runs every LoRA linear through the LoRA kernels (forward,
@@ -13,12 +13,18 @@ k inside the flash kernels (``mesp_cuda`` only, as the reference applies
 it only to its kernel backend). ``--quantize int8|int4|nf4`` keeps every
 frozen linear's W0 in that format (``core/quant.py``); under ``mesp_cuda``
 the quantized kernels read it as stored, the other engines dequantize it
-first. The run happens on the card unless
+first. ``--arch olmoe-1b-7b`` or ``deepseek-moe-16b`` trains an MoE model
+over a bf16 base: under ``mesp_cuda`` every expert linear runs the grouped
+kernels (forward, dx, dA/dB over the [E, ·, ·] stacks); a quantized MoE
+base is not ported yet and ``--quantize`` is refused for it. The run
+happens on the card unless
 ``--device cpu`` is given; with no card visible the default fails rather
 than falling back.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \\
         --engine mesp_cuda --steps 4 [--fuse-rope] [--quantize nf4]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
+        --engine mesp_cuda --steps 3
 
 The reference's Trainer facade (checkpoints, the step guard, the
 degradation ladder, telemetry) is not ported yet.
@@ -74,7 +80,8 @@ def train(argv=None) -> dict:
     optimizer steps on batches of the port's data pipeline. Returns
     ``losses`` and ``seconds`` (one per step; a step's time ends in a
     synchronise), ``params`` (the trained ones), ``cfg`` and ``policy``."""
-    ns = build_arg_parser().parse_args(argv)
+    ap = build_arg_parser()
+    ns = ap.parse_args(argv)
     if ns.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card and none is "
                            "visible; pass --device cpu to train on the CPU")
@@ -82,6 +89,10 @@ def train(argv=None) -> dict:
     cfg = get_config(ns.arch)
     if ns.reduced:
         cfg = cfg.reduced()
+    if cfg.family == "moe" and ns.quantize != "none":
+        ap.error(f"--quantize {ns.quantize}: {ns.arch} is an MoE model, and "
+                 "training over a quantized MoE base is not ported yet; use "
+                 "--quantize none")
     policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
                              fuse_rope=ns.fuse_rope, quantize=ns.quantize)
     opt = optimizers.make_optimizer(ns.optimizer, schedules.constant(ns.lr))

@@ -1,7 +1,7 @@
-"""Shared model components (``repro.models.layers``) for the dense family:
-LoRA-adapted linears (single and tenant-stacked), RMSNorm, RoPE, GQA
-attention (full-sequence for training, or over a per-slot KV cache for
-decode), the SwiGLU MLP and the tied embedding.
+"""Shared model components (``repro.models.layers``) for the dense and MoE
+families: LoRA-adapted linears (single and tenant-stacked), RMSNorm, RoPE,
+GQA attention (full-sequence for training, or over a per-slot KV cache for
+decode), the SwiGLU MLP and the embedding with a tied or untied head.
 
 Every trainable-path op takes an :class:`ExecutionPolicy` whose backend
 selects the backward regime: ``structured`` (the hand-derived autograd
@@ -241,15 +241,18 @@ def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
 # ---------------------------------------------------------------------------
 
 
-def mlp_params(gen, cfg: ArchConfig, *, lead: Tuple[int, ...] = (),
-               quantize: Optional[str] = None):
+def mlp_params(gen, cfg: ArchConfig, *, d_ff: Optional[int] = None,
+               lead: Tuple[int, ...] = (), quantize: Optional[str] = None):
+    """The gated MLP's three linears, ``d_ff`` wide (``cfg.d_ff`` unless
+    given: MoE's shared experts and DeepSeek's dense layer 0 differ)."""
     tg = cfg.lora.targets
+    f = d_ff or cfg.d_ff
     lin = functools.partial(linear_params, gen, cfg=cfg, lead=lead,
                             quantize=quantize)
     return {
-        "gate": lin(cfg.d_model, cfg.d_ff, lora="gate" in tg),
-        "up": lin(cfg.d_model, cfg.d_ff, lora="up" in tg),
-        "down": lin(cfg.d_ff, cfg.d_model, lora="down" in tg),
+        "gate": lin(cfg.d_model, f, lora="gate" in tg),
+        "up": lin(cfg.d_model, f, lora="up" in tg),
+        "down": lin(f, cfg.d_model, lora="down" in tg),
     }
 
 
@@ -268,7 +271,14 @@ def mlp(p, x, cfg: ArchConfig, *, policy: ExecutionPolicy = STRUCTURED,
 
 
 def embed_params(gen, cfg: ArchConfig):
-    return {"tok": _randn(gen, (cfg.vocab, cfg.d_model), _dtype(cfg)) * 0.02}
+    """The token table (N(0, 0.02²)) and, for an untied config, the head
+    [d, vocab] at the reference's d^-0.5."""
+    dtype = _dtype(cfg)
+    p = {"tok": _randn(gen, (cfg.vocab, cfg.d_model), dtype) * 0.02}
+    if not cfg.tie_embeddings:
+        p["head"] = _randn(gen, (cfg.d_model, cfg.vocab), dtype).mul_(
+            cfg.d_model ** -0.5)
+    return p
 
 
 def embed(p, tokens, cfg: ArchConfig):
@@ -276,5 +286,6 @@ def embed(p, tokens, cfg: ArchConfig):
 
 
 def unembed(p, x, cfg: ArchConfig):
-    """Tied head: logits = x @ tokᵀ, in f32."""
-    return (x @ p["tok"].T).float()
+    """logits = x @ tokᵀ (tied) or x @ head (untied), in f32."""
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    return (x @ w).float()

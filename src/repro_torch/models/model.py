@@ -1,14 +1,18 @@
-"""Model assembly (``repro.models.model``) for the dense family: init,
-the full-sequence forward and loss for training, the per-slot decode cache
-and the multi-tenant decode step.
+"""Model assembly (``repro.models.model``) for the dense and MoE
+families: init, the full-sequence forward and loss for training, and, for
+the dense family, the per-slot decode cache and the multi-tenant decode
+step.
 
 Block parameters are stacked ``[L, ...]`` as in the reference's tree (the
-weight bridge relies on it). The forward and the decode step walk the
-layers in a Python loop where the reference scans; in training each block
-runs under ``torch.utils.checkpoint`` when ``policy.remat`` is set, so only
-block inputs are stored across the forward (the reference's
-``jax.checkpoint`` around its scan body, paper §4.3). The cache is written
-in place.
+weight bridge relies on it). An MoE model stacks ``moe_block``s; a config
+with ``first_layer_dense`` (DeepSeekMoE) puts a dense block of MLP width
+``d_expert · (top_k + n_shared)`` first, unstacked, as ``block0``. The
+forward and the decode step walk the layers in a Python loop where the
+reference scans; in training each stacked block runs under
+``torch.utils.checkpoint`` when ``policy.remat`` is set, so only block
+inputs are stored across the forward (the reference's ``jax.checkpoint``
+around its scan body, paper §4.3); ``block0`` runs outside it, as in the
+reference. The cache is written in place.
 """
 from __future__ import annotations
 
@@ -19,13 +23,14 @@ from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import quant, structured
 from repro_torch.models import layers
+from repro_torch.models import moe as moe_lib
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or not cfg.tie_embeddings:
+def _require(cfg: ArchConfig, families) -> None:
+    if cfg.family not in families:
         raise NotImplementedError(
-            "the port runs dense models with tied embeddings so far, not "
-            f"{cfg.name!r}")
+            f"the port runs the {'/'.join(families)} family here so far, "
+            f"not {cfg.name!r} ({cfg.family})")
 
 
 def dense_block(bp, x, cfg: ArchConfig, *, cache,
@@ -40,6 +45,19 @@ def dense_block(bp, x, cfg: ArchConfig, *, cache,
     return x, new_cache
 
 
+def moe_block(bp, x, cfg: ArchConfig, *,
+              policy: ExecutionPolicy = STRUCTURED):
+    """Attention, then the MoE MLP (``models/moe.py``) in place of the
+    dense one; training only."""
+    h, _ = layers.attention(
+        bp["attn"], layers.norm(bp["ln1"], x, cfg, policy=policy), cfg,
+        policy=policy)
+    x = x + h
+    return x + moe_lib.moe_mlp(bp["moe"],
+                               layers.norm(bp["ln2"], x, cfg, policy=policy),
+                               cfg, policy=policy)
+
+
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,
                 quantize=None):
     """Random parameters at the reference's scales, made on the generator's
@@ -49,8 +67,8 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     leaf into its ``core/quant`` format as it is drawn (the same values as
     ``quant.quantize_params`` over the dense tree, without ever holding
     that tree); LoRA factors, biases, norms and the embedding stay in
-    ``cfg.dtype``."""
-    _require_dense(cfg)
+    ``cfg.dtype``. An MoE model takes no ``quantize`` yet."""
+    _require(cfg, ("dense", "moe"))
     gen = generator
     dtype = getattr(torch, cfg.dtype)
     L, d = cfg.n_layers, cfg.d_model
@@ -58,24 +76,39 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     if method is not None and method not in quant.METHODS:
         raise ValueError(f"unknown quantize method {quantize!r}; "
                          f"expected one of {quant.METHODS}")
+    if method is not None and cfg.family == "moe":
+        raise NotImplementedError(
+            f"quantize={method!r}: a quantized MoE base (per-expert int8 or "
+            "packed stacks) is the next slice of the port")
     ones = lambda *s: torch.ones(s, dtype=dtype, device=gen.device)
-    return {
-        "embed": layers.embed_params(gen, cfg),
-        "final_norm": ones(d),
-        "blocks": {"ln1": ones(L, d),
+    p = {"embed": layers.embed_params(gen, cfg), "final_norm": ones(d)}
+    if cfg.family == "moe":
+        m = cfg.moe
+        if m.first_layer_dense:
+            p["block0"] = {
+                "ln1": ones(d), "attn": layers.attention_params(gen, cfg),
+                "ln2": ones(d), "mlp": layers.mlp_params(
+                    gen, cfg, d_ff=m.d_expert * (m.top_k + m.n_shared))}
+            L -= 1
+        p["blocks"] = {"ln1": ones(L, d),
+                       "attn": layers.attention_params(gen, cfg, lead=(L,)),
+                       "ln2": ones(L, d),
+                       "moe": moe_lib.moe_params(gen, cfg, lead=(L,))}
+        return p
+    p["blocks"] = {"ln1": ones(L, d),
                    "attn": layers.attention_params(gen, cfg, lead=(L,),
                                                    quantize=method),
                    "ln2": ones(L, d),
                    "mlp": layers.mlp_params(gen, cfg, lead=(L,),
-                                            quantize=method)},
-    }
+                                            quantize=method)}
+    return p
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cpu"):
     """Stacked per-layer, per-slot KV caches (the reference's
     ``init_cache(per_slot=True)``): {"blocks": {"k", "v": [L,B,Hkv,S,D],
     "len": [L,B]}}."""
-    _require_dense(cfg)
+    _require(cfg, ("dense",))
     return {"blocks": layers.make_kv_cache(
         cfg, batch, max_len, getattr(torch, cfg.dtype),
         lead=(cfg.n_layers,), device=device)}
@@ -101,13 +134,19 @@ def _unstack(tree, n: int):
 def forward(params, cfg: ArchConfig, tokens, *,
             policy: ExecutionPolicy = STRUCTURED):
     """Full-sequence forward -> logits [B, N, vocab] in f32."""
-    _require_dense(cfg)
+    _require(cfg, ("dense", "moe"))
     x = layers.embed(params["embed"], tokens, cfg)
+    if "block0" in params:
+        x = dense_block(params["block0"], x, cfg, cache=None,
+                        policy=policy)[0]
 
     def body(x, bp):
+        if cfg.family == "moe":
+            return moe_block(bp, x, cfg, policy=policy)
         return dense_block(bp, x, cfg, cache=None, policy=policy)[0]
 
-    for bp in _unstack(params["blocks"], cfg.n_layers):
+    blocks = params["blocks"]
+    for bp in _unstack(blocks, blocks["ln1"].shape[0]):
         if policy.remat:
             x = checkpoint(body, x, bp, use_reentrant=False)
         else:
@@ -133,7 +172,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *,
     ``adapter_tiles``: int32 device tensor [B // bm] routing each slot tile
     to its resident adapter for tenant-stacked LoRA params.
     """
-    _require_dense(cfg)
+    _require(cfg, ("dense",))
     x = layers.embed(params["embed"], tokens, cfg)
     blocks, cblocks = params["blocks"], cache["blocks"]
     for i in range(cfg.n_layers):

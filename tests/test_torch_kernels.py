@@ -186,14 +186,21 @@ def test_cpu_tensors_never_launch_kernels():
     # from 64 query rows the dispatch takes the flash Function
     q = torch.randn(1, 2, 64, 8).requires_grad_(True)
     o = tops.sdpa(q, torch.randn(1, 1, 64, 8), torch.randn(1, 1, 64, 8))
-    torch.autograd.grad((y * fg).sum() + xn.sum() + o.sum(), (fx, fa, q))
+    # the MoE expert linear over [E, C, K] stacks
+    ex = torch.randn(2, 5, 16).requires_grad_(True)
+    ey = tops.lora_grouped_linear(ex, torch.randn(2, 16, 24),
+                                  torch.randn(2, 16, 4), torch.randn(2, 4, 24))
+    torch.autograd.grad((y * fg).sum() + xn.sum() + o.sum() + ey.sum(),
+                        (fx, fa, q, ex))
     counts = tops.launch_counts()
     assert set(counts) == {"lora_grouped_fwd", "lora_grouped_q",
                            "lora_grouped_q4", "rmsnorm_fwd",
                            "lora_fused_fwd", "lora_dx", "lora_dab",
                            "rmsnorm_bwd", "flash_fwd", "flash_bwd_dq",
                            "flash_bwd_dkv", "lora_fused_q", "lora_dx_q",
-                           "lora_fused_q4", "lora_dx_q4"}
+                           "lora_fused_q4", "lora_dx_q4",
+                           "lora_grouped_gemm", "lora_grouped_dx",
+                           "lora_grouped_dab"}
     assert set(counts.values()) == {0}
 
 

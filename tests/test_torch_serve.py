@@ -219,6 +219,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('repro_torch.models.moe', 'repro_torch.configs.olmoe_1b_7b',"
+        " 'repro_torch.configs.deepseek_moe_16b'):\n"
+        "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
@@ -228,4 +231,4 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         text=True, timeout=120,
         env=dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}:{ROOT}"))
     assert proc.returncode == 0, proc.stderr + proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 15      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 44      # every module imported
