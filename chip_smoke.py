@@ -95,17 +95,42 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    LoRA gradients against the plain backend in bf16 and f32
    (``compare_grads_moe``: routing differences per layer; gradients with
    the routing pinned to the kernel run's, at ``GRAD_TOL`` at
-   ``MOE_GRAD_LAYERS`` layers and at cosine ``MOE_COS_FLOOR`` at full
-   depth), two bitwise-equal ``value_and_grad`` calls, and
+   ``MOE_GRAD_LAYERS`` layers; at full depth at cosine ``MOE_COS_FLOOR``
+   and, the kernels run in f32, at ``GRAD_TOL`` from the plain f32 run),
+   two bitwise-equal ``value_and_grad`` calls, and
    the peak memory of one ``value_and_grad`` for mesp_cuda, mesp and mebp,
    remat on and off.
+12. MoE over a quantized base: holds the four quantized grouped training
+   kernels (``lora_grouped_gemm_q`` / ``_q4``, ``lora_grouped_dx_q`` /
+   ``_q4``) against their plain versions in f32 and bf16 over int8, int4
+   and nf4 expert stacks at the MoE path's shapes and at ``MOE_EDGES`` (but
+   the split group, which only dA/dB sees), and times them beside their
+   plain versions, the bound and ``torch.bmm`` / ``torch.matmul`` over the
+   dequantized stack as context. Then trains full-width OLMoE-1B-7B
+   through ``repro_torch.launch.train --arch olmoe-1b-7b --quantize nf4``
+   (3 steps) and ``--quantize int8`` (2 steps), counts zeroed just before
+   and read just after each run (``moe_quant_per_step``: the quantized
+   grouped forward 96 and dx 48, ``lora_grouped_dab`` 48, the quantized
+   dense forward 128 and dx 61 a step, the float ones 0); the loss and
+   LoRA gradients over the nf4 base against the plain backend over the
+   same codes (``compare_grads_moe`` as in step 11, but at full depth
+   without the bf16 cosine floor, which the plain bf16 gradients
+   themselves miss against the f32 ones there), two bitwise-equal
+   ``value_and_grad`` calls, what ``init_params`` leaves allocated and its
+   peak for a bf16, int8 and nf4 base, and the peak memory of one
+   ``value_and_grad`` over the nf4 base for mesp_cuda, mesp and mebp, remat
+   on and off.
+13. The standalone RoPE kernel (on no path of either package) and its
+   VJP (the kernel at -sin) bit for bit against the plain rotation in f32
+   and bf16 at [1, 256, 14, 64] (qwen2.5-0.5b's q), [1, 256, 16, 128]
+   (OLMoE's) and an odd N, timed beside the plain rotation and the bound.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
-``{"train_quant": ...}`` and ``{"train_moe": ...}`` line each, the card's
-name and power limit, and last
-``{"ok": true, "device": ...}``. Any mismatch or exception exits non-zero.
-Imports nothing of JAX or of the JAX package ``repro``.
+``{"train_quant": ...}``, ``{"train_moe": ...}`` and
+``{"train_moe_quant": ...}`` line each, the card's name and power limit,
+and last ``{"ok": true, "device": ...}``. Any mismatch or exception exits
+non-zero. Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
 
@@ -180,6 +205,10 @@ TRAIN_PER_STEP = {
     "lora_grouped_q": 0, "lora_grouped_q4": 0,
     # MoE's grouped training kernels run only on the MoE path
     "lora_grouped_gemm": 0, "lora_grouped_dx": 0, "lora_grouped_dab": 0,
+    "lora_grouped_gemm_q": 0, "lora_grouped_gemm_q4": 0,
+    "lora_grouped_dx_q": 0, "lora_grouped_dx_q4": 0,
+    # the standalone RoPE kernel runs on no path
+    "rope_fwd": 0,
 }
 # the paper's setting, where attention runs the flash kernels
 PAPER_BATCH, PAPER_SEQ, PAPER_STEPS, ROPE_STEPS = 1, 256, 4, 2
@@ -266,6 +295,32 @@ MOE_EDGES = {
     "bad_gid": (4 * 40, 40, 256, 192, 4, 8, (0, 70, 1, -1)),
     "split_group": (4 * 40, 40, 256, 192, 3, 8, (1, 0, 1, 2)),
 }
+
+# MoE over a quantized base (step 12): method -> CLI steps
+MOE_QUANT_RUNS = {"nf4": 3, "int8": 2}
+# method -> the grouped (forward, dx) training kernel over that base
+GROUPED_TRAIN_Q = {"int8": ("lora_grouped_gemm_q", "lora_grouped_dx_q"),
+                   "int4": ("lora_grouped_gemm_q4", "lora_grouped_dx_q4"),
+                   "nf4": ("lora_grouped_gemm_q4", "lora_grouped_dx_q4")}
+# the forward and dx see no split group (only dA/dB's reduction does)
+MOE_Q_EDGES = {k: v for k, v in MOE_EDGES.items() if k != "split_group"}
+# the standalone RoPE kernel's check (step 13): x [B, N, H, D]
+ROPE_CASES = {"qwen": (1, 256, 14, 64), "olmoe": (1, 256, 16, 128),
+              "odd_n": (1, 255, 16, 128)}
+
+
+def moe_quant_per_step(method):
+    """Launches per MoE step with ``--quantize method``: step 11's, with
+    the quantized forward and dx in place of the float ones, dense (q, k,
+    v, o) and grouped (the experts); dA/dB keep ``lora_dab`` and
+    ``lora_grouped_dab``, which never read W0."""
+    fwd, dx = QUANT_KERNELS[method]
+    gfwd, gdx = GROUPED_TRAIN_Q[method]
+    return {**MOE_PER_STEP, "lora_fused_fwd": 0, "lora_dx": 0,
+            "lora_grouped_gemm": 0, "lora_grouped_dx": 0,
+            fwd: MOE_PER_STEP["lora_fused_fwd"], dx: MOE_PER_STEP["lora_dx"],
+            gfwd: MOE_PER_STEP["lora_grouped_gemm"],
+            gdx: MOE_PER_STEP["lora_grouped_dx"]}
 
 
 def quant_per_step(method):
@@ -858,31 +913,40 @@ def base_memory(torch, cfg):
     ``serve_residency``'s modelled ``weights_mb`` and ``total_mb`` with no
     adapter and no page resident (MB of 2^20 bytes)."""
     from repro_torch.core import quant
-    from repro_torch.models import model as model_lib
     from repro_torch.serve.residency import serve_residency
     out = {}
     for method in ("none",) + SERVE_QUANT_RUNS:
-        _release(torch)
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        p = model_lib.init_params(
-            cfg, generator=torch.Generator(device="cuda").manual_seed(0),
-            quantize=method)
-        torch.cuda.synchronize()
         fmt = quant.weights_format(method)
         modelled = serve_residency(cfg, rank=cfg.lora.rank,
                                    resident_adapters=0, kv_pages=0,
                                    page_size=16, batch=M, weights_fmt=fmt)
-        out[fmt] = {"allocated_bytes": torch.cuda.memory_allocated() - before,
-                    "init_peak_bytes": torch.cuda.max_memory_allocated()
-                    - before,
-                    "params_bytes": quant.tree_bytes(p),
-                    "frozen_bytes": quant.tree_bytes(p) - _lora_bytes(p),
-                    "linear_w0_bytes": quant.tree_bytes(p, frozen_base=True),
+        out[fmt] = {**init_memory(torch, cfg, method),
                     "modelled_weights_mb": modelled["weights_mb"],
                     "modelled_weights_bytes": modelled["weights_mb"] * 2**20,
                     "modelled_total_mb": modelled["total_mb"]}
-        del p
+    return out
+
+
+def init_memory(torch, cfg, method):
+    """What ``init_params(cfg, quantize=method)`` leaves allocated on the
+    card and the most it held while it ran (bytes above what was allocated
+    before), the bytes of its tensors, of its frozen ones (all but the LoRA
+    factors) and of its ``w`` leaves (codes, scales and codebooks)."""
+    from repro_torch.core import quant
+    from repro_torch.models import model as model_lib
+    _release(torch)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    p = model_lib.init_params(
+        cfg, generator=torch.Generator(device="cuda").manual_seed(0),
+        quantize=method)
+    torch.cuda.synchronize()
+    out = {"allocated_bytes": torch.cuda.memory_allocated() - before,
+           "init_peak_bytes": torch.cuda.max_memory_allocated() - before,
+           "params_bytes": quant.tree_bytes(p),
+           "frozen_bytes": quant.tree_bytes(p) - _lora_bytes(p),
+           "linear_w0_bytes": quant.tree_bytes(p, frozen_base=True)}
+    del p
     return out
 
 
@@ -1038,20 +1102,23 @@ def _grad_leaves(tree, prefix=""):
     return {} if tree is None else {prefix: tree.float()}
 
 
-def _grad_runs(torch, cfg, params, batch, quantize="none", wrap=None):
+def _grad_runs(torch, cfg, params, batch, quantize="none", wrap=None,
+               f32_kernels=False):
     """One value_and_grad through the kernels, the plain backend in bf16
-    and the plain backend in f32, on the same (bf16-valued) weights, whose
-    frozen base is in the ``quantize`` format; ``wrap(name, run)`` runs
-    each (by default ``run()``). Returns ({run: loss}, {run: {leaf:
-    grad}})."""
+    and the plain backend in f32 (and with ``f32_kernels`` the kernels in
+    f32), on the same (bf16-valued) weights, whose frozen base is in the
+    ``quantize`` format; ``wrap(name, run)`` runs each (by default
+    ``run()``). Returns ({run: loss}, {run: {leaf: grad}})."""
     import dataclasses
     from repro_torch.api.policy import ExecutionPolicy
     from repro_torch.core import mesp
     # the f32 copy is made for its run and freed after it
+    f32 = dataclasses.replace(cfg, dtype="float32")
     runs = {"kernels": ("cuda", cfg, lambda: params),
             "plain": ("plain", cfg, lambda: params),
-            "f32": ("plain", dataclasses.replace(cfg, dtype="float32"),
-                    lambda: _f32(params))}
+            "f32": ("plain", f32, lambda: _f32(params))}
+    if f32_kernels:
+        runs["kernels_f32"] = ("cuda", f32, lambda: _f32(params))
     wrap = wrap or (lambda name, run: run())
     loss, grads = {}, {}
     for name, (backend, c, make) in runs.items():
@@ -1079,11 +1146,15 @@ def _distances(torch, loss, grads):
                         "cos": {"kernels_vs_plain": _cos(torch, k, p),
                                 "kernels_vs_f32": _cos(torch, k, f),
                                 "plain_vs_f32": _cos(torch, p, f)}}
+        if "kernels_f32" in grads:
+            kf = grads["kernels_f32"][path]
+            leaves[path]["kernels_f32_vs_f32"] = rel(kf, f)
+            leaves[path]["cos"]["kernels_f32_vs_f32"] = _cos(torch, kf, f)
     loss_err = {"kernels_vs_plain": abs(loss["kernels"] - loss["plain"]),
                 "kernels_vs_f32": abs(loss["kernels"] - loss["f32"]),
                 "plain_vs_f32": abs(loss["plain"] - loss["f32"])}
     worst = {k: max(e[k] for e in leaves.values()) for k in
-             ("kernels_vs_plain", "kernels_vs_f32", "plain_vs_f32")}
+             next(iter(leaves.values())) if k != "cos"}
     return {"loss": loss, "loss_abs_err": loss_err, "worst": worst,
             "leaves": leaves}
 
@@ -1168,7 +1239,21 @@ def _check_cosines(d):
     _check_loss(d)
 
 
-def compare_grads_moe(torch, moe_lib, cfg, params, batch, grad_tol=None):
+def _check_f32_kernels(d):
+    """Per leaf, the kernels' gradient in f32 within ``GRAD_TOL`` (relative
+    L2) of the plain f32 one: the two differ in summation order alone, so
+    at full depth, where bf16's roundings have grown into gradients of
+    their own, this still tells a right gradient from a wrong one."""
+    bad = {path: e["kernels_f32_vs_f32"] for path, e in d["leaves"].items()
+           if not e["kernels_f32_vs_f32"] <= GRAD_TOL}
+    if bad or len(d["leaves"]) != 14:
+        raise AssertionError(
+            f"LoRA gradients: f32 kernels vs plain f32 over {GRAD_TOL}: "
+            f"{bad}; all leaves: {d['leaves']}")
+
+
+def compare_grads_moe(torch, moe_lib, cfg, params, batch, grad_tol=None,
+                      quantize="none", cos_floor=True):
     """``compare_grads`` for an MoE model. Two bf16 implementations route
     some tokens to other experts, and with random weights a moved token
     moves others layer by layer (``PERF.md``). So: (1) each run routes
@@ -1179,26 +1264,39 @@ def compare_grads_moe(torch, moe_lib, cfg, params, batch, grad_tol=None):
     alone, and are checked as ``_check_grads`` checks them at ``grad_tol``;
     or, with ``grad_tol`` None (full depth, where even the plain bf16
     gradients lie more than 1 in relative L2 from the f32 ones, so no such
-    bound can fail a wrong gradient), by ``_check_cosines``."""
+    bound can fail a wrong gradient), the kernels run in f32 too and are
+    held against the plain f32 run at ``GRAD_TOL`` (``_check_f32_kernels``),
+    and the bf16 kernels by ``_check_cosines``; with ``cos_floor`` False
+    (a model whose plain bf16 gradients are themselves about unrelated to
+    the f32 ones at that depth, so no bf16 path can meet a floor against
+    them) the bf16 cosines are reported and the loss checked. The frozen
+    base is in the ``quantize`` format."""
     ids = {}
 
     def free(name, run):
         out, ids[name] = _top_k_patched(moe_lib, run)
         return out
     loose = _distances(torch, *_grad_runs(torch, cfg, params, batch,
-                                          wrap=free))
+                                          quantize, wrap=free))
     _check_loss(loose)
     loose["routing"] = routing_differences(torch, ids, cfg.n_layers)
     pinned = _distances(torch, *_grad_runs(
-        torch, cfg, params, batch,
+        torch, cfg, params, batch, quantize,
         wrap=lambda name, run: _top_k_patched(moe_lib, run,
-                                              ids["kernels"])[0]))
-    if grad_tol is None:
-        _check_cosines(pinned)
-    else:
+                                              ids["kernels"])[0],
+        f32_kernels=grad_tol is None))
+    if grad_tol is not None:
         _check_grads(pinned, grad_tol)
+    else:
+        _check_f32_kernels(pinned)
+        if cos_floor:
+            _check_cosines(pinned)
+        else:
+            _check_loss(pinned)
     return {**pinned, "layers": cfg.n_layers, "grad_tol": grad_tol,
-            "cos_floor": MOE_COS_FLOOR if grad_tol is None else None,
+            "f32_kernels_tol": GRAD_TOL if grad_tol is None else None,
+            "cos_floor": MOE_COS_FLOOR if grad_tol is None and cos_floor
+            else None,
             "routing_pinned_to": "kernels", "free_routing": loose}
 
 
@@ -1464,6 +1562,168 @@ def routing_differences(torch, ids, layers):
             "plain_vs_f32": diff("plain", "f32")}
 
 
+# ------------------------------------------ MoE over a quantized base
+
+
+def _moe_q_cases(torch, quant, gen, dtype, method, M_, K, N, E, r, gid):
+    """make() of the quantized grouped training kernels' inputs: x [M, K],
+    the codes and scale of a random W0 [E, K, N] in ``method``'s format,
+    a [E, K, r], b [E, r, N] (nonzero), g [M, N], gid int32 on the card,
+    and W0 dequantized to ``dtype`` (the operand of the product context)."""
+    key = "q" if method == "int8" else "q4"
+    gid = torch.tensor(gid, dtype=torch.int32, device="cuda")
+
+    def make():
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        leaf = quant.quantize_leaf(rn(E, K, N) * K ** -0.5, method)
+        return (rn(M_, K).to(dtype), leaf[key], leaf["scale"],
+                (rn(E, K, r) * r ** -0.5).to(dtype),
+                (rn(E, r, N) * 0.1).to(dtype), rn(M_, N).to(dtype),
+                gid.clone(), quant.maybe_dequant(leaf, dtype))
+    return make
+
+
+def _moe_q_calls(torch, lg, method, bm):
+    """{kernel: (kernel, plain version, product context)}, each a call on
+    the inputs of ``_moe_q_cases`` with tiles of ``bm`` rows."""
+    if method == "int8":
+        fwd, dx = lg.lora_grouped_gemm_q, lg.lora_grouped_dx_q
+        fwd_ref, dx_ref = lg.lora_grouped_gemm_q_ref, lg.lora_grouped_dx_q_ref
+    else:
+        fwd, dx, fwd_ref, dx_ref = (
+            functools.partial(f, method=method) for f in (
+                lg.lora_grouped_gemm_q4, lg.lora_grouped_dx_q4,
+                lg.lora_grouped_gemm_q4_ref, lg.lora_grouped_dx_q4_ref))
+
+    def per_expert(t, w):      # [M, ·] rows as [E, M / E, ·]
+        return t.view(w.shape[0], -1, t.shape[1])
+    f, d = GROUPED_TRAIN_Q[method]
+    return {
+        f: (lambda x, q, s, a, b, g, gid, w: fwd(x, q, s, a, b, gid, 2.0,
+                                                 bm=bm),
+            lambda x, q, s, a, b, g, gid, w: fwd_ref(x, q, s, a, b, gid, 2.0,
+                                                     bm=bm),
+            lambda x, q, s, a, b, g, gid, w: torch.bmm(per_expert(x, w), w)),
+        d: (lambda x, q, s, a, b, g, gid, w: dx(g, q, s, a, b, gid, 2.0,
+                                                bm=bm),
+            lambda x, q, s, a, b, g, gid, w: dx_ref(g, q, s, a, b, gid, 2.0,
+                                                    bm=bm),
+            lambda x, q, s, a, b, g, gid, w: torch.matmul(per_expert(g, w),
+                                                          w.mT))}
+
+
+def check_grouped_quant_train(torch, quant, lg):
+    """The quantized grouped training kernels against their plain versions
+    for int8, int4 and nf4, in f32 (summation order only, 1e-4 relative,
+    the absolute floor relative to the output's largest magnitude) and bf16
+    (``KERNEL_TOL``, floored the same way), at the MoE path's shapes (E 64,
+    C 40, gate/up and down, r 8) and ``MOE_Q_EDGES``; NaN on the same rows
+    as the plain version (a bad gid). Times, bounds and the product context
+    in bf16 at the path's shapes, inputs cold. Returns ({(kernel, method):
+    [shape figures]}, {(kernel, method): {edge: errors}})."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    f32_tol = dict(rtol=1e-4, atol=1e-4)
+    path_gid = [e for e in range(MOE_E) for _ in range(MOE_C // MOE_BM)]
+    cases = {(K, N): (MOE_E * MOE_C, MOE_BM, K, N, MOE_E, RANK, path_gid)
+             for K, N in MOE_SHAPES}
+    cases.update(MOE_Q_EDGES)
+    figures, edges = {}, {}
+    for method in GROUPED_TRAIN_Q:
+        for name in GROUPED_TRAIN_Q[method]:
+            figures[(name, method)], edges[(name, method)] = [], {}
+        for case, (M_, bm, K, N, E, r, gid) in cases.items():
+            calls = _moe_q_calls(torch, lg, method, bm)
+            errs = {}
+            for dtype, tol in ((torch.float32, f32_tol),
+                               (torch.bfloat16, KERNEL_TOL)):
+                args = _moe_q_cases(torch, quant, gen, dtype, method, M_, K,
+                                    N, E, r, gid)()
+                for name, (kern, plain, _) in calls.items():
+                    got, want = kern(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    what = f"{name} {method} {dtype} {case}"
+                    if not torch.equal(got.isnan(), want.isnan()):
+                        raise AssertionError(f"{what}: NaN on other entries "
+                                             "than the plain version's")
+                    ok = ~want.isnan().all(1)
+                    errs[(name, dtype)] = _close_scaled(got[ok], want[ok],
+                                                        tol, what)
+            if case not in MOE_SHAPES:
+                for name in calls:
+                    edges[(name, method)][case] = {
+                        "M": M_, "bm": bm, "K": K, "N": N, "E": E, "r": r,
+                        "gid": list(gid),
+                        "max_abs_err": errs[(name, torch.bfloat16)],
+                        "max_abs_err_f32": errs[(name, torch.float32)]}
+                continue
+            # reads x (or g), the codes, the scale, A, B and gid; writes y
+            # (or dx)
+            codes = E * (K * N if method == "int8" else (K + 1) // 2 * N)
+            nbytes = 2 * M_ * (K + N) + codes + 4 * E * N \
+                + 2 * E * (K * r + r * N) + 4 * len(gid)
+            flops = 2 * M_ * K * N + 2 * M_ * r * (K + N)
+            bound, by = _bound_ms(nbytes, flops)
+            sets = _cold_sets(_moe_q_cases(torch, quant, gen, torch.bfloat16,
+                                           method, M_, K, N, E, r, gid),
+                              nbytes)
+            for name, (kern, plain, mm) in calls.items():
+                dense = "lora_grouped_gemm" if name.startswith(
+                    "lora_grouped_gemm") else "lora_grouped_dx"
+                figures[(name, method)].append({
+                    "K": K, "N": N, "M": M_, "E": E, "C": MOE_C, "bm": bm,
+                    "r": r, "method": method,
+                    "launches_per_train_step": MOE_SHAPES[(K, N)][dense],
+                    "max_abs_err": errs[(name, torch.bfloat16)],
+                    "max_abs_err_f32": errs[(name, torch.float32)],
+                    "ms": _time_ms(kern, sets, MOE_CALLS),
+                    "plain_ms": _time_ms(plain, sets, MOE_CALLS // 2),
+                    "library_ms": None,
+                    "matmul_ms": _time_ms(mm, sets, MOE_CALLS),
+                    "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+                    "flops": flops})
+            del sets
+    return figures, edges
+
+
+def check_rope(torch, rope):
+    """The standalone RoPE kernel and its VJP (the kernel at -sin, through
+    ``rope_apply``'s autograd) bit for bit against the plain rotation in
+    f32 and bf16 at ``ROPE_CASES``; times in bf16 beside the plain
+    rotation and the bound. Returns {case: figures}."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for case, (B, N, H, D) in ROPE_CASES.items():
+        cos, sin = rope.rope_tables(torch.arange(N, device="cuda"), 1e6, D)
+
+        def make(dtype=torch.bfloat16):
+            return (torch.randn(B, N, H, D, generator=gen,
+                                device="cuda").to(dtype), cos, sin)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, _, _ = make(dtype)
+            g = make(dtype)[0]
+            xr = x.clone().requires_grad_(True)
+            y = rope.rope_apply(xr, cos, sin)
+            (dx,) = torch.autograd.grad(y, xr, g)
+            torch.cuda.synchronize()
+            if not torch.equal(y, rope.rope_fwd_ref(x, cos, sin)) or \
+                    not torch.equal(dx, rope.rope_fwd_ref(g, cos, -sin)):
+                raise AssertionError(f"rope_fwd {case} {dtype}: not bit for "
+                                     "bit the plain rotation")
+        # reads x and both tables, writes y; 4 products and 2 sums a pair
+        nbytes = 2 * 2 * B * N * H * D + 2 * 4 * N * (D // 2)
+        flops = 6 * B * N * H * (D // 2)
+        bound, by = _bound_ms(nbytes, flops)
+        sets = _cold_sets(make, nbytes)
+        out[case] = {"B": B, "N": N, "H": H, "D": D, "bitwise": True,
+                     "max_abs_err": 0.0,
+                     "ms": _time_ms(rope.rope_fwd, sets),
+                     "plain_ms": _time_ms(rope.rope_fwd_ref, sets),
+                     "library_ms": None, "bound_ms": bound, "bound_by": by,
+                     "bytes": nbytes, "flops": flops}
+        del sets
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1480,6 +1740,7 @@ def main() -> int:
     from repro_torch.kernels import lora_quant as lq
     from repro_torch.kernels import ops
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rope
     from repro_torch.kernels.rope import rope_tables
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch import train as train_cli
@@ -1520,6 +1781,8 @@ def main() -> int:
     gq_fig, gq_edges = check_grouped_quant(torch, quant, lg)
     nf4_rounding = check_nf4_codebook_rounding(torch, quant, lg, lp4)
     moe_fig, moe_edges = check_grouped_train(torch, lg)
+    mq_fig, mq_edges = check_grouped_quant_train(torch, quant, lg)
+    rope_fig = check_rope(torch, rope)
 
     # the main path: counts zeroed just before, read just after
     _release(torch)
@@ -1753,14 +2016,79 @@ def main() -> int:
         torch, moe_lib, cut,
         _with_b(torch, model_lib.init_params(cut, generator=gen), gen),
         batch, GRAD_TOL)
+
+    # MoE over a quantized base: counts zeroed just before, read just
+    # after each run
+    mq_runs, mq_counts = {}, {}
+    for method, nsteps in MOE_QUANT_RUNS.items():
+        _release(torch)
+        ops.reset_launch_counts()
+        run = train_cli.train(["--arch", MOE_ARCH, "--engine", "mesp_cuda",
+                               "--device", "cuda", "--batch",
+                               str(PAPER_BATCH), "--seq", str(PAPER_SEQ),
+                               "--steps", str(nsteps), "--seed", "0",
+                               "--quantize", method])
+        mq_counts[method] = ops.launch_counts()
+        want = {k: v * nsteps for k, v in moe_quant_per_step(method).items()}
+        if mq_counts[method] != want:
+            raise AssertionError(f"{MOE_ARCH} --quantize {method}: launch "
+                                 f"counts {mq_counts[method]}, expected "
+                                 f"{want} for {nsteps} steps")
+        if len(run["losses"]) != nsteps or \
+                not all(map(math.isfinite, run["losses"])):
+            raise AssertionError(f"{MOE_ARCH} --quantize {method}: losses "
+                                 f"{run['losses']}")
+        qsecs = run["seconds"]
+        mq_runs[method] = {
+            "steps": nsteps, "losses": run["losses"], "seconds": qsecs,
+            "ms_per_step": 1e3 * sum(qsecs[1:]) / max(1, len(qsecs) - 1),
+            "first_step_ms": 1e3 * qsecs[0], "launches": mq_counts[method],
+            "launches_per_step": moe_quant_per_step(method),
+            "params_bytes": quant.tree_bytes(run["params"]),
+            "frozen_base_bytes": quant.tree_bytes(run["params"],
+                                                  frozen_base=True)}
+        del run
+    _release(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mq_params = _with_b(torch, model_lib.init_params(
+        mcfg, generator=gen, quantize="nf4"), gen)
+    # over this nf4 model the plain bf16 gradients at 16 layers lie at
+    # cosine -0.03 to 0.17 from the f32 ones (PERF.md): no bf16 path can
+    # meet MOE_COS_FLOOR against them, so the f32 kernels hold full depth
+    mq_grads = compare_grads_moe(torch, moe_lib, mcfg, mq_params, batch,
+                                 quantize="nf4", cos_floor=False)
+    pol = ExecutionPolicy(backend="cuda", device="cuda", quantize="nf4")
+    (l1, g1), (l2, g2) = [mesp.value_and_grad(mq_params, mcfg, batch,
+                                              policy=pol) for _ in range(2)]
+    g1, g2 = _grad_leaves(g1), _grad_leaves(g2)
+    if not torch.equal(l1, l2) or g1.keys() != g2.keys() or not all(
+            torch.equal(g1[k], g2[k]) for k in g1):
+        raise AssertionError(f"{MOE_ARCH} nf4: two value_and_grad calls "
+                             "differ")
+    del g1, g2
+    mq_peaks = peak_memory(
+        torch, mcfg, mq_params, batch,
+        [(e, True) for e in ("mesp_cuda", "mesp", "mebp")]
+        + [(e, False) for e in ("mesp_cuda", "mesp", "mebp")], "nf4")
+    del mq_params
+    _release(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    mq_grads_cut = compare_grads_moe(
+        torch, moe_lib, cut, _with_b(torch, model_lib.init_params(
+            cut, generator=gen, quantize="nf4"), gen), batch, GRAD_TOL,
+        "nf4")
     del batch
+    moe_init = {quant.weights_format(m): init_memory(torch, mcfg, m)
+                for m in ("none", "int8", "nf4")}
 
     paths = lambda k: {"serve": counts[k],
                        **{f"serve_{m}": c[k] for m, c in scounts.items()},
                        "train": tcounts[k],
                        **{run: c[k] for run, c in pcounts.items()},
                        **{f"train_{m}": c[k] for m, c in qcounts.items()},
-                       "train_moe": mcounts[k]}
+                       "train_moe": mcounts[k],
+                       **{f"train_moe_{m}": c[k]
+                          for m, c in mq_counts.items()}}
     def with_moe(e, moe_shapes):
         """``e`` with the kernel's figures at the MoE path's shapes (each
         per launch, with its launches a step), their errors in its own."""
@@ -1844,6 +2172,49 @@ def main() -> int:
         e["max_abs_err"] = e["max_err"] = max(e["max_abs_err"], err)
         return e
 
+    def moe_q_entry(name, line, fn, method):
+        shapes = mq_fig[(name, method)]
+        edges = mq_edges[(name, method)]
+        extra = {}
+        if method == "nf4":     # the same kernel body over int4 codes
+            int4 = mq_fig[(name, "int4")]
+            extra = {"int4_shapes": int4, "int4_ms": sum(
+                s_["ms"] * s_["launches_per_train_step"] for s_ in int4),
+                "int4_max_abs_err": max(
+                    [s_["max_abs_err"] for s_ in int4]
+                    + [v["max_abs_err"]
+                       for v in mq_edges[(name, "int4")].values()]),
+                "edges_int4": mq_edges[(name, "int4")]}
+        e = kernel_entry(
+            name, "src/repro_torch/csrc/lora_grouped_train.cu", line, fn,
+            shapes, paths(name), MOE_QUANT_RUNS[method], step="train",
+            path=f"train_moe_{method}",
+            train_step=f"{MOE_ARCH}, batch {PAPER_BATCH} x seq {PAPER_SEQ}, "
+                       f"--quantize {method}", method=method,
+            matmul_ms=sum(s_["matmul_ms"] * s_["launches_per_train_step"]
+                          for s_ in shapes),
+            tol_f32=dict(rtol=1e-4, atol=1e-4), edges=edges, **extra)
+        e["max_abs_err"] = e["max_err"] = max(
+            [e["max_abs_err"]] + [v["max_abs_err"] for v in edges.values()]
+            + ([extra["int4_max_abs_err"]] if extra else []))
+        return e
+
+    head = rope_fig["olmoe"]
+    rope_entry = {
+        "name": "rope_fwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/rope.cu",
+        "replaces": "src/repro/kernels/rope.py:92",
+        "tpu_kernel": "src/repro/kernels/rope.py:rope_fwd / rope_apply "
+                      "(_rope_kernel :63; VJP :112-123)",
+        "launches": sum(paths("rope_fwd").values()),
+        "launches_by_path": paths("rope_fwd"), "on_main_path": False,
+        "max_abs_err": 0.0, "max_err": 0.0, "bitwise": True,
+        "unit": "ms per launch, bf16, x [1, 256, 16, 128] (OLMoE's q at "
+                "seq 256)",
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "library_ms": None,
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "shapes": rope_fig}
+
     kernels = [
         kernel_entry("lora_grouped_fwd",
                      "src/repro_torch/csrc/lora_grouped_fwd.cu",
@@ -1919,6 +2290,24 @@ def main() -> int:
         moe_entry("lora_grouped_dab", "src/repro/kernels/lora_grouped.py:501",
                   "src/repro/kernels/lora_grouped.py:lora_grouped_dab "
                   "(_grouped_dab_kernel :444)"),
+        moe_q_entry("lora_grouped_gemm_q",
+                    "src/repro/kernels/lora_grouped.py:205",
+                    "src/repro/kernels/lora_grouped.py:lora_grouped_q, "
+                    "Ew = E (_grouped_fwd_q_kernel :91)", "int8"),
+        moe_q_entry("lora_grouped_gemm_q4",
+                    "src/repro/kernels/lora_grouped.py:227",
+                    "src/repro/kernels/lora_grouped.py:lora_grouped_q4, "
+                    "Ew = E (_grouped_fwd_q4_kernel :114, lora_pack4.py "
+                    "_unpack_tile :54)", "nf4"),
+        moe_q_entry("lora_grouped_dx_q",
+                    "src/repro/kernels/lora_grouped.py:394",
+                    "src/repro/kernels/lora_grouped.py:lora_grouped_dx_q "
+                    "(_grouped_dx_q_kernel :275)", "int8"),
+        moe_q_entry("lora_grouped_dx_q4",
+                    "src/repro/kernels/lora_grouped.py:417",
+                    "src/repro/kernels/lora_grouped.py:lora_grouped_dx_q4 "
+                    "(_grouped_dx_q4_kernel :297)", "nf4"),
+        rope_entry,
     ]
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))
@@ -1987,6 +2376,16 @@ def main() -> int:
         "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, "b_scale": B_SCALE,
         "repeat_bitwise": True,
         "peak_memory_one_value_and_grad": moe_peaks, "device": name}}))
+    print(json.dumps({"train_moe_quant": {
+        "arch": MOE_ARCH, "engine": "mesp_cuda", "dtype": "bfloat16",
+        "layers": MOE_L, "experts": MOE_E, "batch": PAPER_BATCH,
+        "seq": PAPER_SEQ, "runs": mq_runs, "nf4": {
+            "grads_vs_plain": mq_grads,
+            f"grads_vs_plain_{MOE_GRAD_LAYERS}_layers": mq_grads_cut,
+            "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, "b_scale": B_SCALE,
+            "repeat_bitwise": True,
+            "peak_memory_one_value_and_grad": mq_peaks},
+        "init_memory": moe_init, "device": name}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

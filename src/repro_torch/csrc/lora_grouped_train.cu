@@ -10,6 +10,18 @@
 //     (dh per tile is the wrapper's, as _grouped_dh was the TPU wrapper's)
 //   lora_grouped_dab (_grouped_dab_kernel)        -> entry lora_grouped_dab
 //     dA[e] = sum over e's rows of x^T dh,  dB[e] = sum of round(x@A[e])^T sg
+// and over quantized expert stacks (W0[e] = w(codes[e]) * S[e], S f32
+// [E, 1, N] per output channel; the layouts of core/quant.py):
+//   lora_grouped_q  (_grouped_fwd_q_kernel), Ew = E -> lora_grouped_gemm_q
+//   lora_grouped_q4 (_grouped_fwd_q4_kernel, _unpack_tile), Ew = E
+//                                                   -> lora_grouped_gemm_q4
+//     y[m] = round(acc * S[g] + s * round(h) @ B[g]),  acc = x[m] @ w[g]
+//   lora_grouped_dx_q / _dx_q4 (_grouped_dx_q_kernel, _grouped_dx_q4_kernel)
+//                                  -> lora_grouped_dx_q, lora_grouped_dx_q4
+//     dx[m] = round(round(g[m] * round(S[g])) @ w[g]^T + dh[m] @ A[g]^T)
+//   with w the int8 code, the sign-extended nibble (int4) or the nf4
+//   codebook entry rounded to T; the codes [E, K, N] int8 or packed
+//   [E, ceil(K/2), N] uint8, read in place by both passes.
 //
 //   with g = gid[m / bm]: rows come in tiles of bm, every tile one group's
 //   (an expert's capacity buffer), x [M, K], W0 [E, K, N], A [E, K, r],
@@ -21,7 +33,9 @@
 // per W0 element of their expert, 40 FLOP/byte in bf16: far below the H100's
 // ~295, so the least time is that of reading the 268 MB expert stack once
 // (~80 us). dA/dB read x and g once (~8 r FLOPs an element): bytes too.
-// These first kernels run on CUDA cores, whose FMA rate limits them.
+// These first kernels run on CUDA cores, whose FMA rate limits them. Over
+// codes the stack to read shrinks (nf4 gate/up: 67 MB, ~26 us from bytes
+// with x, y and the factors), so the FMA rate limits them further still.
 //
 // Design (simple and right first):
 // * Forward and dx are lora_gemm.cuh's tiled product (the plain LoRA
@@ -31,8 +45,14 @@
 //   group's entry, and ends its rows at the tile's end. At bm <= 64 a whole
 //   tile fits one block, so each expert's W0 is read once per column block
 //   and launch. dx reads W0 in place, [K, N] as stored: no transposed copy.
-//   The format template WFmt stays, so quantized expert stacks become one
-//   more instance each; only kDense is built here.
+//   The format WFmt is a template parameter: kDense, and kInt8 / kInt4 /
+//   kNF4 for the quantized stacks. Their codes are offset by the group's
+//   entry in bytes (K * N for int8, ceil(K/2) * N packed), S by N. The
+//   codes become weights in T in shared memory (nf4's codebook rounded to
+//   T once per block); the scale multiplies the f32 accumulator once per
+//   output in the forward and is folded onto g as dx stages it, as in
+//   lora_gemm.cuh. Odd K (packed): the pad nibble meets an x column masked
+//   to zero, and dx writes no row at k >= K.
 // * dA/dB, two launches on one stream, as lora_dab.cu: row blocks of 8 rows
 //   inside one tile write f32 partials (h and dh recomputed on chip, never
 //   written to device memory; lora_dab.cuh); then one block per (group,
@@ -58,7 +78,8 @@ using lora_gemm::BN;
 using wfmt::WFmt;
 using wfmt::WStore;
 
-// w_stride: elements of W0 (and S) between two groups' entries; lo_in is A
+// w_stride / s_stride: elements of Q (a quantized W0's code bytes) / of S
+// between two groups' entries (S nullptr for kDense); lo_in is A
 // (fwd, offset by the group's entry) or dh (dx, absolute rows); lo_out is B
 // (fwd) or A (dx), offset by the group's entry.
 template <typename T, bool DX, WFmt F>
@@ -110,29 +131,52 @@ int launch_gemm(const void* P, const void* Q, const float* S,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The dense-W0 instance (kDense) in either activation type.
-template <bool DX>
-int launch_dense(int dtype, const void* P, const void* Q, const void* lo_in,
-                 const void* lo_out, const void* gid, void* y, int M, int Kc,
-                 int Nout, int E, int r, int bm, float scale,
-                 void* stream) {
+// One format F in either activation type. Q's and S's entries lie
+// w_stride and s_stride elements apart (the codes' bytes for a quantized F).
+template <bool DX, WFmt F>
+int launch_fmt(int dtype, const void* P, const void* Q, const void* S,
+               const void* lo_in, const void* lo_out, const void* gid,
+               void* y, int M, int Kc, int Nout, int E, size_t w_stride,
+               size_t s_stride, int r, int bm, float scale, void* stream) {
   if (M < 0 || Kc < 1 || Nout < 1 || E < 1 || r < 1 ||
       r > lora_gemm::RMAX || bm < 1 || M % bm)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
-  // W0's entry is [K, N] in both passes: Kc * Nout elements
-  const size_t w_stride = (size_t)Kc * Nout;
   const int* g = static_cast<const int*>(gid);
+  const float* sc = static_cast<const float*>(S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
-    return launch_gemm<DX, WFmt::kDense, __nv_bfloat16>(
-        P, Q, nullptr, lo_in, lo_out, g, y, M, Kc, Nout, E, w_stride, 0, r,
+    return launch_gemm<DX, F, __nv_bfloat16>(
+        P, Q, sc, lo_in, lo_out, g, y, M, Kc, Nout, E, w_stride, s_stride, r,
         bm, scale, s);
   if (dtype == DTYPE_F32)
-    return launch_gemm<DX, WFmt::kDense, float>(
-        P, Q, nullptr, lo_in, lo_out, g, y, M, Kc, Nout, E, w_stride, 0, r,
-        bm, scale, s);
+    return launch_gemm<DX, F, float>(P, Q, sc, lo_in, lo_out, g, y, M, Kc,
+                                     Nout, E, w_stride, s_stride, r, bm,
+                                     scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The entry of a W0 [K, N] per expert: K * N weights, int8 codes or dense
+// elements; ceil(K/2) * N bytes packed.
+template <WFmt F>
+size_t entry_size(int K, int N) {
+  return (size_t)(wfmt::is_packed(F) ? (K + 1) / 2 : K) * N;
+}
+
+// The forward (DX false: P = x, lo = A, B) or dx (DX true: P = g, lo = dh,
+// A, contraction over N) over one quantized format.
+template <bool DX, WFmt F>
+int launch_quant(int dtype, const void* P, const void* q, const void* s,
+                 const void* lo_in, const void* lo_out, const void* gid,
+                 void* y, int M, int K, int N, int E, int r, int bm,
+                 float scale, void* stream) {
+  if (K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (DX)
+    return launch_fmt<DX, F>(dtype, P, q, s, lo_in, lo_out, gid, y, M, N, K,
+                             E, entry_size<F>(K, N), N, r, bm, 1.f, stream);
+  else
+    return launch_fmt<DX, F>(dtype, P, q, s, lo_in, lo_out, gid, y, M, K, N,
+                             E, entry_size<F>(K, N), N, r, bm, scale, stream);
 }
 
 // ------------------------------------------------------------------ dA/dB
@@ -229,16 +273,70 @@ extern "C" int lora_grouped_gemm(int dtype, const void* x, const void* w0,
                                  const void* gid, void* y, int M, int K,
                                  int N, int E, int r, int bm, float scale,
                                  void* stream) {
-  return launch_dense<false>(dtype, x, w0, a, b, gid, y, M, K, N, E, r, bm,
-                             scale, stream);
+  if (K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fmt<false, WFmt::kDense>(dtype, x, w0, nullptr, a, b, gid, y,
+                                         M, K, N, E, (size_t)K * N, 0, r, bm,
+                                         scale, stream);
 }
 
 extern "C" int lora_grouped_dx(int dtype, const void* g, const void* w0,
                                const void* a, const void* dh,
                                const void* gid, void* dx, int M, int K,
                                int N, int E, int r, int bm, void* stream) {
-  return launch_dense<true>(dtype, g, w0, dh, a, gid, dx, M, N, K, E, r, bm,
-                            1.f, stream);
+  // W0's entry is [K, N] in both passes
+  if (K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_fmt<true, WFmt::kDense>(dtype, g, w0, nullptr, dh, a, gid,
+                                        dx, M, N, K, E, (size_t)K * N, 0, r,
+                                        bm, 1.f, stream);
+}
+
+// Over quantized expert stacks: q int8 [E, K, N] or q4 uint8
+// [E, ceil(K/2), N], s f32 [E, 1, N]; method 0 int4, 1 nf4.
+extern "C" int lora_grouped_gemm_q(int dtype, const void* x, const void* q,
+                                   const void* s, const void* a,
+                                   const void* b, const void* gid, void* y,
+                                   int M, int K, int N, int E, int r, int bm,
+                                   float scale, void* stream) {
+  return launch_quant<false, WFmt::kInt8>(dtype, x, q, s, a, b, gid, y, M, K,
+                                          N, E, r, bm, scale, stream);
+}
+
+extern "C" int lora_grouped_gemm_q4(int dtype, int method, const void* x,
+                                    const void* q4, const void* s,
+                                    const void* a, const void* b,
+                                    const void* gid, void* y, int M, int K,
+                                    int N, int E, int r, int bm, float scale,
+                                    void* stream) {
+  if (method == 0)
+    return launch_quant<false, WFmt::kInt4>(dtype, x, q4, s, a, b, gid, y, M,
+                                            K, N, E, r, bm, scale, stream);
+  if (method == 1)
+    return launch_quant<false, WFmt::kNF4>(dtype, x, q4, s, a, b, gid, y, M,
+                                           K, N, E, r, bm, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int lora_grouped_dx_q(int dtype, const void* g, const void* q,
+                                 const void* s, const void* a,
+                                 const void* dh, const void* gid, void* dx,
+                                 int M, int K, int N, int E, int r, int bm,
+                                 void* stream) {
+  return launch_quant<true, WFmt::kInt8>(dtype, g, q, s, dh, a, gid, dx, M, K,
+                                         N, E, r, bm, 1.f, stream);
+}
+
+extern "C" int lora_grouped_dx_q4(int dtype, int method, const void* g,
+                                  const void* q4, const void* s,
+                                  const void* a, const void* dh,
+                                  const void* gid, void* dx, int M, int K,
+                                  int N, int E, int r, int bm, void* stream) {
+  if (method == 0)
+    return launch_quant<true, WFmt::kInt4>(dtype, g, q4, s, dh, a, gid, dx, M,
+                                           K, N, E, r, bm, 1.f, stream);
+  if (method == 1)
+    return launch_quant<true, WFmt::kNF4>(dtype, g, q4, s, dh, a, gid, dx, M,
+                                          K, N, E, r, bm, 1.f, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // f32 elements of the partials workspace that lora_grouped_dab needs.

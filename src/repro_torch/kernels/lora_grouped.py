@@ -53,6 +53,21 @@ one expert's capacity buffer.
   group's tiles, h and dh recomputed on chip; a group with no tile gets
   zeros.
 
+Over quantized expert stacks (``Ew == E``): int8 codes q [E, K, N] or
+packed q4 uint8 [E, ceil(K/2), N] with an f32 scale [E, 1, N] (the layouts
+of ``core/quant.py``), read in place by both passes; dA/dB keep
+:func:`lora_grouped_dab`, which never reads W0.
+
+* :func:`lora_grouped_gemm_q` / :func:`lora_grouped_gemm_q4`
+  (``lora_grouped_q`` / ``lora_grouped_q4`` with Ew = E,
+  ``_grouped_fwd_q_kernel`` / ``_grouped_fwd_q4_kernel``): ``acc = x @ w``
+  in f32 over the codes as weights in x's dtype, then
+  ``round(acc·s + scale·round(h) @ B[g])``;
+* :func:`lora_grouped_dx_q` / :func:`lora_grouped_dx_q4`
+  (``lora_grouped_dx_q`` / ``_dx_q4``, ``_grouped_dx_q_kernel`` /
+  ``_grouped_dx_q4_kernel``): ``round(round(g·round(s)) @ wᵀ + dh @ A[g]ᵀ)``,
+  the scale folded onto g, dh the wrapper's as above.
+
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; a tensor on the CPU gets the plain version
 (``*_ref``). ``<wrapper>.launches`` counts kernel launches. A gid outside
@@ -84,6 +99,10 @@ _Q4_ARGTYPES = [_I, _I] + [_P] * 7 + [_I] * 6 + [_F, _P]
 _GEMM_ARGS = [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]
 _GDX_ARGS = [_I] + [_P] * 6 + [_I] * 6 + [_P]
 _GDAB_ARGS = [_I] + [_P] * 8 + [_I] * 6 + [_F, _P]
+_GQ_ARGS = [_I] + [_P] * 7 + [_I] * 6 + [_F, _P]
+_GQ4_ARGS = [_I, _I] + [_P] * 7 + [_I] * 6 + [_F, _P]
+_GDXQ_ARGS = [_I] + [_P] * 7 + [_I] * 6 + [_P]
+_GDXQ4_ARGS = [_I, _I] + [_P] * 7 + [_I] * 6 + [_P]
 
 
 # ------------------------------------------------------------ plain versions
@@ -268,17 +287,49 @@ def _nan_rows(y, ok, bm):
     return y.masked_fill(~ok.repeat_interleave(bm)[:, None], float("nan"))
 
 
+def _gemm_tiles_ref(x, w, s, a, b, e, ok, scale, bm):
+    """The forward over each tile's weights w [T, K, N] (x's dtype) and
+    scale s [T, 1, N] (f32, None for a float W0): ``acc = x @ w`` in f32,
+    h rounded to x's type before it meets B, ``acc·s + scale·round(h)@B``,
+    rows of a tile outside [0, E) NaN, output in x's type."""
+    T = e.numel()
+    xt = x.reshape(T, bm, -1).float()
+    h = (xt @ a[e].float()).to(x.dtype)
+    acc = xt @ w.float()
+    if s is not None:
+        acc = acc * s
+    y = acc + scale * (h.float() @ b[e].float())
+    return _nan_rows(y.reshape(T * bm, -1), ok, bm).to(x.dtype)
+
+
 def lora_grouped_gemm_ref(x, w0, a, b, gid, scale: float = 2.0, *, bm: int):
     """Plain version of the forward over stacks, with the kernel's
     arithmetic: f32 sums, h rounded to x's type before it meets B, output
     in x's type, rows of a gid outside [0, E) NaN."""
-    T, E = gid.numel(), a.shape[0]
-    e, ok = _tile_groups(gid, E)
-    xt = x.reshape(T, bm, -1).float()
-    h = (xt @ a[e].float()).to(x.dtype)
-    y = xt @ _tile_w0("lora_grouped_gemm", w0, e).float() \
-        + scale * (h.float() @ b[e].float())
-    return _nan_rows(y.reshape(T * bm, -1), ok, bm).to(x.dtype)
+    e, ok = _tile_groups(gid, a.shape[0])
+    return _gemm_tiles_ref(x, _tile_w0("lora_grouped_gemm", w0, e), None, a,
+                           b, e, ok, scale, bm)
+
+
+def lora_grouped_gemm_q_ref(x, q, s, a, b, gid, scale: float = 2.0, *,
+                            bm: int):
+    """Plain version of the forward over int8 expert codes q [E, K, N] and
+    scale s [E, 1, N], in the TPU kernel's arithmetic (not a dequantized
+    product): the codes in x's dtype, ``acc = x @ q`` in f32, then
+    ``acc·s + scale·round(h) @ B``."""
+    e, ok = _tile_groups(gid, a.shape[0])
+    return _gemm_tiles_ref(x, q[e].to(x.dtype), s[e], a, b, e, ok, scale, bm)
+
+
+def lora_grouped_gemm_q4_ref(x, q4, s, a, b, gid, scale: float = 2.0, *,
+                             bm: int, method: str = "int4"):
+    """Plain version of the forward over packed expert codes q4 uint8
+    [E, ceil(K/2), N] (K from x): each tile's nibbles as weights in x's
+    dtype (nf4's codebook rounded to it, as ``_unpack_tile``), then as
+    :func:`lora_grouped_gemm_q_ref`."""
+    e, ok = _tile_groups(gid, a.shape[0])
+    w = unpack_weights(q4[e], method, x.dtype, x.shape[1])
+    return _gemm_tiles_ref(x, w, s[e], a, b, e, ok, scale, bm)
 
 
 def _grouped_dh(g, b, gid, scale: float, *, bm: int):
@@ -291,16 +342,46 @@ def _grouped_dh(g, b, gid, scale: float, *, bm: int):
     return (sg @ b[e].float().mT).to(g.dtype).reshape(T * bm, -1)
 
 
+def _dx_tiles_ref(g, w, s, a, b, gid, scale, bm):
+    """dx over each tile's weights w [T, K, N] (g's dtype) and scale s
+    [T, 1, N] (f32, None for a float W0): ``g·round(s)`` rounded to g's
+    type, dh rounded to it, f32 sums, one rounding of the output, rows of a
+    gid outside [0, E) NaN."""
+    T, E = gid.numel(), a.shape[0]
+    e, ok = _tile_groups(gid, E)
+    dh = _grouped_dh(g, b, gid, scale, bm=bm).reshape(T, bm, -1).float()
+    gt = g.reshape(T, bm, -1)
+    if s is not None:
+        gt = gt * s.to(g.dtype)
+    dx = gt.float() @ w.float().mT + dh @ a[e].float().mT
+    return _nan_rows(dx.reshape(T * bm, -1), ok, bm).to(g.dtype)
+
+
 def lora_grouped_dx_ref(g, w0, a, b, gid, scale: float = 2.0, *, bm: int):
     """Plain version of dx, with the kernel's arithmetic: dh rounded to
     g's type, f32 sums, one rounding of the output, rows of a gid outside
     [0, E) NaN."""
-    T, E = gid.numel(), a.shape[0]
-    e, ok = _tile_groups(gid, E)
-    dh = _grouped_dh(g, b, gid, scale, bm=bm).reshape(T, bm, -1).float()
-    w = _tile_w0("lora_grouped_dx", w0, e).float()
-    dx = g.reshape(T, bm, -1).float() @ w.mT + dh @ a[e].float().mT
-    return _nan_rows(dx.reshape(T * bm, -1), ok, bm).to(g.dtype)
+    e, _ = _tile_groups(gid, a.shape[0])
+    return _dx_tiles_ref(g, _tile_w0("lora_grouped_dx", w0, e), None, a, b,
+                         gid, scale, bm)
+
+
+def lora_grouped_dx_q_ref(g, q, s, a, b, gid, scale: float = 2.0, *,
+                          bm: int):
+    """Plain version of dx over int8 expert codes, in the TPU kernel's
+    arithmetic: ``(g·(s → g's dtype)) @ qᵀ + dh @ Aᵀ``, the scale folded
+    onto g and rounded to g's type, the codes read as stored."""
+    e, _ = _tile_groups(gid, a.shape[0])
+    return _dx_tiles_ref(g, q[e].to(g.dtype), s[e], a, b, gid, scale, bm)
+
+
+def lora_grouped_dx_q4_ref(g, q4, s, a, b, gid, scale: float = 2.0, *,
+                           bm: int, method: str = "int4"):
+    """Plain version of dx over packed expert codes (K from a): each tile's
+    nibbles as weights in g's dtype, then as :func:`lora_grouped_dx_q_ref`."""
+    e, _ = _tile_groups(gid, a.shape[0])
+    w = unpack_weights(q4[e], method, g.dtype, a.shape[1])
+    return _dx_tiles_ref(g, w, s[e], a, b, gid, scale, bm)
 
 
 def lora_grouped_dab_ref(x, g, a, b, gid, scale: float = 2.0, *, bm: int):
@@ -379,6 +460,21 @@ def _cols(what, name, t, n):
                          f"expected {n}")
 
 
+def _launch_train(entry, argtypes, lead, act, ptrs, out_shape, dims,
+                  scale=None):
+    """Allocate the output, launch ``entry`` of ``lora_grouped_train`` with
+    the leading ints ``lead``, the pointers ``ptrs`` and the output's, the
+    ints ``dims`` (and ``scale``), check the launch."""
+    out = torch.empty(out_shape, dtype=act.dtype, device=act.device)
+    fn = _build.function("lora_grouped_train", entry, argtypes)
+    tail = () if scale is None else (float(scale),)
+    with torch.cuda.device(act.device):
+        rc = fn(*lead, *(t.data_ptr() for t in ptrs), out.data_ptr(), *dims,
+                *tail, torch.cuda.current_stream().cuda_stream)
+    _build.check("lora_grouped_train", rc, f"{entry} launch")
+    return out
+
+
 def lora_grouped_gemm(x, w0, a, b, gid, scale: float = 2.0, *, bm: int):
     """x [M,K] (M % bm == 0), w0 [E,K,N], a [E,K,r], b [E,r,N], gid int32
     [M // bm] -> y [M,N] in x's dtype."""
@@ -386,14 +482,8 @@ def lora_grouped_gemm(x, w0, a, b, gid, scale: float = 2.0, *, bm: int):
         return lora_grouped_gemm_ref(x, w0, a, b, gid, scale, bm=bm)
     M, K, N, E, r = _check_stacks("lora_grouped_gemm", x, w0, a, b, gid, bm)
     _cols("lora_grouped_gemm", "x", x, K)
-    y = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    fn = _build.function("lora_grouped_train", "lora_grouped_gemm",
-                         _GEMM_ARGS)
-    with torch.cuda.device(x.device):
-        rc = fn(_DTYPES[x.dtype], x.data_ptr(), w0.data_ptr(), a.data_ptr(),
-                b.data_ptr(), gid.data_ptr(), y.data_ptr(), M, K, N, E, r,
-                bm, float(scale), torch.cuda.current_stream().cuda_stream)
-    _build.check("lora_grouped_train", rc, "lora_grouped_gemm launch")
+    y = _launch_train("lora_grouped_gemm", _GEMM_ARGS, (_DTYPES[x.dtype],), x,
+                      (x, w0, a, b, gid), (M, N), (M, K, N, E, r, bm), scale)
     lora_grouped_gemm.launches += 1
     return y
 
@@ -407,13 +497,8 @@ def lora_grouped_dx(g, w0, a, b, gid, scale: float = 2.0, *, bm: int):
     M, K, N, E, r = _check_stacks("lora_grouped_dx", g, w0, a, b, gid, bm)
     _cols("lora_grouped_dx", "g", g, N)
     dh = _grouped_dh(g, b, gid, scale, bm=bm)
-    dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
-    fn = _build.function("lora_grouped_train", "lora_grouped_dx", _GDX_ARGS)
-    with torch.cuda.device(g.device):
-        rc = fn(_DTYPES[g.dtype], g.data_ptr(), w0.data_ptr(), a.data_ptr(),
-                dh.data_ptr(), gid.data_ptr(), dx.data_ptr(), M, K, N, E, r,
-                bm, torch.cuda.current_stream().cuda_stream)
-    _build.check("lora_grouped_train", rc, "lora_grouped_dx launch")
+    dx = _launch_train("lora_grouped_dx", _GDX_ARGS, (_DTYPES[g.dtype],), g,
+                       (g, w0, a, dh, gid), (M, K), (M, K, N, E, r, bm))
     lora_grouped_dx.launches += 1
     return dx
 
@@ -449,9 +534,93 @@ def lora_grouped_dab(x, g, a, b, gid, scale: float = 2.0, *, bm: int):
     return da, db
 
 
+def lora_grouped_gemm_q(x, q, s, a, b, gid, scale: float = 2.0, *,
+                        bm: int):
+    """x [M,K] (M % bm == 0), q int8 [E,K,N], s f32 [E,1,N], a [E,K,r],
+    b [E,r,N], gid int32 [M // bm] -> y [M,N] in x's dtype."""
+    if not x.is_cuda:
+        return lora_grouped_gemm_q_ref(x, q, s, a, b, gid, scale, bm=bm)
+    what = "lora_grouped_gemm_q"
+    M, K, N, E, r = _check_stacks(what, x, None, a, b, gid, bm)
+    _cols(what, "x", x, K)
+    validate_base(what, x, q, s, torch.int8, (E, K, N), N)
+    y = _launch_train(what, _GQ_ARGS, (_DTYPES[x.dtype],), x,
+                      (x, q, s, a, b, gid), (M, N), (M, K, N, E, r, bm),
+                      scale)
+    lora_grouped_gemm_q.launches += 1
+    return y
+
+
+def lora_grouped_gemm_q4(x, q4, s, a, b, gid, scale: float = 2.0, *,
+                         bm: int, method: str = "int4"):
+    """x [M,K] (M % bm == 0), q4 uint8 [E,ceil(K/2),N], s f32 [E,1,N],
+    a [E,K,r], b [E,r,N], gid int32 [M // bm] -> y [M,N] in x's dtype. K
+    comes from x and a: an odd K's pad nibble meets no column of x."""
+    if method not in METHOD_CODES:
+        raise ValueError(f"unknown packed method {method!r}; expected one "
+                         f"of {tuple(METHOD_CODES)}")
+    if not x.is_cuda:
+        return lora_grouped_gemm_q4_ref(x, q4, s, a, b, gid, scale, bm=bm,
+                                        method=method)
+    what = "lora_grouped_gemm_q4"
+    M, K, N, E, r = _check_stacks(what, x, None, a, b, gid, bm)
+    _cols(what, "x", x, K)
+    validate_base(what, x, q4, s, torch.uint8, (E, (K + 1) // 2, N), N)
+    y = _launch_train(what, _GQ4_ARGS,
+                      (_DTYPES[x.dtype], METHOD_CODES[method]), x,
+                      (x, q4, s, a, b, gid), (M, N), (M, K, N, E, r, bm),
+                      scale)
+    lora_grouped_gemm_q4.launches += 1
+    return y
+
+
+def lora_grouped_dx_q(g, q, s, a, b, gid, scale: float = 2.0, *, bm: int):
+    """g [M,N] (M % bm == 0), q int8 [E,K,N], s f32 [E,1,N], a [E,K,r],
+    b [E,r,N], gid int32 [M // bm] -> dx [M,K] in g's dtype. The codes are
+    read in place: no transposed copy is made."""
+    if not g.is_cuda:
+        return lora_grouped_dx_q_ref(g, q, s, a, b, gid, scale, bm=bm)
+    what = "lora_grouped_dx_q"
+    M, K, N, E, r = _check_stacks(what, g, None, a, b, gid, bm)
+    _cols(what, "g", g, N)
+    validate_base(what, g, q, s, torch.int8, (E, K, N), N)
+    dh = _grouped_dh(g, b, gid, scale, bm=bm)
+    dx = _launch_train(what, _GDXQ_ARGS, (_DTYPES[g.dtype],), g,
+                       (g, q, s, a, dh, gid), (M, K), (M, K, N, E, r, bm))
+    lora_grouped_dx_q.launches += 1
+    return dx
+
+
+def lora_grouped_dx_q4(g, q4, s, a, b, gid, scale: float = 2.0, *,
+                       bm: int, method: str = "int4"):
+    """g [M,N] (M % bm == 0), q4 uint8 [E,ceil(K/2),N], s f32 [E,1,N],
+    a [E,K,r], b [E,r,N], gid int32 [M // bm] -> dx [M,K] in g's dtype (K
+    from a; no row past K is written)."""
+    if method not in METHOD_CODES:
+        raise ValueError(f"unknown packed method {method!r}; expected one "
+                         f"of {tuple(METHOD_CODES)}")
+    if not g.is_cuda:
+        return lora_grouped_dx_q4_ref(g, q4, s, a, b, gid, scale, bm=bm,
+                                      method=method)
+    what = "lora_grouped_dx_q4"
+    M, K, N, E, r = _check_stacks(what, g, None, a, b, gid, bm)
+    _cols(what, "g", g, N)
+    validate_base(what, g, q4, s, torch.uint8, (E, (K + 1) // 2, N), N)
+    dh = _grouped_dh(g, b, gid, scale, bm=bm)
+    dx = _launch_train(what, _GDXQ4_ARGS,
+                       (_DTYPES[g.dtype], METHOD_CODES[method]), g,
+                       (g, q4, s, a, dh, gid), (M, K), (M, K, N, E, r, bm))
+    lora_grouped_dx_q4.launches += 1
+    return dx
+
+
 lora_grouped.launches = 0
 lora_grouped_q.launches = 0
 lora_grouped_q4.launches = 0
 lora_grouped_gemm.launches = 0
 lora_grouped_dx.launches = 0
 lora_grouped_dab.launches = 0
+lora_grouped_gemm_q.launches = 0
+lora_grouped_gemm_q4.launches = 0
+lora_grouped_dx_q.launches = 0
+lora_grouped_dx_q4.launches = 0

@@ -56,10 +56,12 @@ def lora_dx_q_ref(g, q, s, a, b, scale: float = 2.0):
 
 def validate_base(what, x, q, s, q_dtype, q_shape, n):
     """The quantized base beside activations x: codes ``q`` of ``q_dtype``
-    and shape ``q_shape``, and scale ``s`` f32 [1, n], both contiguous on
+    and shape ``q_shape`` ([K, N], or [E, K, N] for a stack of experts),
+    and scale ``s`` f32 [1, n] (a stack's [E, 1, n]), both contiguous on
     x's device."""
+    s_shape = (*q_shape[:-2], 1, n)
     for name, t, dtype, shape in (("q", q, q_dtype, q_shape),
-                                  ("s", s, torch.float32, (1, n))):
+                                  ("s", s, torch.float32, s_shape)):
         if t.dtype != dtype:
             raise TypeError(f"{what}: {name} is {t.dtype}, expected {dtype}")
         if t.device != x.device:

@@ -12,7 +12,10 @@ quantized base ``lora_fused_q``/``lora_fused_q4`` forward and
 ``lora_dx_q``/``lora_dx_q4`` + ``lora_dab`` backward, saving the codes and
 the scale (never a dense W0); :func:`lora_grouped_linear` (MoE's expert
 linears over [E, ·, ·] stacks) is ``lora_grouped_gemm`` forward and
-``lora_grouped_dx`` + ``lora_grouped_dab`` backward, saving x, W0, A and B;
+``lora_grouped_dx`` + ``lora_grouped_dab`` backward, saving x, W0, A and B,
+or over quantized expert stacks ``lora_grouped_gemm_q``/``_q4`` forward and
+``lora_grouped_dx_q``/``_q4`` + ``lora_grouped_dab`` backward, saving x,
+the codes, the scale, A and B (never h, never a dense expert W0);
 :func:`rmsnorm`
 is ``rmsnorm_fwd`` forward and ``rmsnorm_bwd`` backward, saving x;
 :func:`sdpa` from 64 query rows is ``flash_fwd`` forward and
@@ -212,51 +215,114 @@ def _pad_rows(t, Cp):
     return t.reshape(E * Cp, n).contiguous()
 
 
+def _grouped_rows(ctx, x, scale):
+    """Tile x [E, C, K]'s capacity buffers for the grouped kernels: bm and
+    the padded capacity Cp go on ``ctx``. Returns (rows [E·Cp, K], gid)."""
+    E, C, _ = x.shape
+    bm = grouped_bm(C)
+    Cp = -(-C // bm) * bm
+    ctx.scale, ctx.bm, ctx.Cp = scale, bm, Cp
+    return _pad_rows(x, Cp), _expert_gid(E, Cp // bm, x.device)
+
+
+def _grouped_backward(ctx, g, x, a, b, ia, dx_fn):
+    """(dx, dA, dB) of a grouped expert linear: ``dx_fn(g rows, gid, bm)``
+    for dx, ``lora_grouped_dab`` for dA and dB (it never reads W0); A and B
+    are the Function's inputs ``ia`` and ``ia + 1``."""
+    E, C, K = x.shape
+    Cp, bm = ctx.Cp, ctx.bm
+    gid = _expert_gid(E, Cp // bm, x.device)
+    g2 = _pad_rows(g.to(x.dtype), Cp)
+    dx = da = db = None
+    if ctx.needs_input_grad[0]:
+        dx = dx_fn(g2, gid, bm).view(E, Cp, K)[:, :C]
+    if ctx.needs_input_grad[ia] or ctx.needs_input_grad[ia + 1]:
+        da, db = _lg.lora_grouped_dab(_pad_rows(x, Cp), g2, a, b, gid,
+                                      ctx.scale, bm=bm)
+    return dx, da, db
+
+
 class _GroupedLoRAKernel(torch.autograd.Function):
     """x [E, C, K], w0 [E, K, N], a [E, K, r], b [E, r, N] -> [E, C, N].
     Saves exactly (x, w0, a, b): never h, never a copy of the stack."""
 
     @staticmethod
     def forward(ctx, x, w0, a, b, scale):
-        E, C, _ = x.shape
-        bm = grouped_bm(C)
-        Cp = -(-C // bm) * bm
-        gid = _expert_gid(E, Cp // bm, x.device)
-        ctx.scale, ctx.bm, ctx.Cp = scale, bm, Cp
+        rows, gid = _grouped_rows(ctx, x, scale)
         ctx.save_for_backward(x, w0, a, b)
-        y = _lg.lora_grouped_gemm(_pad_rows(x, Cp), w0, a, b, gid, scale,
-                                  bm=bm)
-        return y.view(E, Cp, -1)[:, :C]
+        y = _lg.lora_grouped_gemm(rows, w0, a, b, gid, scale, bm=ctx.bm)
+        return y.view(x.shape[0], ctx.Cp, -1)[:, :x.shape[1]]
 
     @staticmethod
     def backward(ctx, g):
         x, w0, a, b = ctx.saved_tensors
-        E, C, K = x.shape
-        Cp, bm = ctx.Cp, ctx.bm
-        gid = _expert_gid(E, Cp // bm, x.device)
-        g2 = _pad_rows(g.to(x.dtype), Cp)
-        dx = da = db = None
-        if ctx.needs_input_grad[0]:
-            dx = _lg.lora_grouped_dx(g2, w0, a, b, gid, ctx.scale, bm=bm
-                                     ).view(E, Cp, K)[:, :C]
-        if ctx.needs_input_grad[2] or ctx.needs_input_grad[3]:
-            da, db = _lg.lora_grouped_dab(_pad_rows(x, Cp), g2, a, b, gid,
-                                          ctx.scale, bm=bm)
+        dx, da, db = _grouped_backward(
+            ctx, g, x, a, b, 2, lambda g2, gid, bm: _lg.lora_grouped_dx(
+                g2, w0, a, b, gid, ctx.scale, bm=bm))
         return dx, None, da, db, None
+
+
+class _GroupedLoRAKernelQ(torch.autograd.Function):
+    """int8 expert stacks: x [E, C, K], q int8 [E, K, N], s f32 [E, 1, N],
+    a, b -> [E, C, N]. Saves exactly (x, q, s, a, b)."""
+
+    @staticmethod
+    def forward(ctx, x, q, s, a, b, scale):
+        rows, gid = _grouped_rows(ctx, x, scale)
+        ctx.save_for_backward(x, q, s, a, b)
+        y = _lg.lora_grouped_gemm_q(rows, q, s, a, b, gid, scale, bm=ctx.bm)
+        return y.view(x.shape[0], ctx.Cp, -1)[:, :x.shape[1]]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, q, s, a, b = ctx.saved_tensors
+        dx, da, db = _grouped_backward(
+            ctx, g, x, a, b, 3, lambda g2, gid, bm: _lg.lora_grouped_dx_q(
+                g2, q, s, a, b, gid, ctx.scale, bm=bm))
+        return dx, None, None, da, db, None
+
+
+class _GroupedLoRAKernelP4(torch.autograd.Function):
+    """Packed 4-bit expert stacks: x [E, C, K], q4 uint8 [E, ceil(K/2), N],
+    s f32 [E, 1, N], a, b -> [E, C, N]. Saves exactly (x, q4, s, a, b)."""
+
+    @staticmethod
+    def forward(ctx, x, q4, s, a, b, scale, method):
+        rows, gid = _grouped_rows(ctx, x, scale)
+        ctx.method = method
+        ctx.save_for_backward(x, q4, s, a, b)
+        y = _lg.lora_grouped_gemm_q4(rows, q4, s, a, b, gid, scale,
+                                     bm=ctx.bm, method=method)
+        return y.view(x.shape[0], ctx.Cp, -1)[:, :x.shape[1]]
+
+    @staticmethod
+    def backward(ctx, g):
+        x, q4, s, a, b = ctx.saved_tensors
+        dx, da, db = _grouped_backward(
+            ctx, g, x, a, b, 3, lambda g2, gid, bm: _lg.lora_grouped_dx_q4(
+                g2, q4, s, a, b, gid, ctx.scale, bm=bm, method=ctx.method))
+        return dx, None, None, da, db, None, None
 
 
 def lora_grouped_linear(x, w0, a, b, scale: float = 2.0):
     """The MoE expert linear ``x[e] @ w0[e] + scale·(x[e]@a[e])@b[e]`` for
     every expert e through the grouped kernels: x [E, C, K] (C rows of each
-    expert's capacity buffer), w0 [E, K, N], a [E, K, r], b [E, r, N] ->
-    [E, C, N]. As the reference's dispatch: tiles of ``grouped_bm(C)`` rows,
-    C padded up to whole tiles, one tile run per expert. Differentiable in
-    x, a and b; W0 is frozen."""
-    if quant.is_quantized(w0) or quant.is_packed(w0):
-        raise NotImplementedError(
-            "the grouped kernels over a quantized expert stack (int8, "
-            "int4, nf4) are the next slice of the port; MoE trains over a "
-            "bf16 or f32 base so far")
+    expert's capacity buffer), a [E, K, r], b [E, r, N] -> [E, C, N]. As the
+    reference's dispatch (``_grouped_dispatch``): tiles of ``grouped_bm(C)``
+    rows, C padded up to whole tiles, one tile run per expert; ``w0`` a
+    dense stack [E, K, N], an int8 ``{"q", "scale"}`` leaf or a packed
+    ``{"q4", "scale", ...}`` leaf, each to the kernels of its format, which
+    read the codes as stored. Differentiable in x, a and b; W0 is
+    frozen."""
+    if quant.is_packed(w0):
+        if quant.packed_k(w0) != x.shape[-1]:
+            raise ValueError(f"packed expert stack holds K="
+                             f"{quant.packed_k(w0)} rows, x has "
+                             f"{x.shape[-1]}")
+        return _GroupedLoRAKernelP4.apply(x, w0["q4"], w0["scale"], a, b,
+                                          scale, quant.packed_method(w0))
+    if quant.is_quantized(w0):
+        return _GroupedLoRAKernelQ.apply(x, w0["q"], w0["scale"], a, b, scale)
     return _GroupedLoRAKernel.apply(x, w0, a, b, scale)
 
 
@@ -358,6 +424,10 @@ _COUNTED = {"lora_grouped_fwd": _lg.lora_grouped,
             "lora_grouped_gemm": _lg.lora_grouped_gemm,
             "lora_grouped_dx": _lg.lora_grouped_dx,
             "lora_grouped_dab": _lg.lora_grouped_dab,
+            "lora_grouped_gemm_q": _lg.lora_grouped_gemm_q,
+            "lora_grouped_gemm_q4": _lg.lora_grouped_gemm_q4,
+            "lora_grouped_dx_q": _lg.lora_grouped_dx_q,
+            "lora_grouped_dx_q4": _lg.lora_grouped_dx_q4,
             "rmsnorm_fwd": _rn.rmsnorm,
             "lora_fused_fwd": _lf.lora_fused, "lora_dx": _lf.lora_dx,
             "lora_dab": _lf.lora_dab, "rmsnorm_bwd": _rn.rmsnorm_bwd,
@@ -366,7 +436,8 @@ _COUNTED = {"lora_grouped_fwd": _lg.lora_grouped,
             "lora_dx_q4": _lp4.lora_dx_q4,
             "flash_fwd": _fa.flash_attention_fwd,
             "flash_bwd_dq": _fa.flash_bwd_dq,
-            "flash_bwd_dkv": _fa.flash_bwd_dkv}
+            "flash_bwd_dkv": _fa.flash_bwd_dkv,
+            "rope_fwd": _rope.rope_fwd}
 
 
 def launch_counts() -> dict:

@@ -13,18 +13,17 @@ k inside the flash kernels (``mesp_cuda`` only, as the reference applies
 it only to its kernel backend). ``--quantize int8|int4|nf4`` keeps every
 frozen linear's W0 in that format (``core/quant.py``); under ``mesp_cuda``
 the quantized kernels read it as stored, the other engines dequantize it
-first. ``--arch olmoe-1b-7b`` or ``deepseek-moe-16b`` trains an MoE model
-over a bf16 base: under ``mesp_cuda`` every expert linear runs the grouped
-kernels (forward, dx, dA/dB over the [E, ·, ·] stacks); a quantized MoE
-base is not ported yet and ``--quantize`` is refused for it. The run
-happens on the card unless
-``--device cpu`` is given; with no card visible the default fails rather
-than falling back.
+first. ``--arch olmoe-1b-7b`` or ``deepseek-moe-16b`` trains an MoE model:
+under ``mesp_cuda`` every expert linear runs the grouped kernels (forward,
+dx, dA/dB over the [E, ·, ·] stacks), over a ``--quantize``d base those
+of its format, which read the expert codes as stored. The run happens on
+the card unless ``--device cpu`` is given; with no card visible the
+default fails rather than falling back.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \\
         --engine mesp_cuda --steps 4 [--fuse-rope] [--quantize nf4]
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
-        --engine mesp_cuda --steps 3
+        --engine mesp_cuda --steps 3 [--quantize nf4]
 
 The reference's Trainer facade (checkpoints, the step guard, the
 degradation ladder, telemetry) is not ported yet.
@@ -89,10 +88,6 @@ def train(argv=None) -> dict:
     cfg = get_config(ns.arch)
     if ns.reduced:
         cfg = cfg.reduced()
-    if cfg.family == "moe" and ns.quantize != "none":
-        ap.error(f"--quantize {ns.quantize}: {ns.arch} is an MoE model, and "
-                 "training over a quantized MoE base is not ported yet; use "
-                 "--quantize none")
     policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
                              fuse_rope=ns.fuse_rope, quantize=ns.quantize)
     opt = optimizers.make_optimizer(ns.optimizer, schedules.constant(ns.lr))

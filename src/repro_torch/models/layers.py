@@ -19,6 +19,7 @@ reference returns a new cache); the step returns the same dict.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -51,8 +52,7 @@ def linear_params(gen, d_in: int, d_out: int, cfg: ArchConfig, *,
     ``quantize`` ("int8", "int4" or "nf4") turns W0 into that format as
     soon as it is drawn, so no dense copy of it outlives this call."""
     dtype = _dtype(cfg)
-    w = _randn(gen, (*lead, d_in, d_out), dtype).mul_(d_in ** -0.5)
-    p = {"w": w if quantize is None else quant.quantize_leaf(w, quantize)}
+    p = {"w": _frozen_w(gen, d_in, d_out, dtype, lead, quantize)}
     if bias:
         p["bias"] = torch.zeros((*lead, d_out), dtype=dtype, device=gen.device)
     if lora:
@@ -60,6 +60,35 @@ def linear_params(gen, d_in: int, d_out: int, cfg: ArchConfig, *,
         p["a"] = _randn(gen, (*lead, d_in, r), dtype) * (r ** -0.5)
         p["b"] = torch.zeros((*lead, r, d_out), dtype=dtype, device=gen.device)
     return p
+
+
+def _frozen_w(gen, d_in: int, d_out: int, dtype, lead, quantize):
+    """W0 ~ N(0, 1/d_in) [*lead, d_in, d_out], in ``quantize``'s format if
+    one is given. A quantized stack with two or more leading dims (MoE's
+    expert stacks [L, E]) is drawn one [d_in, d_out] matrix at a time,
+    each quantized as it is drawn into outputs made once, so no dense
+    stack beyond one matrix is held. The CPU generator gives those draws
+    the values of one draw of the whole stack (its normal fill works in
+    chunks of 16 values, and a matrix holds a multiple of 16), so there a
+    quantized init is the dense init quantized, bit for bit; a CUDA
+    generator's values depend on the size of each draw, so on the card
+    the quantized expert stacks hold other draws of the same
+    distribution."""
+    def draw(shape):
+        return _randn(gen, (*shape, d_in, d_out), dtype).mul_(d_in ** -0.5)
+
+    if quantize is None:
+        return draw(lead)
+    if len(lead) < 2:
+        return quant.quantize_leaf(draw(lead), quantize)
+    n, out = math.prod(lead), None
+    for i in range(n):
+        part = quant.quantize_leaf(draw(()), quantize)
+        if out is None:
+            out = {k: v.new_empty((n, *v.shape)) for k, v in part.items()}
+        for k, v in part.items():
+            out[k][i] = v
+    return {k: v.view(*lead, *v.shape[1:]) for k, v in out.items()}
 
 
 def apply_linear(p, x, cfg: ArchConfig, *,

@@ -66,8 +66,10 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     ``quantize`` ("int8", or packed "int4"/"nf4") turns every frozen ``w``
     leaf into its ``core/quant`` format as it is drawn (the same values as
     ``quant.quantize_params`` over the dense tree, without ever holding
-    that tree); LoRA factors, biases, norms and the embedding stay in
-    ``cfg.dtype``. An MoE model takes no ``quantize`` yet."""
+    that tree; an MoE model's expert stacks are drawn one matrix at a
+    time, which on the card gives other values of the same distribution,
+    ``layers.linear_params``); LoRA factors, biases, norms, the router and
+    the embedding stay in ``cfg.dtype``."""
     _require(cfg, ("dense", "moe"))
     gen = generator
     dtype = getattr(torch, cfg.dtype)
@@ -76,24 +78,24 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     if method is not None and method not in quant.METHODS:
         raise ValueError(f"unknown quantize method {quantize!r}; "
                          f"expected one of {quant.METHODS}")
-    if method is not None and cfg.family == "moe":
-        raise NotImplementedError(
-            f"quantize={method!r}: a quantized MoE base (per-expert int8 or "
-            "packed stacks) is the next slice of the port")
     ones = lambda *s: torch.ones(s, dtype=dtype, device=gen.device)
     p = {"embed": layers.embed_params(gen, cfg), "final_norm": ones(d)}
     if cfg.family == "moe":
         m = cfg.moe
         if m.first_layer_dense:
             p["block0"] = {
-                "ln1": ones(d), "attn": layers.attention_params(gen, cfg),
+                "ln1": ones(d),
+                "attn": layers.attention_params(gen, cfg, quantize=method),
                 "ln2": ones(d), "mlp": layers.mlp_params(
-                    gen, cfg, d_ff=m.d_expert * (m.top_k + m.n_shared))}
+                    gen, cfg, d_ff=m.d_expert * (m.top_k + m.n_shared),
+                    quantize=method)}
             L -= 1
         p["blocks"] = {"ln1": ones(L, d),
-                       "attn": layers.attention_params(gen, cfg, lead=(L,)),
+                       "attn": layers.attention_params(gen, cfg, lead=(L,),
+                                                       quantize=method),
                        "ln2": ones(L, d),
-                       "moe": moe_lib.moe_params(gen, cfg, lead=(L,))}
+                       "moe": moe_lib.moe_params(gen, cfg, lead=(L,),
+                                                 quantize=method)}
         return p
     p["blocks"] = {"ln1": ones(L, d),
                    "attn": layers.attention_params(gen, cfg, lead=(L,),

@@ -31,23 +31,29 @@ from repro_torch.models import layers
 CAPACITY_FACTOR = 1.25
 
 
-def moe_params(gen, cfg: ArchConfig, *, lead=()):
+def moe_params(gen, cfg: ArchConfig, *, lead=(), quantize=None):
     """The router [d, E] (frozen), the expert stacks gate/up [E, d, f] and
     down [E, f, d] with LoRA factors per expert, and the shared experts
     fused into one gated MLP of width ``n_shared · f``; ``lead``: leading
-    stack dims, e.g. ``(n_layers,)``. Scales are the reference's."""
+    stack dims, e.g. ``(n_layers,)``. Scales are the reference's.
+    ``quantize`` ("int8", "int4" or "nf4") puts every ``w`` (the expert
+    stacks, one expert matrix at a time, and the shared experts) in that
+    format as it is drawn (``layers.linear_params``); the router is no
+    ``w`` and stays in ``cfg.dtype``, as ``quant.quantize_frozen`` leaves
+    it."""
     m = cfg.moe
     d, f, E = cfg.d_model, m.d_expert, m.n_experts
     tg = cfg.lora.targets
     router = torch.randn((*lead, d, E), generator=gen, device=gen.device,
                          dtype=getattr(torch, cfg.dtype)).mul_(d ** -0.5)
     stack = lambda d_in, d_out, name: layers.linear_params(
-        gen, d_in, d_out, cfg, lora=name in tg, lead=(*lead, E))
+        gen, d_in, d_out, cfg, lora=name in tg, lead=(*lead, E),
+        quantize=quantize)
     p = {"router": router, "gate": stack(d, f, "gate"),
          "up": stack(d, f, "up"), "down": stack(f, d, "down")}
     if m.n_shared:
         p["shared"] = layers.mlp_params(gen, cfg, d_ff=m.n_shared * f,
-                                        lead=lead)
+                                        lead=lead, quantize=quantize)
     return p
 
 
@@ -85,8 +91,10 @@ def route(p, x, cfg: ArchConfig):
 
 def _expert_linear(q, z, cfg: ArchConfig, policy: ExecutionPolicy):
     """One expert linear over z [E, C, d_in] with the stacks of ``q``: the
-    grouped kernels (``cuda``), autograd of the plain product (``plain``),
-    or the structured Functions over the [E, ·, ·] stacks."""
+    grouped kernels (``cuda``; over a quantized stack those of its format,
+    which read the codes), autograd of the plain product (``plain``), or
+    the structured Functions over the [E, ·, ·] stacks; the last two over
+    the stack dequantized first, as in the reference."""
     if "a" not in q:
         return z @ quant.maybe_dequant(q["w"], z.dtype)
     s = cfg.lora.scale

@@ -19,6 +19,7 @@ from repro_torch.kernels import lora_fused as tlf
 from repro_torch.kernels import lora_grouped as tlg
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rmsnorm as trn
+from repro_torch.kernels import rope as trope
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 CUDA_POLICY = ExecutionPolicy(backend="cuda")
@@ -186,12 +187,18 @@ def test_cpu_tensors_never_launch_kernels():
     # from 64 query rows the dispatch takes the flash Function
     q = torch.randn(1, 2, 64, 8).requires_grad_(True)
     o = tops.sdpa(q, torch.randn(1, 1, 64, 8), torch.randn(1, 1, 64, 8))
-    # the MoE expert linear over [E, C, K] stacks
+    # the MoE expert linear over [E, C, K] stacks, float and int8
     ex = torch.randn(2, 5, 16).requires_grad_(True)
-    ey = tops.lora_grouped_linear(ex, torch.randn(2, 16, 24),
-                                  torch.randn(2, 16, 4), torch.randn(2, 4, 24))
-    torch.autograd.grad((y * fg).sum() + xn.sum() + o.sum() + ey.sum(),
-                        (fx, fa, q, ex))
+    ea, eb = torch.randn(2, 16, 4), torch.randn(2, 4, 24)
+    ey = tops.lora_grouped_linear(ex, torch.randn(2, 16, 24), ea, eb)
+    codes = {"q": torch.ones(2, 16, 24, dtype=torch.int8),
+             "scale": torch.ones(2, 1, 24)}
+    ey = ey + tops.lora_grouped_linear(ex, codes, ea, eb)
+    # the standalone RoPE (on no path of the model)
+    rx = torch.randn(1, 6, 2, 8).requires_grad_(True)
+    ry = trope.rope_apply(rx, *trope.rope_tables(torch.arange(6), 1e4, 8))
+    torch.autograd.grad((y * fg).sum() + xn.sum() + o.sum() + ey.sum()
+                        + ry.sum(), (fx, fa, q, ex, rx))
     counts = tops.launch_counts()
     assert set(counts) == {"lora_grouped_fwd", "lora_grouped_q",
                            "lora_grouped_q4", "rmsnorm_fwd",
@@ -200,7 +207,9 @@ def test_cpu_tensors_never_launch_kernels():
                            "flash_bwd_dkv", "lora_fused_q", "lora_dx_q",
                            "lora_fused_q4", "lora_dx_q4",
                            "lora_grouped_gemm", "lora_grouped_dx",
-                           "lora_grouped_dab"}
+                           "lora_grouped_dab", "lora_grouped_gemm_q",
+                           "lora_grouped_gemm_q4", "lora_grouped_dx_q",
+                           "lora_grouped_dx_q4", "rope_fwd"}
     assert set(counts.values()) == {0}
 
 

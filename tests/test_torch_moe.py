@@ -22,7 +22,8 @@
    records every floating tensor any op makes, with recording suspended
    inside the three grouped kernel wrappers (whose plain versions gather
    each tile's W0 by nature); the saved-tensor contract with remat off.
-6. The CLI: one f32 loss curve under every engine; ``--quantize`` refused.
+6. The CLI: one f32 loss curve under every engine; ``--quantize`` taken
+   (``test_torch_moe_quant.py`` holds the quantized base).
 
 The tests marked ``cuda`` hold the three CUDA kernels against their plain
 versions on a card and skip without one. JAX is imported only inside the
@@ -249,6 +250,10 @@ def test_lora_grouped_linear_matches_reference_dispatch(jx, E, C, K, N, r):
 
 
 def test_lora_grouped_linear_saves_no_h_and_refuses_quantized_stacks():
+    """The Function saves x, the stack itself (no copy), A and B, never h.
+    A quantized stack is no longer refused: it is taken, and its codes and
+    scale are saved in place (``test_torch_moe_quant.py`` holds it against
+    the reference)."""
     x, w0, a, b, _ = _t(*_stack_inputs(34, 3, 13, 24, 20, 4))
     x.requires_grad_(True)
     saved = []
@@ -260,8 +265,14 @@ def test_lora_grouped_linear_saves_no_h_and_refuses_quantized_stacks():
     assert saved[1] is w0                        # the stack itself, no copy
     q = {"q": torch.zeros(3, 24, 20, dtype=torch.int8),
          "scale": torch.ones(3, 1, 20)}
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tops.lora_grouped_linear(x, q, a, b, 2.0)
+    saved.clear()
+    with torch.autograd.graph.saved_tensors_hooks(
+            lambda t: saved.append(t) or t, lambda t: t):
+        y = tops.lora_grouped_linear(x, q, a, b, 2.0)
+    assert y.shape == (3, 13, 20)
+    assert saved[1] is q["q"] and saved[2] is q["scale"]
+    assert [tuple(t.shape) for t in saved] == [x.shape, (3, 24, 20),
+                                               (3, 1, 20), a.shape, b.shape]
 
 
 # ---------------------------------------------------------------- routing
@@ -489,15 +500,29 @@ def test_moe_value_and_grad_repeats_bitwise():
 
 
 def test_moe_refuses_quantize_and_decode():
+    """MoE decode (``init_cache``) is still refused. A quantized MoE base is
+    taken: ``init_params(quantize="nf4")`` gives packed expert leaves, and
+    the CLI trains one step with ``--quantize int8``."""
     cfg = get_config("olmoe-1b-7b").reduced()
     gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TM.init_params(cfg, generator=gen, quantize="nf4")
+    p = TM.init_params(cfg, generator=gen, quantize="nf4")
+    L, E, d, f = cfg.n_layers, cfg.moe.n_experts, cfg.d_model, \
+        cfg.moe.d_expert
+    moe = p["blocks"]["moe"]
+    gate, down = moe["gate"]["w"], moe["down"]["w"]
+    assert gate["q4"].shape == (L, E, d // 2, f) and gate["q4"].dtype == \
+        torch.uint8
+    assert down["q4"].shape == (L, E, f // 2, d)
+    assert gate["scale"].shape == (L, E, 1, f) and gate["code"].shape == (
+        L, E, 16)
+    assert moe["router"].dtype == torch.float32
     with pytest.raises(NotImplementedError, match="moe"):
         TM.init_cache(cfg, 2, 16)
-    with pytest.raises(SystemExit):
-        ttrain.train(["--arch", "olmoe-1b-7b", "--reduced", "--device", "cpu",
-                      "--steps", "1", "--quantize", "int8"])
+    out = ttrain.train(["--arch", "olmoe-1b-7b", "--reduced", "--device",
+                        "cpu", "--steps", "1", "--seq", "16", "--quantize",
+                        "int8"])
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+    assert out["params"]["blocks"]["moe"]["up"]["w"]["q"].dtype == torch.int8
 
 
 # ---------------------------------------- no stack copy, saved tensors
