@@ -36,10 +36,12 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
 7. Holds the three flash-attention kernels (forward, dq, dk/dv) against
    their plain versions in bf16 and f32 at the training path's shape
    (B*H 14, B*Hkv 2, N 256, D 64, causal) and at edge cases (window,
-   non-causal, ragged N, Nq != Nk, rows that see no key, G 1, D 40 and
-   128, RoPE on and off), and times them at the path's shape beside their
-   plain versions, ``F.scaled_dot_product_attention`` (forward, and forward
-   plus backward) and the bound.
+   non-causal, ragged N, a row and a column past a tile, Nq != Nk, rows
+   that see no key, G 1, 11, 12 and 16, D 40, 72 and 128, RoPE on and
+   off), and times them at the path's shape beside their plain versions,
+   ``F.scaled_dot_product_attention`` (forward, and forward plus backward)
+   and the bound; the bf16 kernels' registers (ptxas) and dynamic shared
+   memory (as the CUDA runtime holds it) go beside them.
 8. Trains at the paper's setting through ``repro_torch.launch.train``:
    engine mesp_cuda, batch 1 x seq 256, 4 steps, counts zeroed just before
    and read just after (each step: ``PAPER_PER_STEP``, the flash kernels
@@ -139,6 +141,7 @@ import functools
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -352,6 +355,16 @@ FLASH_CASES = {
     "G1": (14, 1, 256, 256, 64, True, 0, False),
     "d40": (2, 7, 256, 256, 40, True, 32, True),
     "d128": (2, 7, 256, 256, 128, True, 0, True),
+    # the 128 instance with D padded to 80; one row and one column past a
+    # tile; the parallel dk/dv group sum under a window
+    "d72": (2, 7, 256, 256, 72, True, 0, True),
+    "nk65": (2, 7, 65, 65, 64, True, 0, False),
+    "G7_window_rope": (2, 7, 256, 256, 64, True, 48, True),
+    # dk/dv clusters of 8 blocks of 2 members each; 11 and 12 members over
+    # 8 blocks (shares of 1 or 2), the second in the 128 instance
+    "G16": (1, 16, 130, 130, 64, True, 0, True),
+    "G11": (1, 11, 96, 96, 40, False, 0, False),
+    "G12_d128": (1, 12, 128, 128, 128, True, 0, True),
     # OLMoE-1B-7B at batch 1 x seq 256: 16 heads of 128, one a kv head
     "olmoe": (16, 1, 256, 256, 128, True, 0, False),
 }
@@ -1074,8 +1087,22 @@ def _flash_times(torch, fa, gen, errs, case, per_step):
             "library_ms": library["fwd_ms"] if name == "flash_fwd" else None,
             "library_fwd_bwd_ms": library["fwd_bwd_ms"],
             "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-            "flops": flops}]
+            "flops": flops, "smem_bytes_bf16": _launched_smem(name, D)}]
     return figures
+
+
+def _launched_smem(name, D):
+    """The dynamic shared memory (bytes) of the bf16 kernel ``name``'s last
+    launch at head dim ``D``, as the CUDA runtime holds it for the
+    kernel."""
+    import ctypes
+    from repro_torch.kernels import _build
+    lib = "flash_fwd" if name == "flash_fwd" else "flash_bwd"
+    fn = _build.function(lib, name + "_smem",
+                         [_build.C_INT, ctypes.POINTER(ctypes.c_int)])
+    n = ctypes.c_int(-1)
+    _build.check(lib, fn(D, ctypes.byref(n)), f"{name}_smem")
+    return n.value
 
 
 def _with_b(torch, tree, gen):
@@ -1724,6 +1751,21 @@ def check_rope(torch, rope):
     return out
 
 
+def ptxas(log):
+    """{kernel (mangled name): its registers, spills and static shared
+    memory} from ``nvcc -Xptxas -v``'s log."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )(\S+?)'?$",
+                      ln.strip())
+        if m:
+            fn = m.group(1)
+        elif fn and ("registers" in ln or "spill" in ln):
+            out[fn] = (out.get(fn, "") + " " + ln.split(":")[-1].strip()
+                       ).strip()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1758,9 +1800,7 @@ def main() -> int:
     build = {}
     for stem, info in _build.BUILD_INFO.items():
         log = Path(info["log"]).read_text() if info["log"] else ""
-        build[stem] = {"seconds": info["seconds"],
-                       "ptxas": [ln.strip() for ln in log.splitlines()
-                                 if "registers" in ln or "spill" in ln]}
+        build[stem] = {"seconds": info["seconds"], "ptxas": ptxas(log)}
     print(json.dumps({"build": build}))
 
     grouped = check_grouped(torch, lg)
@@ -2107,7 +2147,9 @@ def main() -> int:
         paths(name), PAPER_STEPS, step="train", path="paper",
         train_step=f"batch {PAPER_BATCH} x seq {PAPER_SEQ}",
         library_fwd_bwd_ms=flash[name][0]["library_fwd_bwd_ms"] * N_LAYERS,
-        tol_f32=FLASH_F32_TOL), [flash_moe[name]])
+        tol_f32=FLASH_F32_TOL,
+        ptxas_bf16={f: v for f, v in build[cu[:-3]]["ptxas"].items()
+                    if f"{name}_tc" in f}), [flash_moe[name]])
 
 
     def quant_entry(name, cu, line, fn, method):

@@ -9,8 +9,8 @@ default 4 x 48, as ``chip_smoke.py`` first trains it; ``--batch 1 --seq
 two warm SGD steps, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON line: wall ms per step, device busy
 ms per step (the union of kernel intervals on the card's timeline), the
-device idle share, device kernels launched per step, and the kernels that
-took the most device time.
+device idle share, device kernels launched per step, the kernels that
+took the most device time, and the flash-attention kernels' time.
 
     PYTHONPATH=src python scripts/profile_torch_train.py [--engine mesp_cuda] \
         [--arch olmoe-1b-7b] [--batch 1 --seq 256] [--quantize nf4]
@@ -85,6 +85,8 @@ def main(argv=None) -> int:
         "kernel_launches_per_step": len(kernels) / ns.steps,
         "top_kernels_ms_per_step": {k[:80]: v / 1e3 / ns.steps
                                     for k, v in top},
+        "flash_ms_per_step": {k[:80]: v / 1e3 / ns.steps
+                              for k, v in by_name.items() if "flash" in k},
         "device": torch.cuda.get_device_name(0)}}))
     return 0
 

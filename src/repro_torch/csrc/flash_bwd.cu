@@ -17,21 +17,48 @@
 // counter-rotated (R_-theta) in f32 before the cast.
 //
 // What bounds them: at the training shape (B*H 14, B*Hkv 2, N 256, D 64,
-// causal) the pair moves ~1.3 MB and does ~0.15 GFLOP, so bytes: ~0.4 us at
-// 3.35 TB/s. Both are set by latency instead: flash_bwd_dq has 56 blocks,
-// flash_bwd_dkv only 8 (2 kv heads x 4 k tiles), each walking up to 28
-// (q head, q tile) steps of CUDA-core products in turn.
+// causal) dq moves 1.5 MB and does 0.18 GFLOP, dk/dv 1.2 MB and 0.24
+// GFLOP: bytes, under 0.5 us each at 3.35 TB/s. Both are set by latency
+// instead: by how many dependent tile steps one block walks, and by how
+// many blocks share them.
 //
 // Design. flash_bwd_dq: one block per (b*h, 64-row q tile); it walks its
 // live k tiles (k_range), accumulates ds k in registers and writes dq once.
-// flash_bwd_dkv: one block per (b*hkv, 64-row k tile); K and V stay in
-// shared memory while the block walks the G group members and each one's
-// live q tiles (q_range), accumulating dk and dv in registers, and writes
-// each once. The TPU kernel carried these sums across a sequential grid in
-// VMEM; here one block owns each output tile, so no atomics and no second
-// pass are needed and repeated calls give the same bits.
+// flash_bwd_dkv: K and V of one 64-row k tile stay in shared memory while
+// the block walks live q tiles (q_range), accumulating dk and dv in
+// registers. The TPU kernel carried these sums across a sequential grid in
+// VMEM; here no float atomics are used, and repeated calls give the same
+// bits.
+//
+// bf16 (the *_tc kernels, flash_common.cuh's flash::tc): 4 warps, 16 rows
+// each, every product on mma.sync m16n8k16 (bf16 operands, f32 sums), the
+// next tile pair copied by cp.async into a second buffer while the current
+// one is multiplied, p and ds rounded to bf16 and repacked from score
+// fragments into A fragments in registers.
+// * dq: s = q k^T and dp = g v^T, then dq += ds k with k's B fragments
+//   from ldmatrix.trans. dq is staged in f32, counter-rotated and cast once.
+// * dk/dv compute the transposes, s^T = k q^T and dp^T = v g^T, so p^T and
+//   ds^T come out with k rows and feed dv += round(p^T) g and
+//   dk += ds^T q straight from registers; lse and delta of the q tile's
+//   columns are staged beside it. The G group members of a kv head run in
+//   parallel: the grid is (k tile, b*hkv, C) in clusters of C = min(G, 8)
+//   blocks (7 on the dense path: 56 blocks, not 8 walking 28 steps each),
+//   block z walking members z G / C .. (z + 1) G / C - 1 in turn (above 8
+//   members the shares may differ by one). Each block stages its f32 sums in shared
+//   memory, and after a cluster barrier each adds the C blocks' sums for
+//   its share of the tile's rows through distributed shared memory, in
+//   rank order, so dk and dv are summed over g = 0 .. G-1 in a fixed order
+//   (no atomics, no scratch in device memory, one launch); then dk is
+//   counter-rotated and both are cast once.
+// f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): the CUDA-core body on
+// f32 tiles (tensor cores would round f32 operands to TF32); one dk/dv
+// block per (k tile, b*hkv) walks the G members in turn.
+
+#include <cooperative_groups.h>
 
 #include "flash_common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -210,6 +237,268 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   store_tile<T>(dk + (size_t)bkv * nk * D, Ks, ld, k_lo, nk, D, cos, sin);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on tensor cores: the same functions, only the order of the sums
+// differs
+
+// the widest cluster of dk/dv blocks (the portable limit)
+constexpr int kMaxCluster = 8;
+
+__device__ __forceinline__ void add4(float4& s, float4 x) {
+  s.x += x.x;
+  s.y += x.y;
+  s.z += x.z;
+  s.w += x.w;
+}
+
+// four f32 values rounded to bf16 into 8 aligned bytes
+__device__ __forceinline__ void store4(tc::bf16* y, float a, float b,
+                                       float c, float d) {
+  *reinterpret_cast<uint2*>(y) =
+      make_uint2(mma::pack_bf16(a, b), mma::pack_bf16(c, d));
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(tc::THREADS) flash_bwd_dq_tc(
+    const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
+    const tc::bf16* __restrict__ v, const tc::bf16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ cos, const float* __restrict__ sin,
+    tc::bf16* __restrict__ dq, int G, int nq, int nk, int D, int causal,
+    int window, float scale) {
+  using tc::bf16;
+  constexpr int KS = DMAX / 16, NT = DMAX / 8;
+  constexpr bool HOLD = DMAX <= 64;  // at 128 the registers go to acc
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int ts = tc::stride(D);
+  bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Gs = Qs + BQ * ts;
+  bf16* Ks = Gs + BQ * ts;      // two buffers
+  bf16* Vs = Ks + 2 * BK * ts;  // two buffers
+
+  const int bh = blockIdx.y, q_lo = blockIdx.x * BQ;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = q_lo + 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+  const bf16* kb = k + (size_t)(bh / G) * nk * D;
+  const bf16* vb = v + (size_t)(bh / G) * nk * D;
+  tc::zero_pads(Qs, 6 * BQ, D);
+  int lo, hi;
+  k_range(q_lo, nq, nk, causal, window, &lo, &hi);
+  tc::load_tile(Qs, q + (size_t)bh * nq * D, q_lo, nq, D, cos, sin);
+  tc::load_tile(Gs, g + (size_t)bh * nq * D, q_lo, nq, D, nullptr, nullptr);
+  if (lo < hi) {
+    tc::load_tile(Ks, kb, lo * BK, nk, D, cos, sin);
+    tc::load_tile(Vs, vb, lo * BK, nk, D, nullptr, nullptr);
+  }
+  mma::cp_async_commit();
+  // lse and delta of rows r0 and r0 + 8 (0 past nq: those rows are masked)
+  float lr[2], dr[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    lr[h] = row < nq ? lse[(size_t)bh * nq + row] : 0.f;
+    dr[h] = row < nq ? delta[(size_t)bh * nq + row] : 0.f;
+  }
+
+  tc::AFrags<KS, HOLD> qf, gf;
+  float acc[NT][4];
+  tc::zero(acc);
+  for (int kt = lo; kt < hi; ++kt) {
+    const int buf = (kt - lo) & 1, k_lo = kt * BK;
+    if (kt + 1 < hi) {
+      tc::load_tile(Ks + (buf ^ 1) * BK * ts, kb, k_lo + BK, nk, D, cos, sin);
+      tc::load_tile(Vs + (buf ^ 1) * BK * ts, vb, k_lo + BK, nk, D, nullptr,
+                    nullptr);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    if (kt == lo) {
+      qf.init(Qs + 16 * warp * ts, D, lane);
+      gf.init(Gs + 16 * warp * ts, D, lane);
+    }
+    const bf16* Kt = Ks + buf * BK * ts;
+    const bf16* Vt = Vs + buf * BK * ts;
+
+    float s[8][4], dp[8][4];
+    tc::dot_tile(s, qf, Kt, D, lane);
+    tc::dot_tile(dp, gf, Vt, D, lane);
+    const bool inner = interior(q_lo, k_lo, nq, nk, causal, window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const bool ok = inner || valid(r0 + 8 * h,
+                                       k_lo + 8 * j + c0 + (e & 1), nq, nk,
+                                       causal, window);
+        const float p = ok ? expf(__fmul_rn(s[j][e], scale) - lr[h]) : 0.f;
+        s[j][e] = p * (dp[j][e] - dr[h]) * scale;  // ds, rounded when packed
+      }
+    tc::acc_tile(acc, s, Kt, D, lane);
+    __syncthreads();
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // stage dq in f32 over the k/v buffers, then counter-rotate and cast
+  float* F = reinterpret_cast<float*>(Ks);
+  const int lf = D + 4;
+  tc::stage(F, lf, acc, 16 * warp, D, lane);
+  __syncthreads();
+  store_tile<bf16, tc::THREADS>(dq + (size_t)bh * nq * D, F, lf, q_lo, nq, D,
+                                cos, sin);
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(tc::THREADS) flash_bwd_dkv_tc(
+    const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
+    const tc::bf16* __restrict__ v, const tc::bf16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ cos, const float* __restrict__ sin,
+    tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv, int G, int nq,
+    int nk, int D, int causal, int window, float scale) {
+  using tc::bf16;
+  constexpr int KS = DMAX / 16, NT = DMAX / 8;
+  constexpr bool HOLD = DMAX <= 64;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const int ts = tc::stride(D);
+  bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
+  bf16* Vs = Ks + BK * ts;
+  bf16* Qs = Vs + BK * ts;      // two buffers
+  bf16* Gs = Qs + 2 * BQ * ts;  // two buffers
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * BQ * ts);  // two [64]
+  float* Ds = Ls + 2 * BQ;                                 // two [64]
+
+  // block z of the cluster's C takes the members [z G / C, (z + 1) G / C)
+  const int k_lo = blockIdx.x * BK, bkv = blockIdx.y;
+  const int C = gridDim.z, rank = blockIdx.z;
+  const int m_lo = rank * G / C, per = (rank + 1) * G / C - m_lo;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = k_lo + 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
+  tc::zero_pads(Ks, 6 * BK, D);
+  int lo, hi;
+  q_range(k_lo, nq, nk, causal, window, &lo, &hi);
+  const int T = max(hi - lo, 0), steps = per * T;
+  tc::load_tile(Ks, k + (size_t)bkv * nk * D, k_lo, nk, D, cos, sin);
+  tc::load_tile(Vs, v + (size_t)bkv * nk * D, k_lo, nk, D, nullptr, nullptr);
+  // step i (member m_lo + i / T, q tile lo + i % T) into buffer b:
+  // q (rotated), g, lse, delta
+  auto load_q = [&](int b, int i) {
+    const size_t bh = (size_t)bkv * G + m_lo + i / T;
+    const int q_lo = (lo + i % T) * BQ;
+    tc::load_tile(Qs + b * BQ * ts, q + bh * nq * D, q_lo, nq, D, cos, sin);
+    tc::load_tile(Gs + b * BQ * ts, g + bh * nq * D, q_lo, nq, D, nullptr,
+                  nullptr);
+    tc::load_rows(Ls + b * BQ, lse + bh * nq, q_lo, nq);
+    tc::load_rows(Ds + b * BQ, delta + bh * nq, q_lo, nq);
+  };
+  if (steps > 0) load_q(0, 0);
+  mma::cp_async_commit();
+
+  tc::AFrags<KS, HOLD> kf, vf;
+  // rows r0 and r0 + 8 of this k tile, summed over this block's members
+  float dka[NT][4], dva[NT][4];
+  tc::zero(dka);
+  tc::zero(dva);
+  for (int i = 0; i < steps; ++i) {
+    const int buf = i & 1, q_lo = (lo + i % T) * BQ;
+    if (i + 1 < steps) load_q(buf ^ 1, i + 1);
+    mma::cp_async_commit();
+    mma::cp_async_wait<1>();
+    __syncthreads();
+    if (i == 0) {
+      kf.init(Ks + 16 * warp * ts, D, lane);
+      vf.init(Vs + 16 * warp * ts, D, lane);
+    }
+    const bf16* Qt = Qs + buf * BQ * ts;
+    const bf16* Gt = Gs + buf * BQ * ts;
+    const float* Lt = Ls + buf * BQ;
+    const float* Dt = Ds + buf * BQ;
+
+    const bool inner = interior(q_lo, k_lo, nq, nk, causal, window);
+    // the tile's q columns in two passes of 32 (dk and dv take the
+    // registers): st[j][e] is k row r0 + 8 (e >> 1), q column
+    // q_lo + q0 + 8 j + c0 + (e & 1)
+#pragma unroll 1
+    for (int q0 = 0; q0 < BQ; q0 += 32) {
+      float st[4][4], dpt[4][4];
+      tc::dot_tile(st, kf, Qt + q0 * ts, D, lane);
+      tc::dot_tile(dpt, vf, Gt + q0 * ts, D, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = q0 + 8 * j + c0 + (e & 1);
+          const bool ok = inner || valid(q_lo + c, r0 + 8 * (e >> 1), nq, nk,
+                                         causal, window);
+          const float p =
+              ok ? expf(__fmul_rn(st[j][e], scale) - Lt[c]) : 0.f;
+          dpt[j][e] = p * (dpt[j][e] - Dt[c]) * scale;  // ds^T
+          st[j][e] = p;                                 // p^T
+        }
+      tc::acc_tile(dva, st, Gt + q0 * ts, D, lane);   // dv += round(p)^T g
+      tc::acc_tile(dka, dpt, Qt + q0 * ts, D, lane);  // dk += round(ds)^T q
+    }
+    __syncthreads();
+  }
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // this block's sums in f32 over the q/g buffers; then each block of the
+  // cluster adds the C blocks' sums, in rank (so member) order, over its
+  // share of the rows (r = rank, rank + C, ...) through distributed
+  // shared memory, counter-rotates dk and casts both once
+  const int lf = D + 4;
+  float* Fk = reinterpret_cast<float*>(Qs);
+  tc::stage(Fk, lf, dka, 16 * warp, D, lane);
+  tc::stage(Fk + BK * lf, lf, dva, 16 * warp, D, lane);
+  cg::cluster_group cluster = cg::this_cluster();
+  if (C > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  const int half = D / 2, q4 = half / 4;  // units: 4 columns + partners
+  const int units = (BK - rank + C - 1) / C * q4;
+  for (int idx = threadIdx.x; idx < units; idx += tc::THREADS) {
+    const int r = rank + C * (idx / q4), c = (idx % q4) * 4;
+    const int row = k_lo + r;
+    if (row >= nk) continue;
+    float4 k1 = make_float4(0.f, 0.f, 0.f, 0.f), k2 = k1, v1 = k1, v2 = k1;
+#pragma unroll
+    for (int m = 0; m < kMaxCluster; ++m) {
+      if (m < C) {
+        const float* f = (C > 1 ? cluster.map_shared_rank(Fk, m) : Fk) +
+                         r * lf + c;
+        add4(k1, *reinterpret_cast<const float4*>(f));
+        add4(k2, *reinterpret_cast<const float4*>(f + half));
+        add4(v1, *reinterpret_cast<const float4*>(f + BK * lf));
+        add4(v2, *reinterpret_cast<const float4*>(f + BK * lf + half));
+      }
+    }
+    float y1[4] = {k1.x, k1.y, k1.z, k1.w}, y2[4] = {k2.x, k2.y, k2.z, k2.w};
+    if (cos) {  // R_-theta, as store_tile
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float cs = cos[(size_t)row * half + c + e];
+        const float sn = -sin[(size_t)row * half + c + e];
+        const float a1 =
+            __fsub_rn(__fmul_rn(y1[e], cs), __fmul_rn(y2[e], sn));
+        const float a2 =
+            __fadd_rn(__fmul_rn(y2[e], cs), __fmul_rn(y1[e], sn));
+        y1[e] = a1;
+        y2[e] = a2;
+      }
+    }
+    const size_t o = ((size_t)bkv * nk + row) * D + c;
+    store4(dk + o, y1[0], y1[1], y1[2], y1[3]);
+    store4(dk + o + half, y2[0], y2[1], y2[2], y2[3]);
+    store4(dv + o, v1.x, v1.y, v1.z, v1.w);
+    store4(dv + o + half, v2.x, v2.y, v2.z, v2.w);
+  }
+  if (C > 1) cluster.sync();  // the others' reads of this block are done
+}
+
 float scale_of(int D) {
   return static_cast<float>(1.0 / sqrt(static_cast<double>(D)));
 }
@@ -247,6 +536,56 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DMAX>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* g,
+                 const float* lse, const float* delta, const float* cos,
+                 const float* sin, void* dq, int BH, int G, int nq, int nk,
+                 int D, int causal, int window, cudaStream_t s) {
+  using tc::bf16;
+  auto kern = flash_bwd_dq_tc<DMAX>;
+  size_t smem;
+  if (int rc = tc::set_smem(kern, D, 6, 0, &smem)) return rc;
+  const dim3 grid((nq + BQ - 1) / BQ, BH);
+  kern<<<grid, tc::THREADS, smem, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse, delta,
+      cos, sin, static_cast<bf16*>(dq), G, nq, nk, D, causal, window,
+      scale_of(D));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int DMAX>
+int launch_dkv_tc(const void* q, const void* k, const void* v, const void* g,
+                  const float* lse, const float* delta, const float* cos,
+                  const float* sin, void* dk, void* dv, int BHkv, int G,
+                  int nq, int nk, int D, int causal, int window,
+                  cudaStream_t s) {
+  using tc::bf16;
+  auto kern = flash_bwd_dkv_tc<DMAX>;
+  size_t smem;
+  if (int rc = tc::set_smem(kern, D, 6, 4 * BQ, &smem)) return rc;
+  const int C = G < kMaxCluster ? G : kMaxCluster;  // one cluster a k tile
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = C;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((nk + BK - 1) / BK, BHkv, C);
+  cfg.blockDim = dim3(tc::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  if (cudaError_t rc = cudaLaunchKernelEx(
+          &cfg, kern, static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(g), lse,
+          delta, cos, sin, static_cast<bf16*>(dk), static_cast<bf16*>(dv), G,
+          nq, nk, D, causal, window, scale_of(D)))
+    return static_cast<int>(rc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_args(int D, int G, int nq, int nk) {
   return D < 8 || D > 128 || D % 8 || G < 1 || nq < 0 || nk < 0;
 }
@@ -256,7 +595,8 @@ bool bad_args(int D, int G, int nq, int nk) {
 // Each returns cudaGetLastError() after its launch (0 when accepted).
 // q, g [BHkv * G, nq, D], k, v [BHkv, nk, D] of one type; lse, delta f32
 // [BHkv * G, nq]; cos, sin f32 [nq, D / 2] or both null. D a multiple of 8
-// up to 128.
+// up to 128. bf16: q, k, v, g and the outputs 16-byte aligned (the wrapper
+// checks).
 
 extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
                             const void* v, const void* g, const void* lse,
@@ -273,10 +613,9 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
               *c = static_cast<const float*>(cos),
               *sn = static_cast<const float*>(sin);
   if (dtype == DTYPE_BF16) {
-    using T = __nv_bfloat16;
-    return D <= 64 ? launch_dq<T, 64>(q, k, v, g, l, dl, c, sn, dq, BH, G,
+    return D <= 64 ? launch_dq_tc<64>(q, k, v, g, l, dl, c, sn, dq, BH, G,
                                       nq, nk, D, causal, window, s)
-                   : launch_dq<T, 128>(q, k, v, g, l, dl, c, sn, dq, BH, G,
+                   : launch_dq_tc<128>(q, k, v, g, l, dl, c, sn, dq, BH, G,
                                        nq, nk, D, causal, window, s);
   }
   if (dtype == DTYPE_F32) {
@@ -302,10 +641,9 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
               *c = static_cast<const float*>(cos),
               *sn = static_cast<const float*>(sin);
   if (dtype == DTYPE_BF16) {
-    using T = __nv_bfloat16;
-    return D <= 64 ? launch_dkv<T, 64>(q, k, v, g, l, dl, c, sn, dk, dv,
+    return D <= 64 ? launch_dkv_tc<64>(q, k, v, g, l, dl, c, sn, dk, dv,
                                        BHkv, G, nq, nk, D, causal, window, s)
-                   : launch_dkv<T, 128>(q, k, v, g, l, dl, c, sn, dk, dv,
+                   : launch_dkv_tc<128>(q, k, v, g, l, dl, c, sn, dk, dv,
                                         BHkv, G, nq, nk, D, causal, window,
                                         s);
   }
@@ -318,4 +656,21 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
                                             window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory (bytes) of the bf16 instance for head dim D at
+// its last launch, as the runtime holds it (-1 on error). Each returns the
+// CUDA error code.
+extern "C" int flash_bwd_dq_smem(int D, int* bytes) {
+  auto k64 = flash_bwd_dq_tc<64>;
+  auto k128 = flash_bwd_dq_tc<128>;
+  return D <= 64 ? flash::tc::smem_of(k64, bytes)
+                 : flash::tc::smem_of(k128, bytes);
+}
+
+extern "C" int flash_bwd_dkv_smem(int D, int* bytes) {
+  auto k64 = flash_bwd_dkv_tc<64>;
+  auto k128 = flash_bwd_dkv_tc<128>;
+  return D <= 64 ? flash::tc::smem_of(k64, bytes)
+                 : flash::tc::smem_of(k128, bytes);
 }

@@ -23,7 +23,9 @@ key gets out 0 and lse exactly -1e30, and zero gradients.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take (a D that is not a multiple of 8 up to 128, mixed
-types, other than f32 or bf16); a tensor on the CPU gets the plain version
+types, other than f32 or bf16, a bf16 q, k, v or g not 16-byte aligned);
+bf16 runs on tensor cores, f32 on CUDA cores (tensor cores would round f32
+operands to TF32). A tensor on the CPU gets the plain version
 (``*_ref``), which computes the same function densely with the same
 roundings. ``<wrapper>.launches`` counts kernel launches.
 """
@@ -43,6 +45,8 @@ _P, _I = _build.C_PTR, _build.C_INT
 _FWD_ARGS = [_I] + [_P] * 7 + [_I] * 7 + [_P]
 _DQ_ARGS = [_I] + [_P] * 9 + [_I] * 7 + [_P]
 _DKV_ARGS = [_I] + [_P] * 10 + [_I] * 7 + [_P]
+#: what the bf16 kernels copy in 16-byte rows
+_ALIGNED = ("q", "k", "v", "g")
 
 
 # ------------------------------------------------------------ plain versions
@@ -189,7 +193,8 @@ def _shapes(q, k, v, rope, q_per_kv):
 def _validate(what, D, tensors):
     """Kernel-side checks: D a multiple of 8 up to MAX_D; every tensor of
     ``tensors`` ({name: tensor}) on one card, contiguous, and of q's dtype
-    (f32 or bf16) unless named in the f32 set."""
+    (f32 or bf16) unless named in the f32 set; in bf16, q, k, v and g
+    16-byte aligned (the tensor-core kernels copy 16-byte rows)."""
     q = tensors["q"]
     if D % 8 or not 8 <= D <= MAX_D:
         raise ValueError(f"{what}: head dim {D} is not a multiple of 8 in "
@@ -208,6 +213,10 @@ def _validate(what, D, tensors):
                              f"{q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+        if q.dtype == torch.bfloat16 and name in _ALIGNED and \
+                t.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} is not 16-byte aligned "
+                             f"(data_ptr {t.data_ptr():#x})")
 
 
 def _tables(rope):

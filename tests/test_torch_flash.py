@@ -269,6 +269,17 @@ CARD_CASES = {
     "G1": (4, 1, 256, 256, 64, True, 0, False),
     "d40": (2, 2, 96, 96, 40, True, 32, True),
     "d128": (2, 7, 256, 256, 128, True, 0, True),
+    # the 128 instance with D padded to 80 on tensor cores
+    "d72": (2, 7, 256, 256, 72, True, 0, True),
+    # one row and one column past a tile
+    "nk65": (2, 7, 65, 65, 64, True, 0, False),
+    # the parallel dk/dv group sum under a window
+    "G7-window-rope": (2, 7, 256, 256, 64, True, 48, True),
+    # dk/dv clusters of 8 blocks, 2 group members each; 11 and 12 members
+    # over 8 blocks (shares of 1 or 2), the second in the 128 instance
+    "G16": (1, 16, 130, 130, 64, True, 0, True),
+    "G11": (1, 11, 96, 96, 40, False, 0, False),
+    "G12-d128": (1, 12, 128, 128, 128, True, 0, True),
 }
 
 
@@ -330,3 +341,25 @@ def test_flash_kernels_reject_bad_input():
     with pytest.raises(ValueError, match="contiguous"):
         tfa.flash_attention_fwd(q.transpose(0, 1).contiguous().transpose(
             0, 1), k, v, q_per_kv=2)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_misaligned_bf16():
+    """The bf16 kernels copy 16-byte rows: a q that starts 2 bytes into a
+    buffer (contiguous, at an element offset of 1) raises, it is not run
+    on another body."""
+    _need_card()
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16).cuda()
+                  for a in _inputs(23, 2, 2, 64, 64, 32))
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=q.device)
+    qm = buf[1:].view(q.shape)
+    qm.copy_(q)
+    assert qm.is_contiguous() and qm.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention_fwd(qm, k, v, q_per_kv=2)
+    out, lse = tfa.flash_attention_fwd(q, k, v, q_per_kv=2, return_lse=True)
+    delta = tfa.bwd_delta(g, out)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_bwd_dq(qm, k, v, g, lse, delta, q_per_kv=2)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_bwd_dkv(qm, k, v, g, lse, delta, q_per_kv=2)
