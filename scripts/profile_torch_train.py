@@ -10,7 +10,8 @@ two warm SGD steps, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON line: wall ms per step, device busy
 ms per step (the union of kernel intervals on the card's timeline), the
 device idle share, device kernels launched per step, the kernels that
-took the most device time, and the flash-attention kernels' time.
+took the most device time, and the flash-attention and grouped (MoE)
+kernels' time.
 
     PYTHONPATH=src python scripts/profile_torch_train.py [--engine mesp_cuda] \
         [--arch olmoe-1b-7b] [--batch 1 --seq 256] [--quantize nf4]
@@ -87,6 +88,9 @@ def main(argv=None) -> int:
                                     for k, v in top},
         "flash_ms_per_step": {k[:80]: v / 1e3 / ns.steps
                               for k, v in by_name.items() if "flash" in k},
+        "grouped_ms_per_step": {k[:100]: v / 1e3 / ns.steps
+                                for k, v in by_name.items()
+                                if "grouped" in k},
         "device": torch.cuda.get_device_name(0)}}))
     return 0
 

@@ -2,7 +2,10 @@
 // LoRA input gradient (lora_dx.cu), by their variants over a quantized
 // W0 (lora_quant.cu: int8; lora_pack4.cu: packed int4 / nf4), and by their
 // grouped forms over per-expert stacks (lora_grouped_train.cu), written by
-// hand for Hopper:
+// hand for Hopper. Its callers today: the dense forward and dx in every
+// format and activation type, the grouped dx in every format and type, and
+// the grouped forward in f32. The grouped forward in bf16 runs on tensor
+// cores instead (lora_grouped_tc.cuh).
 //
 //   y[m, n] = sum_k P[m, k] Q[k, n]  +  s * sum_j L[m, j] R[j, n]
 //

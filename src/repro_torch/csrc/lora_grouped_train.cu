@@ -33,15 +33,23 @@
 // per W0 element of their expert, 40 FLOP/byte in bf16: far below the H100's
 // ~295, so the least time is that of reading the 268 MB expert stack once
 // (~80 us). dA/dB read x and g once (~8 r FLOPs an element): bytes too.
-// These first kernels run on CUDA cores, whose FMA rate limits them. Over
-// codes the stack to read shrinks (nf4 gate/up: 67 MB, ~26 us from bytes
-// with x, y and the factors), so the FMA rate limits them further still.
+// Over codes the stack to read shrinks (nf4 gate/up: 67 MB, ~26 us from
+// bytes with x, y and the factors). The bf16 forward runs on tensor cores;
+// dx, dA/dB and every f32 instance run on CUDA cores, whose FMA rate limits
+// them.
 //
-// Design (simple and right first):
-// * Forward and dx are lora_gemm.cuh's tiled product (the plain LoRA
-//   forward and dx, with the same roundings), one block per 64 x 64 output
-//   tile. blockIdx.y runs over (row tile t, 64-row part of t): the block
-//   reads gid[t] once, offsets W0 by gid * K * N, A and B by the
+// Design:
+// * The bf16 forward of every format (kDense, kInt8, kInt4, kNF4) is
+//   lora_grouped_tc.cuh's body: mma.sync over a cp.async ring, a block of
+//   ceil(min(bm, 64) / 16) m16 fragments by 256 columns, W0's fragments
+//   built in registers from the stored bf16 or codes, h = x @ A in the same
+//   K loop and round(h) @ B as one more mma in the epilogue (its header has
+//   the details). Every bf16 shape goes through it; ragged edges are masked
+//   in the kernel.
+// * dx, and the f32 forward, are lora_gemm.cuh's tiled product (the plain
+//   LoRA forward and dx, with the same roundings), one block per 64 x 64
+//   output tile. blockIdx.y runs over (row tile t, 64-row part of t): the
+//   block reads gid[t] once, offsets W0 by gid * K * N, A and B by the
 //   group's entry, and ends its rows at the tile's end. At bm <= 64 a whole
 //   tile fits one block, so each expert's W0 is read once per column block
 //   and launch. dx reads W0 in place, [K, N] as stored: no transposed copy.
@@ -63,13 +71,15 @@
 //   gets NaN, so a broken schedule cannot pass for a result.
 // * A gid outside [0, E) writes NaN to its tile's rows (forward, dx) or
 //   adds its tile to no group (dA/dB), rather than reading out of bounds.
-// Not yet: tensor cores (wgmma), TMA, a K split.
+// Not yet: tensor cores for dx, wgmma and TMA, a K split.
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include "lora_dab.cuh"
 #include "lora_gemm.cuh"
+#include "lora_grouped_tc.cuh"
 
 namespace {
 
@@ -118,17 +128,24 @@ int launch_gemm(const void* P, const void* Q, const float* S,
                 void* y, int M, int Kc, int Nout, int E, size_t w_stride,
                 size_t s_stride, int r, int bm, float scale,
                 cudaStream_t s) {
-  using W = typename WStore<T, F>::type;
-  const int parts = (bm + BM - 1) / BM;
-  const long long rows = (long long)(M / bm) * parts;
-  if (rows > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid((Nout + BN - 1) / BN, (unsigned)rows);
-  grouped_gemm_kernel<T, DX, F><<<grid, lora_gemm::THREADS, 0, s>>>(
-      static_cast<const T*>(P), static_cast<const W*>(Q), S,
-      static_cast<const T*>(lo_in), static_cast<const T*>(lo_out), gid,
-      static_cast<T*>(y), Kc, Nout, E, w_stride, s_stride, r, bm, parts,
-      scale);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (!DX && std::is_same<T, __nv_bfloat16>::value) {
+    // the bf16 forward: tensor cores (lora_grouped_tc.cuh); S's entries
+    // lie N = s_stride apart
+    return grouped_tc::launch<F>(P, Q, S, lo_in, lo_out, gid, y, M, Kc, Nout,
+                                 E, w_stride, r, bm, scale, s);
+  } else {
+    using W = typename WStore<T, F>::type;
+    const int parts = (bm + BM - 1) / BM;
+    const long long rows = (long long)(M / bm) * parts;
+    if (rows > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+    const dim3 grid((Nout + BN - 1) / BN, (unsigned)rows);
+    grouped_gemm_kernel<T, DX, F><<<grid, lora_gemm::THREADS, 0, s>>>(
+        static_cast<const T*>(P), static_cast<const W*>(Q), S,
+        static_cast<const T*>(lo_in), static_cast<const T*>(lo_out), gid,
+        static_cast<T*>(y), Kc, Nout, E, w_stride, s_stride, r, bm, parts,
+        scale);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 // One format F in either activation type. Q's and S's entries lie
@@ -337,6 +354,25 @@ extern "C" int lora_grouped_dx_q4(int dtype, int method, const void* g,
     return launch_quant<true, WFmt::kNF4>(dtype, g, q4, s, dh, a, gid, dx, M,
                                           K, N, E, r, bm, 1.f, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory (bytes) the CUDA runtime allows the bf16
+// forward's instance of format fmt (a WFmt value: 0 dense, 1 int8, 2 int4,
+// 3 nf4) for tiles of bm rows: what its last launch set.
+extern "C" int lora_grouped_gemm_smem(int fmt, int bm, int* bytes) {
+  *bytes = -1;
+  if (bm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (fmt) {
+    case int(WFmt::kDense):
+      return grouped_tc::smem_of<WFmt::kDense>(bm, bytes);
+    case int(WFmt::kInt8):
+      return grouped_tc::smem_of<WFmt::kInt8>(bm, bytes);
+    case int(WFmt::kInt4):
+      return grouped_tc::smem_of<WFmt::kInt4>(bm, bytes);
+    case int(WFmt::kNF4):
+      return grouped_tc::smem_of<WFmt::kNF4>(bm, bytes);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // f32 elements of the partials workspace that lora_grouped_dab needs.

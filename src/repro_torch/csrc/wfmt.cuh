@@ -24,6 +24,9 @@ __device__ __forceinline__ uint8_t load_or_zero(const uint8_t* p, bool ok) {
 
 namespace wfmt {
 
+// chip_smoke.py's TC_FORMATS names the formats by these values: it finds
+// each format's ptxas figures by the value in the mangled kernel name and
+// passes it to lora_grouped_gemm_smem. Keep the order.
 enum class WFmt { kDense, kInt8, kInt4, kNF4 };
 
 __host__ __device__ constexpr bool is_packed(WFmt f) {

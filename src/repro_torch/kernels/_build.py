@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-#: per source: {"seconds": nvcc wall time or 0.0 when reused, "log": path}
+#: per source: {"seconds": nvcc wall time or 0.0 when reused, "log": path
+#: of the build log (None for a reused library whose log is gone)}
 BUILD_INFO: Dict[str, dict] = {}
 
 C_PTR = ctypes.c_void_p
@@ -65,8 +66,10 @@ def build_all() -> Dict[str, Path]:
     for src in sorted(CSRC.glob("*.cu")):
         lib = _lib_path(src)
         out[src.stem] = lib
-        if lib.exists():
-            BUILD_INFO.setdefault(src.stem, {"seconds": 0.0, "log": None})
+        if lib.exists():  # its build log, if kept, lies beside it
+            log = lib.with_suffix(".log")
+            BUILD_INFO.setdefault(src.stem, {
+                "seconds": 0.0, "log": str(log) if log.exists() else None})
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)

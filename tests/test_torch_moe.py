@@ -644,12 +644,23 @@ def _close_scaled(got, want, tol):
 
 # (M, K, N, E, r, bm, gid): the path's tiling (bm 40, every expert one
 # tile), C 13 padded to 16, a tile of 72 over two 64-row blocks, odd K and
-# N, ranks 3 and 16, ragged groups with an empty one
+# N, ranks 3 and 16, ragged groups with an empty one; then the bf16
+# forward's row-fragment boundaries (bm 16: one m16 fragment; 40 and 48:
+# three; 64: four; 65: a 64-row part and a 1-row one), r 32 at bm 40
+# (h over two groups of A columns), and DeepSeekMoE's expert widths (d_expert
+# 1408: half a 256-column tile at the edge)
 CARD_CASES = RAGGED_CASES + [
     (320, 2048, 1024, 8, 8, 40, list(range(8))),
     (160, 1024, 2048, 8, 8, 40, [7, 6, 5, 4]),
     (48, 300, 130, 3, 3, 16, [0, 1, 2]),
     (144, 97, 131, 2, 16, 72, [1, 0]),
+    (64, 2048, 1024, 4, 8, 16, [0, 1, 2, 3]),
+    (96, 512, 384, 2, 8, 48, [0, 1]),
+    (128, 512, 384, 2, 8, 64, [1, 0]),
+    (130, 512, 384, 2, 8, 65, [0, 1]),
+    (120, 1024, 2048, 3, 32, 40, [0, 1, 2]),
+    (80, 2048, 1408, 2, 8, 40, [0, 1]),
+    (80, 1408, 2048, 2, 8, 40, [1, 0]),
 ]
 
 
@@ -685,6 +696,27 @@ def test_grouped_train_kernels_match_plain_on_card(M, K, N, E, r, bm, gid,
     # deterministic: the partials are added in a fixed order
     da2, db2 = tlg.lora_grouped_dab(x, g, a, b, gid, 2.0, bm=bm)
     assert torch.equal(da, da2) and torch.equal(db, db2)
+
+
+# (M, K, N, E, r, bm): the path's gate/up tiling and the odd edge, whose x,
+# W0 and B rows are loaded element by element
+REPEAT_CASES = [(320, 2048, 1024, 8, 8, 40), (120, 97, 131, 3, 8, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,E,r,bm", REPEAT_CASES)
+def test_grouped_forward_bf16_is_bitwise_on_repeat(M, K, N, E, r, bm):
+    """The bf16 forward on tensor cores sums in a fixed order: two launches
+    on the same inputs give the same bits."""
+    _need_card()
+    x, w0, a, b, _ = [t.to(torch.bfloat16).cuda() for t in _t(*_gid_inputs(
+        43, M, K, N, E, r))]
+    gid = torch.arange(E, dtype=torch.int32, device="cuda")
+    y1 = tlg.lora_grouped_gemm(x, w0, a, b, gid, 2.0, bm=bm)
+    y2 = tlg.lora_grouped_gemm(x, w0, a, b, gid, 2.0, bm=bm)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y1).all())
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.cuda

@@ -573,7 +573,10 @@ def _close_scaled(got, want, tol):
 
 # (M, K, N, E, r, bm, gid): the path's tiling (bm 40, gate/up and down),
 # C 13 padded to 16, a 72-row tile over two blocks, odd K with a ragged N,
-# ranks 3 and 16, an empty group, a bad gid
+# ranks 3 and 16, an empty group, a bad gid; then the bf16 forward's
+# row-fragment boundaries (bm 16 above; 48: three m16 fragments; 64: four;
+# 65: a 64-row part and a 1-row one), r 32 at bm 40, and DeepSeekMoE's
+# expert widths (d_expert 1408)
 CARD_CASES = RAGGED_CASES + [
     (320, 2048, 1024, 8, 8, 40, list(range(8))),
     (160, 1024, 2048, 8, 8, 40, [7, 6, 5, 4]),
@@ -581,6 +584,12 @@ CARD_CASES = RAGGED_CASES + [
     (144, 1024, 2048, 2, 16, 72, [1, 0]),
     (120, 97, 131, 3, 3, 40, [0, 1, 2]),
     (160, 256, 192, 4, 8, 40, [0, 70, 1, -1]),
+    (96, 512, 384, 2, 8, 48, [0, 1]),
+    (128, 512, 384, 2, 8, 64, [1, 0]),
+    (130, 511, 384, 2, 8, 65, [0, 1]),
+    (120, 1024, 2048, 3, 32, 40, [0, 1, 2]),
+    (80, 2048, 1408, 2, 8, 40, [0, 1]),
+    (80, 1408, 2048, 2, 8, 40, [1, 0]),
 ]
 
 
@@ -616,6 +625,31 @@ def test_quantized_grouped_kernels_match_plain_on_card(M, K, N, E, r, bm,
             functools.partial(tlg.lora_grouped_dx_q4_ref, method=method))
     _close_scaled(y, refs[0](x, q, s, a, b, gid, 2.0, bm=bm), tol)
     _close_scaled(dx, refs[1](g, q, s, a, b, gid, 2.0, bm=bm), tol)
+
+
+# (M, K, N, E, r, bm): the path's gate/up tiling and an odd K with a ragged
+# N, whose codes are loaded byte by byte
+REPEAT_CASES = [(320, 2048, 1024, 8, 8, 40), (120, 97, 131, 3, 8, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("M,K,N,E,r,bm", REPEAT_CASES)
+def test_quantized_grouped_forward_bf16_is_bitwise_on_repeat(M, K, N, E, r,
+                                                             bm, method):
+    """The bf16 forward over codes, on tensor cores, sums in a fixed order:
+    two launches on the same inputs give the same bits."""
+    _need_card()
+    x, q, s, a, b, _ = (torch.from_numpy(t).cuda() for t in _codes_inputs(
+        58, M, K, N, E, r, method))
+    x, a, b = (t.to(torch.bfloat16) for t in (x, a, b))
+    gid = torch.arange(E, dtype=torch.int32, device="cuda")
+    fwd, _ = _port_calls(method)
+    y1 = fwd(x, q, s, a, b, gid, 2.0, bm=bm)
+    y2 = fwd(x, q, s, a, b, gid, 2.0, bm=bm)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y1).all())
+    assert torch.equal(y1, y2)
 
 
 @pytest.mark.cuda
