@@ -11,9 +11,13 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    operations: the serving kernels in bf16 at the qwen2.5-0.5b decode
    shapes (with ``F.rms_norm`` as a library yardstick), the training
    kernels (LoRA forward, dx, dA/dB, RMSNorm backward) in bf16 and f32 at
-   the training shapes, 192 rows (batch 4 x seq 48), with
+   the training shapes, 192 rows (batch 4 x seq 48), the LoRA forward also
+   at the paper path's 256 rows (batch 1 x seq 256), with
    ``torch.matmul``'s time for the dominant x@W0 / g@W0^T product as
-   context (no single PyTorch call computes those functions).
+   context (no single PyTorch call computes those functions). The bf16
+   LoRA forwards (over bf16, int8, int4 and nf4, on tensor cores) carry
+   their K split per shape and dynamic shared memory (as the CUDA runtime
+   holds them) and their registers and spills (ptxas).
 3. Serves full-width qwen2.5-0.5b (24 layers, random weights from a seed)
    through ``repro_torch.launch.serve``: 8 slots in tiles of 2, 4 tenants,
    a store of 4, 8 requests of 8 prompt + 16 new tokens. The launch
@@ -52,9 +56,10 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    engine with remat on, and for mesp_cuda and mebp with remat off.
 9. The quantized frozen base: holds the quantized LoRA kernels (int8
    forward and dx; packed forward and dx, int4 and nf4) against their plain
-   versions in bf16 and f32 at the paper path's shapes (M 256) and a ragged
-   odd-K case, and times them beside their plain versions, the bound and
-   ``torch.matmul`` of x@W0 (or g@W0^T) over the dequantized W0 as context.
+   versions in bf16 and f32 at the paper path's shapes (M 256), OLMoE's
+   q, k, v, o (M 256, 2048 x 2048) and a ragged odd-K case, and times them
+   beside their plain versions, the bound and ``torch.matmul`` of x@W0 (or
+   g@W0^T) over the dequantized W0 as context.
    Then trains through ``repro_torch.launch.train --quantize int8`` and
    ``--quantize nf4`` (mesp_cuda, batch 1 x seq 256, 3 steps each, counts
    zeroed just before and read just after: ``quant_per_step``, the
@@ -561,21 +566,25 @@ def _close_scaled(got, want, tol, what):
                                         atol=tol["atol"] * scale), what)
 
 
+TRAIN_KERNELS = ("lora_fused_fwd", "lora_dx", "lora_dab", "rmsnorm_bwd")
+
+
 def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
-                           rms_bwd=TRAIN_PER_STEP["rmsnorm_bwd"], seed=3):
-    """The LoRA training kernels and the RMSNorm backward against their
-    plain versions at a path's shapes, in bf16 and f32 (f32: summation
-    order only, rtol = atol = 1e-4); times, bounds and the matmul context
-    in bf16. ``M_`` rows through every linear; ``linears``: {(K, N):
-    {kernel: launches a step}} (by default the seq-48 training path's);
-    the norm over [M_, d], ``rms_bwd`` launches a step. Returns {kernel:
-    [shape figures]}."""
+                           rms_bwd=TRAIN_PER_STEP["rmsnorm_bwd"], seed=3,
+                           kernels=TRAIN_KERNELS):
+    """The LoRA training kernels and the RMSNorm backward (those of
+    ``kernels``) against their plain versions at a path's shapes, in bf16
+    and f32 (f32: summation order only, rtol = atol = 1e-4); times, bounds
+    and the matmul context in bf16. ``M_`` rows through every linear;
+    ``linears``: {(K, N): {kernel: launches a step}} (by default the seq-48
+    training path's, whose counts the paper path's equal); the norm over
+    [M_, d], ``rms_bwd`` launches a step. Returns {kernel: [shape
+    figures]}."""
     if linears is None:
         linears = {s: {k: v[s] for k, v in TRAIN_SHAPES.items()}
                    for s in LINEARS}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    out = {k: [] for k in ("lora_fused_fwd", "lora_dx", "lora_dab",
-                           "rmsnorm_bwd")}
+    out = {k: [] for k in kernels}
     f32_tol = dict(rtol=1e-4, atol=1e-4)
     calls = {
         "lora_fused_fwd": (lambda x, w, a, b, g: lf.lora_fused(x, w, a, b),
@@ -589,6 +598,7 @@ def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
                      lambda x, w, a, b, g: lf.lora_dab_ref(x, g, a, b),
                      None),
     }
+    calls = {k: v for k, v in calls.items() if k in kernels}
     for (K, N), per in linears.items():
         errs = {}
         for dtype, tol in ((torch.float32, f32_tol),
@@ -624,6 +634,8 @@ def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
                 "matmul_ms": _time_ms(mm, sets) if mm else None,
                 "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                 "flops": flops})
+    if "rmsnorm_bwd" not in kernels:
+        return out
 
     def make_rms(dtype=torch.bfloat16):
         rn_ = lambda *s: torch.randn(s, generator=gen, device="cuda")
@@ -731,22 +743,30 @@ def _quant_calls(torch, lq, lp4, method):
 def check_quant_kernels(torch, quant, lq, lp4):
     """The quantized LoRA kernels against their plain versions for int8,
     int4 and nf4, in f32 (summation order only, rtol = atol = 1e-4) and
-    bf16, at the paper path's shapes (M 256) and the ragged odd-K case;
-    times, bounds and the matmul context in bf16 at the path's shapes.
-    Returns ({(kernel, method): [shape figures]}, {(kernel, method):
-    ragged-case errors})."""
+    bf16, at the paper path's shapes (M 256), OLMoE-1B-7B's q, k, v, o
+    (M 256, 2048 x 2048) and the ragged odd-K case; times, bounds and the
+    matmul context in bf16 at the paths' shapes. Returns ({(kernel,
+    method): [shape figures]}, {(kernel, method): ragged-case errors},
+    {(kernel, method): [OLMoE shape figures]})."""
     gen = torch.Generator(device="cuda").manual_seed(6)
+    # OLMoE's shape draws from its own generator: the others draw their
+    # inputs as before it was added
+    gen_moe = torch.Generator(device="cuda").manual_seed(13)
     f32_tol = dict(rtol=1e-4, atol=1e-4)
-    figures, ragged = {}, {}
+    figures, ragged, moe = {}, {}, {}
     for method in QUANT_KERNELS:
         calls = _quant_calls(torch, lq, lp4, method)
         for name in calls:
             figures[(name, method)] = []
-        for M_, K, N in [(QM, K, N) for K, N in LINEARS] + [QUANT_RAGGED]:
+            moe[(name, method)] = []
+        for M_, K, N in [(QM, K, N) for K, N in LINEARS] + [
+                QUANT_RAGGED, (QM, MOE_D, MOE_D)]:
+            olmoe = (K, N) == (MOE_D, MOE_D)
+            g_ = gen_moe if olmoe else gen
             errs = {}
             for dtype, tol in ((torch.float32, f32_tol),
                                (torch.bfloat16, KERNEL_TOL)):
-                args = _quant_cases(torch, quant, gen, dtype, method, M_, K,
+                args = _quant_cases(torch, quant, g_, dtype, method, M_, K,
                                     N)()
                 for name, (kern, plain, _) in calls.items():
                     got, want = kern(*args), plain(*args)
@@ -767,14 +787,16 @@ def check_quant_kernels(torch, quant, lq, lp4):
                 + 2 * (K * RANK + RANK * N)
             flops = 2 * M_ * K * N + 2 * M_ * RANK * (K + N)
             bound, by = _bound_ms(nbytes, flops)
-            sets = _cold_sets(_quant_cases(torch, quant, gen, torch.bfloat16,
+            sets = _cold_sets(_quant_cases(torch, quant, g_, torch.bfloat16,
                                            method, M_, K, N), nbytes)
             for name, (kern, plain, mm) in calls.items():
                 dense = "lora_fused_fwd" if name.startswith("lora_fused") \
                     else "lora_dx"
-                figures[(name, method)].append({
+                (moe if olmoe else figures)[(name, method)].append({
                     "K": K, "N": N, "M": M_, "r": RANK, "method": method,
-                    "launches_per_train_step": TRAIN_SHAPES[dense][(K, N)],
+                    "launches_per_train_step": moe_quant_per_step(
+                        method)[name] if olmoe
+                    else TRAIN_SHAPES[dense][(K, N)],
                     "max_abs_err": errs[(name, torch.bfloat16)],
                     "max_abs_err_f32": errs[(name, torch.float32)],
                     "ms": _time_ms(kern, sets, QUANT_CALLS),
@@ -784,7 +806,7 @@ def check_quant_kernels(torch, quant, lq, lp4):
                     "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                     "flops": flops})
             del sets
-    return figures, ragged
+    return figures, ragged, moe
 
 
 # -------------------------------------------- serving over a quantized base
@@ -1646,6 +1668,36 @@ def grouped_tc_figures(build, formats, bm=MOE_BM):
             "smem_bm": bm}
 
 
+# the dense forward's libraries by base format (lora_fused.forward_plan's
+# names)
+DENSE_TC_LIBS = {"none": "lora_fused_fwd", "int8": "lora_quant",
+                 "int4": "lora_pack4", "nf4": "lora_pack4"}
+
+
+def dense_tc_figures(build, lf, methods, shapes):
+    """The bf16 dense forward's build and launch figures over each base
+    format of ``methods`` ("none": bf16): registers and spills of each
+    instance (``MF`` m16 row fragments), parsed from this run's ``nvcc
+    -Xptxas -v`` log, and at each (M, K, N) of ``shapes`` its K split (the
+    blocks of a tile's cluster) and the dynamic shared memory (bytes) the
+    CUDA runtime holds for the instance that M selects
+    (``lora_fused.forward_plan``)."""
+    ptx, plan = {}, {}
+    for method in methods:
+        fmt = TC_FORMATS["dense" if method == "none" else method]
+        ptx[method] = {}
+        for kern, figs in build[DENSE_TC_LIBS[method]]["ptxas"].items():
+            m = re.search(r"dense_fwd_tcILi(\d)ELN4wfmt4WFmtE(\d)E", kern)
+            if m and int(m.group(2)) == fmt:
+                ptx[method][f"MF{m.group(1)}"] = figs
+        if not ptx[method]:
+            raise AssertionError(f"no ptxas figures for the bf16 dense "
+                                 f"forward over {method} in the build log")
+        plan[method] = {f"{M_}x{K}x{N}": lf.forward_plan(M_, K, N, method)
+                        for M_, K, N in shapes}
+    return {"ptxas_bf16": ptx, "plan_bf16": plan}
+
+
 def routing_differences(torch, ids, layers):
     """From the expert ids of every routing of each run ({run: ids in call
     order}; a run routes every layer in the forward, then again, in
@@ -1886,6 +1938,10 @@ def main() -> int:
     grouped = check_grouped(torch, lg)
     rms = check_rmsnorm(torch, rn)
     training = check_training_kernels(torch, lf, rn)
+    # the LoRA forward at the paper path's 256 rows (the same launches a
+    # step as at seq 48)
+    paper_fwd = check_training_kernels(
+        torch, lf, rn, QM, seed=12, kernels=("lora_fused_fwd",))
     rms_train = rmsnorm_train_shape(torch, rn)
     # the dense kernels at the MoE path's shapes: q, k, v, o (2048 x 2048)
     # at 256 rows, the norms over [256, 2048]
@@ -1897,7 +1953,7 @@ def main() -> int:
     moe_dense["rmsnorm_fwd"] = [rmsnorm_train_shape(
         torch, rn, QM, MOE_D, MOE_PER_STEP["rmsnorm_fwd"], seed=11)]
     flash, flash_moe = check_flash(torch, fa, rope_tables)
-    qfig, qragged = check_quant_kernels(torch, quant, lq, lp4)
+    qfig, qragged, qmoe = check_quant_kernels(torch, quant, lq, lp4)
     gq_fig, gq_edges = check_grouped_quant(torch, quant, lg)
     nf4_rounding = check_nf4_codebook_rounding(torch, quant, lg, lp4)
     moe_fig, moe_edges = check_grouped_train(torch, lg)
@@ -2246,10 +2302,21 @@ def main() -> int:
             matmul_ms=sum(s["matmul_ms"] * s["launches_per_train_step"]
                           for s in shapes),
             ragged=qragged[(name, method)], **extra)
-        e["max_abs_err"] = max(
+        # OLMoE-1B-7B's q, k, v, o over the same base (M 256, 2048 x 2048)
+        moe_shapes = {m: qmoe[(name, m)] for m in (
+            ("int4", "nf4") if method == "nf4" else (method,))}
+        e["train_moe_shapes"] = moe_shapes[method]
+        if method == "nf4":
+            e["int4_train_moe_shapes"] = moe_shapes["int4"]
+        e["max_abs_err"] = e["max_err"] = max(
             [e["max_abs_err"], qragged[(name, method)]["max_abs_err"]]
+            + [f["max_abs_err"] for v in moe_shapes.values() for f in v]
             + ([extra["int4_max_abs_err"],
                 extra["ragged_int4"]["max_abs_err"]] if extra else []))
+        if name.startswith("lora_fused"):
+            e.update(dense_tc_figures(
+                build, lf, tuple(moe_shapes), [(QM, K, N) for K, N in LINEARS]
+                + [QUANT_RAGGED, (QM, MOE_D, MOE_D)]))
         return e
 
     def grouped_q_entry(name, line, fn, method):
@@ -2339,6 +2406,27 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "shapes": rope_fig}
 
+    def fused_entry():
+        """The dense LoRA forward's entry: the seq-48 path's shapes (M
+        192), with the paper path's (M 256) and OLMoE's beside them, and
+        the bf16 tensor-core body's figures."""
+        e = train_entry("lora_fused_fwd", "lora_fused_fwd.cu",
+                        "src/repro/kernels/lora_fused.py:87",
+                        "src/repro/kernels/lora_fused.py:lora_fused "
+                        "(_lora_fused_kernel :39)")
+        paper_shapes = paper_fwd["lora_fused_fwd"]
+        e["paper_shapes"] = paper_shapes
+        e["paper_step"] = f"batch {PAPER_BATCH} x seq {PAPER_SEQ}"
+        for key in ("ms", "plain_ms", "matmul_ms"):
+            e[f"paper_{key}"] = sum(f[key] * f["launches_per_train_step"]
+                                    for f in paper_shapes)
+        e["max_abs_err"] = e["max_err"] = max(
+            [e["max_abs_err"]] + [f["max_abs_err"] for f in paper_shapes])
+        e.update(dense_tc_figures(build, lf, ("none",), [
+            (f["M"], f["K"], f["N"]) for f in training["lora_fused_fwd"]
+            + paper_shapes + moe_dense["lora_fused_fwd"]]))
+        return e
+
     kernels = [
         kernel_entry("lora_grouped_fwd",
                      "src/repro_torch/csrc/lora_grouped_fwd.cu",
@@ -2361,10 +2449,7 @@ def main() -> int:
             "src/repro/kernels/rmsnorm.py:rmsnorm (_rmsnorm_kernel :19)",
             rms, paths("rmsnorm_fwd"), steps, train_shape=rms_train),
             moe_dense["rmsnorm_fwd"]),
-        train_entry("lora_fused_fwd", "lora_fused_fwd.cu",
-                    "src/repro/kernels/lora_fused.py:87",
-                    "src/repro/kernels/lora_fused.py:lora_fused "
-                    "(_lora_fused_kernel :39)"),
+        fused_entry(),
         train_entry("lora_dx", "lora_dx.cu",
                     "src/repro/kernels/lora_fused.py:146",
                     "src/repro/kernels/lora_fused.py:lora_dx "

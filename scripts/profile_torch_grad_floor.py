@@ -1,31 +1,45 @@
-"""Readings behind ``chip_smoke.MOE_COS_FLOOR``: the per-leaf cosine of the
-full-depth MoE gradient check (LoRA gradients through the kernels against
-the plain bf16 backend, routing and MoE block inputs pinned to the kernel
-run's; ``chip_smoke.grads_moe``), on the model ``chip_smoke.py`` checks
-(full-width OLMoE-1B-7B, 16 layers, random weights from seed 0, batch 1 x
-seq 256), over a bf16 and an nf4 frozen base. Once with the kernels as
-they are, then with one fault planted in the result of the bf16 grouped
-forward over expert stacks (``lora_grouped_gemm``, ``_gemm_q``,
-``_gemm_q4``), f32 calls left alone, so only the bf16 check can see it:
+"""Readings behind the bf16 gradient checks of ``chip_smoke.py``, sound and
+with faults planted in a kernel's result, over a bf16 and an nf4 frozen
+base, on the models ``chip_smoke.py`` checks (random weights from seed 0,
+batch 1 x seq 256). Faults wrap a kernel's Python wrapper in the bf16 calls
+only and leave the source alone, so the f32 runs never see them.
+
+``--model dense``: full-width qwen2.5-0.5b (24 layers) and
+``chip_smoke.compare_grads``' distances (``_grad_runs``: the kernels, the
+plain backend in bf16 and in f32); the check holds every LoRA leaf to
+``GRAD_TOL`` (relative L2 from the plain bf16 gradient) and to no further
+from f32 than twice the plain bf16 gradient (+1e-3). Faults in the dense
+LoRA forward's result (``lora_fused``, ``lora_fused_q``, ``lora_fused_q4``):
 
 - ``k_tail``: x @ W0 without the last 16 of K, as a K loop one m16n8k16
-  step short would give;
-- ``swap_expert``: expert 0's tiles computed with expert 1's W0, A and B,
-  as a misread group id would give;
-- ``code_off``: expert 0's W0 one code off, every bf16 value one ulp up
-  in magnitude or, over nf4, every code one up (15 wraps to 0).
+  step short (or one member of a K split short of its last step) would give;
+- ``code_off``: the first W0 the run meets (block 0's q) one code off: every
+  bf16 value one ulp up in magnitude or, over nf4, every code one up (15
+  wraps to 0);
+- ``h_unrounded``: h = x @ A kept in f32 where it is to be rounded to bf16
+  once: the result moved by round(acc + s h @ B) - round(acc + s round(h)
+  @ B), both from the plain f32 sums.
 
-Each fault wraps the kernel's Python wrapper and leaves the source alone.
+``--model moe``: full-width OLMoE-1B-7B (16 layers) and
+``chip_smoke.grads_moe``' pinned distances, the per-leaf cosine that
+``MOE_COS_FLOOR`` holds; faults in the bf16 grouped forward over expert
+stacks (``lora_grouped_gemm``, ``_gemm_q``, ``_gemm_q4``): ``k_tail`` as
+above; ``swap_expert``, expert 0's tiles computed with expert 1's W0, A and
+B, as a misread group id would give; ``code_off``, expert 0's W0 one code
+off as above.
 
-    PYTHONPATH=src:. python scripts/profile_torch_grad_floor.py
+It uses the ``chip_smoke`` and ``repro_torch`` found on the path, so one
+call can read two checkouts in turns:
 
-Prints one JSON line per base and fault, as each is read: the least
-cosine over the 14 LoRA leaves (``kernels_vs_plain``) and the worst
-relative L2, beside the f32 kernels' worst relative L2 against plain f32;
-then one with the floor and the card.
+    PYTHONPATH=src:. python scripts/profile_torch_grad_floor.py \\
+        [--model dense|moe|both] [--label L]
+
+Prints one JSON line per model, base and fault, as each is read, then one
+with the limits and the card.
 """
 from __future__ import annotations
 
+import argparse
 import functools
 import json
 import subprocess
@@ -36,71 +50,159 @@ import chip_smoke as cs
 from repro_torch.configs import get_config
 from repro_torch.data import make_batch_iterator
 from repro_torch.kernels import _build
+from repro_torch.kernels import lora_fused as lf
 from repro_torch.kernels import lora_grouped as lg
+from repro_torch.kernels import lora_pack4 as lp4
+from repro_torch.kernels import lora_quant as lq
 from repro_torch.models import model as model_lib
 from repro_torch.models import moe as moe_lib
 
-WRAPPERS = ("lora_grouped_gemm", "lora_grouped_gemm_q", "lora_grouped_gemm_q4")
+DENSE_ARCH = "qwen2.5-0.5b"
 TAIL = 16
+# the bf16 forwards each model's faults go into: (module, wrapper, position
+# of B among the arguments after x; scale is passed last, positionally)
+WRAPPERS = {
+    "dense": ((lf, "lora_fused", 2), (lq, "lora_fused_q", 3),
+              (lp4, "lora_fused_q4", 3)),
+    "moe": ((lg, "lora_grouped_gemm", 2), (lg, "lora_grouped_gemm_q", 3),
+            (lg, "lora_grouped_gemm_q4", 3)),
+}
 
 
 def _replace(args, i, v):
     return args[:i] + (v,) + args[i + 1:]
 
 
-def k_tail(fn, x, *args, **kw):
+def k_tail(fn, x, args, kw, b_at, state):
     """The result less round(x[:, -TAIL:] @ W0[-TAIL:]) (times the scale),
     which the kernel itself gives for x zero but its last TAIL columns and
-    B zero (positional args end with a, b, gid, scale)."""
+    B zero."""
     xt = torch.zeros_like(x)
     xt[:, -TAIL:] = x[:, -TAIL:]
-    tail = fn(xt, *_replace(args, len(args) - 3, torch.zeros_like(args[-3])),
-              **kw)
+    tail = fn(xt, *_replace(args, b_at, torch.zeros_like(args[b_at])), **kw)
     return (fn(x, *args, **kw).float() - tail.float()).to(x.dtype)
 
 
-def swap_expert(fn, x, *args, **kw):
-    gid = args[-2]
-    return fn(x, *_replace(args, len(args) - 2, torch.where(gid == 0, 1, gid)),
+def swap_expert(fn, x, args, kw, b_at, state):
+    gid = args[b_at + 1]
+    return fn(x, *_replace(args, b_at + 1, torch.where(gid == 0, 1, gid)),
               **kw)
 
 
-def code_off(fn, x, *args, **kw):
-    w = args[0].clone()
+def _one_code_off(w):
+    w = w.clone()
     if w.dtype == torch.bfloat16:
-        w[0] = (w[0].view(torch.int16) + 1).view(torch.bfloat16)
+        w.copy_((w.view(torch.int16) + 1).view(torch.bfloat16))
     else:  # packed nf4 codes
-        lo, hi = (w[0] + 1) & 15, ((w[0] >> 4) + 1) & 15
-        w[0] = lo | (hi << 4)
+        w.copy_(((w + 1) & 15) | ((((w >> 4) + 1) & 15) << 4))
+    return w
+
+
+def code_off(fn, x, args, kw, b_at, state):
+    """Grouped: expert 0's W0 one code off. Dense: the first W0 the run
+    meets (every later call on it, remat's included) one code off."""
+    w = args[0]
+    if w.dim() == 3:
+        w = w.clone()
+        w[0] = _one_code_off(w[0])
+    else:
+        state.setdefault("ptr", w.data_ptr())
+        if w.data_ptr() != state["ptr"]:
+            return fn(x, *args, **kw)
+        w = _one_code_off(w)
     return fn(x, w, *args[1:], **kw)
 
 
-FAULTS = {"k_tail": k_tail, "swap_expert": swap_expert, "code_off": code_off}
+def _acc(x, w, args, kw):
+    """x @ w(W0) in f32, times the scale S over a quantized base (the
+    dense forward's acc * S before the LoRA term)."""
+    if w.dtype == x.dtype:
+        return x.float() @ w.float()
+    s = args[1].float()
+    if w.dtype == torch.int8:
+        return (x.float() @ w.to(x.dtype).float()) * s
+    dq = lp4.unpack_weights(w, kw.get("method", "int4"), x.dtype, x.shape[1])
+    return (x.float() @ dq.float()) * s
 
 
-def planted(fault):
-    """Patch every bf16 grouped forward wrapper of ``lg`` with ``fault``;
-    returns the function that restores them."""
-    saved = {n: getattr(lg, n) for n in WRAPPERS}
+def h_unrounded(fn, x, args, kw, b_at, state):
+    """The result moved by what keeping h in f32 would change, from the
+    plain f32 sums: round(acc + s h @ B) - round(acc + s round(h) @ B)."""
+    a, b, scale = args[b_at - 1], args[b_at], args[b_at + 1]
+    acc = _acc(x, args[0], args, kw)
+    h = x.float() @ a.float()
+    y_r = (acc + scale * (h.to(x.dtype).float() @ b.float())).to(x.dtype)
+    y_u = (acc + scale * (h @ b.float())).to(x.dtype)
+    y = fn(x, *args, **kw)
+    return (y.float() + (y_u.float() - y_r.float())).to(x.dtype)
 
-    def wrap(fn):
+
+FAULTS = {"dense": {"k_tail": k_tail, "code_off": code_off,
+                    "h_unrounded": h_unrounded},
+          "moe": {"k_tail": k_tail, "swap_expert": swap_expert,
+                  "code_off": code_off}}
+
+
+def planted(model, fault):
+    """Patch every bf16 forward wrapper of ``model``'s faults with
+    ``fault``; returns the function that restores them."""
+    state, saved = {}, []
+
+    def wrap(fn, b_at):
         @functools.wraps(fn)  # the wrapper counts launches on its name
         def faulty(x, *args, **kw):
             if x.dtype != torch.bfloat16:
                 return fn(x, *args, **kw)
-            return fault(fn, x, *args, **kw)
+            return fault(fn, x, args, kw, b_at, state)
         return faulty
-    for n, fn in saved.items():
-        setattr(lg, n, wrap(fn))
-    return lambda: [setattr(lg, n, fn) for n, fn in saved.items()]
+    for mod, name, b_at in WRAPPERS[model]:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrap(fn, b_at))
+    return lambda: [setattr(m, n, f) for m, n, f in saved]
 
 
-def reading(cfg, batch, quantize, fault):
+def _params(cfg, quantize):
     gen = torch.Generator(device="cuda").manual_seed(0)
-    params = cs._with_b(torch, model_lib.init_params(
+    return cs._with_b(torch, model_lib.init_params(
         cfg, generator=gen, quantize=None if quantize == "none"
         else quantize), gen)
-    restore = planted(FAULTS[fault]) if fault else (lambda: None)
+
+
+def dense_reading(cfg, batch, quantize, fault):
+    """The dense check's distances (``compare_grads`` unchecked): per leaf
+    kernels vs plain bf16 (relative L2 and cosine), and how far each leaf
+    is from the check's second bound, kernels vs f32 over twice plain bf16
+    vs f32 + 1e-3 (a pass needs 1 or less)."""
+    params = _params(cfg, quantize)
+    restore = planted("dense", FAULTS["dense"][fault]) if fault \
+        else (lambda: None)
+    try:
+        d = cs._distances(torch, *cs._grad_runs(torch, cfg, params, batch,
+                                                quantize))
+    finally:
+        restore()
+    del params
+    cs._release(torch)
+    leaves = d["leaves"]
+    ratio = {p: e["kernels_vs_f32"] / (2 * e["plain_vs_f32"] + 1e-3)
+             for p, e in leaves.items()}
+    worst = max(e["kernels_vs_plain"] for e in leaves.values())
+    return {"worst_rel": worst, "worst_f32_ratio": max(ratio.values()),
+            "passes": worst <= cs.GRAD_TOL and max(ratio.values()) <= 1.0,
+            "min_cos": min(e["cos"]["kernels_vs_plain"]
+                           for e in leaves.values()),
+            "plain_vs_f32_worst": d["worst"]["plain_vs_f32"],
+            "leaves": len(leaves), "loss": d["loss"],
+            "rel_per_leaf": {p: e["kernels_vs_plain"]
+                             for p, e in leaves.items()}}
+
+
+def moe_reading(cfg, batch, quantize, fault):
+    """The full-depth MoE check's pinned cosines (``grads_moe``)."""
+    params = _params(cfg, quantize)
+    restore = planted("moe", FAULTS["moe"][fault]) if fault \
+        else (lambda: None)
     try:
         d = cs.grads_moe(torch, moe_lib, cfg, params, batch,
                          quantize=quantize)
@@ -110,6 +212,7 @@ def reading(cfg, batch, quantize, fault):
     cs._release(torch)
     cos = [e["cos"]["kernels_vs_plain"] for e in d["leaves"].values()]
     return {"min_cos": min(cos), "max_cos": max(cos),
+            "passes": min(cos) >= cs.MOE_COS_FLOOR,
             "worst_rel": d["worst"]["kernels_vs_plain"],
             "f32_kernels_worst_rel": d["worst"]["kernels_f32_vs_f32"],
             "leaves": len(cos), "loss": d["loss"],
@@ -118,26 +221,36 @@ def reading(cfg, batch, quantize, fault):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("dense", "moe", "both"),
+                    default="both")
+    ap.add_argument("--label", default="", help="a name for this checkout")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_grad_floor: no CUDA card is visible")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
-    cfg = get_config(cs.MOE_ARCH)
-    batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
-        make_batch_iterator(cfg.vocab, cs.PAPER_SEQ, cs.PAPER_BATCH,
-                            seed=0)).items()}
-    for base in ("none", "nf4"):
-        for fault in [None, *FAULTS]:
-            print(json.dumps({"base": base, "fault": fault or "none",
-                              **reading(cfg, batch, base, fault)}),
-                  flush=True)
+    models = ("dense", "moe") if args.model == "both" else (args.model,)
+    for model in models:
+        cfg = get_config(DENSE_ARCH if model == "dense" else cs.MOE_ARCH)
+        batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+            make_batch_iterator(cfg.vocab, cs.PAPER_SEQ, cs.PAPER_BATCH,
+                                seed=0)).items()}
+        read = dense_reading if model == "dense" else moe_reading
+        for base in ("none", "nf4"):
+            for fault in [None, *FAULTS[model]]:
+                print(json.dumps({"label": args.label, "model": model,
+                                  "layers": cfg.n_layers, "base": base,
+                                  "fault": fault or "none",
+                                  **read(cfg, batch, base, fault)}),
+                      flush=True)
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"floor": cs.MOE_COS_FLOOR,
-                      "layers": cfg.n_layers,
+    print(json.dumps({"label": args.label, "grad_tol": cs.GRAD_TOL,
+                      "cos_floor": cs.MOE_COS_FLOOR,
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}))
     return 0

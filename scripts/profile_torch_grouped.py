@@ -1,6 +1,11 @@
-"""Per-launch device time of the port's bf16 grouped LoRA forward over
-expert stacks (``lora_grouped_gemm``, ``_gemm_q`` over int8, ``_gemm_q4``
-over int4 and nf4) at the OLMoE-1B-7B training path's shapes, on the card.
+"""Per-launch device time of the port's bf16 LoRA forward kernels on the
+card: the grouped forward over expert stacks (``lora_grouped_gemm``,
+``_gemm_q`` over int8, ``_gemm_q4`` over int4 and nf4) at the OLMoE-1B-7B
+training path's shapes, and the dense forward over one W0
+(``lora_fused``, ``lora_fused_q``, ``lora_fused_q4``) at the training
+paths' shapes.
+
+Grouped (``--family grouped``):
 
 E 64 experts, capacity C = bm = 40 (M 2,560 rows, every expert one tile),
 r 8, (K, N) of gate/up (2048 x 1024) and down (1024 x 2048); random inputs
@@ -9,18 +14,30 @@ made from a seed, timed cold with ``chip_smoke.py``'s timer and input sets
 its inputs out of L2). It uses the ``chip_smoke`` and ``repro_torch`` found
 on the path, so one call can time two checkouts in turns:
 
-    PYTHONPATH=src:. python scripts/profile_torch_grouped.py [--label L]
+    PYTHONPATH=src:. python scripts/profile_torch_grouped.py \
+        [--family grouped|dense|both] [--label L]
 
 Prints one JSON line: ms per launch by format and shape, the bound (bytes
 at 3.35 TB/s or FLOPs at 989 TFLOP/s), the card and its power limit; and,
 for the bf16 forward over a bf16 stack at each shape, the share of outputs
 that round otherwise than the plain version's and the mean |error| of each
 against an f64 product over the same inputs (h rounded to bf16 as both
-round it).
+round it); and the SHA-256 of each format's output at each shape on the
+first input set, so two checkouts' bits can be compared.
+
+Dense (``--family dense``): the paper path's M 256 and the seq-48 path's
+M 192 at qwen2.5-0.5b's four shapes, and OLMoE-1B-7B's q, k, v, o at M 256
+(2048 x 2048), over bf16, int8, int4 and nf4, r 8, inputs from
+``chip_smoke._train_cases`` / ``_quant_cases``, cold as above: ms per
+launch of the kernel, its plain version and ``torch.matmul`` of x @ W0
+(over the dequantized W0 for a quantized base) as context, beside the
+bound. The same JSON line carries them.
 """
 from __future__ import annotations
 
 import argparse
+import functools
+import hashlib
 import json
 import subprocess
 
@@ -28,11 +45,20 @@ import torch
 
 import chip_smoke as cs
 from repro_torch.core import quant
+from repro_torch.kernels import lora_fused as lf
 from repro_torch.kernels import lora_grouped as lg
+from repro_torch.kernels import lora_pack4 as lp4
+from repro_torch.kernels import lora_quant as lq
 
 E, C, R = 64, 40, 8
 SHAPES = {"gate_up": (2048, 1024), "down": (1024, 2048)}
 CALLS = 400
+# the dense forward: (M, K, N) of the paths' LoRA linears
+DENSE_SHAPES = {
+    **{f"M{m}/{name}": (m, k, n) for m in (256, 192) for name, (k, n) in {
+        "q_o": (896, 896), "k_v": (896, 128), "gate_up": (896, 4864),
+        "down": (4864, 896)}.items()},
+    "olmoe/qkvo": (256, 2048, 2048)}
 
 
 def _call(method):
@@ -61,16 +87,13 @@ def rounding(x, w, a, b, gid):
             "plain_mean_abs_err": float((ref.double() - exact).abs().mean())}
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--label", default="", help="a name for this checkout")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_torch_grouped: no CUDA card is visible")
+def grouped():
+    """The grouped forward's per-launch times, bf16 rounding and output
+    hashes at the MoE path's shapes."""
     gen = torch.Generator(device="cuda").manual_seed(20)
     gid = list(range(E))
     M = E * C
-    out, rnd = {}, {}
+    out, rnd, bits = {}, {}, {}
     for method in ("dense", "int8", "int4", "nf4"):
         for shape, (K, N) in SHAPES.items():
             if method == "dense":
@@ -89,15 +112,81 @@ def main() -> int:
             out[f"{method}/{shape}"] = {
                 "ms": cs._time_ms(_call(method), sets, CALLS),
                 "bound_ms": bound, "bound_by": by}
+            y = _call(method)(*sets[0])
+            torch.cuda.synchronize()
+            bits[f"{method}/{shape}"] = hashlib.sha256(
+                y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
             if method == "dense":
                 rnd[shape] = rounding(*sets[0][:4], sets[0][5])
             del sets
+    return {"grouped_fwd_ms_per_launch": out, "bf16_rounding_vs_plain": rnd,
+            "grouped_fwd_sha256": bits}
+
+
+def _dense_calls(method):
+    """(kernel, plain version, matmul context) of the dense bf16 forward
+    over ``method``'s base, each a call on the inputs of
+    ``chip_smoke._train_cases`` (bf16) or ``_quant_cases``."""
+    if method == "bf16":
+        return (lambda x, w, a, b, g: lf.lora_fused(x, w, a, b),
+                lambda x, w, a, b, g: lf.lora_fused_ref(x, w, a, b),
+                lambda x, w, a, b, g: torch.matmul(x, w))
+    if method == "int8":
+        fwd, ref = lq.lora_fused_q, lq.lora_fused_q_ref
+    else:
+        fwd, ref = (functools.partial(f, method=method) for f in (
+            lp4.lora_fused_q4, lp4.lora_fused_q4_ref))
+    return (lambda x, q, s, a, b, g, w: fwd(x, q, s, a, b),
+            lambda x, q, s, a, b, g, w: ref(x, q, s, a, b),
+            lambda x, q, s, a, b, g, w: torch.matmul(x, w))
+
+
+def dense():
+    """The dense forward's per-launch times at the paths' shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    out = {}
+    for method in ("bf16", "int8", "int4", "nf4"):
+        kern, plain, mm = _dense_calls(method)
+        for shape, (M, K, N) in DENSE_SHAPES.items():
+            if method == "bf16":
+                make = cs._train_cases(torch, gen, torch.bfloat16, M, K, N)
+                w_bytes = 2 * K * N
+            else:
+                make = cs._quant_cases(torch, quant, gen, torch.bfloat16,
+                                       method, M, K, N)
+                w_bytes = (K * N if method == "int8"
+                           else (K + 1) // 2 * N) + 4 * N
+            nbytes = w_bytes + 2 * (M * (K + N) + R * (K + N))
+            flops = 2 * M * K * N + 2 * M * R * (K + N)
+            bound, by = cs._bound_ms(nbytes, flops)
+            sets = cs._cold_sets(make, nbytes)
+            out[f"{method}/{shape}"] = {
+                "ms": cs._time_ms(kern, sets, CALLS),
+                "plain_ms": cs._time_ms(plain, sets, CALLS),
+                "matmul_ms": cs._time_ms(mm, sets, CALLS),
+                "bound_ms": bound, "bound_by": by}
+            del sets
+    return {"dense_fwd_ms_per_launch": out}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--family", choices=("grouped", "dense", "both"),
+                    default="both")
+    ap.add_argument("--label", default="", help="a name for this checkout")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_grouped: no CUDA card is visible")
+    res = {}
+    if args.family in ("grouped", "both"):
+        res.update(grouped())
+    if args.family in ("dense", "both"):
+        res.update(dense())
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
-    print(json.dumps({"grouped_fwd_ms_per_launch": out,
-                      "bf16_rounding_vs_plain": rnd, "label": args.label,
+    print(json.dumps({**res, "label": args.label,
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}))
     return 0

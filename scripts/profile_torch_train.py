@@ -10,8 +10,8 @@ two warm SGD steps, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON line: wall ms per step, device busy
 ms per step (the union of kernel intervals on the card's timeline), the
 device idle share, device kernels launched per step, the kernels that
-took the most device time, and the flash-attention and grouped (MoE)
-kernels' time.
+took the most device time, and the flash-attention, grouped (MoE) and
+dense LoRA forward and dx kernels' time.
 
     PYTHONPATH=src python scripts/profile_torch_train.py [--engine mesp_cuda] \
         [--arch olmoe-1b-7b] [--batch 1 --seq 256] [--quantize nf4]
@@ -91,6 +91,12 @@ def main(argv=None) -> int:
         "grouped_ms_per_step": {k[:100]: v / 1e3 / ns.steps
                                 for k, v in by_name.items()
                                 if "grouped" in k},
+        # the dense LoRA kernels: forward and dx on CUDA cores
+        # (lora_gemm_kernel / lora_gemm_q_kernel<T, DX, ...>), the bf16
+        # forward on tensor cores (dense_fwd_tc)
+        "dense_lora_ms_per_step": {
+            k[:100]: v / 1e3 / ns.steps for k, v in by_name.items()
+            if "lora_gemm" in k or "dense_fwd_tc" in k},
         "device": torch.cuda.get_device_name(0)}}))
     return 0
 

@@ -25,6 +25,6 @@
 extern "C" int lora_dx(int dtype, const void* g, const void* w0,
                        const void* a, const void* dh, void* dx, int M, int K,
                        int N, int r, void* stream) {
-  return lora_gemm::launch<true>(dtype, g, w0, dh, a, dx, M, N, K, r, 1.f,
-                                 stream);
+  return lora_gemm::launch<true, lora_gemm::WFmt::kDense>(
+      dtype, g, w0, nullptr, dh, a, dx, M, N, K, r, 1.f, stream);
 }

@@ -2,10 +2,10 @@
 // LoRA input gradient (lora_dx.cu), by their variants over a quantized
 // W0 (lora_quant.cu: int8; lora_pack4.cu: packed int4 / nf4), and by their
 // grouped forms over per-expert stacks (lora_grouped_train.cu), written by
-// hand for Hopper. Its callers today: the dense forward and dx in every
-// format and activation type, the grouped dx in every format and type, and
-// the grouped forward in f32. The grouped forward in bf16 runs on tensor
-// cores instead (lora_grouped_tc.cuh).
+// hand for Hopper. Its callers today: every dx kernel, dense and grouped,
+// in every format and activation type, and every f32 forward, dense and
+// grouped. The bf16 forwards run on tensor cores instead: dense over one W0
+// in lora_dense_tc.cuh, grouped over expert stacks in lora_grouped_tc.cuh.
 //
 //   y[m, n] = sum_k P[m, k] Q[k, n]  +  s * sum_j L[m, j] R[j, n]
 //
@@ -48,7 +48,8 @@
 //   the loader zeroes it too.
 // * The low-rank term is added in the epilogue from shared memory: L's
 //   64 x r rows and R's r x 64 columns (r <= RMAX).
-// Not yet: tensor cores (mma / wgmma), TMA, split-K for the narrow outputs.
+// Not yet: tensor cores for dx (mma / wgmma), TMA, split-K for the narrow
+// outputs.
 #pragma once
 
 #include <cstdint>
@@ -337,60 +338,43 @@ inline int check_dims(int M, int Kc, int Nout, int r) {
   return 0;
 }
 
-template <bool DX>
-int launch(int dtype, const void* P, const void* Q, const void* lo_in,
-           const void* lo_out, void* y, int M, int Kc, int Nout, int r,
-           float scale, void* stream) {
+// One activation type T's launch of format F: Q holds W0 in T (kDense; S
+// unused) or W0's codes in format F with S its scale [N].
+template <bool DX, WFmt F, typename T>
+int launch_as(const void* P, const void* Q, const void* S, const void* lo_in,
+              const void* lo_out, void* y, int M, int Kc, int Nout, int r,
+              float scale, void* stream) {
   if (int rc = check_dims(M, Kc, Nout, r)) return rc;
   if (M == 0) return 0;
   const dim3 grid((Nout + BN - 1) / BN, (M + BM - 1) / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == DTYPE_BF16) {
-    using T = __nv_bfloat16;
+  using W = typename WStore<T, F>::type;
+  if constexpr (F == WFmt::kDense)
     lora_gemm_kernel<T, DX><<<grid, THREADS, 0, s>>>(
         static_cast<const T*>(P), static_cast<const T*>(Q),
         static_cast<const T*>(lo_in), static_cast<const T*>(lo_out),
         static_cast<T*>(y), M, Kc, Nout, r, scale);
-  } else if (dtype == DTYPE_F32) {
-    lora_gemm_kernel<float, DX><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(P), static_cast<const float*>(Q),
-        static_cast<const float*>(lo_in), static_cast<const float*>(lo_out),
-        static_cast<float*>(y), M, Kc, Nout, r, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  else
+    lora_gemm_q_kernel<T, DX, F><<<grid, THREADS, 0, s>>>(
+        static_cast<const T*>(P), static_cast<const W*>(Q),
+        static_cast<const float*>(S), static_cast<const T*>(lo_in),
+        static_cast<const T*>(lo_out), static_cast<T*>(y), M, Kc, Nout, r,
+        scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The quantized variants: Q holds W0's codes in format F, S its scale [N].
-template <bool DX, WFmt F, typename T>
-int launch_q_as(const void* P, const void* Q, const float* S,
-                const void* lo_in, const void* lo_out, void* y, int M, int Kc,
-                int Nout, int r, float scale, cudaStream_t s) {
-  using W = typename WStore<T, F>::type;
-  const dim3 grid((Nout + BN - 1) / BN, (M + BM - 1) / BM);
-  lora_gemm_q_kernel<T, DX, F><<<grid, THREADS, 0, s>>>(
-      static_cast<const T*>(P), static_cast<const W*>(Q), S,
-      static_cast<const T*>(lo_in), static_cast<const T*>(lo_out),
-      static_cast<T*>(y), M, Kc, Nout, r, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// Both activation types, by dtype code: dx in every format (the dense
+// forward's bf16 instances run lora_dense_tc.cuh's body instead).
 template <bool DX, WFmt F>
-int launch_q(int dtype, const void* P, const void* Q, const void* S,
-             const void* lo_in, const void* lo_out, void* y, int M, int Kc,
-             int Nout, int r, float scale, void* stream) {
-  static_assert(F != WFmt::kDense, "dense W0 takes launch<DX>");
-  if (int rc = check_dims(M, Kc, Nout, r)) return rc;
-  if (M == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* sc = static_cast<const float*>(S);
+int launch(int dtype, const void* P, const void* Q, const void* S,
+           const void* lo_in, const void* lo_out, void* y, int M, int Kc,
+           int Nout, int r, float scale, void* stream) {
   if (dtype == DTYPE_BF16)
-    return launch_q_as<DX, F, __nv_bfloat16>(P, Q, sc, lo_in, lo_out, y, M,
-                                             Kc, Nout, r, scale, s);
+    return launch_as<DX, F, __nv_bfloat16>(P, Q, S, lo_in, lo_out, y, M, Kc,
+                                           Nout, r, scale, stream);
   if (dtype == DTYPE_F32)
-    return launch_q_as<DX, F, float>(P, Q, sc, lo_in, lo_out, y, M, Kc, Nout,
-                                     r, scale, s);
+    return launch_as<DX, F, float>(P, Q, S, lo_in, lo_out, y, M, Kc, Nout, r,
+                                   scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

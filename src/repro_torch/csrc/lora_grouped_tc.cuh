@@ -1,7 +1,7 @@
 // The bf16 grouped LoRA forward over per-expert stacks on Hopper's tensor
 // cores: the body of lora_grouped_gemm, lora_grouped_gemm_q and
 // lora_grouped_gemm_q4 (lora_grouped_train.cu) when the activations are
-// bf16. The f32 instances and every other kernel keep lora_gemm.cuh's
+// bf16. The f32 instances and the dx kernels keep lora_gemm.cuh's
 // CUDA-core body.
 //
 // Replaces, in bf16, the TPU kernels of src/repro/kernels/lora_grouped.py
@@ -41,24 +41,17 @@
 //   shared memory, filled by cp.async (16 bytes a copy, zero-filled past an
 //   edge) three slabs ahead: x [rows][BK], A [BK][r], and W0 as stored:
 //   bf16 [BK][BN], or the raw codes, int8 [BK][BN] or packed bytes
-//   [BK/2][BN] (rows padded so that the fragment loads below meet no bank
-//   twice). Rows whose stride is not a multiple of 16 bytes, or a base that
-//   is not 16-byte aligned (odd K, ragged N, r % 8 != 0), are loaded element
-//   by element into the same slots, masked, in the same kernel.
-// * Products: mma.sync m16n8k16 (bf16 in, f32 sums, csrc/mma.cuh), x's
-//   fragments by ldmatrix. W0's B fragments are built in registers, the same
-//   way in every format: in the warp's n8 tile j, lane group g holds column
-//   4 g + j, so one 32-bit load of a K row gives a lane its column in all
-//   four tiles (8 bytes for bf16). Codes become bf16 pairs right there: int8
-//   through the f32 bit pattern 2^23 + 128 + v (exact, no conversion
-//   instruction); a packed byte holds rows 2i and 2i + 1 of one column,
-//   which is one fragment register, and its two nibbles go through a
-//   16-entry bf16 table held in eight registers and read with byte permutes
-//   (int4's sign-extended values, nf4's codebook rounded to bf16). A nibble
-//   of a row k >= K (the pad of an odd K) becomes zero, as do x's columns
-//   there. No converted copy of W0 is written anywhere.
-// * h = x @ A runs in the same loop on the x fragments already in registers:
-//   warp w < MF takes m16 fragment w against A's slab (ldmatrix.trans).
+//   [BK/2][BN] (rows padded so that the fragment loads meet no bank twice).
+//   Rows whose stride is not a multiple of 16 bytes, or a base that is not
+//   16-byte aligned (odd K, ragged N, r % 8 != 0), are loaded element by
+//   element into the same slots, masked, in the same kernel.
+// * Products: mma.sync m16n8k16 on x's fragments (ldmatrix) and W0's B
+//   fragments built in registers from bf16 or codes (no converted copy of
+//   W0 is written anywhere); h = x @ A in the same loop on the x fragments
+//   already in registers: warp w < MF takes m16 fragment w. The fragment
+//   loaders, the code conversions and the slab copies are lora_tc.cuh's,
+//   which the dense forward (lora_dense_tc.cuh) shares; this loop is the
+//   kernel's own.
 // * Epilogue: h rounded to bf16 into shared memory (columns >= r zero), B's
 //   rows [ceil16(r)][BN] beside it (rows >= r zero), d = round(h) @ B as one
 //   more mma per fragment with B's fragments built as W0's, then y = acc +
@@ -73,32 +66,25 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "lora_tc.cuh"
 #include "mma.cuh"
 #include "wfmt.cuh"
 
 namespace grouped_tc {
 
-using bf16 = __nv_bfloat16;
-using wfmt::WFmt;
+using namespace lora_tc;
 
 constexpr int WARPS = 8, THREADS = 32 * WARPS;
 constexpr int BN = 32 * WARPS;  // output columns a block, 32 a warp
 static_assert(WARPS >= 4, "warp w < MF <= 4 sums h for m16 fragment w");
-constexpr int BK = 32;          // contraction slab
-constexpr int STAGES = 4;
-constexpr int RMAX = 32;        // largest LoRA rank (lora_gemm.cuh's RMAX)
 constexpr int ROWS = 64;        // rows a block at most (MF <= 4)
-// row strides in shared memory (elements) of x, A and a bf16 W0 slab, each
-// 8 past a multiple of 16: the 8 rows an ldmatrix reads, and the 16 lanes of
-// a half warp's 8-byte fragment loads, meet distinct banks
-constexpr int XS = BK + 8, WS = BN + 8, AS = RMAX + 8;
+// row stride in shared memory (elements) of a bf16 W0 slab, 8 past a
+// multiple of 16: the 16 lanes of a half warp's 8-byte fragment loads meet
+// distinct banks (x's and A's, XS and AS, are lora_tc.cuh's)
+constexpr int WS = BN + 8;
 // row strides (bytes) of the raw code slabs, for the same reason: int8 rows
 // 2t of four lanes 8 words apart, packed rows t 8 words apart
 constexpr int S8 = BN + 16, S4 = BN + 32;
-
-// which operands take 16-byte copies (their rows and base 16-byte aligned);
-// the others are loaded element by element; kVecY: 16-byte stores of y
-enum : int { kVecX = 1, kVecW = 2, kVecA = 4, kVecB = 8, kVecY = 16 };
 
 // bytes of one ring stage and of the whole dynamic shared memory
 template <int MF, WFmt F>
@@ -114,179 +100,6 @@ struct Layout {
   static_assert(MF * 16 * AS * 2 + RMAX * WS * 2 <= kBytes,
                 "epilogue tiles must fit in the ring");
 };
-
-// A fragment (rows 0 .. 15 of t, columns 16 ks ..) for mma_bf16
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t,
-                                       int ts, int ks, int lane) {
-  const int r = (lane & 7) + ((lane >> 3) & 1) * 8;
-  mma::ldsm_x4(a, t + r * ts + ks * 16 + (lane >> 4) * 8);
-}
-
-// B fragments of n tiles n0 and n0 + 8 at k step ks from t [k][n] in
-// natural column order: b[0], b[1] for n0, b[2], b[3] for n0 + 8
-__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], const bf16* t,
-                                        int ts, int n0, int ks, int lane) {
-  const int r = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  mma::ldsm_x4_t(b, t + r * ts + n0 + (lane >> 4) * 8);
-}
-
-// prmt.b32: byte n of the result is byte s[4n+2 : 4n] of {b, a} (a bytes
-// 0-3), or, where s[4n+3] is set, that byte's top bit copied to all 8 bits
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t s) {
-  uint32_t d;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(s));
-  return d;
-}
-
-// The B fragments (b[j][0..1], n8 tile j) of k step ks over a warp's 32
-// columns c0 .. of a bf16 slab t [k][n] (row stride ts), lane group g on
-// column c0 + 4 g + j: rows 16 ks + 2 l, + 1, + 8, + 9 (l = lane % 4).
-__device__ __forceinline__ void frag_b16(uint32_t (&b)[4][2], const bf16* t,
-                                         int ts, int c0, int ks, int lane) {
-  const bf16* p = t + (ks * 16 + 2 * (lane & 3)) * ts + c0 + 4 * (lane >> 2);
-  const uint2 r0 = *reinterpret_cast<const uint2*>(p);
-  const uint2 r1 = *reinterpret_cast<const uint2*>(p + ts);
-  const uint2 r8 = *reinterpret_cast<const uint2*>(p + 8 * ts);
-  const uint2 r9 = *reinterpret_cast<const uint2*>(p + 9 * ts);
-  b[0][0] = prmt(r0.x, r1.x, 0x5410);
-  b[1][0] = prmt(r0.x, r1.x, 0x7632);
-  b[2][0] = prmt(r0.y, r1.y, 0x5410);
-  b[3][0] = prmt(r0.y, r1.y, 0x7632);
-  b[0][1] = prmt(r8.x, r9.x, 0x5410);
-  b[1][1] = prmt(r8.x, r9.x, 0x7632);
-  b[2][1] = prmt(r8.y, r9.y, 0x5410);
-  b[3][1] = prmt(r8.y, r9.y, 0x7632);
-}
-
-// byte J of the biased codes u0 and u1 (v + 128) as a bf16 pair: the f32
-// 2^23 + u, less 2^23 + 128, is v exactly, and its upper half is bf16(v)
-template <int J>
-__device__ __forceinline__ uint32_t int8_pair(uint32_t u0, uint32_t u1) {
-  const float f0 =
-      __uint_as_float(prmt(u0, 0x4B000000u, 0x7440 | J)) - 8388736.f;
-  const float f1 =
-      __uint_as_float(prmt(u1, 0x4B000000u, 0x7440 | J)) - 8388736.f;
-  return prmt(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-}
-
-// The same over int8 codes t [k][S8 bytes]: one 32-bit load a row
-__device__ __forceinline__ void frag_b8(uint32_t (&b)[4][2], const uint8_t* t,
-                                        int c0, int ks, int lane) {
-  const uint8_t* p = t + (ks * 16 + 2 * (lane & 3)) * S8 + c0 +
-                     4 * (lane >> 2);
-  const uint32_t u0 = *reinterpret_cast<const uint32_t*>(p) ^ 0x80808080u;
-  const uint32_t u1 = *reinterpret_cast<const uint32_t*>(p + S8) ^ 0x80808080u;
-  const uint32_t u8 =
-      *reinterpret_cast<const uint32_t*>(p + 8 * S8) ^ 0x80808080u;
-  const uint32_t u9 =
-      *reinterpret_cast<const uint32_t*>(p + 9 * S8) ^ 0x80808080u;
-  b[0][0] = int8_pair<0>(u0, u1);
-  b[1][0] = int8_pair<1>(u0, u1);
-  b[2][0] = int8_pair<2>(u0, u1);
-  b[3][0] = int8_pair<3>(u0, u1);
-  b[0][1] = int8_pair<0>(u8, u9);
-  b[1][1] = int8_pair<1>(u8, u9);
-  b[2][1] = int8_pair<2>(u8, u9);
-  b[3][1] = int8_pair<3>(u8, u9);
-}
-
-// A 16-entry bf16 table for the nibbles: lo[q] holds the low bytes of
-// entries 4 q .. 4 q + 3, hi[q] their high bytes
-struct NibTable {
-  uint32_t lo[4], hi[4];
-};
-
-template <WFmt F>
-__device__ __forceinline__ NibTable nib_table() {
-  NibTable tb;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    tb.lo[q] = tb.hi[q] = 0u;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * q + e;
-      const uint32_t v = __bfloat16_as_ushort(
-          F == WFmt::kInt4 ? __float2bfloat16(static_cast<float>((i ^ 8) - 8))
-                           : __float2bfloat16(wfmt::kNF4[i]));
-      tb.lo[q] |= (v & 0xffu) << (8 * e);
-      tb.hi[q] |= (v >> 8) << (8 * e);
-    }
-  }
-  return tb;
-}
-
-// The 4 nibbles in the low 16 bits of s (two packed bytes: tiles j, j + 1,
-// each low nibble then high) as two bf16 pairs p0 (tile j) and p1: table
-// entries 0-7 and 8-15 by byte permutes, the half chosen by m (byte n 0xff
-// where nibble n is 8 or more)
-__device__ __forceinline__ void nib_pairs(uint32_t s, uint32_t m,
-                                          const NibTable& tb, uint32_t& p0,
-                                          uint32_t& p1) {
-  const uint32_t s7 = s & 0x7777u;
-  const uint32_t l = (prmt(tb.lo[0], tb.lo[1], s7) & ~m) |
-                     (prmt(tb.lo[2], tb.lo[3], s7) & m);
-  const uint32_t h = (prmt(tb.hi[0], tb.hi[1], s7) & ~m) |
-                     (prmt(tb.hi[2], tb.hi[3], s7) & m);
-  p0 = prmt(l, h, 0x5140);
-  p1 = prmt(l, h, 0x7362);
-}
-
-// The same over packed codes t [k / 2][S4 bytes] (byte row i: rows 2i and
-// 2i + 1 of a column), rows at or past kv zero.
-__device__ __forceinline__ void frag_b4(uint32_t (&b)[4][2], const uint8_t* t,
-                                        const NibTable& tb, int c0, int ks,
-                                        int kv, int lane) {
-  const int l = lane & 3;
-  const uint8_t* p = t + (ks * 8 + l) * S4 + c0 + 4 * (lane >> 2);
-  const int k = ks * 16 + 2 * l;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {  // byte rows ks * 8 + l and + 4
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(p + 4 * h * S4);
-    const uint32_t w4 = w << 4;  // each low nibble's bit 3 at its byte's top
-    nib_pairs(w, prmt(w4, w, 0xD9C8), tb, b[0][h], b[1][h]);
-    nib_pairs(w >> 16, prmt(w4, w, 0xFBEA), tb, b[2][h], b[3][h]);
-    const uint32_t keep = (k + 8 * h < kv ? 0x0000ffffu : 0u) |
-                          (k + 8 * h + 1 < kv ? 0xffff0000u : 0u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) b[j][h] &= keep;
-  }
-}
-
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-template <typename E> __device__ __forceinline__ E zero() { return E(0); }
-template <> __device__ __forceinline__ bf16 zero<bf16>() {
-  return __ushort_as_bfloat16(static_cast<unsigned short>(0));
-}
-
-// Rows [0, rows) x columns [0, cols) of the block of src at (r0, c0) (row
-// stride ld, rows below nr and columns below nc in range) into dst (row
-// stride ds), zero elsewhere: by 16-byte copies (V elements each) when vec,
-// else element by element.
-template <int V, typename E>
-__device__ __forceinline__ void stage_block(E* dst, int ds, const E* src,
-                                            size_t ld, int r0, int c0,
-                                            int rows, int cols, int nr,
-                                            int nc, bool vec) {
-  if (vec) {
-    const int chunks = cols / V;
-    for (int i = threadIdx.x; i < rows * chunks; i += THREADS) {
-      const int rr = i / chunks, cc = (i - rr * chunks) * V;
-      const bool ok = r0 + rr < nr && c0 + cc < nc;
-      mma::cp_async16(dst + rr * ds + cc,
-                      ok ? src + (size_t)(r0 + rr) * ld + c0 + cc : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < rows * cols; i += THREADS) {
-      const int rr = i / cols, cc = i - rr * cols;
-      const bool ok = r0 + rr < nr && c0 + cc < nc;
-      dst[rr * ds + cc] =
-          ok ? src[(size_t)(r0 + rr) * ld + c0 + cc] : zero<E>();
-    }
-  }
-}
 
 // x [M, K] bf16; Q: W0's entries (bf16 [K, N], int8 codes [K, N] or packed
 // bytes [ceil(K/2), N]) w_stride elements apart; S f32 [E, N] (nullptr for
@@ -327,19 +140,19 @@ __global__ void __launch_bounds__(THREADS, 2)
 
   auto load = [&](int stage, int k0) {
     uint8_t* st = smem + stage * L::kStage;
-    stage_block<8>(reinterpret_cast<bf16*>(st), XS, x, (size_t)K, m0, k0,
-                   rows, BK, m_end, K, vx);
-    stage_block<8>(reinterpret_cast<bf16*>(st + L::kX), AS, A, (size_t)r,
-                   k0, 0, BK, (r + 7) / 8 * 8, K, r, va);
+    stage_block<8, THREADS>(reinterpret_cast<bf16*>(st), XS, x, (size_t)K,
+                            m0, k0, rows, BK, m_end, K, vx);
+    stage_block<8, THREADS>(reinterpret_cast<bf16*>(st + L::kX), AS, A,
+                            (size_t)r, k0, 0, BK, (r + 7) / 8 * 8, K, r, va);
     if constexpr (F == WFmt::kDense)
-      stage_block<8>(reinterpret_cast<bf16*>(st + L::kX + L::kA), WS, Q,
-                     (size_t)N, k0, n0, BK, BN, K, N, vw);
+      stage_block<8, THREADS>(reinterpret_cast<bf16*>(st + L::kX + L::kA),
+                              WS, Q, (size_t)N, k0, n0, BK, BN, K, N, vw);
     else if constexpr (F == WFmt::kInt8)
-      stage_block<16>(reinterpret_cast<int8_t*>(st + L::kX + L::kA), S8, Q,
-                      (size_t)N, k0, n0, BK, BN, K, N, vw);
+      stage_block<16, THREADS>(reinterpret_cast<int8_t*>(st + L::kX + L::kA),
+                               S8, Q, (size_t)N, k0, n0, BK, BN, K, N, vw);
     else
-      stage_block<16>(st + L::kX + L::kA, S4, Q, (size_t)N, k0 / 2, n0,
-                      BK / 2, BN, (K + 1) / 2, N, vw);
+      stage_block<16, THREADS>(st + L::kX + L::kA, S4, Q, (size_t)N, k0 / 2,
+                               n0, BK / 2, BN, (K + 1) / 2, N, vw);
   };
 
   // acc: the warp's 32 columns of every row (tile j, lane group g: column
@@ -382,9 +195,9 @@ __global__ void __launch_bounds__(THREADS, 2)
       if constexpr (F == WFmt::kDense)
         frag_b16(bw, reinterpret_cast<const bf16*>(ws), WS, cw0, ks, lane);
       else if constexpr (F == WFmt::kInt8)
-        frag_b8(bw, ws, cw0, ks, lane);
+        frag_b8<S8>(bw, ws, cw0, ks, lane);
       else
-        frag_b4(bw, ws, tb, cw0, ks, K - kt * BK, lane);
+        frag_b4<S4>(bw, ws, tb, cw0, ks, K - kt * BK, lane);
 #pragma unroll
       for (int i = 0; i < MF; ++i)
 #pragma unroll
@@ -433,8 +246,8 @@ __global__ void __launch_bounds__(THREADS, 2)
       }
     }
   }
-  stage_block<8>(bs, WS, B, (size_t)N, 0, n0, 16 * hk, BN, r, N,
-                 flags & kVecB);
+  stage_block<8, THREADS>(bs, WS, B, (size_t)N, 0, n0, 16 * hk, BN, r, N,
+                          flags & kVecB);
   mma::cp_async_commit();
   mma::cp_async_wait<0>();
   __syncthreads();

@@ -10,22 +10,43 @@
 //
 // What bounds them. At M = 256 a 4-bit product does 1,024 FLOPs per W0
 // byte, above the H100's bf16 ridge of ~295: the least time is that of the
-// FLOPs. These first kernels run on CUDA cores, whose rate limits them.
+// FLOPs, a few microseconds a launch at the path's shapes.
 //
-// Design: the tiled product of lora_gemm.cuh with W0 in format kInt4 or kNF4
-// (one kernel body, the format a template parameter). A BK = 32 slab of W0
-// is 16 byte rows: the forward's loader gives each thread 4 contiguous bytes
-// of one byte row and writes 8 weights (two k rows) to shared memory; dx
-// reads the packed bytes in place and untransposed, 4 contiguous bytes along
-// n of one byte row per thread, each byte giving two output columns. The
-// nf4 codebook sits in shared memory, rounded to T once per block. Odd K:
-// the pad nibble is masked to zero and meets a masked x column; dx never
-// writes rows at k >= K, which it takes from A. No dense float W0 reaches
-// device memory.
+// Design. The bf16 forward is lora_dense_tc.cuh's tensor-core body with W0
+// in format kInt4 or kNF4: the packed bytes are staged raw, and each byte
+// (rows 2j, 2j + 1 of a column: one fragment register) becomes a bf16 pair
+// through a 16-entry table in registers read with byte permutes; the K
+// range is split across a cluster. dx, and the f32 forward, are the tiled
+// product of lora_gemm.cuh on CUDA cores (one kernel body, the format a
+// template parameter): a BK = 32 slab of W0 is 16 byte rows; the forward's
+// loader gives each thread 4 contiguous bytes of one byte row and writes 8
+// weights (two k rows) to shared memory; dx reads the packed bytes in place
+// and untransposed, 4 contiguous bytes along n of one byte row per thread,
+// each byte giving two output columns. The nf4 codebook is rounded to T
+// (in registers or shared memory) once per block. Odd K: the pad nibble is
+// masked to zero and meets a masked x column; dx never writes rows at
+// k >= K, which it takes from A. No dense float W0 reaches device memory.
 
+#include "lora_dense_tc.cuh"
 #include "lora_gemm.cuh"
 
-using lora_gemm::WFmt;
+using wfmt::WFmt;
+
+namespace {
+
+template <WFmt F>
+int fused_q4(int dtype, const void* x, const void* q4, const void* s,
+             const void* a, const void* b, void* y, int M, int K, int N,
+             int r, float scale, void* stream) {
+  if (dtype == DTYPE_BF16)
+    return dense_tc::launch<F>(x, q4, s, a, b, y, M, K, N, r, scale, stream);
+  if (dtype == DTYPE_F32)
+    return lora_gemm::launch_as<false, F, float>(x, q4, s, a, b, y, M, K, N,
+                                                 r, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
 
 // method: 0 int4, 1 nf4. Each returns cudaGetLastError() after the launch.
 extern "C" int lora_fused_q4(int dtype, int method, const void* x,
@@ -33,11 +54,11 @@ extern "C" int lora_fused_q4(int dtype, int method, const void* x,
                              const void* b, void* y, int M, int K, int N,
                              int r, float scale, void* stream) {
   if (method == 0)
-    return lora_gemm::launch_q<false, WFmt::kInt4>(dtype, x, q4, s, a, b, y,
-                                                   M, K, N, r, scale, stream);
+    return fused_q4<WFmt::kInt4>(dtype, x, q4, s, a, b, y, M, K, N, r, scale,
+                                 stream);
   if (method == 1)
-    return lora_gemm::launch_q<false, WFmt::kNF4>(dtype, x, q4, s, a, b, y,
-                                                  M, K, N, r, scale, stream);
+    return fused_q4<WFmt::kNF4>(dtype, x, q4, s, a, b, y, M, K, N, r, scale,
+                                stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -46,10 +67,19 @@ extern "C" int lora_dx_q4(int dtype, int method, const void* g,
                           const void* dh, void* dx, int M, int K, int N, int r,
                           void* stream) {
   if (method == 0)
-    return lora_gemm::launch_q<true, WFmt::kInt4>(dtype, g, q4, s, dh, a, dx,
-                                                  M, N, K, r, 1.f, stream);
+    return lora_gemm::launch<true, WFmt::kInt4>(dtype, g, q4, s, dh, a, dx, M,
+                                                N, K, r, 1.f, stream);
   if (method == 1)
-    return lora_gemm::launch_q<true, WFmt::kNF4>(dtype, g, q4, s, dh, a, dx,
-                                                 M, N, K, r, 1.f, stream);
+    return lora_gemm::launch<true, WFmt::kNF4>(dtype, g, q4, s, dh, a, dx, M, N,
+                                               K, r, 1.f, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 forward's launch plan at M x K -> N (lora_fused_fwd_plan's);
+// method 0 int4, 1 nf4.
+extern "C" int lora_fused_q4_plan(int method, int M, int K, int N,
+                                  int* split, int* smem) {
+  if (method == 0) return dense_tc::plan<WFmt::kInt4>(M, K, N, split, smem);
+  if (method == 1) return dense_tc::plan<WFmt::kNF4>(M, K, N, split, smem);
   return static_cast<int>(cudaErrorInvalidValue);
 }

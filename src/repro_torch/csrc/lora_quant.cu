@@ -6,7 +6,8 @@
 // arithmetic (W0 = q * s per output channel, q int8 [K, N], s f32 [N]):
 //
 //   y  = round(acc * s + s_lora * (round(x @ A) @ B)),  acc = x @ q
-//   dx = round(round(g * round(s)) @ q^T + dh @ A^T),   dh = round((s_lora g) @ B^T)
+//   dx = round(round(g * round(s)) @ q^T + dh @ A^T),
+//        dh = round((s_lora g) @ B^T)
 //
 //   x [M, K], A [K, r], B [r, N] (r <= 32), g [M, N] in T (f32 or bf16);
 //   f32 sums; "round" is to T where the TPU kernels round; dh is the thin
@@ -15,33 +16,48 @@
 // What bounds them. At the paper's batch 1 x seq 256 (M = 256) an int8
 // product does 2 M = 512 FLOPs per one-byte W0 element, above the H100's
 // bf16 tensor-core ridge of ~295 FLOP/byte: the least time is that of the
-// FLOPs. These first kernels run on CUDA cores (f32 FMAs), whose rate limits
-// them.
+// FLOPs, a few microseconds a launch, so how much of the card a launch
+// fills sets its time.
 //
-// Design: the tiled product of lora_gemm.cuh with W0 in format kInt8. The
-// slab loader reads int8 bytes (a quarter of f32's, half of bf16's) and
-// turns each into a weight in shared memory; the scale is applied once per
-// output in the forward's epilogue and folded onto g as dx stages it. dx
-// reads q in place, [K, N] with contiguous n: the TPU wrapper wrote a
-// transposed int8 copy of q to device memory on every call; this writes
-// none. No dense float W0 reaches device memory.
+// Design. The bf16 forward is lora_dense_tc.cuh's tensor-core body with W0
+// in format kInt8: the codes are staged raw and turned into bf16 fragment
+// registers by a bit trick (exact), the K range is split across a cluster,
+// and the scale multiplies the f32 sum once per output in the epilogue. dx,
+// and the f32 forward, are the tiled product of lora_gemm.cuh on CUDA cores:
+// its slab loader reads int8 bytes and turns each into a weight in shared
+// memory; dx folds the scale onto g as it stages it. dx reads q in place,
+// [K, N] with contiguous n: the TPU wrapper wrote a transposed int8 copy of
+// q to device memory on every call; this writes none. No dense float W0
+// reaches device memory.
 
+#include "lora_dense_tc.cuh"
 #include "lora_gemm.cuh"
 
-using lora_gemm::WFmt;
+using wfmt::WFmt;
 
 // Each returns cudaGetLastError() after the launch (0 when it was accepted).
 extern "C" int lora_fused_q(int dtype, const void* x, const void* q,
                             const void* s, const void* a, const void* b,
                             void* y, int M, int K, int N, int r, float scale,
                             void* stream) {
-  return lora_gemm::launch_q<false, WFmt::kInt8>(dtype, x, q, s, a, b, y, M,
-                                                 K, N, r, scale, stream);
+  if (dtype == DTYPE_BF16)
+    return dense_tc::launch<WFmt::kInt8>(x, q, s, a, b, y, M, K, N, r, scale,
+                                         stream);
+  if (dtype == DTYPE_F32)
+    return lora_gemm::launch_as<false, WFmt::kInt8, float>(
+        x, q, s, a, b, y, M, K, N, r, scale, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" int lora_dx_q(int dtype, const void* g, const void* q,
                          const void* s, const void* a, const void* dh,
                          void* dx, int M, int K, int N, int r, void* stream) {
-  return lora_gemm::launch_q<true, WFmt::kInt8>(dtype, g, q, s, dh, a, dx, M,
-                                                N, K, r, 1.f, stream);
+  return lora_gemm::launch<true, WFmt::kInt8>(dtype, g, q, s, dh, a, dx, M, N,
+                                              K, r, 1.f, stream);
+}
+
+// The bf16 forward's launch plan at M x K -> N (lora_fused_fwd_plan's).
+extern "C" int lora_fused_q_plan(int M, int K, int N, int* split,
+                                 int* smem) {
+  return dense_tc::plan<WFmt::kInt8>(M, K, N, split, smem);
 }

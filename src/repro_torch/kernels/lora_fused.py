@@ -122,6 +122,29 @@ def lora_fused(x, w0, a, b, scale: float = 2.0):
     return y
 
 
+#: each base format's bf16 forward: (library, plan entry, leading args)
+_PLANS = {"none": ("lora_fused_fwd", "lora_fused_fwd_plan", ()),
+          "int8": ("lora_quant", "lora_fused_q_plan", ()),
+          "int4": ("lora_pack4", "lora_fused_q4_plan", (0,)),
+          "nf4": ("lora_pack4", "lora_fused_q4_plan", (1,))}
+
+
+def forward_plan(M: int, K: int, N: int, method: str = "none") -> dict:
+    """The bf16 forward's launch plan on the card at M x K -> N over a W0
+    in ``method``'s format (``none``: bf16): ``split``, the blocks of each
+    output tile's cluster, which share K; ``smem_bytes``, the dynamic
+    shared memory the CUDA runtime holds for the instance M selects (what
+    that instance's last launch set)."""
+    import ctypes
+    lib, name, lead = _PLANS[method]
+    out = ctypes.POINTER(ctypes.c_int)
+    fn = _build.function(lib, name, [_I] * (len(lead) + 3) + [out, out])
+    split, smem = ctypes.c_int(-1), ctypes.c_int(-1)
+    _build.check(lib, fn(*lead, M, K, N, ctypes.byref(split),
+                         ctypes.byref(smem)), name)
+    return {"split": split.value, "smem_bytes": smem.value}
+
+
 def lora_dx(g, w0, a, b, scale: float = 2.0):
     """g [M,N], w0 [K,N], a [K,r], b [r,N] -> dx [M,K] in g's dtype."""
     if not g.is_cuda:

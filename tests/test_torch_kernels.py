@@ -289,12 +289,25 @@ def _assert_close_scaled(got, want, tol):
                                atol=tol["atol"] * scale)
 
 
+# the dense forward's card cases beyond the seq-48 path: the paper path's
+# M 256 at qwen2.5-0.5b's four shapes and OLMoE's 2048 x 2048; M 1, 16, 63,
+# 64 and 65 (one to four m16 fragments, a row tile plus one row); K 4864
+# into N 128, which takes the deepest K split (8 blocks a cluster)
+TC_CASES = [
+    (256, 896, 896, 8), (256, 896, 128, 8), (256, 896, 4864, 8),
+    (256, 4864, 896, 8), (256, 2048, 2048, 8), (1, 896, 896, 8),
+    (16, 896, 4864, 8), (63, 97, 131, 16), (64, 896, 896, 8),
+    (65, 4864, 128, 32), (256, 4864, 128, 8),
+]
+DEEPEST_SPLIT = (256, 4864, 128)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,K,N,r", FUSED_CASES + [
     (192, 896, 896, 8), (192, 896, 128, 8), (192, 896, 4864, 8),
     (192, 4864, 896, 8), (130, 300, 70, 32), (64, 64, 64, 1),
-])
+] + TC_CASES)
 def test_lora_training_kernels_match_plain_on_card(M, K, N, r, dtype):
     """lora_fused_fwd, lora_dx and lora_dab against their plain versions.
     f32: summation order only. bf16: one output rounding (2^-8 relative),
@@ -323,6 +336,25 @@ def test_lora_training_kernels_match_plain_on_card(M, K, N, r, dtype):
     # deterministic: the partials are reduced in a fixed order
     da2, db2 = tlf.lora_dab(x, g, a, b, 2.0)
     assert torch.equal(da, da2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r", [(192, 896, 896, 8), (37, 72, 40, 4)]
+                         + TC_CASES)
+def test_lora_fused_bf16_is_bitwise_on_repeat(M, K, N, r):
+    """The bf16 forward on tensor cores adds its K split's partials in a
+    fixed order (no atomics): the same bits on every call. The split is
+    1 to 8 blocks, 8 at K 4864 into N 128."""
+    _need_card()
+    x, w0, a, b, _ = [t.to(torch.bfloat16).cuda() for t in _t(
+        *_fused_inputs(16, M, K, N, r))]
+    y = tlf.lora_fused(x, w0, a, b, 2.0)
+    for _ in range(3):
+        assert torch.equal(tlf.lora_fused(x, w0, a, b, 2.0), y)
+    plan = tlf.forward_plan(M, K, N)
+    assert 1 <= plan["split"] <= 8 and plan["smem_bytes"] > 0
+    if (M, K, N) == DEEPEST_SPLIT:
+        assert plan["split"] == 8
 
 
 @pytest.mark.cuda

@@ -40,6 +40,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import mesp
 from repro_torch.core import quant as tq
 from repro_torch.data import pipeline as tpipe
+from repro_torch.kernels import lora_fused as tlf
 from repro_torch.kernels import lora_pack4 as tlp4
 from repro_torch.kernels import lora_quant as tlq
 from repro_torch.kernels import ops as tops
@@ -578,6 +579,17 @@ def _card_pair(method):
             functools.partial(tlp4.lora_dx_q4_ref, **kw), "q4")
 
 
+# the bf16 forward's card cases beyond the path: OLMoE's 2048 x 2048 at M
+# 256; M 1, 16, 63 (odd K: the pad nibble), 64 and 65 (one to four m16
+# fragments, a row tile plus one row); K 4864 into N 128, the deepest K
+# split (8 blocks a cluster)
+TC_CASES = [
+    (256, 2048, 2048, 8), (1, 896, 896, 8), (16, 896, 4864, 8),
+    (63, 97, 131, 16), (64, 896, 896, 8), (65, 4863, 128, 32),
+    (256, 4864, 128, 8),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("method", METHODS)
@@ -585,7 +597,7 @@ def _card_pair(method):
     (192, 160, 200, 8), (50, 97, 131, 8), (256, 896, 896, 8),
     (256, 896, 128, 8), (256, 896, 4864, 8), (256, 4864, 896, 8),
     (37, 33, 129, 16), (64, 64, 64, 1), (130, 301, 70, 32),
-])
+] + TC_CASES)
 def test_quantized_kernels_match_plain_on_card(M, K, N, r, method, dtype):
     """Each quantized kernel against its plain version on the same inputs.
     f32: summation order only. bf16: one output rounding (2^-8 relative),
@@ -613,6 +625,29 @@ def test_quantized_kernels_match_plain_on_card(M, K, N, r, method, dtype):
         dict(rtol=2.0 ** -6, atol=1e-2)
     _assert_close_scaled(y, fwd_ref(x, q, s, a, b, 2.0), tol)
     _assert_close_scaled(dx, dx_ref(g, q, s, a, b, 2.0), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("M,K,N,r", [(256, 896, 896, 8), (50, 97, 131, 8)]
+                         + TC_CASES)
+def test_quantized_forward_bf16_is_bitwise_on_repeat(M, K, N, r, method):
+    """The bf16 quantized forward on tensor cores adds its K split's
+    partials in a fixed order (no atomics): the same bits on every call.
+    The split is 1 to 8 blocks, 8 at K 4864 into N 128."""
+    _need_card()
+    x, w, a, b, _ = (torch.from_numpy(t) for t in _op_inputs(
+        17, M, K, N, r, method))
+    leaf = {k: v.cuda() for k, v in tq.quantize_leaf(w, method).items()}
+    x, a, b = (t.to(torch.bfloat16).cuda() for t in (x, a, b * 3))
+    fwd, _, _, _, key = _card_pair(method)
+    y = fwd(x, leaf[key], leaf["scale"], a, b, 2.0)
+    for _ in range(3):
+        assert torch.equal(fwd(x, leaf[key], leaf["scale"], a, b, 2.0), y)
+    plan = tlf.forward_plan(M, K, N, method)
+    assert 1 <= plan["split"] <= 8 and plan["smem_bytes"] > 0
+    if (M, K, N) == (256, 4864, 128):
+        assert plan["split"] == 8
 
 
 @pytest.mark.cuda
