@@ -91,8 +91,8 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    K and N, ranks 3 and 16, an empty group, a bad gid, a group split in
    two), and times them beside their plain versions, the bound and
    ``torch.bmm`` / ``torch.matmul`` of the expert product as context; and
-   the bf16 forward's registers and spills (ptxas) and dynamic shared
-   memory (as the CUDA runtime holds it) beside its figures; and
+   the bf16 forward's and dx's registers and spills (ptxas) and dynamic
+   shared memory (as the CUDA runtime holds it) beside their figures; and
    the dense kernels on that path at its shapes, in f32 and bf16: the LoRA
    forward, dx and dA/dB at 256 rows x 2048 x 2048 (q, k, v, o), RMSNorm
    forward and backward over [256, 2048], flash attention at B*H 16, G 1,
@@ -117,8 +117,8 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    and nf4 expert stacks at the MoE path's shapes and at ``MOE_EDGES`` (but
    the split group, which only dA/dB sees), and times them beside their
    plain versions, the bound and ``torch.bmm`` / ``torch.matmul`` over the
-   dequantized stack as context (the bf16 forward's ptxas figures and
-   dynamic shared memory per format beside them). Then trains full-width
+   dequantized stack as context (the bf16 forward's and dx's ptxas figures
+   and dynamic shared memory per format beside them). Then trains full-width
    OLMoE-1B-7B through ``repro_torch.launch.train --arch olmoe-1b-7b
    --quantize nf4`` (3 steps) and ``--quantize int8`` (2 steps), counts
    zeroed just before and read just after each run (``moe_quant_per_step``:
@@ -1638,14 +1638,17 @@ def check_grouped_train(torch, lg):
     return figures, edges
 
 
-def grouped_tc_figures(build, formats, bm=MOE_BM):
-    """The bf16 grouped forward's build and launch figures for each W0
-    format of ``formats``: registers and spills of each instance (``MF``
-    m16 row fragments), parsed from this run's ``nvcc -Xptxas -v`` log,
-    and the dynamic shared memory (bytes) that the CUDA runtime holds for
-    the instance of tiles of ``bm`` rows after its last launch."""
+def grouped_tc_figures(build, formats, bm=MOE_BM, body="fwd"):
+    """The bf16 grouped forward's (``body`` "fwd") or dx's ("dx") build and
+    launch figures for each W0 format of ``formats``: registers and spills
+    of each instance (``MF`` m16 row fragments), parsed from this run's
+    ``nvcc -Xptxas -v`` log, and the dynamic shared memory (bytes) that the
+    CUDA runtime holds for the instance of tiles of ``bm`` rows after its
+    last launch (``lora_grouped_gemm_smem``, ``lora_grouped.dx_plan``)."""
     import ctypes
+    import torch
     from repro_torch.kernels import _build
+    from repro_torch.kernels import lora_grouped as lg
     fn = _build.function("lora_grouped_train", "lora_grouped_gemm_smem",
                          [_build.C_INT, _build.C_INT,
                           ctypes.POINTER(ctypes.c_int)])
@@ -1653,12 +1656,21 @@ def grouped_tc_figures(build, formats, bm=MOE_BM):
     for fmt in formats:
         ptx[fmt] = {}
         for kern, figs in build["lora_grouped_train"]["ptxas"].items():
-            m = re.search(r"grouped_fwd_tcILi(\d)ELN4wfmt4WFmtE(\d)E", kern)
+            m = re.search(rf"grouped_{body}_tcILi(\d)ELN4wfmt4WFmtE(\d)E",
+                          kern)
             if m and int(m.group(2)) == TC_FORMATS[fmt]:
                 ptx[fmt][f"MF{m.group(1)}"] = figs
         if not ptx[fmt]:
             raise AssertionError(f"no ptxas figures for the bf16 grouped "
-                                 f"forward over {fmt} in the build log")
+                                 f"{body} over {fmt} in the build log")
+        if body == "dx":
+            plan = lg.dx_plan(torch.bfloat16,
+                              "none" if fmt == "dense" else fmt, bm=bm)
+            if not plan["tensor_cores"]:
+                raise AssertionError(f"the bf16 grouped dx over {fmt} does "
+                                     f"not run on tensor cores: {plan}")
+            smem[fmt] = plan["smem_bytes"]
+            continue
         n = ctypes.c_int(-1)
         _build.check("lora_grouped_train",
                      fn(TC_FORMATS[fmt], bm, ctypes.byref(n)),
@@ -2356,8 +2368,10 @@ def main() -> int:
                           for s_ in shapes) or None,
             tol_f32=dict(rtol=1e-5, atol=1e-5), edges=moe_edges)
         e["max_abs_err"] = e["max_err"] = max(e["max_abs_err"], err)
-        if name == "lora_grouped_gemm":
-            e.update(grouped_tc_figures(build, ("dense",)))
+        if name in ("lora_grouped_gemm", "lora_grouped_dx"):
+            e.update(grouped_tc_figures(
+                build, ("dense",), body="fwd" if name.endswith("gemm")
+                else "dx"))
         return e
 
     def moe_q_entry(name, line, fn, method):
@@ -2385,9 +2399,9 @@ def main() -> int:
         e["max_abs_err"] = e["max_err"] = max(
             [e["max_abs_err"]] + [v["max_abs_err"] for v in edges.values()]
             + ([extra["int4_max_abs_err"]] if extra else []))
-        if name.startswith("lora_grouped_gemm"):
-            e.update(grouped_tc_figures(
-                build, ("int8",) if method == "int8" else ("int4", "nf4")))
+        e.update(grouped_tc_figures(
+            build, ("int8",) if method == "int8" else ("int4", "nf4"),
+            body="fwd" if name.startswith("lora_grouped_gemm") else "dx"))
         return e
 
     head = rope_fig["olmoe"]

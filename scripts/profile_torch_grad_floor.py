@@ -26,13 +26,17 @@ LoRA forward's result (``lora_fused``, ``lora_fused_q``, ``lora_fused_q4``):
 stacks (``lora_grouped_gemm``, ``_gemm_q``, ``_gemm_q4``): ``k_tail`` as
 above; ``swap_expert``, expert 0's tiles computed with expert 1's W0, A and
 B, as a misread group id would give; ``code_off``, expert 0's W0 one code
-off as above.
+off as above. The same three in the bf16 grouped input gradient
+(``lora_grouped_dx``, ``_dx_q``, ``_dx_q4``): ``dx_k_tail``, g @ W0^T
+without the last 16 of the contraction N (the kernel itself on g zero but
+its last 16 columns, B zero, taken off); ``dx_swap_expert``;
+``dx_code_off``.
 
 It uses the ``chip_smoke`` and ``repro_torch`` found on the path, so one
 call can read two checkouts in turns:
 
     PYTHONPATH=src:. python scripts/profile_torch_grad_floor.py \\
-        [--model dense|moe|both] [--label L]
+        [--model dense|moe|both] [--faults none,dx_k_tail,...] [--label L]
 
 Prints one JSON line per model, base and fault, as each is read, then one
 with the limits and the card.
@@ -59,13 +63,16 @@ from repro_torch.models import moe as moe_lib
 
 DENSE_ARCH = "qwen2.5-0.5b"
 TAIL = 16
-# the bf16 forwards each model's faults go into: (module, wrapper, position
-# of B among the arguments after x; scale is passed last, positionally)
+# the bf16 wrappers faults go into: (module, wrapper, position of B among
+# the arguments after the activations, x or g; gid follows B, scale is
+# passed last, positionally)
 WRAPPERS = {
     "dense": ((lf, "lora_fused", 2), (lq, "lora_fused_q", 3),
               (lp4, "lora_fused_q4", 3)),
     "moe": ((lg, "lora_grouped_gemm", 2), (lg, "lora_grouped_gemm_q", 3),
             (lg, "lora_grouped_gemm_q4", 3)),
+    "moe_dx": ((lg, "lora_grouped_dx", 2), (lg, "lora_grouped_dx_q", 3),
+               (lg, "lora_grouped_dx_q4", 3)),
 }
 
 
@@ -76,7 +83,8 @@ def _replace(args, i, v):
 def k_tail(fn, x, args, kw, b_at, state):
     """The result less round(x[:, -TAIL:] @ W0[-TAIL:]) (times the scale),
     which the kernel itself gives for x zero but its last TAIL columns and
-    B zero."""
+    B zero. In dx, x is g and the contraction N: the result less
+    round(g[:, -TAIL:] @ W0[:, -TAIL:]^T), dh being zero with B."""
     xt = torch.zeros_like(x)
     xt[:, -TAIL:] = x[:, -TAIL:]
     tail = fn(xt, *_replace(args, b_at, torch.zeros_like(args[b_at])), **kw)
@@ -137,15 +145,22 @@ def h_unrounded(fn, x, args, kw, b_at, state):
     return (y.float() + (y_u.float() - y_r.float())).to(x.dtype)
 
 
-FAULTS = {"dense": {"k_tail": k_tail, "code_off": code_off,
-                    "h_unrounded": h_unrounded},
-          "moe": {"k_tail": k_tail, "swap_expert": swap_expert,
-                  "code_off": code_off}}
+# each model's faults: (fault, the WRAPPERS it goes into)
+FAULTS = {"dense": {"k_tail": (k_tail, "dense"),
+                    "code_off": (code_off, "dense"),
+                    "h_unrounded": (h_unrounded, "dense")},
+          "moe": {"k_tail": (k_tail, "moe"),
+                  "swap_expert": (swap_expert, "moe"),
+                  "code_off": (code_off, "moe"),
+                  "dx_k_tail": (k_tail, "moe_dx"),
+                  "dx_swap_expert": (swap_expert, "moe_dx"),
+                  "dx_code_off": (code_off, "moe_dx")}}
 
 
 def planted(model, fault):
-    """Patch every bf16 forward wrapper of ``model``'s faults with
-    ``fault``; returns the function that restores them."""
+    """Patch every bf16 wrapper that ``model``'s fault ``fault`` goes into;
+    returns the function that restores them."""
+    fault, target = FAULTS[model][fault]
     state, saved = {}, []
 
     def wrap(fn, b_at):
@@ -155,7 +170,7 @@ def planted(model, fault):
                 return fn(x, *args, **kw)
             return fault(fn, x, args, kw, b_at, state)
         return faulty
-    for mod, name, b_at in WRAPPERS[model]:
+    for mod, name, b_at in WRAPPERS[target]:
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
         setattr(mod, name, wrap(fn, b_at))
@@ -175,8 +190,7 @@ def dense_reading(cfg, batch, quantize, fault):
     is from the check's second bound, kernels vs f32 over twice plain bf16
     vs f32 + 1e-3 (a pass needs 1 or less)."""
     params = _params(cfg, quantize)
-    restore = planted("dense", FAULTS["dense"][fault]) if fault \
-        else (lambda: None)
+    restore = planted("dense", fault) if fault else (lambda: None)
     try:
         d = cs._distances(torch, *cs._grad_runs(torch, cfg, params, batch,
                                                 quantize))
@@ -201,8 +215,7 @@ def dense_reading(cfg, batch, quantize, fault):
 def moe_reading(cfg, batch, quantize, fault):
     """The full-depth MoE check's pinned cosines (``grads_moe``)."""
     params = _params(cfg, quantize)
-    restore = planted("moe", FAULTS["moe"][fault]) if fault \
-        else (lambda: None)
+    restore = planted("moe", fault) if fault else (lambda: None)
     try:
         d = cs.grads_moe(torch, moe_lib, cfg, params, batch,
                          quantize=quantize)
@@ -224,10 +237,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model", choices=("dense", "moe", "both"),
                     default="both")
+    ap.add_argument("--faults", default="",
+                    help="comma-separated faults to read (none: sound); "
+                         "default every fault of the model")
     ap.add_argument("--label", default="", help="a name for this checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_grad_floor: no CUDA card is visible")
+    only = set(args.faults.split(",")) if args.faults else None
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all()
@@ -240,6 +257,8 @@ def main() -> int:
         read = dense_reading if model == "dense" else moe_reading
         for base in ("none", "nf4"):
             for fault in [None, *FAULTS[model]]:
+                if only is not None and (fault or "none") not in only:
+                    continue
                 print(json.dumps({"label": args.label, "model": model,
                                   "layers": cfg.n_layers, "base": base,
                                   "fault": fault or "none",

@@ -1,6 +1,7 @@
-"""Per-launch device time of the port's bf16 LoRA forward kernels on the
-card: the grouped forward over expert stacks (``lora_grouped_gemm``,
-``_gemm_q`` over int8, ``_gemm_q4`` over int4 and nf4) at the OLMoE-1B-7B
+"""Per-launch device time of the port's bf16 LoRA kernels on the card: the
+grouped forward and input gradient over expert stacks
+(``lora_grouped_gemm`` / ``lora_grouped_dx``, ``_gemm_q`` / ``_dx_q`` over
+int8, ``_gemm_q4`` / ``_dx_q4`` over int4 and nf4) at the OLMoE-1B-7B
 training path's shapes, and the dense forward over one W0
 (``lora_fused``, ``lora_fused_q``, ``lora_fused_q4``) at the training
 paths' shapes.
@@ -24,6 +25,16 @@ that round otherwise than the plain version's and the mean |error| of each
 against an f64 product over the same inputs (h rounded to bf16 as both
 round it); and the SHA-256 of each format's output at each shape on the
 first input set, so two checkouts' bits can be compared.
+
+The grouped dx (same family, same shapes and inputs): ms per launch of the
+wrapper (its PyTorch dh = round((s g) @ B^T) and the kernel; ``dh_ms`` the
+dh alone, ``kernel_ms`` the kernel alone on the same dh), its plain
+version and the per-expert ``torch.matmul`` of g @ W0^T (over the
+dequantized stack for codes) as context, beside the bound; for every format the share of outputs that round otherwise than the
+plain version and the mean |error| of each against an f64 product of the
+same bf16 operands (g, or round(g * round(S)) over codes; the codes as
+weights; dh as the wrapper rounds it), and the SHA-256 of the output; and
+the SHA-256 of the f32 dx (the CUDA-core body) on one f32 input set.
 
 Dense (``--family dense``): the paper path's M 256 and the seq-48 path's
 M 192 at qwen2.5-0.5b's four shapes, and OLMoE-1B-7B's q, k, v, o at M 256
@@ -74,6 +85,102 @@ def _call(method):
         x, q, s, a, b, gid, 2.0, bm=C, method=method)
 
 
+def _dx_call(method):
+    """(bf16 dx of ``method``, its plain version, g @ W0^T per expert) on
+    the inputs of ``chip_smoke._moe_cases`` / ``_moe_q_cases``."""
+    def per_expert(t, w):      # [M, ·] rows as [E, M / E, ·]
+        return t.view(w.shape[0], -1, t.shape[1])
+    if method == "dense":
+        return (lambda x, w, a, b, g, gid: lg.lora_grouped_dx(
+                    g, w, a, b, gid, 2.0, bm=C),
+                lambda x, w, a, b, g, gid: lg.lora_grouped_dx_ref(
+                    g, w, a, b, gid, 2.0, bm=C),
+                lambda x, w, a, b, g, gid: torch.matmul(per_expert(g, w),
+                                                        w.mT))
+    if method == "int8":
+        dx, ref = lg.lora_grouped_dx_q, lg.lora_grouped_dx_q_ref
+    else:
+        dx, ref = (functools.partial(f, method=method) for f in (
+            lg.lora_grouped_dx_q4, lg.lora_grouped_dx_q4_ref))
+    return (lambda x, q, s, a, b, g, gid, w: dx(g, q, s, a, b, gid, 2.0,
+                                                bm=C),
+            lambda x, q, s, a, b, g, gid, w: ref(g, q, s, a, b, gid, 2.0,
+                                                 bm=C),
+            lambda x, q, s, a, b, g, gid, w: torch.matmul(per_expert(g, w),
+                                                          w.mT))
+
+
+def _dx_kernel_call(method):
+    """The dx kernel alone (its C entry, no counter) on a ``_dx_call`` input
+    set with the wrapper's dh appended."""
+    if method == "dense":
+        def call(x, w, a, b, g, gid, dh):
+            M, (E_, K, N), r = g.shape[0], w.shape, a.shape[2]
+            return lg._launch_train(
+                "lora_grouped_dx", lg._GDX_ARGS, (lg._DTYPES[g.dtype],), g,
+                (g, w, a, dh, gid), (M, K), (M, K, N, E_, r, C))
+        return call
+    entry, argtypes, lead = (
+        ("lora_grouped_dx_q", lg._GDXQ_ARGS, ()) if method == "int8" else
+        ("lora_grouped_dx_q4", lg._GDXQ4_ARGS,
+         (lp4.METHOD_CODES[method],)))
+
+    def call(x, q, s, a, b, g, gid, w, dh):
+        M, (E_, K, r), N = g.shape[0], a.shape, g.shape[1]
+        return lg._launch_train(
+            entry, argtypes, (lg._DTYPES[g.dtype], *lead), g,
+            (g, q, s, a, dh, gid), (M, K), (M, K, N, E_, r, C))
+    return call
+
+
+def _dh_call(method):
+    """The dx wrapper's own PyTorch part, dh = round((s g) @ B^T)."""
+    if method == "dense":
+        return lambda x, w, a, b, g, gid: lg._grouped_dh(g, b, gid, 2.0,
+                                                         bm=C)
+    return lambda x, q, s, a, b, g, gid, w: lg._grouped_dh(g, b, gid, 2.0,
+                                                           bm=C)
+
+
+def dx_rounding(method, args):
+    """The bf16 dx and its plain version against f64 on one input set
+    (every expert one tile): share of outputs that differ, and each one's
+    mean |error|, and the SHA-256 of the kernel's output."""
+    kern, plain, _ = _dx_call(method)
+    y, ref = kern(*args), plain(*args)
+    if method == "dense":
+        _, w, a, b, g, gid = args
+        p, wt = g, w
+    else:
+        _, q, s, a, b, g, gid, _ = args
+        p = (g.view(E, C, -1) * s.to(g.dtype)).view(g.shape)
+        wt = q.double() if method == "int8" else lp4.unpack_weights(
+            q, method, g.dtype, a.shape[1])
+    dh = lg._grouped_dh(g, b, gid, 2.0, bm=C).view(E, C, -1)
+    exact = (p.view(E, C, -1).double() @ wt.double().mT
+             + dh.double() @ a.double().mT).view(y.shape)
+    torch.cuda.synchronize()
+    return {"differ_share": float((y != ref).double().mean()),
+            "kernel_mean_abs_err": float((y.double() - exact).abs().mean()),
+            "plain_mean_abs_err": float((ref.double() - exact).abs().mean()),
+            "sha256": hashlib.sha256(
+                y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()}
+
+
+def dx_f32_sha256(method, gen, K, N):
+    """The SHA-256 of the f32 dx (the CUDA-core body) of ``method`` on one
+    f32 input set at K x N."""
+    if method == "dense":
+        args = cs._moe_cases(torch, gen, torch.float32, E * C, K, N, E, R,
+                             list(range(E)))()
+    else:
+        args = cs._moe_q_cases(torch, quant, gen, torch.float32, method,
+                               E * C, K, N, E, R, list(range(E)))()
+    y = _dx_call(method)[0](*args)
+    torch.cuda.synchronize()
+    return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+
+
 def rounding(x, w, a, b, gid):
     """The bf16 forward and its plain version against f64 on one input
     set: share of outputs that differ, and each one's mean |error|."""
@@ -88,12 +195,12 @@ def rounding(x, w, a, b, gid):
 
 
 def grouped():
-    """The grouped forward's per-launch times, bf16 rounding and output
-    hashes at the MoE path's shapes."""
+    """The grouped forward's and dx's per-launch times, bf16 rounding and
+    output hashes at the MoE path's shapes."""
     gen = torch.Generator(device="cuda").manual_seed(20)
     gid = list(range(E))
     M = E * C
-    out, rnd, bits = {}, {}, {}
+    out, rnd, bits, dx_out, dx_rnd = {}, {}, {}, {}, {}
     for method in ("dense", "int8", "int4", "nf4"):
         for shape, (K, N) in SHAPES.items():
             if method == "dense":
@@ -118,9 +225,26 @@ def grouped():
                 y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
             if method == "dense":
                 rnd[shape] = rounding(*sets[0][:4], sets[0][5])
-            del sets
+            # dx reads g [M, N] and writes dx [M, K]: the forward's bytes
+            kern, plain, mm = _dx_call(method)
+            g_at, b_at = (4, 3) if method == "dense" else (5, 4)
+            with_dh = [st + (lg._grouped_dh(st[g_at], st[b_at], st[g_at + 1],
+                                            2.0, bm=C),) for st in sets]
+            dx_out[f"{method}/{shape}"] = {
+                "ms": cs._time_ms(kern, sets, CALLS),
+                "kernel_ms": cs._time_ms(_dx_kernel_call(method), with_dh,
+                                         CALLS),
+                "dh_ms": cs._time_ms(_dh_call(method), sets, CALLS),
+                "plain_ms": cs._time_ms(plain, sets, CALLS // 8),
+                "matmul_ms": cs._time_ms(mm, sets, CALLS),
+                "bound_ms": bound, "bound_by": by}
+            dx_rnd[f"{method}/{shape}"] = dx_rounding(method, sets[0])
+            del sets, with_dh
+            dx_rnd[f"{method}/{shape}"]["f32_sha256"] = dx_f32_sha256(
+                method, gen, K, N)
     return {"grouped_fwd_ms_per_launch": out, "bf16_rounding_vs_plain": rnd,
-            "grouped_fwd_sha256": bits}
+            "grouped_fwd_sha256": bits, "grouped_dx_ms_per_launch": dx_out,
+            "grouped_dx_rounding_and_sha256": dx_rnd}
 
 
 def _dense_calls(method):

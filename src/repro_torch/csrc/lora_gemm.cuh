@@ -2,10 +2,11 @@
 // LoRA input gradient (lora_dx.cu), by their variants over a quantized
 // W0 (lora_quant.cu: int8; lora_pack4.cu: packed int4 / nf4), and by their
 // grouped forms over per-expert stacks (lora_grouped_train.cu), written by
-// hand for Hopper. Its callers today: every dx kernel, dense and grouped,
-// in every format and activation type, and every f32 forward, dense and
-// grouped. The bf16 forwards run on tensor cores instead: dense over one W0
-// in lora_dense_tc.cuh, grouped over expert stacks in lora_grouped_tc.cuh.
+// hand for Hopper. Its callers today: the dense dx in every format and
+// activation type, the f32 grouped dx, and every f32 forward, dense and
+// grouped. The bf16 forwards and the bf16 grouped dx run on tensor cores
+// instead: dense over one W0 in lora_dense_tc.cuh, grouped over expert
+// stacks in lora_grouped_tc.cuh and lora_grouped_dx_tc.cuh.
 //
 //   y[m, n] = sum_k P[m, k] Q[k, n]  +  s * sum_j L[m, j] R[j, n]
 //

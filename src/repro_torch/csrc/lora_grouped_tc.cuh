@@ -1,8 +1,8 @@
 // The bf16 grouped LoRA forward over per-expert stacks on Hopper's tensor
 // cores: the body of lora_grouped_gemm, lora_grouped_gemm_q and
 // lora_grouped_gemm_q4 (lora_grouped_train.cu) when the activations are
-// bf16. The f32 instances and the dx kernels keep lora_gemm.cuh's
-// CUDA-core body.
+// bf16. The f32 instances keep lora_gemm.cuh's CUDA-core body; the bf16
+// dx has its own tensor-core body (lora_grouped_dx_tc.cuh).
 //
 // Replaces, in bf16, the TPU kernels of src/repro/kernels/lora_grouped.py
 // with a W0 per group (Ew = E): lora_grouped (_grouped_fwd_kernel,

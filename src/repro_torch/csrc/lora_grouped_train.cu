@@ -34,9 +34,9 @@
 // ~295, so the least time is that of reading the 268 MB expert stack once
 // (~80 us). dA/dB read x and g once (~8 r FLOPs an element): bytes too.
 // Over codes the stack to read shrinks (nf4 gate/up: 67 MB, ~26 us from
-// bytes with x, y and the factors). The bf16 forward runs on tensor cores;
-// dx, dA/dB and every f32 instance run on CUDA cores, whose FMA rate limits
-// them.
+// bytes with x, y and the factors). The bf16 forward and dx run on tensor
+// cores; dA/dB and every f32 instance run on CUDA cores, whose FMA rate
+// limits the f32 products.
 //
 // Design:
 // * The bf16 forward of every format (kDense, kInt8, kInt4, kNF4) is
@@ -46,16 +46,25 @@
 //   K loop and round(h) @ B as one more mma in the epilogue (its header has
 //   the details). Every bf16 shape goes through it; ragged edges are masked
 //   in the kernel.
-// * dx, and the f32 forward, are lora_gemm.cuh's tiled product (the plain
-//   LoRA forward and dx, with the same roundings), one block per 64 x 64
-//   output tile. blockIdx.y runs over (row tile t, 64-row part of t): the
-//   block reads gid[t] once, offsets W0 by gid * K * N, A and B by the
-//   group's entry, and ends its rows at the tile's end. At bm <= 64 a whole
-//   tile fits one block, so each expert's W0 is read once per column block
-//   and launch. dx reads W0 in place, [K, N] as stored: no transposed copy.
-//   The format WFmt is a template parameter: kDense, and kInt8 / kInt4 /
-//   kNF4 for the quantized stacks. Their codes are offset by the group's
-//   entry in bytes (K * N for int8, ceil(K/2) * N packed), S by N. The
+// * The bf16 dx of every format is lora_grouped_dx_tc.cuh's body, the
+//   forward's shape turned round: 8 warps by 256 output columns of K, MF
+//   m16 fragments, a cp.async ring over the contraction N with W0 read in
+//   place as stored (no transposed copy); W0^T's fragments pair along a W0
+//   row (ldmatrix without .trans, 16-bit loads of adjacent codes, packed
+//   tiles on a byte's two rows); over codes g's slab is scaled by round(S)
+//   in shared memory once a slab; dh @ A^T is one more mma per fragment in
+//   the epilogue (its header has the details).
+// * The f32 dx and f32 forward are lora_gemm.cuh's tiled product (the
+//   plain LoRA forward and dx, with the same roundings), one block per
+//   64 x 64 output tile. blockIdx.y runs over (row tile t, 64-row part of
+//   t): the block reads gid[t] once, offsets W0 by gid * K * N, A and B by
+//   the group's entry, and ends its rows at the tile's end. At bm <= 64 a
+//   whole tile fits one block, so each expert's W0 is read once per column
+//   block and launch. dx reads W0 in place, [K, N] as stored: no
+//   transposed copy. The format WFmt is a template parameter: kDense, and
+//   kInt8 / kInt4 / kNF4 for the quantized stacks. Their codes are offset
+//   by the group's entry in bytes (K * N for int8, ceil(K/2) * N packed),
+//   S by N. The
 //   codes become weights in T in shared memory (nf4's codebook rounded to
 //   T once per block); the scale multiplies the f32 accumulator once per
 //   output in the forward and is folded onto g as dx stages it, as in
@@ -71,7 +80,7 @@
 //   gets NaN, so a broken schedule cannot pass for a result.
 // * A gid outside [0, E) writes NaN to its tile's rows (forward, dx) or
 //   adds its tile to no group (dA/dB), rather than reading out of bounds.
-// Not yet: tensor cores for dx, wgmma and TMA, a K split.
+// Not yet: wgmma and TMA, a K split.
 
 #include <climits>
 #include <cstdint>
@@ -79,6 +88,7 @@
 
 #include "lora_dab.cuh"
 #include "lora_gemm.cuh"
+#include "lora_grouped_dx_tc.cuh"
 #include "lora_grouped_tc.cuh"
 
 namespace {
@@ -128,11 +138,14 @@ int launch_gemm(const void* P, const void* Q, const float* S,
                 void* y, int M, int Kc, int Nout, int E, size_t w_stride,
                 size_t s_stride, int r, int bm, float scale,
                 cudaStream_t s) {
-  if constexpr (!DX && std::is_same<T, __nv_bfloat16>::value) {
-    // the bf16 forward: tensor cores (lora_grouped_tc.cuh); S's entries
-    // lie N = s_stride apart
-    return grouped_tc::launch<F>(P, Q, S, lo_in, lo_out, gid, y, M, Kc, Nout,
-                                 E, w_stride, r, bm, scale, s);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    // bf16: tensor cores; S's entries lie N = s_stride apart
+    if constexpr (DX)  // lora_grouped_dx_tc.cuh: lo_in = dh, lo_out = A
+      return grouped_dx_tc::launch<F>(P, Q, S, lo_out, lo_in, gid, y, M,
+                                      Nout, Kc, E, w_stride, r, bm, s);
+    else  // lora_grouped_tc.cuh
+      return grouped_tc::launch<F>(P, Q, S, lo_in, lo_out, gid, y, M, Kc,
+                                   Nout, E, w_stride, r, bm, scale, s);
   } else {
     using W = typename WStore<T, F>::type;
     const int parts = (bm + BM - 1) / BM;
@@ -372,6 +385,33 @@ extern "C" int lora_grouped_gemm_smem(int fmt, int bm, int* bytes) {
     case int(WFmt::kNF4):
       return grouped_tc::smem_of<WFmt::kNF4>(bm, bytes);
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Which body the dx of format fmt (a WFmt value) runs in activation type
+// dtype for tiles of bm rows: *mf its m16 row fragments on tensor cores
+// (bf16: lora_grouped_dx_tc.cuh) or 0 (f32: gemm_body on CUDA cores), and
+// *bytes the dynamic shared memory the CUDA runtime allows that instance
+// (what its last launch set; 0 for gemm_body, whose tiles are static).
+extern "C" int lora_grouped_dx_plan(int dtype, int fmt, int bm, int* mf,
+                                    int* bytes) {
+  *mf = *bytes = -1;
+  if (bm < 1 || fmt < 0 || fmt > int(WFmt::kNF4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == DTYPE_F32) {
+    *mf = *bytes = 0;
+    return 0;
+  }
+  if (dtype != DTYPE_BF16) return static_cast<int>(cudaErrorInvalidValue);
+  switch (fmt) {
+    case int(WFmt::kDense):
+      return grouped_dx_tc::plan_of<WFmt::kDense>(bm, mf, bytes);
+    case int(WFmt::kInt8):
+      return grouped_dx_tc::plan_of<WFmt::kInt8>(bm, mf, bytes);
+    case int(WFmt::kInt4):
+      return grouped_dx_tc::plan_of<WFmt::kInt4>(bm, mf, bytes);
+    default:
+      return grouped_dx_tc::plan_of<WFmt::kNF4>(bm, mf, bytes);
   }
 }
 

@@ -1,6 +1,8 @@
 // The tensor-core pieces shared by the bf16 LoRA forward kernels: the
 // grouped forward over expert stacks (lora_grouped_tc.cuh) and the dense
-// forward over one W0 (lora_dense_tc.cuh). Both compute, per output tile,
+// forward over one W0 (lora_dense_tc.cuh); the grouped dx
+// (lora_grouped_dx_tc.cuh) takes the A-fragment loader, the code
+// conversions and the slab copies. The forwards compute, per output tile,
 //
 //   acc = x @ w(W0)   and   h = x @ A
 //
@@ -154,7 +156,11 @@ __device__ __forceinline__ NibTable nib_table() {
 // The 4 nibbles in the low 16 bits of s (two packed bytes: tiles j, j + 1,
 // each low nibble then high) as two bf16 pairs p0 (tile j) and p1: table
 // entries 0-7 and 8-15 by byte permutes, the half chosen by m (byte n 0xff
-// where nibble n is 8 or more)
+// where nibble n is 8 or more). The pairs are the nibbles (0, 1) and (2, 3),
+// the forward's; with S0 = 0x6240, S1 = 0x7351 they are (0, 2) and (1, 3),
+// both bytes' low nibbles and both high ones (dx: tiles j, j + 1 on a byte's
+// two rows, lora_grouped_dx_tc.cuh).
+template <uint32_t S0 = 0x5140, uint32_t S1 = 0x7362>
 __device__ __forceinline__ void nib_pairs(uint32_t s, uint32_t m,
                                           const NibTable& tb, uint32_t& p0,
                                           uint32_t& p1) {
@@ -163,8 +169,8 @@ __device__ __forceinline__ void nib_pairs(uint32_t s, uint32_t m,
                      (prmt(tb.lo[2], tb.lo[3], s7) & m);
   const uint32_t h = (prmt(tb.hi[0], tb.hi[1], s7) & ~m) |
                      (prmt(tb.hi[2], tb.hi[3], s7) & m);
-  p0 = prmt(l, h, 0x5140);
-  p1 = prmt(l, h, 0x7362);
+  p0 = prmt(l, h, S0);
+  p1 = prmt(l, h, S1);
 }
 
 // The same over packed codes t [k / 2][S4 bytes] (byte row i: rows 2i and
@@ -201,8 +207,9 @@ template <> __device__ __forceinline__ bf16 zero<bf16>() {
 // Rows [0, rows) x columns [0, cols) of the block of src at (r0, c0) (row
 // stride ld, rows below nr and columns below nc in range) into dst (row
 // stride ds), zero elsewhere, by the block's NT threads: by 16-byte copies
-// (V elements each) when vec, else element by element.
-template <int V, int NT, typename E>
+// (V elements each) when vec, else element by element. L2: the copies ask
+// L2 for each row's whole 128-byte line (mma::cp_async16_l2).
+template <int V, int NT, typename E, bool L2 = false>
 __device__ __forceinline__ void stage_block(E* dst, int ds, const E* src,
                                             size_t ld, int r0, int c0,
                                             int rows, int cols, int nr,
@@ -212,8 +219,11 @@ __device__ __forceinline__ void stage_block(E* dst, int ds, const E* src,
     for (int i = threadIdx.x; i < rows * chunks; i += NT) {
       const int rr = i / chunks, cc = (i - rr * chunks) * V;
       const bool ok = r0 + rr < nr && c0 + cc < nc;
-      mma::cp_async16(dst + rr * ds + cc,
-                      ok ? src + (size_t)(r0 + rr) * ld + c0 + cc : src, ok);
+      const E* from = ok ? src + (size_t)(r0 + rr) * ld + c0 + cc : src;
+      if constexpr (L2)
+        mma::cp_async16_l2(dst + rr * ds + cc, from, ok);
+      else
+        mma::cp_async16(dst + rr * ds + cc, from, ok);
     }
   } else {
     for (int i = threadIdx.x; i < rows * cols; i += NT) {

@@ -3,7 +3,9 @@
 //
 // * cp_async16 / cp_async4: a 16- or 4-byte copy from device memory to
 //   shared memory that does not pass through registers (cp.async); a copy
-//   whose `ok` is false reads nothing and writes zeros. Copies are grouped
+//   whose `ok` is false reads nothing and writes zeros; cp_async16_l2 asks
+//   L2 to fetch the whole 128-byte line around the 16 bytes (for a slab
+//   that reads a row's line in parts, one part per slab). Copies are grouped
 //   by cp_async_commit, and cp_async_wait<N> waits until at most N of the
 //   thread's groups are still in flight (a __syncthreads after it makes
 //   every thread's copies visible to the block).
@@ -37,6 +39,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                    smem_addr(dst)),
                "l"(src), "r"(ok ? 16 : 0)
                : "memory");
+}
+
+__device__ __forceinline__ void cp_async16_l2(void* dst, const void* src,
+                                              bool ok) {
+  asm volatile(
+      "cp.async.cg.shared.global.L2::128B [%0], [%1], 16, %2;\n" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(ok ? 16 : 0)
+      : "memory");
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,

@@ -26,7 +26,8 @@ namespace wfmt {
 
 // chip_smoke.py's TC_FORMATS names the formats by these values: it finds
 // each format's ptxas figures by the value in the mangled kernel name and
-// passes it to lora_grouped_gemm_smem. Keep the order.
+// passes it to lora_grouped_gemm_smem; kernels/lora_grouped.py's
+// _DX_FORMATS passes it to lora_grouped_dx_plan. Keep the order.
 enum class WFmt { kDense, kInt8, kInt4, kNF4 };
 
 __host__ __device__ constexpr bool is_packed(WFmt f) {

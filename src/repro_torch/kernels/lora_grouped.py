@@ -614,6 +614,30 @@ def lora_grouped_dx_q4(g, q4, s, a, b, gid, scale: float = 2.0, *,
     return dx
 
 
+#: the dx's W0 formats by their ``wfmt::WFmt`` values (``csrc/wfmt.cuh``)
+_DX_FORMATS = {"none": 0, "int8": 1, "int4": 2, "nf4": 3}
+
+
+def dx_plan(dtype, method: str = "none", *, bm: int) -> dict:
+    """Which body the dx over ``method``'s stack (``none``: a float W0)
+    runs on the card in ``dtype`` for tiles of ``bm`` rows:
+    ``row_fragments``, its m16 row fragments on tensor cores (bf16), or 0
+    (f32, the CUDA-core body); ``smem_bytes``, the dynamic shared memory
+    the CUDA runtime holds for that instance (what its last launch set; 0
+    for the CUDA-core body)."""
+    import ctypes
+    out = ctypes.POINTER(ctypes.c_int)
+    fn = _build.function("lora_grouped_train", "lora_grouped_dx_plan",
+                         [_I, _I, _I, out, out])
+    mf, smem = ctypes.c_int(-1), ctypes.c_int(-1)
+    _build.check("lora_grouped_train",
+                 fn(_DTYPES[dtype], _DX_FORMATS[method], bm,
+                    ctypes.byref(mf), ctypes.byref(smem)),
+                 "lora_grouped_dx_plan")
+    return {"tensor_cores": mf.value > 0, "row_fragments": mf.value,
+            "smem_bytes": smem.value}
+
+
 lora_grouped.launches = 0
 lora_grouped_q.launches = 0
 lora_grouped_q4.launches = 0

@@ -720,6 +720,49 @@ def test_grouped_forward_bf16_is_bitwise_on_repeat(M, K, N, E, r, bm):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,E,r,bm", REPEAT_CASES)
+def test_grouped_dx_bf16_is_bitwise_on_repeat(M, K, N, E, r, bm):
+    """The bf16 dx runs its tensor-core body (the f32 dx its CUDA-core
+    one) and sums in a fixed order: two launches on the same inputs give
+    the same bits."""
+    _need_card()
+    _, w0, a, b, g = [t.to(torch.bfloat16).cuda() for t in _t(*_gid_inputs(
+        44, M, K, N, E, r))]
+    gid = torch.arange(E, dtype=torch.int32, device="cuda")
+    d1 = tlg.lora_grouped_dx(g, w0, a, b, gid, 2.0, bm=bm)
+    d2 = tlg.lora_grouped_dx(g, w0, a, b, gid, 2.0, bm=bm)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(d1).all())
+    assert torch.equal(d1, d2)
+    plan = tlg.dx_plan(torch.bfloat16, bm=bm)
+    assert plan["tensor_cores"] and plan["row_fragments"] == 3
+    assert plan["smem_bytes"] > 0
+    tlg.lora_grouped_dx(g.float(), w0.float(), a.float(), b.float(), gid,
+                        2.0, bm=bm)
+    torch.cuda.synchronize()
+    assert tlg.dx_plan(torch.float32, bm=bm) == {
+        "tensor_cores": False, "row_fragments": 0, "smem_bytes": 0}
+
+
+@pytest.mark.cuda
+def test_grouped_dx_bf16_marks_bad_gid_as_plain():
+    """A gid outside [0, E) gives NaN rows on the plain version's entries
+    in the bf16 dx too, at one and at two 64-row parts a tile."""
+    _need_card()
+    for M, bm in ((32, 8), (260, 65)):
+        _, w0, a, b, g = [t.to(torch.bfloat16).cuda() for t in _t(
+            *_gid_inputs(45, M, 24, 16, 3, 4))]
+        gid = torch.tensor([0, 7, 1, -1][:M // bm], dtype=torch.int32,
+                           device="cuda")
+        got = tlg.lora_grouped_dx(g, w0, a, b, gid, 2.0, bm=bm)
+        want = tlg.lora_grouped_dx_ref(g, w0, a, b, gid, 2.0, bm=bm)
+        torch.cuda.synchronize()
+        assert torch.equal(got.isnan(), want.isnan())
+        _close_scaled(got.nan_to_num(), want.nan_to_num(),
+                      dict(rtol=2.0 ** -6, atol=1e-2))
+
+
+@pytest.mark.cuda
 def test_grouped_train_kernels_mark_bad_gid_and_reject_bad_input():
     _need_card()
     x, w0, a, b, g = [t.cuda() for t in _t(*_gid_inputs(41, 32, 24, 16, 3,

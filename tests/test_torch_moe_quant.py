@@ -653,6 +653,34 @@ def test_quantized_grouped_forward_bf16_is_bitwise_on_repeat(M, K, N, E, r,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("M,K,N,E,r,bm", REPEAT_CASES)
+def test_quantized_grouped_dx_bf16_is_bitwise_on_repeat(M, K, N, E, r, bm,
+                                                        method):
+    """The bf16 dx over codes runs its tensor-core body (the f32 dx its
+    CUDA-core one) and sums in a fixed order: two launches on the same
+    inputs give the same bits."""
+    _need_card()
+    _, q, s, a, b, g = (torch.from_numpy(t).cuda() for t in _codes_inputs(
+        59, M, K, N, E, r, method))
+    a, b, g = (t.to(torch.bfloat16) for t in (a, b, g))
+    gid = torch.arange(E, dtype=torch.int32, device="cuda")
+    _, dx = _port_calls(method)
+    d1 = dx(g, q, s, a, b, gid, 2.0, bm=bm)
+    d2 = dx(g, q, s, a, b, gid, 2.0, bm=bm)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(d1).all())
+    assert torch.equal(d1, d2)
+    plan = tlg.dx_plan(torch.bfloat16, method, bm=bm)
+    assert plan["tensor_cores"] and plan["row_fragments"] == 3
+    assert plan["smem_bytes"] > 0
+    dx(g.float(), q, s, a.float(), b.float(), gid, 2.0, bm=bm)
+    torch.cuda.synchronize()
+    assert tlg.dx_plan(torch.float32, method, bm=bm) == {
+        "tensor_cores": False, "row_fragments": 0, "smem_bytes": 0}
+
+
+@pytest.mark.cuda
 def test_quantized_grouped_kernels_reject_bad_input():
     _need_card()
     x, q, s, a, b, g = (torch.from_numpy(t).cuda() for t in _codes_inputs(
