@@ -11,13 +11,14 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    operations: the serving kernels in bf16 at the qwen2.5-0.5b decode
    shapes (with ``F.rms_norm`` as a library yardstick), the training
    kernels (LoRA forward, dx, dA/dB, RMSNorm backward) in bf16 and f32 at
-   the training shapes, 192 rows (batch 4 x seq 48), the LoRA forward also
-   at the paper path's 256 rows (batch 1 x seq 256), with
+   the training shapes, 192 rows (batch 4 x seq 48), the LoRA forward and
+   dx also at the paper path's 256 rows (batch 1 x seq 256), with
    ``torch.matmul``'s time for the dominant x@W0 / g@W0^T product as
    context (no single PyTorch call computes those functions). The bf16
-   LoRA forwards (over bf16, int8, int4 and nf4, on tensor cores) carry
-   their K split per shape and dynamic shared memory (as the CUDA runtime
-   holds them) and their registers and spills (ptxas).
+   LoRA forwards and dx (over bf16, int8, int4 and nf4, on tensor cores)
+   carry their split of the contraction per shape and dynamic shared
+   memory (as the CUDA runtime holds them) and their registers and spills
+   (ptxas).
 3. Serves full-width qwen2.5-0.5b (24 layers, random weights from a seed)
    through ``repro_torch.launch.serve``: 8 slots in tiles of 2, 4 tenants,
    a store of 4, 8 requests of 8 prompt + 16 new tokens. The launch
@@ -1680,32 +1681,36 @@ def grouped_tc_figures(build, formats, bm=MOE_BM, body="fwd"):
             "smem_bm": bm}
 
 
-# the dense forward's libraries by base format (lora_fused.forward_plan's
-# names)
-DENSE_TC_LIBS = {"none": "lora_fused_fwd", "int8": "lora_quant",
-                 "int4": "lora_pack4", "nf4": "lora_pack4"}
+# the dense forward's and dx's libraries by base format (lora_fused's
+# forward_plan / dx_plan names)
+DENSE_TC_LIBS = {"fwd": {"none": "lora_fused_fwd", "int8": "lora_quant",
+                         "int4": "lora_pack4", "nf4": "lora_pack4"},
+                 "dx": {"none": "lora_dx", "int8": "lora_quant",
+                        "int4": "lora_pack4", "nf4": "lora_pack4"}}
 
 
-def dense_tc_figures(build, lf, methods, shapes):
-    """The bf16 dense forward's build and launch figures over each base
-    format of ``methods`` ("none": bf16): registers and spills of each
-    instance (``MF`` m16 row fragments), parsed from this run's ``nvcc
-    -Xptxas -v`` log, and at each (M, K, N) of ``shapes`` its K split (the
-    blocks of a tile's cluster) and the dynamic shared memory (bytes) the
-    CUDA runtime holds for the instance that M selects
-    (``lora_fused.forward_plan``)."""
+def dense_tc_figures(build, lf, methods, shapes, body="fwd"):
+    """The bf16 dense forward's (``body`` "fwd") or dx's ("dx") build and
+    launch figures over each base format of ``methods`` ("none": bf16):
+    registers and spills of each instance (``MF`` m16 row fragments),
+    parsed from this run's ``nvcc -Xptxas -v`` log, and at each (M, K, N)
+    of ``shapes`` its split of the contraction (the blocks of a tile's
+    cluster: K in the forward, N in dx) and the dynamic shared memory
+    (bytes) the CUDA runtime holds for the instance that M selects
+    (``lora_fused.forward_plan`` / ``dx_plan``)."""
     ptx, plan = {}, {}
+    planner = lf.forward_plan if body == "fwd" else lf.dx_plan
     for method in methods:
         fmt = TC_FORMATS["dense" if method == "none" else method]
         ptx[method] = {}
-        for kern, figs in build[DENSE_TC_LIBS[method]]["ptxas"].items():
-            m = re.search(r"dense_fwd_tcILi(\d)ELN4wfmt4WFmtE(\d)E", kern)
+        for kern, figs in build[DENSE_TC_LIBS[body][method]]["ptxas"].items():
+            m = re.search(rf"dense_{body}_tcILi(\d)ELN4wfmt4WFmtE(\d)E", kern)
             if m and int(m.group(2)) == fmt:
                 ptx[method][f"MF{m.group(1)}"] = figs
         if not ptx[method]:
             raise AssertionError(f"no ptxas figures for the bf16 dense "
-                                 f"forward over {method} in the build log")
-        plan[method] = {f"{M_}x{K}x{N}": lf.forward_plan(M_, K, N, method)
+                                 f"{body} over {method} in the build log")
+        plan[method] = {f"{M_}x{K}x{N}": planner(M_, K, N, method)
                         for M_, K, N in shapes}
     return {"ptxas_bf16": ptx, "plan_bf16": plan}
 
@@ -1950,10 +1955,12 @@ def main() -> int:
     grouped = check_grouped(torch, lg)
     rms = check_rmsnorm(torch, rn)
     training = check_training_kernels(torch, lf, rn)
-    # the LoRA forward at the paper path's 256 rows (the same launches a
-    # step as at seq 48)
-    paper_fwd = check_training_kernels(
+    # the LoRA forward and dx at the paper path's 256 rows (the same
+    # launches a step as at seq 48)
+    paper_lora = check_training_kernels(
         torch, lf, rn, QM, seed=12, kernels=("lora_fused_fwd",))
+    paper_lora.update(check_training_kernels(
+        torch, lf, rn, QM, seed=14, kernels=("lora_dx",)))
     rms_train = rmsnorm_train_shape(torch, rn)
     # the dense kernels at the MoE path's shapes: q, k, v, o (2048 x 2048)
     # at 256 rows, the norms over [256, 2048]
@@ -2325,10 +2332,10 @@ def main() -> int:
             + [f["max_abs_err"] for v in moe_shapes.values() for f in v]
             + ([extra["int4_max_abs_err"],
                 extra["ragged_int4"]["max_abs_err"]] if extra else []))
-        if name.startswith("lora_fused"):
-            e.update(dense_tc_figures(
-                build, lf, tuple(moe_shapes), [(QM, K, N) for K, N in LINEARS]
-                + [QUANT_RAGGED, (QM, MOE_D, MOE_D)]))
+        e.update(dense_tc_figures(
+            build, lf, tuple(moe_shapes), [(QM, K, N) for K, N in LINEARS]
+            + [QUANT_RAGGED, (QM, MOE_D, MOE_D)],
+            "fwd" if name.startswith("lora_fused") else "dx"))
         return e
 
     def grouped_q_entry(name, line, fn, method):
@@ -2420,15 +2427,12 @@ def main() -> int:
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "shapes": rope_fig}
 
-    def fused_entry():
-        """The dense LoRA forward's entry: the seq-48 path's shapes (M
-        192), with the paper path's (M 256) and OLMoE's beside them, and
-        the bf16 tensor-core body's figures."""
-        e = train_entry("lora_fused_fwd", "lora_fused_fwd.cu",
-                        "src/repro/kernels/lora_fused.py:87",
-                        "src/repro/kernels/lora_fused.py:lora_fused "
-                        "(_lora_fused_kernel :39)")
-        paper_shapes = paper_fwd["lora_fused_fwd"]
+    def paper_entry(name, cu, line, fn, body):
+        """The bf16 dense LoRA forward's or dx's entry: the seq-48 path's
+        shapes (M 192), with the paper path's (M 256) and OLMoE's beside
+        them, and the tensor-core body's figures."""
+        e = train_entry(name, cu, line, fn)
+        paper_shapes = paper_lora[name]
         e["paper_shapes"] = paper_shapes
         e["paper_step"] = f"batch {PAPER_BATCH} x seq {PAPER_SEQ}"
         for key in ("ms", "plain_ms", "matmul_ms"):
@@ -2437,8 +2441,8 @@ def main() -> int:
         e["max_abs_err"] = e["max_err"] = max(
             [e["max_abs_err"]] + [f["max_abs_err"] for f in paper_shapes])
         e.update(dense_tc_figures(build, lf, ("none",), [
-            (f["M"], f["K"], f["N"]) for f in training["lora_fused_fwd"]
-            + paper_shapes + moe_dense["lora_fused_fwd"]]))
+            (f["M"], f["K"], f["N"]) for f in training[name]
+            + paper_shapes + moe_dense[name]], body))
         return e
 
     kernels = [
@@ -2463,11 +2467,14 @@ def main() -> int:
             "src/repro/kernels/rmsnorm.py:rmsnorm (_rmsnorm_kernel :19)",
             rms, paths("rmsnorm_fwd"), steps, train_shape=rms_train),
             moe_dense["rmsnorm_fwd"]),
-        fused_entry(),
-        train_entry("lora_dx", "lora_dx.cu",
+        paper_entry("lora_fused_fwd", "lora_fused_fwd.cu",
+                    "src/repro/kernels/lora_fused.py:87",
+                    "src/repro/kernels/lora_fused.py:lora_fused "
+                    "(_lora_fused_kernel :39)", "fwd"),
+        paper_entry("lora_dx", "lora_dx.cu",
                     "src/repro/kernels/lora_fused.py:146",
                     "src/repro/kernels/lora_fused.py:lora_dx "
-                    "(_lora_dx_kernel :106)"),
+                    "(_lora_dx_kernel :106)", "dx"),
         train_entry("lora_dab", "lora_dab.cu",
                     "src/repro/kernels/lora_fused.py:225",
                     "src/repro/kernels/lora_fused.py:lora_dab "

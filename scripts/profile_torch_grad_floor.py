@@ -20,6 +20,14 @@ LoRA forward's result (``lora_fused``, ``lora_fused_q``, ``lora_fused_q4``):
   once: the result moved by round(acc + s h @ B) - round(acc + s round(h)
   @ B), both from the plain f32 sums.
 
+The same in the dense LoRA input gradient's result (``lora_dx``,
+``lora_dx_q``, ``lora_dx_q4``): ``dx_k_tail``, g @ W0^T without the last 16
+of the contraction N (the kernel itself on g zero but its last 16 columns,
+B zero, taken off); ``dx_code_off``, the first W0 the run meets one code
+off; ``dh_unrounded``, dh = round(s g) @ B^T kept in f32 where it is to be
+rounded to bf16 once: the result moved by round(acc + dh @ A^T) -
+round(acc + round(dh) @ A^T), from the plain f32 sums.
+
 ``--model moe``: full-width OLMoE-1B-7B (16 layers) and
 ``chip_smoke.grads_moe``' pinned distances, the per-leaf cosine that
 ``MOE_COS_FLOOR`` holds; faults in the bf16 grouped forward over expert
@@ -69,6 +77,8 @@ TAIL = 16
 WRAPPERS = {
     "dense": ((lf, "lora_fused", 2), (lq, "lora_fused_q", 3),
               (lp4, "lora_fused_q4", 3)),
+    "dense_dx": ((lf, "lora_dx", 2), (lq, "lora_dx_q", 3),
+                 (lp4, "lora_dx_q4", 3)),
     "moe": ((lg, "lora_grouped_gemm", 2), (lg, "lora_grouped_gemm_q", 3),
             (lg, "lora_grouped_gemm_q4", 3)),
     "moe_dx": ((lg, "lora_grouped_dx", 2), (lg, "lora_grouped_dx_q", 3),
@@ -145,10 +155,32 @@ def h_unrounded(fn, x, args, kw, b_at, state):
     return (y.float() + (y_u.float() - y_r.float())).to(x.dtype)
 
 
+def dh_unrounded(fn, g, args, kw, b_at, state):
+    """dx: the result moved by what keeping dh = round(s g) @ B^T in f32
+    would change, from the plain f32 sums: round(acc + dh @ A^T) -
+    round(acc + round(dh) @ A^T), acc = g @ W0^T (g scaled by round(S)
+    over codes)."""
+    w, a, b, scale = args[0], args[b_at - 1], args[b_at], args[b_at + 1]
+    if w.dtype == g.dtype:
+        acc = g.float() @ w.float().T
+    else:
+        wt = w.to(g.dtype) if w.dtype == torch.int8 else lp4.unpack_weights(
+            w, kw.get("method", "int4"), g.dtype, a.shape[0])
+        acc = (g * args[1].to(g.dtype)).float() @ wt.float().T
+    dh = (scale * g).float() @ b.float().T
+    y_r = (acc + dh.to(g.dtype).float() @ a.float().T).to(g.dtype)
+    y_u = (acc + dh @ a.float().T).to(g.dtype)
+    y = fn(g, *args, **kw)
+    return (y.float() + (y_u.float() - y_r.float())).to(g.dtype)
+
+
 # each model's faults: (fault, the WRAPPERS it goes into)
 FAULTS = {"dense": {"k_tail": (k_tail, "dense"),
                     "code_off": (code_off, "dense"),
-                    "h_unrounded": (h_unrounded, "dense")},
+                    "h_unrounded": (h_unrounded, "dense"),
+                    "dx_k_tail": (k_tail, "dense_dx"),
+                    "dx_code_off": (code_off, "dense_dx"),
+                    "dh_unrounded": (dh_unrounded, "dense_dx")},
           "moe": {"k_tail": (k_tail, "moe"),
                   "swap_expert": (swap_expert, "moe"),
                   "code_off": (code_off, "moe"),

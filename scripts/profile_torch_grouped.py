@@ -40,9 +40,17 @@ Dense (``--family dense``): the paper path's M 256 and the seq-48 path's
 M 192 at qwen2.5-0.5b's four shapes, and OLMoE-1B-7B's q, k, v, o at M 256
 (2048 x 2048), over bf16, int8, int4 and nf4, r 8, inputs from
 ``chip_smoke._train_cases`` / ``_quant_cases``, cold as above: ms per
-launch of the kernel, its plain version and ``torch.matmul`` of x @ W0
+launch of the forward, its plain version and ``torch.matmul`` of x @ W0
 (over the dequantized W0 for a quantized base) as context, beside the
-bound. The same JSON line carries them.
+bound. The dense dx at the same shapes and formats (g [M, N] -> dx [M,
+K]): ms per launch of the kernel alone (its C entry: on a tree whose bf16
+dx sums dh itself, that entry; on one whose wrapper computes dh first, the
+entry on that dh made beforehand), of the whole wrapper, of its plain
+version and of ``torch.matmul`` of g @ W0^T, beside the bound; and, at M
+256, the share of outputs that round otherwise than the plain version and
+the mean |error| of each against an f64 product of the same bf16 operands
+(g, or round(g * round(S)) over codes; dh as the plain version rounds it),
+and the SHA-256 of the kernel's output. The same JSON line carries them.
 """
 from __future__ import annotations
 
@@ -265,12 +273,109 @@ def _dense_calls(method):
             lambda x, q, s, a, b, g, w: torch.matmul(x, w))
 
 
+def _dense_dx_calls(method):
+    """(wrapper, plain version, matmul g @ W0^T) of the dense bf16 dx over
+    ``method``'s base, each a call on a ``_dense_calls`` input set."""
+    if method == "bf16":
+        return (lambda x, w, a, b, g: lf.lora_dx(g, w, a, b),
+                lambda x, w, a, b, g: lf.lora_dx_ref(g, w, a, b),
+                lambda x, w, a, b, g: torch.matmul(g, w.T))
+    if method == "int8":
+        dx, ref = lq.lora_dx_q, lq.lora_dx_q_ref
+    else:
+        dx, ref = (functools.partial(f, method=method) for f in (
+            lp4.lora_dx_q4, lp4.lora_dx_q4_ref))
+    return (lambda x, q, s, a, b, g, w: dx(g, q, s, a, b),
+            lambda x, q, s, a, b, g, w: ref(g, q, s, a, b),
+            lambda x, q, s, a, b, g, w: torch.matmul(g, w.T))
+
+
+#: does this tree's bf16 dense dx sum dh in its kernel (a C entry that
+#: takes B and the scale)?
+DX_SUMS_DH = hasattr(lf, "dx_plan")
+
+
+def _dense_dx_kernel(method):
+    """The dense bf16 dx kernel alone, its C entry with no counter, on a
+    ``_dense_calls`` input set; where the wrapper computes dh first, the
+    set carries that dh last (``_with_dh``)."""
+    from repro_torch.kernels import _build
+    P, I, F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
+    lib = {"bf16": "lora_dx", "int8": "lora_quant"}.get(method, "lora_pack4")
+    entry = {"bf16": "lora_dx", "int8": "lora_dx_q"}.get(method,
+                                                         "lora_dx_q4")
+    lead = () if method in ("bf16", "int8") else (lp4.METHOD_CODES[method],)
+    n_ptr = 5 if method == "bf16" else 6
+    if DX_SUMS_DH:
+        entry += "_tc"
+        fn = _build.function(lib, entry, [I] * len(lead) + [P] * n_ptr
+                             + [I] * 4 + [F, P])
+    else:
+        fn = _build.function(lib, entry, [I] * (1 + len(lead)) + [P] * n_ptr
+                             + [I] * 4 + [P])
+
+    def call(*args):
+        if method == "bf16":
+            _, w, a, b, g = args[:5]
+            ptrs = (g, w, a)
+        else:
+            _, q, s, a, b, g, _ = args[:7]
+            ptrs = (g, q, s, a)
+        (M, N), (K, r) = g.shape, a.shape
+        dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        if DX_SUMS_DH:
+            rc = fn(*lead, *(t.data_ptr() for t in ptrs), b.data_ptr(),
+                    dx.data_ptr(), M, K, N, r, 2.0, stream)
+        else:
+            rc = fn(1, *lead, *(t.data_ptr() for t in ptrs),
+                    args[-1].data_ptr(), dx.data_ptr(), M, K, N, r, stream)
+        _build.check(lib, rc, entry)
+        return dx
+    return call
+
+
+def _with_dh(sets, method):
+    """Each input set with the wrapper's dh = round((s g) @ B^T) appended
+    (for a tree whose bf16 dx kernel takes dh)."""
+    if DX_SUMS_DH:
+        return sets
+    g_at, b_at = (4, 3) if method == "bf16" else (5, 4)
+    return [st + (lf._dh(st[g_at], st[b_at], 2.0),) for st in sets]
+
+
+def dense_dx_rounding(method, args):
+    """The bf16 dense dx and its plain version against f64 on one input
+    set: share of outputs that differ, and each one's mean |error|."""
+    kern, plain, _ = _dense_dx_calls(method)
+    y, ref = kern(*args), plain(*args)
+    if method == "bf16":
+        _, w, a, b, g = args
+        p, wt = g, w
+    else:
+        _, q, s, a, b, g, _ = args
+        p = g * s.to(g.dtype)
+        wt = q if method == "int8" else lp4.unpack_weights(
+            q, method, g.dtype, a.shape[0])
+    dh = lf._dh(g, b, 2.0)
+    exact = p.double() @ wt.double().T + dh.double() @ a.double().T
+    torch.cuda.synchronize()
+    return {"differ_share": float((y != ref).double().mean()),
+            "kernel_mean_abs_err": float((y.double() - exact).abs().mean()),
+            "plain_mean_abs_err": float((ref.double() - exact).abs().mean()),
+            "sha256": hashlib.sha256(
+                y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()}
+
+
 def dense():
-    """The dense forward's per-launch times at the paths' shapes."""
+    """The dense forward's and dx's per-launch times at the paths'
+    shapes."""
     gen = torch.Generator(device="cuda").manual_seed(21)
-    out = {}
+    out, dx_out, dx_rnd = {}, {}, {}
     for method in ("bf16", "int8", "int4", "nf4"):
         kern, plain, mm = _dense_calls(method)
+        dx_wrap, dx_plain, dx_mm = _dense_dx_calls(method)
+        dx_kern = _dense_dx_kernel(method)
         for shape, (M, K, N) in DENSE_SHAPES.items():
             if method == "bf16":
                 make = cs._train_cases(torch, gen, torch.bfloat16, M, K, N)
@@ -289,8 +394,22 @@ def dense():
                 "plain_ms": cs._time_ms(plain, sets, CALLS),
                 "matmul_ms": cs._time_ms(mm, sets, CALLS),
                 "bound_ms": bound, "bound_by": by}
+            # dx reads g [M, N], W0, A, B and writes dx [M, K]: the same
+            # bytes and products as the forward
+            dx_out[f"{method}/{shape}"] = {
+                "kernel_ms": cs._time_ms(dx_kern, _with_dh(sets, method),
+                                         CALLS),
+                "ms": cs._time_ms(dx_wrap, sets, CALLS),
+                "plain_ms": cs._time_ms(dx_plain, sets, CALLS),
+                "matmul_ms": cs._time_ms(dx_mm, sets, CALLS),
+                "bound_ms": bound, "bound_by": by}
+            if M == 256:
+                dx_rnd[f"{method}/{shape}"] = dense_dx_rounding(method,
+                                                                sets[0])
             del sets
-    return {"dense_fwd_ms_per_launch": out}
+    return {"dense_fwd_ms_per_launch": out, "dense_dx_ms_per_launch": dx_out,
+            "dense_dx_rounding_vs_plain": dx_rnd,
+            "dense_dx_sums_dh": DX_SUMS_DH}
 
 
 def main() -> int:

@@ -91,12 +91,13 @@ def main(argv=None) -> int:
         "grouped_ms_per_step": {k[:100]: v / 1e3 / ns.steps
                                 for k, v in by_name.items()
                                 if "grouped" in k},
-        # the dense LoRA kernels: forward and dx on CUDA cores
+        # the dense LoRA kernels: f32 forward and dx on CUDA cores
         # (lora_gemm_kernel / lora_gemm_q_kernel<T, DX, ...>), the bf16
-        # forward on tensor cores (dense_fwd_tc)
+        # forward and dx on tensor cores (dense_fwd_tc, dense_dx_tc)
         "dense_lora_ms_per_step": {
             k[:100]: v / 1e3 / ns.steps for k, v in by_name.items()
-            if "lora_gemm" in k or "dense_fwd_tc" in k},
+            if "lora_gemm" in k or "dense_fwd_tc" in k
+            or "dense_dx_tc" in k},
         "device": torch.cuda.get_device_name(0)}}))
     return 0
 

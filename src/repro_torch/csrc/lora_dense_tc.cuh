@@ -1,7 +1,8 @@
 // The bf16 dense LoRA forward over one W0 on Hopper's tensor cores: the
 // body of lora_fused_fwd (lora_fused_fwd.cu), lora_fused_q (lora_quant.cu)
 // and lora_fused_q4 (lora_pack4.cu) when the activations are bf16. The f32
-// instances and every dx kernel keep lora_gemm.cuh's CUDA-core body.
+// instances keep lora_gemm.cuh's CUDA-core body; the bf16 dx is this body
+// turned round (lora_dense_dx_tc.cuh), which takes its shapes and split.
 //
 // Replaces, in bf16, the TPU kernels lora_fused (src/repro/kernels/
 // lora_fused.py, _lora_fused_kernel), lora_fused_q (lora_quant.py,

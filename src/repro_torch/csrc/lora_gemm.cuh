@@ -2,11 +2,11 @@
 // LoRA input gradient (lora_dx.cu), by their variants over a quantized
 // W0 (lora_quant.cu: int8; lora_pack4.cu: packed int4 / nf4), and by their
 // grouped forms over per-expert stacks (lora_grouped_train.cu), written by
-// hand for Hopper. Its callers today: the dense dx in every format and
-// activation type, the f32 grouped dx, and every f32 forward, dense and
-// grouped. The bf16 forwards and the bf16 grouped dx run on tensor cores
-// instead: dense over one W0 in lora_dense_tc.cuh, grouped over expert
-// stacks in lora_grouped_tc.cuh and lora_grouped_dx_tc.cuh.
+// hand for Hopper. Its callers today: every f32 instance, forward and dx,
+// dense and grouped, in every format. The bf16 forwards and dx run on
+// tensor cores instead: dense over one W0 in lora_dense_tc.cuh and
+// lora_dense_dx_tc.cuh, grouped over expert stacks in lora_grouped_tc.cuh
+// and lora_grouped_dx_tc.cuh.
 //
 //   y[m, n] = sum_k P[m, k] Q[k, n]  +  s * sum_j L[m, j] R[j, n]
 //
@@ -17,8 +17,8 @@
 //     L = h = x @ A summed in the same K loop as x @ W0 and rounded to T
 //     (A [K, r]; h never leaves the chip), R = B [r, N], s = the LoRA scale.
 //   dx (DX = true): P = g [M, N], Q = W0^T read in place from W0 [K, N]
-//     (no transposed copy), L = dh [M, r] given, R = A^T read from A [K, r],
-//     s = 1.
+//     (no transposed copy), L = dh [M, r] given (the f32 wrapper's thin
+//     product), R = A^T read from A [K, r], s = 1.
 //
 // W0's format F (WFmt, wfmt.cuh) is a template parameter. kDense: W0 in T.
 // The quantized formats hold a per-output-channel scale S [N] (f32) beside
@@ -49,8 +49,8 @@
 //   the loader zeroes it too.
 // * The low-rank term is added in the epilogue from shared memory: L's
 //   64 x r rows and R's r x 64 columns (r <= RMAX).
-// Not yet: tensor cores for dx (mma / wgmma), TMA, split-K for the narrow
-// outputs.
+// Not yet: TF32 tensor cores for f32 (they would change f32's bits), TMA,
+// split-K for the narrow outputs.
 #pragma once
 
 #include <cstdint>
@@ -362,21 +362,6 @@ int launch_as(const void* P, const void* Q, const void* S, const void* lo_in,
         static_cast<const T*>(lo_out), static_cast<T*>(y), M, Kc, Nout, r,
         scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Both activation types, by dtype code: dx in every format (the dense
-// forward's bf16 instances run lora_dense_tc.cuh's body instead).
-template <bool DX, WFmt F>
-int launch(int dtype, const void* P, const void* Q, const void* S,
-           const void* lo_in, const void* lo_out, void* y, int M, int Kc,
-           int Nout, int r, float scale, void* stream) {
-  if (dtype == DTYPE_BF16)
-    return launch_as<DX, F, __nv_bfloat16>(P, Q, S, lo_in, lo_out, y, M, Kc,
-                                           Nout, r, scale, stream);
-  if (dtype == DTYPE_F32)
-    return launch_as<DX, F, float>(P, Q, S, lo_in, lo_out, y, M, Kc, Nout, r,
-                                   scale, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace lora_gemm

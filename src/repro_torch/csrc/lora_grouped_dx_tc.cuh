@@ -48,10 +48,12 @@
 //   then run one after the other (not unrolled), which keeps the code
 //   conversions within 128 registers.
 // * Products: mma.sync m16n8k16 on g's fragments (ldmatrix) and W0^T's B
-//   fragments. In dx the mma's contraction runs along a W0 row, so a B
-//   register holds W0[k, n], W0[k, n + 1], neighbours in memory: bf16
-//   fragments come straight from ldmatrix without .trans, int8 ones from
-//   16-bit loads of adjacent codes widened as the forward widens them.
+//   fragments (lora_tc.cuh's frag_w, shared with the dense dx,
+//   lora_dense_dx_tc.cuh). In dx the mma's contraction runs along a W0
+//   row, so a B register holds W0[k, n], W0[k, n + 1], neighbours in
+//   memory: bf16 fragments come straight from ldmatrix without .trans,
+//   int8 ones from 16-bit loads of adjacent codes widened as the forward
+//   widens them.
 //   Packed codes: lane group g of n8 tiles 2p and 2p + 1 sits on rows 2i and
 //   2i + 1 of byte row i = 8 p + g (col_of), so a 16-bit load of bytes
 //   (i, n), (i, n + 1) gives tile 2p its low nibbles and tile 2p + 1 the
@@ -85,10 +87,6 @@ using grouped_tc::frags_of;
 
 constexpr int WARPS = 8, THREADS = 32 * WARPS;
 constexpr int BN = 32 * WARPS;  // output columns (of K) a block, 32 a warp
-// row stride (bytes) of the code slabs, 12 words: the 8 rows of a fragment
-// load (two words each) meet distinct banks. A bf16 slab's rows are
-// [BK + 8] like g's (XS): ldmatrix's 8 rows meet distinct banks.
-constexpr int SC = BK + 16;
 
 // The most m16 row fragments a block of format F holds: 4 (64 rows) over
 // bf16, as the forward; 3 (48 rows) over codes, whose conversions leave no
@@ -118,90 +116,6 @@ struct Layout {
   static_assert(MF * 16 * AS * 2 + BN * AS * 2 <= kBytes,
                 "epilogue tiles must fit in the ring");
 };
-
-// The output column, counted from the warp's first, that lane group g of
-// n8 tile j holds: natural for bf16 and int8; over packed codes tiles 2p
-// and 2p + 1 on rows 2i and 2i + 1 of byte row i = 8 p + g.
-template <WFmt F>
-__device__ __forceinline__ int col_of(int j, int g) {
-  if constexpr (wfmt::is_packed(F))
-    return 16 * (j >> 1) + 2 * g + (j & 1);
-  else
-    return 8 * j + g;
-}
-
-// B fragments of n8 tiles j0 and j0 + 1 at k step ks from t [output
-// column][contraction] (row stride ts), columns by col_of<F> from c0:
-// b[0], b[1] tile j0; b[2], b[3] tile j0 + 1. No .trans: a B register's
-// pair lies along a row.
-template <WFmt F>
-__device__ __forceinline__ void frag_rows(uint32_t (&b)[4], const bf16* t,
-                                          int ts, int c0, int j0, int ks,
-                                          int lane) {
-  const int mat = lane >> 3;
-  const int row = c0 + col_of<F>(j0 + (mat >> 1), lane & 7);
-  mma::ldsm_x4(b, t + row * ts + ks * 16 + (mat & 1) * 8);
-}
-
-// int8 codes t [output column][SC bytes], n8 tiles 2 jp and 2 jp + 1: per
-// tile two 16-bit loads of adjacent codes (contraction 2l, 2l + 1 and
-// 2l + 8, 2l + 9), widened through the f32 bit pattern as the forward does
-// (int8_pair)
-__device__ __forceinline__ void frag_pair8(uint32_t (&b)[2][2],
-                                           const uint8_t* t, int c0, int jp,
-                                           int ks, int lane) {
-  const uint8_t* p = t + (c0 + 16 * jp + (lane >> 2)) * SC + ks * 16 +
-                     2 * (lane & 3);
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const uint8_t* q = p + 8 * jj * SC;
-    const uint32_t u =
-        (*reinterpret_cast<const uint16_t*>(q) |
-         static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(q + 8))
-             << 16) ^
-        0x80808080u;
-    b[jj][0] = int8_pair<0>(u, u >> 8);
-    b[jj][1] = int8_pair<2>(u, u >> 8);
-  }
-}
-
-// packed codes t [output column / 2][SC bytes], n8 tiles 2 jp and 2 jp + 1:
-// byte row c0 / 2 + 8 jp + g, its low nibbles and its high ones (col_of)
-__device__ __forceinline__ void frag_pair4(uint32_t (&b)[2][2],
-                                           const uint8_t* t,
-                                           const NibTable& tb, int c0, int jp,
-                                           int ks, int lane) {
-  const uint8_t* q = t + (c0 / 2 + 8 * jp + (lane >> 2)) * SC + ks * 16 +
-                     2 * (lane & 3);
-  const uint32_t w =
-      *reinterpret_cast<const uint16_t*>(q) |
-      static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(q + 8)) << 16;
-  const uint32_t w4 = w << 4;  // each low nibble's bit 3 at its byte's top
-  nib_pairs<0x6240, 0x7351>(w, prmt(w4, w, 0xD9C8), tb, b[0][0], b[1][0]);
-  nib_pairs<0x6240, 0x7351>(w >> 16, prmt(w4, w, 0xFBEA), tb, b[0][1],
-                            b[1][1]);
-}
-
-// The B fragments of n8 tiles 2 jp and 2 jp + 1 at k step ks over the
-// warp's columns c0 .. of the W0 slab ws, in format F
-template <WFmt F>
-__device__ __forceinline__ void frag_w(uint32_t (&b)[2][2],
-                                       const uint8_t* ws, const NibTable& tb,
-                                       int c0, int jp, int ks, int lane) {
-  if constexpr (F == WFmt::kDense) {
-    uint32_t b4[4];
-    frag_rows<F>(b4, reinterpret_cast<const bf16*>(ws), XS, c0, 2 * jp, ks,
-                 lane);
-    b[0][0] = b4[0];
-    b[0][1] = b4[1];
-    b[1][0] = b4[2];
-    b[1][1] = b4[3];
-  } else if constexpr (F == WFmt::kInt8) {
-    frag_pair8(b, ws, c0, jp, ks, lane);
-  } else {
-    frag_pair4(b, ws, tb, c0, jp, ks, lane);
-  }
-}
 
 // g [M, N] bf16; Q: W0's entries (bf16 [K, N], int8 codes [K, N] or packed
 // bytes [ceil(K/2), N]) w_stride elements apart; S f32 [E, N] (nullptr for

@@ -10,8 +10,9 @@
 //        dh = round((s_lora g) @ B^T)
 //
 //   x [M, K], A [K, r], B [r, N] (r <= 32), g [M, N] in T (f32 or bf16);
-//   f32 sums; "round" is to T where the TPU kernels round; dh is the thin
-//   product the wrapper computes, as the TPU wrapper did.
+//   f32 sums; "round" is to T where the TPU kernels round; dh, the thin
+//   product the TPU wrapper computed outside its kernel, is summed in the
+//   bf16 dx kernel and computed by the wrapper for f32.
 //
 // What bounds them. At the paper's batch 1 x seq 256 (M = 256) an int8
 // product does 2 M = 512 FLOPs per one-byte W0 element, above the H100's
@@ -22,14 +23,19 @@
 // Design. The bf16 forward is lora_dense_tc.cuh's tensor-core body with W0
 // in format kInt8: the codes are staged raw and turned into bf16 fragment
 // registers by a bit trick (exact), the K range is split across a cluster,
-// and the scale multiplies the f32 sum once per output in the epilogue. dx,
-// and the f32 forward, are the tiled product of lora_gemm.cuh on CUDA cores:
-// its slab loader reads int8 bytes and turns each into a weight in shared
-// memory; dx folds the scale onto g as it stages it. dx reads q in place,
-// [K, N] with contiguous n: the TPU wrapper wrote a transposed int8 copy of
-// q to device memory on every call; this writes none. No dense float W0
-// reaches device memory.
+// and the scale multiplies the f32 sum once per output in the epilogue. The
+// bf16 dx is lora_dense_dx_tc.cuh's body in the same format: the codes
+// staged raw and widened into W0^T's fragments the same way, g's slab
+// scaled by round(s) in shared memory once a slab, dh summed in the same
+// loop on the unscaled g, N split across a cluster: one launch. The f32
+// forward and dx are the tiled product of lora_gemm.cuh on CUDA cores: its
+// slab loader reads int8 bytes and turns each into a weight in shared
+// memory; dx folds the scale onto g as it stages it and adds the wrapper's
+// dh. dx reads q in place, [K, N] with contiguous n: the TPU wrapper wrote
+// a transposed int8 copy of q to device memory on every call; this writes
+// none. No dense float W0 reaches device memory.
 
+#include "lora_dense_dx_tc.cuh"
 #include "lora_dense_tc.cuh"
 #include "lora_gemm.cuh"
 
@@ -49,15 +55,29 @@ extern "C" int lora_fused_q(int dtype, const void* x, const void* q,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int lora_dx_q(int dtype, const void* g, const void* q,
-                         const void* s, const void* a, const void* dh,
-                         void* dx, int M, int K, int N, int r, void* stream) {
-  return lora_gemm::launch<true, WFmt::kInt8>(dtype, g, q, s, dh, a, dx, M, N,
-                                              K, r, 1.f, stream);
+// The f32 dx on the wrapper's dh (bf16 takes lora_dx_q_tc)
+extern "C" int lora_dx_q(const void* g, const void* q, const void* s,
+                         const void* a, const void* dh, void* dx, int M,
+                         int K, int N, int r, void* stream) {
+  return lora_gemm::launch_as<true, WFmt::kInt8, float>(g, q, s, dh, a, dx, M,
+                                                        N, K, r, 1.f, stream);
+}
+
+// The bf16 dx, dh = round(round(s_lora g) @ B^T) summed in the kernel.
+extern "C" int lora_dx_q_tc(const void* g, const void* q, const void* s,
+                            const void* a, const void* b, void* dx, int M,
+                            int K, int N, int r, float scale, void* stream) {
+  return dense_dx_tc::launch<WFmt::kInt8>(g, q, s, a, b, dx, M, K, N, r,
+                                          scale, stream);
 }
 
 // The bf16 forward's launch plan at M x K -> N (lora_fused_fwd_plan's).
 extern "C" int lora_fused_q_plan(int M, int K, int N, int* split,
                                  int* smem) {
   return dense_tc::plan<WFmt::kInt8>(M, K, N, split, smem);
+}
+
+// The bf16 dx's launch plan at g [M, N] -> dx [M, K] (lora_dx_plan's).
+extern "C" int lora_dx_q_plan(int M, int K, int N, int* split, int* smem) {
+  return dense_dx_tc::plan<WFmt::kInt8>(M, K, N, split, smem);
 }

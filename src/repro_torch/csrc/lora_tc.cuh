@@ -1,8 +1,10 @@
-// The tensor-core pieces shared by the bf16 LoRA forward kernels: the
-// grouped forward over expert stacks (lora_grouped_tc.cuh) and the dense
-// forward over one W0 (lora_dense_tc.cuh); the grouped dx
-// (lora_grouped_dx_tc.cuh) takes the A-fragment loader, the code
-// conversions and the slab copies. The forwards compute, per output tile,
+// The tensor-core pieces shared by the bf16 LoRA kernels: the grouped
+// forward over expert stacks (lora_grouped_tc.cuh) and the dense forward
+// over one W0 (lora_dense_tc.cuh); the two input gradients, grouped
+// (lora_grouped_dx_tc.cuh) and dense (lora_dense_dx_tc.cuh), take the
+// A-fragment loader, the code conversions, the slab copies and W0^T's B
+// fragments (frag_rows, frag_pair8, frag_pair4). The forwards compute, per
+// output tile,
 //
 //   acc = x @ w(W0)   and   h = x @ A
 //
@@ -22,10 +24,14 @@
 //   eight registers and read with byte permutes (int4's sign-extended
 //   values, nf4's codebook rounded to bf16). A nibble of a row k >= K (the
 //   pad of an odd K) becomes zero;
+// * W0^T's B fragments for the input gradients, whose contraction runs
+//   along a W0 row: bf16 by ldmatrix without .trans, int8 by 16-bit loads
+//   of adjacent codes, packed codes with an n8 tile pair on a byte's two
+//   rows (col_of);
 // * stage_block, the masked slab copy: 16-byte cp.async copies where an
 //   operand's rows and base allow them, element by element elsewhere.
-// Every function is inlined into its kernel; the grouped kernel compiles
-// to the code it had when these lived in its own header.
+// Every function is inlined into its kernel; the grouped kernels keep the
+// registers they had when these lived in their own headers.
 #pragma once
 
 #include <cstdint>
@@ -192,6 +198,99 @@ __device__ __forceinline__ void frag_b4(uint32_t (&b)[4][2], const uint8_t* t,
                           (k + 8 * h + 1 < kv ? 0xffff0000u : 0u);
 #pragma unroll
     for (int j = 0; j < 4; ++j) b[j][h] &= keep;
+  }
+}
+
+// W0^T's B fragments: a B register pairs W0[k, n] and W0[k, n + 1] of a
+// slab [output column k][BK of n] as stored (bf16 rows XS apart, codes SC
+// bytes apart).
+
+// row stride (bytes) of the code slabs, 12 words: the 8 rows of a fragment
+// load (two words each) meet distinct banks. A bf16 slab's rows are
+// [BK + 8] like g's (XS): ldmatrix's 8 rows meet distinct banks.
+constexpr int SC = BK + 16;
+
+// The output column, counted from the warp's first, that lane group g of
+// n8 tile j holds: natural for bf16 and int8; over packed codes tiles 2p
+// and 2p + 1 on rows 2i and 2i + 1 of byte row i = 8 p + g.
+template <WFmt F>
+__device__ __forceinline__ int col_of(int j, int g) {
+  if constexpr (wfmt::is_packed(F))
+    return 16 * (j >> 1) + 2 * g + (j & 1);
+  else
+    return 8 * j + g;
+}
+
+// B fragments of n8 tiles j0 and j0 + 1 at k step ks from t [output
+// column][contraction] (row stride ts), columns by col_of<F> from c0:
+// b[0], b[1] tile j0; b[2], b[3] tile j0 + 1. No .trans: a B register's
+// pair lies along a row.
+template <WFmt F>
+__device__ __forceinline__ void frag_rows(uint32_t (&b)[4], const bf16* t,
+                                          int ts, int c0, int j0, int ks,
+                                          int lane) {
+  const int mat = lane >> 3;
+  const int row = c0 + col_of<F>(j0 + (mat >> 1), lane & 7);
+  mma::ldsm_x4(b, t + row * ts + ks * 16 + (mat & 1) * 8);
+}
+
+// int8 codes t [output column][SC bytes], n8 tiles 2 jp and 2 jp + 1: per
+// tile two 16-bit loads of adjacent codes (contraction 2l, 2l + 1 and
+// 2l + 8, 2l + 9), widened through the f32 bit pattern as the forward does
+// (int8_pair)
+__device__ __forceinline__ void frag_pair8(uint32_t (&b)[2][2],
+                                           const uint8_t* t, int c0, int jp,
+                                           int ks, int lane) {
+  const uint8_t* p = t + (c0 + 16 * jp + (lane >> 2)) * SC + ks * 16 +
+                     2 * (lane & 3);
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const uint8_t* q = p + 8 * jj * SC;
+    const uint32_t u =
+        (*reinterpret_cast<const uint16_t*>(q) |
+         static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(q + 8))
+             << 16) ^
+        0x80808080u;
+    b[jj][0] = int8_pair<0>(u, u >> 8);
+    b[jj][1] = int8_pair<2>(u, u >> 8);
+  }
+}
+
+// packed codes t [output column / 2][SC bytes], n8 tiles 2 jp and 2 jp + 1:
+// byte row c0 / 2 + 8 jp + g, its low nibbles and its high ones (col_of)
+__device__ __forceinline__ void frag_pair4(uint32_t (&b)[2][2],
+                                           const uint8_t* t,
+                                           const NibTable& tb, int c0, int jp,
+                                           int ks, int lane) {
+  const uint8_t* q = t + (c0 / 2 + 8 * jp + (lane >> 2)) * SC + ks * 16 +
+                     2 * (lane & 3);
+  const uint32_t w =
+      *reinterpret_cast<const uint16_t*>(q) |
+      static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(q + 8)) << 16;
+  const uint32_t w4 = w << 4;  // each low nibble's bit 3 at its byte's top
+  nib_pairs<0x6240, 0x7351>(w, prmt(w4, w, 0xD9C8), tb, b[0][0], b[1][0]);
+  nib_pairs<0x6240, 0x7351>(w >> 16, prmt(w4, w, 0xFBEA), tb, b[0][1],
+                            b[1][1]);
+}
+
+// The B fragments of n8 tiles 2 jp and 2 jp + 1 at k step ks over the
+// warp's columns c0 .. of the W0 slab ws, in format F
+template <WFmt F>
+__device__ __forceinline__ void frag_w(uint32_t (&b)[2][2],
+                                       const uint8_t* ws, const NibTable& tb,
+                                       int c0, int jp, int ks, int lane) {
+  if constexpr (F == WFmt::kDense) {
+    uint32_t b4[4];
+    frag_rows<F>(b4, reinterpret_cast<const bf16*>(ws), XS, c0, 2 * jp, ks,
+                 lane);
+    b[0][0] = b4[0];
+    b[0][1] = b4[1];
+    b[1][0] = b4[2];
+    b[1][1] = b4[3];
+  } else if constexpr (F == WFmt::kInt8) {
+    frag_pair8(b, ws, c0, jp, ks, lane);
+  } else {
+    frag_pair4(b, ws, tb, c0, jp, ks, lane);
   }
 }
 

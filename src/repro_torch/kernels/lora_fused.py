@@ -8,7 +8,9 @@ Replace the TPU kernels of ``src/repro/kernels/lora_fused.py``:
   ``y = x@W0 + s·round(x@A)@B``, h summed on chip and never stored;
 * :func:`lora_dx` (``lora_dx``, ``_lora_dx_kernel``):
   ``dx = g@W0ᵀ + dh@Aᵀ`` with ``dh = round((s·g)@Bᵀ)``, the thin product
-  the TPU wrapper also computed outside its kernel; W0 is read in place;
+  the TPU wrapper computed outside its kernel: the bf16 kernel sums it in
+  its own loop (one launch, no dh in device memory), the f32 wrapper
+  computes it before its kernel; W0 is read in place;
 * :func:`lora_dab` (``lora_dab``, ``_lora_dab_kernel``):
   ``dA = xᵀ·dh``, ``dB = hᵀ·round(s·g)`` with h and dh recomputed per row
   tile, reduced over tiles in a fixed order (no atomics).
@@ -33,7 +35,8 @@ MAX_RANK = 32
 
 _P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
 _FWD_ARGS = [_I] + [_P] * 5 + [_I] * 4 + [_F, _P]
-_DX_ARGS = [_I] + [_P] * 5 + [_I] * 4 + [_P]
+_DX_ARGS = [_P] * 5 + [_I] * 4 + [_P]
+_DX_TC_ARGS = [_P] * 5 + [_I] * 4 + [_F, _P]
 _DAB_ARGS = [_I] + [_P] * 7 + [_I] * 4 + [_F, _P]
 
 
@@ -127,6 +130,21 @@ _PLANS = {"none": ("lora_fused_fwd", "lora_fused_fwd_plan", ()),
           "int8": ("lora_quant", "lora_fused_q_plan", ()),
           "int4": ("lora_pack4", "lora_fused_q4_plan", (0,)),
           "nf4": ("lora_pack4", "lora_fused_q4_plan", (1,))}
+#: each base format's bf16 dx: (library, plan entry, leading args)
+_DX_PLANS = {"none": ("lora_dx", "lora_dx_plan", ()),
+             "int8": ("lora_quant", "lora_dx_q_plan", ()),
+             "int4": ("lora_pack4", "lora_dx_q4_plan", (0,)),
+             "nf4": ("lora_pack4", "lora_dx_q4_plan", (1,))}
+
+
+def _plan(lib, name, lead, M, K, N):
+    import ctypes
+    out = ctypes.POINTER(ctypes.c_int)
+    fn = _build.function(lib, name, [_I] * (len(lead) + 3) + [out, out])
+    split, smem = ctypes.c_int(-1), ctypes.c_int(-1)
+    _build.check(lib, fn(*lead, M, K, N, ctypes.byref(split),
+                         ctypes.byref(smem)), name)
+    return {"split": split.value, "smem_bytes": smem.value}
 
 
 def forward_plan(M: int, K: int, N: int, method: str = "none") -> dict:
@@ -135,14 +153,15 @@ def forward_plan(M: int, K: int, N: int, method: str = "none") -> dict:
     output tile's cluster, which share K; ``smem_bytes``, the dynamic
     shared memory the CUDA runtime holds for the instance M selects (what
     that instance's last launch set)."""
-    import ctypes
-    lib, name, lead = _PLANS[method]
-    out = ctypes.POINTER(ctypes.c_int)
-    fn = _build.function(lib, name, [_I] * (len(lead) + 3) + [out, out])
-    split, smem = ctypes.c_int(-1), ctypes.c_int(-1)
-    _build.check(lib, fn(*lead, M, K, N, ctypes.byref(split),
-                         ctypes.byref(smem)), name)
-    return {"split": split.value, "smem_bytes": smem.value}
+    return _plan(*_PLANS[method], M, K, N)
+
+
+def dx_plan(M: int, K: int, N: int, method: str = "none") -> dict:
+    """The bf16 dx's launch plan on the card for g [M, N] -> dx [M, K] over
+    a W0 [K, N] in ``method``'s format: ``split``, the blocks of each
+    output tile's cluster, which share the contraction N; ``smem_bytes``
+    as in :func:`forward_plan`."""
+    return _plan(*_DX_PLANS[method], M, K, N)
 
 
 def lora_dx(g, w0, a, b, scale: float = 2.0):
@@ -154,12 +173,17 @@ def lora_dx(g, w0, a, b, scale: float = 2.0):
     K = w0.shape[0]
     _validate("lora_dx", g, {"g": g, "w0": w0, "a": a, "b": b},
               {"g": (M, N), "w0": (K, N), "a": (K, r), "b": (r, N)})
-    dh = _dh(g, b, scale)
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
-    fn = _build.function("lora_dx", "lora_dx", _DX_ARGS)
     with torch.cuda.device(g.device):
-        rc = fn(_DTYPES[g.dtype], g.data_ptr(), w0.data_ptr(), a.data_ptr(),
-                dh.data_ptr(), dx.data_ptr(), M, K, N, r, _stream())
+        if g.dtype == torch.bfloat16:
+            fn = _build.function("lora_dx", "lora_dx_tc", _DX_TC_ARGS)
+            rc = fn(g.data_ptr(), w0.data_ptr(), a.data_ptr(), b.data_ptr(),
+                    dx.data_ptr(), M, K, N, r, float(scale), _stream())
+        else:
+            dh = _dh(g, b, scale)
+            fn = _build.function("lora_dx", "lora_dx", _DX_ARGS)
+            rc = fn(g.data_ptr(), w0.data_ptr(), a.data_ptr(), dh.data_ptr(),
+                    dx.data_ptr(), M, K, N, r, _stream())
     _build.check("lora_dx", rc, "lora_dx launch")
     lora_dx.launches += 1
     return dx

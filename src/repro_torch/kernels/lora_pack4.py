@@ -11,7 +11,8 @@ rounded to the activations' dtype (nf4), as ``_unpack_tile`` has it:
 * :func:`lora_fused_q4` (``lora_fused_q4``, ``_lora_fused_q4_kernel``):
   ``y = (x@w)·s + s_lora·round(x@A)@B``;
 * :func:`lora_dx_q4` (``lora_dx_q4``, ``_lora_dx_q4_kernel``):
-  ``dx = round(g·round(s))@wᵀ + dh@Aᵀ`` with ``dh = round((s_lora·g)@Bᵀ)``;
+  ``dx = round(g·round(s))@wᵀ + dh@Aᵀ`` with ``dh = round((s_lora·g)@Bᵀ)``
+  (summed in the bf16 kernel's own loop, computed by the f32 wrapper);
   K comes from A (``a.shape[0]``), so an odd K's pad row is never written.
 
 int4 and nf4 are one kernel body with the format as a template parameter.
@@ -32,7 +33,8 @@ METHOD_CODES = {"int4": 0, "nf4": 1}
 
 _P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
 _FWD_ARGS = [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P]
-_DX_ARGS = [_I, _I] + [_P] * 6 + [_I] * 4 + [_P]
+_DX_ARGS = [_I] + [_P] * 6 + [_I] * 4 + [_P]
+_DX_TC_ARGS = [_I] + [_P] * 6 + [_I] * 4 + [_F, _P]
 
 
 def _method(method: str) -> int:
@@ -113,13 +115,19 @@ def lora_dx_q4(g, q4, s, a, b, scale: float = 2.0, *, method: str = "int4"):
     _lf._validate("lora_dx_q4", g, {"g": g, "a": a, "b": b},
                   {"g": (M, N), "a": (K, r), "b": (r, N)})
     validate_base("lora_dx_q4", g, q4, s, torch.uint8, ((K + 1) // 2, N), N)
-    dh = _lf._dh(g, b, scale)
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
-    fn = _build.function("lora_pack4", "lora_dx_q4", _DX_ARGS)
     with torch.cuda.device(g.device):
-        rc = fn(_lf._DTYPES[g.dtype], code, g.data_ptr(), q4.data_ptr(),
-                s.data_ptr(), a.data_ptr(), dh.data_ptr(), dx.data_ptr(), M,
-                K, N, r, _lf._stream())
+        if g.dtype == torch.bfloat16:
+            fn = _build.function("lora_pack4", "lora_dx_q4_tc", _DX_TC_ARGS)
+            rc = fn(code, g.data_ptr(), q4.data_ptr(), s.data_ptr(),
+                    a.data_ptr(), b.data_ptr(), dx.data_ptr(), M, K, N, r,
+                    float(scale), _lf._stream())
+        else:
+            dh = _lf._dh(g, b, scale)
+            fn = _build.function("lora_pack4", "lora_dx_q4", _DX_ARGS)
+            rc = fn(code, g.data_ptr(), q4.data_ptr(), s.data_ptr(),
+                    a.data_ptr(), dh.data_ptr(), dx.data_ptr(), M, K, N, r,
+                    _lf._stream())
     _build.check("lora_pack4", rc, "lora_dx_q4 launch")
     lora_dx_q4.launches += 1
     return dx

@@ -10,8 +10,10 @@ Replace the TPU kernels of ``src/repro/kernels/lora_quant.py``, with
   after the sum over K, h summed on chip and never stored;
 * :func:`lora_dx_q` (``lora_dx_q``, ``_lora_dx_q_kernel``):
   ``dx = round(g·round(s))@qᵀ + dh@Aᵀ`` with ``dh = round((s_lora·g)@Bᵀ)``,
-  the thin product the TPU wrapper also computed outside its kernel; q is
-  read in place (the TPU wrapper wrote a transposed copy).
+  the thin product the TPU wrapper computed outside its kernel: the bf16
+  kernel sums it in its own loop (one launch), the f32 wrapper computes it
+  before its kernel; q is read in place (the TPU wrapper wrote a
+  transposed copy).
 
 "round" is a rounding to x's (or g's) dtype, where the TPU kernels round;
 every sum is f32. dA and dB never read W0: the dense ``lora_dab`` kernel
@@ -29,7 +31,8 @@ from repro_torch.kernels import lora_fused as _lf
 
 _P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
 _FWD_ARGS = [_I] + [_P] * 6 + [_I] * 4 + [_F, _P]
-_DX_ARGS = [_I] + [_P] * 6 + [_I] * 4 + [_P]
+_DX_ARGS = [_P] * 6 + [_I] * 4 + [_P]
+_DX_TC_ARGS = [_P] * 6 + [_I] * 4 + [_F, _P]
 
 
 # ------------------------------------------------------------ plain versions
@@ -107,13 +110,18 @@ def lora_dx_q(g, q, s, a, b, scale: float = 2.0):
     _lf._validate("lora_dx_q", g, {"g": g, "a": a, "b": b},
                   {"g": (M, N), "a": (K, r), "b": (r, N)})
     validate_base("lora_dx_q", g, q, s, torch.int8, (K, N), N)
-    dh = _lf._dh(g, b, scale)
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
-    fn = _build.function("lora_quant", "lora_dx_q", _DX_ARGS)
     with torch.cuda.device(g.device):
-        rc = fn(_lf._DTYPES[g.dtype], g.data_ptr(), q.data_ptr(),
-                s.data_ptr(), a.data_ptr(), dh.data_ptr(), dx.data_ptr(), M,
-                K, N, r, _lf._stream())
+        if g.dtype == torch.bfloat16:
+            fn = _build.function("lora_quant", "lora_dx_q_tc", _DX_TC_ARGS)
+            rc = fn(g.data_ptr(), q.data_ptr(), s.data_ptr(), a.data_ptr(),
+                    b.data_ptr(), dx.data_ptr(), M, K, N, r, float(scale),
+                    _lf._stream())
+        else:
+            dh = _lf._dh(g, b, scale)
+            fn = _build.function("lora_quant", "lora_dx_q", _DX_ARGS)
+            rc = fn(g.data_ptr(), q.data_ptr(), s.data_ptr(), a.data_ptr(),
+                    dh.data_ptr(), dx.data_ptr(), M, K, N, r, _lf._stream())
     _build.check("lora_quant", rc, "lora_dx_q launch")
     lora_dx_q.launches += 1
     return dx

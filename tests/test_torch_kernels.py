@@ -8,6 +8,7 @@ hold the CUDA kernels against their plain versions on a card and skip
 without one; this module imports JAX only inside the parity tests, so
 that the card-only tests also run where JAX is not installed.
 """
+import hashlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -134,13 +135,19 @@ def test_lora_fused_plain_matches_pallas_kernel(jx, M, K, N, r):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+# the LoRA scale: the model's alpha / r = 2, and one that is no power of
+# two (the bf16 dx kernel scales g itself then)
+DX_SCALES = [2.0, 1.5]
+
+
+@pytest.mark.parametrize("scale", DX_SCALES)
 @pytest.mark.parametrize("M,K,N,r", FUSED_CASES)
-def test_lora_dx_plain_matches_pallas_kernel(jx, M, K, N, r):
+def test_lora_dx_plain_matches_pallas_kernel(jx, M, K, N, r, scale):
     x, w0, a, b, g = _fused_inputs(11, M, K, N, r)
     jnp = jx.jnp
-    want = jx.lf.lora_dx(*map(jnp.asarray, (g, w0, a, b)), 2.0,
+    want = jx.lf.lora_dx(*map(jnp.asarray, (g, w0, a, b)), scale,
                          interpret=True)
-    got = tlf.lora_dx(*_t(g, w0, a, b), 2.0)
+    got = tlf.lora_dx(*_t(g, w0, a, b), scale)
     assert got.shape == (M, K)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
@@ -355,6 +362,164 @@ def test_lora_fused_bf16_is_bitwise_on_repeat(M, K, N, r):
     assert 1 <= plan["split"] <= 8 and plan["smem_bytes"] > 0
     if (M, K, N) == DEEPEST_SPLIT:
         assert plan["split"] == 8
+
+
+# the bf16 dx's card cases, g [M, N] -> dx [M, K] at r 8: every path shape
+# (K, N) of q, o; k, v; gate, up; down and OLMoE's q, k, v, o at M 1, 17,
+# 65, 192 and 256 (one to four m16 fragments, a row tile plus one row);
+# ragged K and N at other ranks (r 3: A and B element by element). K 896
+# from N 4864 takes the deepest split of the contraction, 8 blocks.
+DX_PATH_SHAPES = [(896, 896), (896, 128), (896, 4864), (4864, 896),
+                  (2048, 2048)]
+DX_ROWS = [1, 17, 65, 192, 256]
+DX_CASES = [(m, k, n, 8) for m in DX_ROWS for k, n in DX_PATH_SHAPES] + [
+    (50, 97, 131, 16), (130, 300, 70, 32), (33, 1001, 4863, 3)]
+DX_DEEPEST = (256, 896, 4864)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", DX_SCALES)
+@pytest.mark.parametrize("M,K,N,r", DX_CASES)
+def test_lora_dx_bf16_matches_plain_on_card(M, K, N, r, scale):
+    """The bf16 dx on tensor cores, dh summed in its own loop, against its
+    plain version: one output rounding (2^-8 relative), doubled where a
+    rounding of dh flips, and an absolute floor (the tolerance of the other
+    LoRA kernels' card check). At s 1.5 the kernel scales g itself."""
+    _need_card()
+    x, w0, a, b, g = [t.to(torch.bfloat16).cuda() for t in _t(
+        *_fused_inputs(17, M, K, N, r))]
+    before = tlf.lora_dx.launches
+    dx = tlf.lora_dx(g, w0, a, b, scale)
+    torch.cuda.synchronize()
+    assert tlf.lora_dx.launches == before + 1
+    assert dx.dtype == torch.bfloat16 and dx.shape == (M, K)
+    _assert_close_scaled(dx, tlf.lora_dx_ref(g, w0, a, b, scale),
+                         dict(rtol=2.0 ** -6, atol=1e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", DX_SCALES)
+@pytest.mark.parametrize("M,K,N", [(192, 896, 896), (256, 896, 128),
+                                   DX_DEEPEST, (256, 4864, 896),
+                                   (17, 2048, 2048), (50, 97, 131)])
+def test_lora_dx_bf16_is_bitwise_on_repeat(M, K, N, scale):
+    """The bf16 dx adds its split's partials of g @ W0^T and of dh in a
+    fixed order (no atomics): the same bits on every call. The split of N
+    is 1 to 8 blocks, 8 at K 896 from N 4864."""
+    _need_card()
+    _, w0, a, b, g = [t.to(torch.bfloat16).cuda() for t in _t(
+        *_fused_inputs(19, M, K, N, 8))]
+    dx = tlf.lora_dx(g, w0, a, b, scale)
+    for _ in range(3):
+        assert torch.equal(tlf.lora_dx(g, w0, a, b, scale), dx)
+    plan = tlf.dx_plan(M, K, N)
+    assert 1 <= plan["split"] <= 8 and plan["smem_bytes"] > 0
+    if (M, K, N) == DX_DEEPEST:
+        assert plan["split"] == 8
+
+
+# one bf16 dx call in each base format under torch.profiler, in a process of
+# its own: in a process that has already traced the card, later profiler
+# sessions have come back without the card's kernels
+_PROFILE_DX = r"""
+import json
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.core import quant
+from repro_torch.kernels import lora_fused as lf
+from repro_torch.kernels import lora_pack4 as lp4
+from repro_torch.kernels import lora_quant as lq
+
+gen = torch.Generator(device="cuda").manual_seed(0)
+M, K, N, r = 256, 896, 4864, 8
+rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+w = rn(K, N) * K ** -0.5
+g, a, b = rn(M, N).bfloat16(), rn(K, r).bfloat16(), rn(r, N).bfloat16()
+wb, q8, q4 = (w.bfloat16(), quant.quantize_leaf(w, "int8"),
+              quant.quantize_leaf(w, "nf4"))
+calls = [lambda: lf.lora_dx(g, wb, a, b, 2.0),
+         lambda: lq.lora_dx_q(g, q8["q"], q8["scale"], a, b, 2.0)] + [
+    lambda m=m: lp4.lora_dx_q4(g, q4["q4"], q4["scale"], a, b, 2.0,
+                               method=m) for m in ("int4", "nf4")]
+for fn in calls:
+    fn()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]))
+"""
+
+
+@pytest.mark.cuda
+def test_lora_dx_bf16_is_one_device_kernel():
+    """A bf16 dx call, in every base format, runs one device kernel (dh is
+    summed in it): four calls, four kernels, each the tensor-core body of
+    its format (dense_dx_tc<MF, format>). And no PyTorch operator but the
+    output's allocation; an f32 call still computes dh in PyTorch."""
+    import json
+    import os
+    import re
+    import subprocess
+    import sys
+    from pathlib import Path
+    from torch.utils._python_dispatch import TorchDispatchMode
+    _need_card()
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    out = subprocess.run([sys.executable, "-c", _PROFILE_DX], env=env,
+                         check=True, capture_output=True, text=True).stdout
+    kernels = json.loads(out.strip().splitlines()[-1])
+    fmts = [re.search(r"dense_dx_tc<4, \(wfmt::WFmt\)(\d)>", k)
+            for k in kernels]
+    assert len(kernels) == 4 and all(fmts), kernels
+    assert [int(f.group(1)) for f in fmts] == [0, 1, 2, 3], kernels
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+    _, w0, a, b, g = [t.cuda() for t in _t(*_fused_inputs(20, 256, 896,
+                                                           4864, 8))]
+    bf = [t.bfloat16() for t in (g, w0, a, b)]
+    for args, only_empty in ((bf, True), ((g, w0, a, b), False)):
+        tlf.lora_dx(*args, 2.0)
+        with Ops() as ops:
+            tlf.lora_dx(*args, 2.0)
+        assert all(o.startswith("aten.empty") for o in ops.names) == \
+            only_empty, ops.names
+
+
+# SHA-256 of the f32 dx (lora_gemm.cuh's CUDA-core body) on
+# _fused_inputs(18, M, K, N, 8) at s 2, by (M, K, N): the bits it had
+# before the bf16 dx moved to tensor cores
+DX_F32_SHA256 = {
+    (192, 896, 896):
+        "eb3926e12ae1431c9f5f16259db157ff1406d4cd6ea45add7c9859c925f63de6",
+    (256, 896, 4864):
+        "d0a8978f9b9c066550d63a5c804f1fc110f3739d7f71fc9a85b6560b5ed0a06b",
+    (50, 97, 131):
+        "b164a4e59468b71ab367397131e3f813fb23b675c2278d8195bbd59c69c65a5b",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", list(DX_F32_SHA256))
+def test_lora_dx_f32_bits_are_unchanged(M, K, N):
+    _need_card()
+    _, w0, a, b, g = [t.cuda() for t in _t(*_fused_inputs(18, M, K, N, 8))]
+    dx = tlf.lora_dx(g, w0, a, b, 2.0)
+    got = hashlib.sha256(dx.cpu().numpy().tobytes()).hexdigest()
+    assert got == DX_F32_SHA256[(M, K, N)]
 
 
 @pytest.mark.cuda

@@ -27,6 +27,7 @@ versions on a card and skip without one. JAX is imported only inside the
 parity fixtures, so the card tests run where JAX is not installed.
 """
 import functools
+import hashlib
 from types import SimpleNamespace
 
 import numpy as np
@@ -230,6 +231,36 @@ def test_quantized_ops_match_reference_vjp(jx, method, M, K, N):
     np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), **OP_TOL)
     for t, j in zip(grads, jgrads):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), **OP_TOL)
+
+
+@pytest.mark.parametrize("scale", [2.0, 1.5])
+@pytest.mark.parametrize("M,K,N", OP_CASES)
+@pytest.mark.parametrize("method", METHODS)
+def test_quantized_dx_plain_matches_pallas_kernel(jx, method, M, K, N,
+                                                  scale):
+    """The plain quantized dx against the reference's ``lora_dx_q`` /
+    ``lora_dx_q4`` (Pallas in interpret mode) on the same leaf, at the
+    model's scale 2 and at 1.5, no power of two: f32, 1e-5."""
+    from repro.kernels import lora_pack4 as jlp4
+    from repro.kernels import lora_quant as jlq
+    jnp = jx.jnp
+    x, w, a, b, g = _op_inputs(9, M, K, N, 8, method)
+    jleaf = jx.quant.quantize_leaf(jnp.asarray(w), method)
+    leaf = bridge.from_numpy_tree(_np(jleaf))
+    ja, jb, jg = map(jnp.asarray, (a, b, g))
+    ta, tb, tg = map(torch.from_numpy, (a, b, g))
+    if method == "int8":
+        want = jlq.lora_dx_q(jg, jleaf["q"], jleaf["scale"], ja, jb, scale,
+                             interpret=True)
+        got = tlq.lora_dx_q(tg, leaf["q"], leaf["scale"], ta, tb, scale)
+    else:
+        want = jlp4.lora_dx_q4(jg, jleaf["q4"], jleaf["scale"], ja, jb,
+                               scale, method=method, interpret=True)
+        got = tlp4.lora_dx_q4(tg, leaf["q4"], leaf["scale"], ta, tb, scale,
+                              method=method)
+    assert got.shape == (M, K)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("method", METHODS)
@@ -648,6 +679,134 @@ def test_quantized_forward_bf16_is_bitwise_on_repeat(M, K, N, r, method):
     assert 1 <= plan["split"] <= 8 and plan["smem_bytes"] > 0
     if (M, K, N) == (256, 4864, 128):
         assert plan["split"] == 8
+
+
+# the bf16 dx's card cases over codes, g [M, N] -> dx [M, K]: every path
+# shape (K, N) at M 1, 17, 65, 192 and 256, r 8; ragged K and N at other
+# ranks, odd K (over int4 and nf4, a pad nibble no row of dx takes); K 896
+# from N 4864, the deepest split of the contraction (8 blocks)
+DX_SCALES = [2.0, 1.5]
+DX_CASES = [(m, k, n, 8) for m in (1, 17, 65, 192, 256)
+            for k, n in ((896, 896), (896, 128), (896, 4864), (4864, 896),
+                         (2048, 2048))] + [
+    (50, 97, 131, 8), (37, 33, 129, 16), (130, 301, 70, 32),
+    (65, 4863, 128, 3)]
+
+
+def _dx_inputs(seed, M, K, N, r, method, dtype=torch.bfloat16):
+    """g, the codes and scale of W0 [K, N] in ``method``'s format (made on
+    the card), a and b (B drawn as the other card checks draw it) for the
+    dx of ``method``."""
+    _, w, a, b, g = (torch.from_numpy(t) for t in _op_inputs(
+        seed, M, K, N, r, method))
+    leaf = tq.quantize_leaf(w.cuda(), method)
+    g, a, b = (t.to(dtype).cuda() for t in (g, a, b * 3))
+    return g, leaf["q" if method == "int8" else "q4"], leaf["scale"], a, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", DX_SCALES)
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("M,K,N,r", DX_CASES)
+def test_quantized_dx_bf16_matches_plain_on_card(M, K, N, r, method, scale):
+    """The bf16 dx over codes on tensor cores, dh summed in its own loop,
+    against its plain version: the dense LoRA kernels' bf16 tolerance."""
+    _need_card()
+    g, q, s, a, b = _dx_inputs(21, M, K, N, r, method)
+    _, dx_fn, _, dx_ref, _ = _card_pair(method)
+    name = "lora_dx_q" if method == "int8" else "lora_dx_q4"
+    before = tops.launch_counts()[name]
+    dx = dx_fn(g, q, s, a, b, scale)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()[name] == before + 1
+    assert dx.dtype == torch.bfloat16 and dx.shape == (M, K)
+    _assert_close_scaled(dx, dx_ref(g, q, s, a, b, scale),
+                         dict(rtol=2.0 ** -6, atol=1e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("M,K,N", [(256, 896, 4864), (256, 896, 128),
+                                   (65, 4863, 128), (50, 97, 131)])
+def test_quantized_dx_bf16_is_bitwise_on_repeat(M, K, N, method):
+    """Two launches of the bf16 dx over codes give the same bits, at s 2
+    and 1.5; the split of N is 8 blocks at K 896 from N 4864."""
+    _need_card()
+    g, q, s, a, b = _dx_inputs(22, M, K, N, 8, method)
+    dx_fn = _card_pair(method)[1]
+    for scale in DX_SCALES:
+        dx = dx_fn(g, q, s, a, b, scale)
+        assert torch.equal(dx_fn(g, q, s, a, b, scale), dx)
+    plan = tlf.dx_plan(M, K, N, method)
+    assert 1 <= plan["split"] <= 8 and plan["smem_bytes"] > 0
+    if (M, K, N) == (256, 896, 4864):
+        assert plan["split"] == 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+def test_quantized_dx_bf16_dispatches_no_operator(method):
+    """A bf16 dx call over codes launches its kernel once and dispatches no
+    PyTorch operator but the output's allocation: dh is summed in the
+    kernel (``test_torch_kernels.test_lora_dx_bf16_is_one_device_kernel``
+    counts the device kernels under the profiler)."""
+    _need_card()
+    args = _dx_inputs(23, 256, 4864, 896, 8, method)
+    dx_fn = _card_pair(method)[1]
+    name = "lora_dx_q" if method == "int8" else "lora_dx_q4"
+    dx_fn(*args, 2.0)
+    before = tops.launch_counts()[name]
+    with _Ops() as ops:
+        dx_fn(*args, 2.0)
+    assert tops.launch_counts()[name] == before + 1
+    assert all(o.startswith("aten.empty") for o in ops.names), ops.names
+
+
+class _Ops(TorchDispatchMode):
+    """The PyTorch operators dispatched while it is on."""
+
+    def __init__(self):
+        super().__init__()
+        self.names = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.names.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+# SHA-256 of the f32 dx over codes (lora_gemm.cuh's CUDA-core body) on
+# _dx_inputs(24, M, K, N, 8, method, f32) at s 2, by (method, M, K, N): the
+# bits it had before the bf16 dx moved to tensor cores
+DX_F32_SHA256 = {
+    ("int8", 256, 896, 896):
+        "f4a7b72b79cbb9c5e33e4bafec010692931e964d21ce77728407df1954f91cf4",
+    ("int8", 50, 97, 131):
+        "8ac9c724c21f5e2ed94ba8bb7efe56600bfd7dfe35f5b7ab1cc1e2f97c8358c9",
+    ("int8", 65, 4863, 128):
+        "319fe055d2204728cc7a537f4dab7e502bb3862fcdbf6fdc1fe36574018a9efb",
+    ("int4", 256, 896, 896):
+        "9458257ae7d608073e20d5a9868f6961fca948d51ebfebd9dd5065bb06fc9b9b",
+    ("int4", 50, 97, 131):
+        "858ed972ec871b8d80ee1aae5a66a750675898701921b178a841555caa1ed76d",
+    ("int4", 65, 4863, 128):
+        "3108b0d2ff76e1e3d5a3de32e331c17f6bd8cf6297ecebecdbe163e9c368cdf1",
+    ("nf4", 256, 896, 896):
+        "66fb1bc41fe2e0282685209b6e223e299542732ed674258271c56fe7f85e4fd6",
+    ("nf4", 50, 97, 131):
+        "0cd8907a7a1ac728c1577cf47b15e6a8e625e12b1a7d964bb715e46d6e046a16",
+    ("nf4", 65, 4863, 128):
+        "88c060d4a7d624501a9110e870cff18c542560f721d3a864fe894559ab16dc58",
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,M,K,N", list(DX_F32_SHA256))
+def test_quantized_dx_f32_bits_are_unchanged(method, M, K, N):
+    _need_card()
+    args = _dx_inputs(24, M, K, N, 8, method, torch.float32)
+    dx = _card_pair(method)[1](*args, 2.0)
+    got = hashlib.sha256(dx.cpu().numpy().tobytes()).hexdigest()
+    assert got == DX_F32_SHA256[(method, M, K, N)]
 
 
 @pytest.mark.cuda
