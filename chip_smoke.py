@@ -11,14 +11,16 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    operations: the serving kernels in bf16 at the qwen2.5-0.5b decode
    shapes (with ``F.rms_norm`` as a library yardstick), the training
    kernels (LoRA forward, dx, dA/dB, RMSNorm backward) in bf16 and f32 at
-   the training shapes, 192 rows (batch 4 x seq 48), the LoRA forward and
-   dx also at the paper path's 256 rows (batch 1 x seq 256), with
-   ``torch.matmul``'s time for the dominant x@W0 / g@W0^T product as
-   context (no single PyTorch call computes those functions). The bf16
-   LoRA forwards and dx (over bf16, int8, int4 and nf4, on tensor cores)
-   carry their split of the contraction per shape and dynamic shared
-   memory (as the CUDA runtime holds them) and their registers and spills
-   (ptxas).
+   the training shapes, 192 rows (batch 4 x seq 48), the LoRA forward,
+   dx and dA/dB also at the paper path's 256 rows (batch 1 x seq 256),
+   with ``torch.matmul``'s time for the dominant x@W0 / g@W0^T product
+   as context (for dA/dB two ``torch.mm`` of its row contractions' shapes;
+   no single PyTorch call computes those functions). The bf16 LoRA
+   forwards and dx (over bf16, int8, int4 and nf4) and dA/dB, on tensor
+   cores, carry their split of the work per shape (forward and dx: of the
+   contraction; dA/dB: members, sub-runs, passes, row fragments) and
+   dynamic shared memory (as the CUDA runtime holds them, or as dA/dB's
+   plan sets it) and their registers and spills (ptxas).
 3. Serves full-width qwen2.5-0.5b (24 layers, random weights from a seed)
    through ``repro_torch.launch.serve``: 8 slots in tiles of 2, 4 tenants,
    a store of 4, 8 requests of 8 prompt + 16 new tokens. The launch
@@ -92,8 +94,9 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    K and N, ranks 3 and 16, an empty group, a bad gid, a group split in
    two), and times them beside their plain versions, the bound and
    ``torch.bmm`` / ``torch.matmul`` of the expert product as context; and
-   the bf16 forward's and dx's registers and spills (ptxas) and dynamic
-   shared memory (as the CUDA runtime holds it) beside their figures; and
+   the bf16 forward's, dx's and dA/dB's registers and spills (ptxas) and
+   dynamic shared memory (as the CUDA runtime holds it, or dA/dB's plan
+   with its cluster's members) beside their figures; and
    the dense kernels on that path at its shapes, in f32 and bf16: the LoRA
    forward, dx and dA/dB at 256 rows x 2048 x 2048 (q, k, v, o), RMSNorm
    forward and backward over [256, 2048], flash attention at B*H 16, G 1,
@@ -595,9 +598,12 @@ def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
         "lora_dx": (lambda x, w, a, b, g: lf.lora_dx(g, w, a, b),
                     lambda x, w, a, b, g: lf.lora_dx_ref(g, w, a, b),
                     lambda x, w, a, b, g: torch.matmul(g, w.T)),
+        # context: the two row contractions' shapes, x^T [K, M] by [M, r]
+        # and [r, M] by g [M, N] (no single call computes dA/dB)
         "lora_dab": (lambda x, w, a, b, g: lf.lora_dab(x, g, a, b),
                      lambda x, w, a, b, g: lf.lora_dab_ref(x, g, a, b),
-                     None),
+                     lambda x, w, a, b, g: (torch.mm(x.T, g[:, :RANK]),
+                                            torch.mm(x[:, :RANK].T, g))),
     }
     calls = {k: v for k, v in calls.items() if k in kernels}
     for (K, N), per in linears.items():
@@ -1546,12 +1552,16 @@ def _moe_calls(torch, lg, bm):
             lambda x, w, a, b, g, gid: lg.lora_grouped_dx_ref(
                 g, w, a, b, gid, 2.0, bm=bm),
             lambda x, w, a, b, g, gid: torch.matmul(per_expert(g, w), w.mT)),
+        # context: per expert, the two row contractions' shapes
         "lora_grouped_dab": (
             lambda x, w, a, b, g, gid: lg.lora_grouped_dab(
                 x, g, a, b, gid, 2.0, bm=bm),
             lambda x, w, a, b, g, gid: lg.lora_grouped_dab_ref(
                 x, g, a, b, gid, 2.0, bm=bm),
-            None)}
+            lambda x, w, a, b, g, gid: (
+                torch.bmm(per_expert(x, w).mT, per_expert(g, w)[..., :RANK]),
+                torch.bmm(per_expert(x, w)[..., :RANK].mT,
+                          per_expert(g, w))))}
 
 
 def _moe_errors(torch, lg, make_for, bm, what):
@@ -1687,6 +1697,24 @@ DENSE_TC_LIBS = {"fwd": {"none": "lora_fused_fwd", "int8": "lora_quant",
                          "int4": "lora_pack4", "nf4": "lora_pack4"},
                  "dx": {"none": "lora_dx", "int8": "lora_quant",
                         "int4": "lora_pack4", "nf4": "lora_pack4"}}
+
+
+def dab_tc_figures(build, lib, plans):
+    """The bf16 dA/dB body's build and launch figures: registers and spills
+    of each instance (``RM``: the rank rounded up to 8, 16 or 32), parsed
+    from this run's ``nvcc -Xptxas -v`` log of ``lib``, and ``plans``, its
+    plan at each shape ({shape: ``dab_plan``}: members C of a cluster,
+    sub-runs S, passes Q, row fragments, slabs, dynamic shared memory,
+    workspace and counts)."""
+    ptx = {}
+    for kern, figs in build[lib]["ptxas"].items():
+        m = re.search(r"dab_tcILi(\d+)E", kern)
+        if m:
+            ptx[f"RM{m.group(1)}"] = figs
+    if not ptx:
+        raise AssertionError(f"no ptxas figures for the bf16 dA/dB body in "
+                             f"{lib}'s build log")
+    return {"ptxas_bf16": ptx, "plan_bf16": plans}
 
 
 def dense_tc_figures(build, lf, methods, shapes, body="fwd"):
@@ -1961,6 +1989,8 @@ def main() -> int:
         torch, lf, rn, QM, seed=12, kernels=("lora_fused_fwd",))
     paper_lora.update(check_training_kernels(
         torch, lf, rn, QM, seed=14, kernels=("lora_dx",)))
+    paper_lora.update(check_training_kernels(
+        torch, lf, rn, QM, seed=15, kernels=("lora_dab",)))
     rms_train = rmsnorm_train_shape(torch, rn)
     # the dense kernels at the MoE path's shapes: q, k, v, o (2048 x 2048)
     # at 256 rows, the norms over [256, 2048]
@@ -2379,6 +2409,10 @@ def main() -> int:
             e.update(grouped_tc_figures(
                 build, ("dense",), body="fwd" if name.endswith("gemm")
                 else "dx"))
+        else:
+            e.update(dab_tc_figures(build, "lora_grouped_train", {
+                f"{K}x{N}": lg.dab_plan(MOE_E * MOE_C, K, N, MOE_E, RANK,
+                                        bm=MOE_BM) for K, N in MOE_SHAPES}))
         return e
 
     def moe_q_entry(name, line, fn, method):
@@ -2428,9 +2462,9 @@ def main() -> int:
         "shapes": rope_fig}
 
     def paper_entry(name, cu, line, fn, body):
-        """The bf16 dense LoRA forward's or dx's entry: the seq-48 path's
-        shapes (M 192), with the paper path's (M 256) and OLMoE's beside
-        them, and the tensor-core body's figures."""
+        """The bf16 dense LoRA forward's, dx's or dA/dB's entry: the seq-48
+        path's shapes (M 192), with the paper path's (M 256) and OLMoE's
+        beside them, and the tensor-core body's figures."""
         e = train_entry(name, cu, line, fn)
         paper_shapes = paper_lora[name]
         e["paper_shapes"] = paper_shapes
@@ -2440,9 +2474,14 @@ def main() -> int:
                                     for f in paper_shapes)
         e["max_abs_err"] = e["max_err"] = max(
             [e["max_abs_err"]] + [f["max_abs_err"] for f in paper_shapes])
-        e.update(dense_tc_figures(build, lf, ("none",), [
-            (f["M"], f["K"], f["N"]) for f in training[name]
-            + paper_shapes + moe_dense[name]], body))
+        shapes = [(f["M"], f["K"], f["N"]) for f in training[name]
+                  + paper_shapes + moe_dense[name]]
+        if body == "dab":
+            e.update(dab_tc_figures(build, "lora_dab", {
+                f"{M_}x{K}x{N}": lf.dab_plan(M_, K, N, RANK)
+                for M_, K, N in shapes}))
+        else:
+            e.update(dense_tc_figures(build, lf, ("none",), shapes, body))
         return e
 
     kernels = [
@@ -2475,10 +2514,10 @@ def main() -> int:
                     "src/repro/kernels/lora_fused.py:146",
                     "src/repro/kernels/lora_fused.py:lora_dx "
                     "(_lora_dx_kernel :106)", "dx"),
-        train_entry("lora_dab", "lora_dab.cu",
+        paper_entry("lora_dab", "lora_dab.cu",
                     "src/repro/kernels/lora_fused.py:225",
                     "src/repro/kernels/lora_fused.py:lora_dab "
-                    "(_lora_dab_kernel :175)"),
+                    "(_lora_dab_kernel :175)", "dab"),
         train_entry("rmsnorm_bwd", "rmsnorm_bwd.cu",
                     "src/repro/kernels/rmsnorm.py:61",
                     "src/repro/kernels/rmsnorm.py:rmsnorm_bwd "

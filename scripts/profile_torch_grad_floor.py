@@ -28,6 +28,13 @@ off; ``dh_unrounded``, dh = round(s g) @ B^T kept in f32 where it is to be
 rounded to bf16 once: the result moved by round(acc + dh @ A^T) -
 round(acc + round(dh) @ A^T), from the plain f32 sums.
 
+The same in the LoRA factor gradients' result (``lora_dab``):
+``dab_m_tail``, dA and dB without the last 16 rows of their contraction
+(the kernel itself on x and g with those rows zero), as a row loop one
+m16n8k16 step short would give; ``dab_h_unrounded``, dB from h = x @ A kept
+in f32 where it is to be rounded to bf16 once: dB moved by (x @ A)^T sg -
+round(x @ A)^T sg, from the plain f32 sums.
+
 ``--model moe``: full-width OLMoE-1B-7B (16 layers) and
 ``chip_smoke.grads_moe``' pinned distances, the per-leaf cosine that
 ``MOE_COS_FLOOR`` holds; faults in the bf16 grouped forward over expert
@@ -38,13 +45,17 @@ off as above. The same three in the bf16 grouped input gradient
 (``lora_grouped_dx``, ``_dx_q``, ``_dx_q4``): ``dx_k_tail``, g @ W0^T
 without the last 16 of the contraction N (the kernel itself on g zero but
 its last 16 columns, B zero, taken off); ``dx_swap_expert``;
-``dx_code_off``.
+``dx_code_off``. The same in the grouped factor gradients
+(``lora_grouped_dab``): ``dab_m_tail`` (each tile's last 16 rows),
+``dab_h_unrounded`` (per tile, with its group's A) and
+``dab_swap_expert`` (expert 0's tiles added to expert 1's dA and dB).
 
 It uses the ``chip_smoke`` and ``repro_torch`` found on the path, so one
 call can read two checkouts in turns:
 
     PYTHONPATH=src:. python scripts/profile_torch_grad_floor.py \\
-        [--model dense|moe|both] [--faults none,dx_k_tail,...] [--label L]
+        [--model dense|moe|both] [--faults none,dx_k_tail,...] \\
+        [--bases none,nf4] [--label L]
 
 Prints one JSON line per model, base and fault, as each is read, then one
 with the limits and the card.
@@ -83,6 +94,8 @@ WRAPPERS = {
             (lg, "lora_grouped_gemm_q4", 3)),
     "moe_dx": ((lg, "lora_grouped_dx", 2), (lg, "lora_grouped_dx_q", 3),
                (lg, "lora_grouped_dx_q4", 3)),
+    "dense_dab": ((lf, "lora_dab", 2),),
+    "moe_dab": ((lg, "lora_grouped_dab", 2),),
 }
 
 
@@ -174,19 +187,64 @@ def dh_unrounded(fn, g, args, kw, b_at, state):
     return (y.float() + (y_u.float() - y_r.float())).to(g.dtype)
 
 
+def _tail_rows(x, kw):
+    """The rows of dA's and dB's contraction that ``dab_m_tail`` drops:
+    the last TAIL of x's rows, or of each tile of ``bm`` rows (grouped)."""
+    bm = kw.get("bm", x.shape[0])
+    off = torch.arange(x.shape[0], device=x.device) % bm
+    return off >= bm - TAIL
+
+
+def dab_m_tail(fn, x, args, kw, b_at, state):
+    """dA and dB without the last TAIL rows of their contraction (each
+    tile's, grouped): the kernel itself on x and g with those rows zero,
+    whose h, dh and products are then zero."""
+    drop = _tail_rows(x, kw)[:, None]
+    g = args[0]
+    return fn(x.masked_fill(drop, 0), g.masked_fill(drop, 0), *args[1:],
+              **kw)
+
+
+def dab_h_unrounded(fn, x, args, kw, b_at, state):
+    """dB moved by what keeping h = x @ A in f32 would change, from the
+    plain f32 sums: h^T sg - round(h)^T sg (per tile with its group's A,
+    grouped; a tile with no group adds nothing)."""
+    g, a, scale = args[0], args[b_at - 1], args[-1]
+    sg = (scale * g.float()).to(x.dtype).float()
+    if "bm" in kw:
+        gid, bm = args[b_at + 1], kw["bm"]
+        T, (E, K, r), N = gid.numel(), a.shape, g.shape[1]
+        e, ok = lg._tile_groups(gid, E)
+        h = x.reshape(T, bm, K).float() @ a[e].float()
+        sgt = sg.reshape(T, bm, N)
+        diff = h.mT @ sgt - h.to(x.dtype).float().mT @ sgt
+        move = torch.zeros((E, r, N), device=x.device).index_add_(
+            0, e, diff * ok.float()[:, None, None])
+    else:
+        h = x.float() @ a.float()
+        move = h.T @ sg - h.to(x.dtype).float().T @ sg
+    da, db = fn(x, *args, **kw)
+    return da, (db.float() + move).to(db.dtype)
+
+
 # each model's faults: (fault, the WRAPPERS it goes into)
 FAULTS = {"dense": {"k_tail": (k_tail, "dense"),
                     "code_off": (code_off, "dense"),
                     "h_unrounded": (h_unrounded, "dense"),
                     "dx_k_tail": (k_tail, "dense_dx"),
                     "dx_code_off": (code_off, "dense_dx"),
-                    "dh_unrounded": (dh_unrounded, "dense_dx")},
+                    "dh_unrounded": (dh_unrounded, "dense_dx"),
+                    "dab_m_tail": (dab_m_tail, "dense_dab"),
+                    "dab_h_unrounded": (dab_h_unrounded, "dense_dab")},
           "moe": {"k_tail": (k_tail, "moe"),
                   "swap_expert": (swap_expert, "moe"),
                   "code_off": (code_off, "moe"),
                   "dx_k_tail": (k_tail, "moe_dx"),
                   "dx_swap_expert": (swap_expert, "moe_dx"),
-                  "dx_code_off": (code_off, "moe_dx")}}
+                  "dx_code_off": (code_off, "moe_dx"),
+                  "dab_m_tail": (dab_m_tail, "moe_dab"),
+                  "dab_h_unrounded": (dab_h_unrounded, "moe_dab"),
+                  "dab_swap_expert": (swap_expert, "moe_dab")}}
 
 
 def planted(model, fault):
@@ -272,6 +330,8 @@ def main() -> int:
     ap.add_argument("--faults", default="",
                     help="comma-separated faults to read (none: sound); "
                          "default every fault of the model")
+    ap.add_argument("--bases", default="none,nf4",
+                    help="comma-separated frozen-base formats to read over")
     ap.add_argument("--label", default="", help="a name for this checkout")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -287,7 +347,7 @@ def main() -> int:
             make_batch_iterator(cfg.vocab, cs.PAPER_SEQ, cs.PAPER_BATCH,
                                 seed=0)).items()}
         read = dense_reading if model == "dense" else moe_reading
-        for base in ("none", "nf4"):
+        for base in args.bases.split(","):
             for fault in [None, *FAULTS[model]]:
                 if only is not None and (fault or "none") not in only:
                     continue

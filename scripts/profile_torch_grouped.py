@@ -16,7 +16,7 @@ its inputs out of L2). It uses the ``chip_smoke`` and ``repro_torch`` found
 on the path, so one call can time two checkouts in turns:
 
     PYTHONPATH=src:. python scripts/profile_torch_grouped.py \
-        [--family grouped|dense|both] [--label L]
+        [--family grouped|dense|both|dab] [--label L]
 
 Prints one JSON line: ms per launch by format and shape, the bound (bytes
 at 3.35 TB/s or FLOPs at 989 TFLOP/s), the card and its power limit; and,
@@ -51,6 +51,21 @@ version and of ``torch.matmul`` of g @ W0^T, beside the bound; and, at M
 the mean |error| of each against an f64 product of the same bf16 operands
 (g, or round(g * round(S)) over codes; dh as the plain version rounds it),
 and the SHA-256 of the kernel's output. The same JSON line carries them.
+
+Factor gradients (``--family dab``): the bf16 ``lora_dab`` at the dense
+shapes above and the bf16 ``lora_grouped_dab`` at the grouped ones (E 64,
+C = bm 40), cold as above: ms per launch of the kernel (its wrapper), of
+its plain version, and of two products as context (``torch.mm`` of x^T by
+r columns of g and of r columns of x, transposed, by g: the shapes of its
+two row contractions; per expert ``torch.bmm`` grouped), beside the bound
+(x, g, A and B read once, dA and dB written once); the share of dA's and
+dB's entries that round otherwise than the plain version's and the mean
+|error| of each against an f64 product of the same bf16 operands (x,
+round(s g), and h and dh as the plain version rounds them); the SHA-256 of
+the bf16 dA and dB, and of the f32 dA and dB on one f32 input set (the
+CUDA-core body, which must keep its bits); and, on a tree that has it, the
+bf16 body's plan at each shape (``lora_fused.dab_plan``,
+``lora_grouped.dab_plan``).
 """
 from __future__ import annotations
 
@@ -412,9 +427,108 @@ def dense():
             "dense_dx_sums_dh": DX_SUMS_DH}
 
 
+def _dab_cases(gen, dtype, M, K, N, E=None):
+    """make() of the factor gradients' inputs: x [M, K], g [M, N], A, B
+    (per expert [E, ·] and gid, every expert one tile, when E is given)."""
+    def make():
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        lead = () if E is None else (E,)
+        out = tuple(t.to(dtype) for t in (
+            rn(M, K), rn(M, N), rn(*lead, K, R) * R ** -0.5,
+            rn(*lead, R, N) * 0.1))
+        if E is None:
+            return out
+        return out + (torch.arange(E, dtype=torch.int32, device="cuda"),)
+    return make
+
+
+def _dab_calls(grouped):
+    """(kernel, plain version, product context) of the factor gradients."""
+    if grouped:
+        def mm(x, g, a, b, gid):
+            xe, ge = x.view(E, C, -1), g.view(E, C, -1)
+            return (torch.bmm(xe.mT, ge[..., :R]),
+                    torch.bmm(xe[..., :R].mT, ge))
+        return (lambda x, g, a, b, gid: lg.lora_grouped_dab(
+                    x, g, a, b, gid, 2.0, bm=C),
+                lambda x, g, a, b, gid: lg.lora_grouped_dab_ref(
+                    x, g, a, b, gid, 2.0, bm=C), mm)
+    return (lambda x, g, a, b: lf.lora_dab(x, g, a, b, 2.0),
+            lambda x, g, a, b: lf.lora_dab_ref(x, g, a, b, 2.0),
+            lambda x, g, a, b: (torch.mm(x.T, g[:, :R]),
+                                torch.mm(x[:, :R].T, g)))
+
+
+def dab_rounding(grouped, args):
+    """The bf16 dA/dB and its plain version against f64 products of the
+    same bf16 operands on one input set: share of entries that differ,
+    each one's mean |error|, and the SHA-256 of the kernel's dA and dB."""
+    kern, plain, _ = _dab_calls(grouped)
+    got, ref = kern(*args), plain(*args)
+    x, g, a, b = args[:4]
+    if grouped:    # every expert one tile of C rows
+        x, g = x.view(E, C, -1), g.view(E, C, -1)
+    sg = (2.0 * g.float()).to(g.dtype)
+    h = (x.float() @ a.float()).to(x.dtype).double()
+    dh = (sg.float() @ b.float().mT).to(x.dtype).double()
+    exact = (x.double().mT @ dh, h.mT @ sg.double())
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in got)
+    return {"differ_share": sum(float((u != v).double().sum())
+                                for u, v in zip(got, ref)) / n,
+            "kernel_mean_abs_err": sum(
+                float((u.double() - e).abs().sum())
+                for u, e in zip(got, exact)) / n,
+            "plain_mean_abs_err": sum(
+                float((v.double() - e).abs().sum())
+                for v, e in zip(ref, exact)) / n,
+            "sha256": hashlib.sha256(b"".join(
+                t.view(torch.int16).cpu().numpy().tobytes()
+                for t in got)).hexdigest()}
+
+
+def dab():
+    """The bf16 factor gradients' per-launch times, rounding, output hashes
+    and plans at the dense and grouped paths' shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    out, rnd, plans = {}, {}, {}
+    shapes = {**{f"dense/{k}": (M, K, N, None)
+                 for k, (M, K, N) in DENSE_SHAPES.items()},
+              **{f"grouped/{k}": (E * C, K, N, E)
+                 for k, (K, N) in SHAPES.items()}}
+    for shape, (M, K, N, Eg) in shapes.items():
+        grouped = Eg is not None
+        kern, plain, mm = _dab_calls(grouped)
+        experts = Eg or 1
+        nbytes = 2 * (M * (K + N) + 2 * experts * R * (K + N)) + (
+            4 * Eg if grouped else 0)
+        flops = 4 * M * R * (K + N)
+        bound, by = cs._bound_ms(nbytes, flops)
+        sets = cs._cold_sets(_dab_cases(gen, torch.bfloat16, M, K, N, Eg),
+                             nbytes)
+        out[shape] = {"ms": cs._time_ms(kern, sets, CALLS),
+                      "plain_ms": cs._time_ms(plain, sets, CALLS // 4),
+                      "mm_ms": cs._time_ms(mm, sets, CALLS),
+                      "bound_ms": bound, "bound_by": by}
+        rnd[shape] = dab_rounding(grouped, sets[0])
+        del sets
+        f32 = _dab_cases(gen, torch.float32, M, K, N, Eg)()
+        got = kern(*f32)
+        torch.cuda.synchronize()
+        rnd[shape]["f32_sha256"] = hashlib.sha256(b"".join(
+            t.cpu().numpy().tobytes() for t in got)).hexdigest()
+        del f32, got
+        if grouped and hasattr(lg, "dab_plan"):
+            plans[shape] = lg.dab_plan(M, K, N, Eg, R, bm=C)
+        elif not grouped and hasattr(lf, "dab_plan"):
+            plans[shape] = lf.dab_plan(M, K, N, R)
+    return {"dab_ms_per_launch": out, "dab_rounding_and_sha256": rnd,
+            "dab_plan": plans}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--family", choices=("grouped", "dense", "both"),
+    ap.add_argument("--family", choices=("grouped", "dense", "both", "dab"),
                     default="both")
     ap.add_argument("--label", default="", help="a name for this checkout")
     args = ap.parse_args()
@@ -425,6 +539,8 @@ def main() -> int:
         res.update(grouped())
     if args.family in ("dense", "both"):
         res.update(dense())
+    if args.family == "dab":
+        res.update(dab())
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -11,14 +11,19 @@ two warm SGD steps, then traces ``--steps`` steps with
 ms per step (the union of kernel intervals on the card's timeline), the
 device idle share, device kernels launched per step, the kernels that
 took the most device time, and the flash-attention, grouped (MoE) and
-dense LoRA forward and dx kernels' time.
+dense LoRA forward and dx kernels' and the LoRA factor gradients' (dense
+and grouped dA/dB) time. With ``--peak`` it then prints the peak
+``torch.cuda.max_memory_allocated`` of one ``value_and_grad`` with remat
+off, and above what was allocated before it (``chip_smoke.py``'s
+``peak_memory`` reading, on the trained weights).
 
     PYTHONPATH=src python scripts/profile_torch_train.py [--engine mesp_cuda] \
-        [--arch olmoe-1b-7b] [--batch 1 --seq 256] [--quantize nf4]
+        [--arch olmoe-1b-7b] [--batch 1 --seq 256] [--quantize nf4] [--peak]
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import time
 
@@ -42,6 +47,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=48)
     ap.add_argument("--quantize", default="none", choices=quant.METHODS)
+    ap.add_argument("--peak", action="store_true",
+                    help="also the remat-off peak of one value_and_grad")
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("needs a CUDA card")
@@ -98,7 +105,30 @@ def main(argv=None) -> int:
             k[:100]: v / 1e3 / ns.steps for k, v in by_name.items()
             if "lora_gemm" in k or "dense_fwd_tc" in k
             or "dense_dx_tc" in k},
+        # dA/dB, dense and grouped: the f32 row blocks and reduce passes
+        # (lora_dab_*, grouped_dab_*), the bf16 tensor-core body (dab_tc)
+        "dab_ms_per_step": {k[:100]: v / 1e3 / ns.steps
+                            for k, v in by_name.items() if "dab" in k},
         "device": torch.cuda.get_device_name(0)}}))
+    if ns.peak:
+        del prof, kernels
+        batch = {k: torch.from_numpy(v).long().to(device)
+                 for k, v in next(data).items()}
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        off = ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
+                              remat=False, quantize=ns.quantize)
+        loss, grads = mesp.value_and_grad(params, cfg, batch, policy=off)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        del loss, grads
+        print(json.dumps({"peak_remat_off": {
+            "arch": ns.arch, "engine": ns.engine, "quantize": ns.quantize,
+            "peak_bytes": peak, "above_start_bytes": peak - start,
+            "start_bytes": start}}))
     return 0
 
 

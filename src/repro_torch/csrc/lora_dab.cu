@@ -12,7 +12,8 @@
 // What bounds it: reading x and g once (the outputs are r-thin); ~8 r FLOPs
 // per element of x or g, far below the card's ridge, so bytes.
 //
-// Design, two launches on one stream:
+// bf16: lora_dab_tc.cuh's tensor-core body over one group, one launch (its
+// header has the design). f32, two launches on one stream:
 // * Partials. A block owns 8 rows and writes the f32 partials of dA and dB
 //   over them to a workspace, with h and dh recomputed on chip
 //   (lora_dab.cuh).
@@ -20,9 +21,10 @@
 //   row tiles in a fixed order and casts. No atomics: the result is the same
 //   on every run.
 // The TPU kernel carried dA and dB across its sequential row grid in VMEM;
-// on Hopper the row tiles run in parallel, hence the second pass.
+// on Hopper the row tiles run in parallel, hence the f32 second pass.
 
 #include "lora_dab.cuh"
+#include "lora_dab_tc.cuh"
 
 namespace {
 
@@ -79,22 +81,39 @@ int launch(const void* x, const void* g, const void* a, const void* b,
 
 }  // namespace
 
-// f32 elements of the partials workspace that lora_dab needs.
+// f32 elements of the partials workspace that the f32 lora_dab needs (the
+// bf16 body's: lora_dab_plan).
 extern "C" long long lora_dab_workspace(int M, int K, int N, int r) {
   const long long tiles = (M + RB - 1) / RB;
   return tiles * ((long long)K * r + (long long)r * N);
 }
 
-// Returns cudaGetLastError() after the launches (0 when both were accepted).
+// The bf16 body's plan at x [M, K], g [M, N], rank r: out[0..7] = C (the
+// members of a cluster, which share K's and N's columns), S (sub-runs of
+// rows, one cluster each), Q (passes over a member's columns), RF (m16 row
+// fragments a chunk), slabs (1 or 2), dynamic shared memory (bytes), the
+// workspace (f32 elements) and the zeroed counts the launch needs.
+extern "C" int lora_dab_plan(int M, int K, int N, int r, long long* out) {
+  if (M < 0 || K < 1 || N < 1 || r < 1 || r > RMAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dab_tc::plan_figures(false, M, K, N, 1, r, 0, out);
+}
+
+// Returns cudaGetLastError() after the launches (0 when they were
+// accepted). ws: f32, lora_dab_workspace's elements (f32) or lora_dab_plan's
+// (bf16); cnt (bf16): lora_dab_plan's count of int32 zeros, which the
+// launch leaves zero.
 extern "C" int lora_dab(int dtype, const void* x, const void* g, const void* a,
-                        const void* b, void* ws, void* da, void* db, int M,
-                        int K, int N, int r, float scale, void* stream) {
+                        const void* b, void* ws, void* cnt, void* da,
+                        void* db, int M, int K, int N, int r, float scale,
+                        void* stream) {
   if (M < 0 || K < 1 || N < 1 || r < 1 || r > RMAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
   if (dtype == DTYPE_BF16)
-    return launch<__nv_bfloat16>(x, g, a, b, w, da, db, M, K, N, r, scale, s);
+    return dab_tc::launch(x, g, a, b, nullptr, w, static_cast<int*>(cnt), da,
+                          db, M, K, N, 1, r, 0, scale, s);
   if (dtype == DTYPE_F32)
     return launch<float>(x, g, a, b, w, da, db, M, K, N, r, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);

@@ -79,7 +79,6 @@
 
 #include <cooperative_groups.h>
 
-#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
@@ -552,13 +551,6 @@ __global__ void __launch_bounds__(THREADS, 3)
               static_cast<unsigned short>(o[q / 2] >> (16 * (q % 2))));
     }
   }
-}
-
-// s a power of two of magnitude 1 or more: round(s g) = s g exactly for
-// every bf16 g (no subnormal result)
-inline bool pow2_scale(float s) {
-  int e = 0;
-  return std::fabs(std::frexp(s, &e)) == 0.5f && e >= 1;
 }
 
 template <int MF, WFmt F>

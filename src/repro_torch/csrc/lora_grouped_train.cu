@@ -34,8 +34,8 @@
 // ~295, so the least time is that of reading the 268 MB expert stack once
 // (~80 us). dA/dB read x and g once (~8 r FLOPs an element): bytes too.
 // Over codes the stack to read shrinks (nf4 gate/up: 67 MB, ~26 us from
-// bytes with x, y and the factors). The bf16 forward and dx run on tensor
-// cores; dA/dB and every f32 instance run on CUDA cores, whose FMA rate
+// bytes with x, y and the factors). The bf16 forward, dx and dA/dB run on
+// tensor cores; every f32 instance runs on CUDA cores, whose FMA rate
 // limits the f32 products.
 //
 // Design:
@@ -70,12 +70,17 @@
 //   output in the forward and is folded onto g as dx stages it, as in
 //   lora_gemm.cuh. Odd K (packed): the pad nibble meets an x column masked
 //   to zero, and dx writes no row at k >= K.
-// * dA/dB, two launches on one stream, as lora_dab.cu: row blocks of 8 rows
-//   inside one tile write f32 partials (h and dh recomputed on chip, never
-//   written to device memory; lora_dab.cuh); then one block per (group,
-//   element chunk) finds its group's run of tiles in gid and adds their
-//   partials in row order, no atomics. A group with no tile gets zeros. The
-//   TPU kernel kept each group's block in VMEM across its contiguous tiles;
+// * The bf16 dA/dB is lora_dab_tc.cuh's body, one launch: a thread-block
+//   cluster a group walks the group's run of tiles, x and g read once, h
+//   and dh recomputed on tensor cores and added across the cluster in
+//   distributed shared memory, dA[e] and dB[e] summed in registers and
+//   written directly (its header has the details). The f32 dA/dB, two
+//   launches on one stream, as lora_dab.cu: row blocks of 8 rows inside one
+//   tile write f32 partials (h and dh recomputed on chip, never written to
+//   device memory; lora_dab.cuh); then one block per (group, element chunk)
+//   finds its group's run of tiles in gid and adds their partials in row
+//   order, no atomics. In both a group with no tile gets zeros. The TPU
+//   kernel kept each group's block in VMEM across its contiguous tiles;
 //   that contiguity stays the contract: a group whose tiles are not one run
 //   gets NaN, so a broken schedule cannot pass for a result.
 // * A gid outside [0, E) writes NaN to its tile's rows (forward, dx) or
@@ -87,6 +92,7 @@
 #include <type_traits>
 
 #include "lora_dab.cuh"
+#include "lora_dab_tc.cuh"
 #include "lora_gemm.cuh"
 #include "lora_grouped_dx_tc.cuh"
 #include "lora_grouped_tc.cuh"
@@ -276,21 +282,27 @@ template <typename T>
 int launch_dab(const void* x, const void* g, const void* a, const void* b,
                const int* gid, float* ws, void* da, void* db, int M, int K,
                int N, int E, int r, int bm, float scale, cudaStream_t s) {
-  const int tiles = M / bm, nb = (bm + RB - 1) / RB;
-  if (tiles > 0) {
-    const T *xp = static_cast<const T*>(x), *gp = static_cast<const T*>(g),
-            *ap = static_cast<const T*>(a), *bp = static_cast<const T*>(b);
-    LORA_DAB_BY_RANK(grouped_dab_partial_kernel, T, r, tiles * nb, s, xp, gp,
-                     ap, bp, gid, ws, K, N, E, r, bm, nb, scale);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {  // tensor cores
+    return dab_tc::launch(x, g, a, b, gid, nullptr, nullptr, da, db, M, K, N,
+                          E, r, bm, scale, s);
+  } else {
+    const int tiles = M / bm, nb = (bm + RB - 1) / RB;
+    if (tiles > 0) {
+      const T *xp = static_cast<const T*>(x), *gp = static_cast<const T*>(g),
+              *ap = static_cast<const T*>(a), *bp = static_cast<const T*>(b);
+      LORA_DAB_BY_RANK(grouped_dab_partial_kernel, T, r, tiles * nb, s, xp,
+                       gp, ap, bp, gid, ws, K, N, E, r, bm, nb, scale);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const size_t per = (size_t)K * r + (size_t)r * N;
+    const size_t need = (per + dab_rows::THREADS - 1) / dab_rows::THREADS;
+    const dim3 grid(need < 64 ? (unsigned)need : 64u, (unsigned)E);
+    grouped_dab_reduce_kernel<T><<<grid, dab_rows::THREADS, 0, s>>>(
+        ws, gid, tiles, nb, K, N, r, static_cast<T*>(da),
+        static_cast<T*>(db));
+    return static_cast<int>(cudaGetLastError());
   }
-  const size_t per = (size_t)K * r + (size_t)r * N;
-  const size_t need = (per + dab_rows::THREADS - 1) / dab_rows::THREADS;
-  const dim3 grid(need < 64 ? (unsigned)need : 64u, (unsigned)E);
-  grouped_dab_reduce_kernel<T><<<grid, dab_rows::THREADS, 0, s>>>(
-      ws, gid, tiles, nb, K, N, r, static_cast<T*>(da), static_cast<T*>(db));
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -415,11 +427,25 @@ extern "C" int lora_grouped_dx_plan(int dtype, int fmt, int bm, int* mf,
   }
 }
 
-// f32 elements of the partials workspace that lora_grouped_dab needs.
+// f32 elements of the partials workspace that the f32 lora_grouped_dab
+// needs (the bf16 body needs none: each cluster writes its group's dA and
+// dB).
 extern "C" long long lora_grouped_dab_workspace(int M, int K, int N, int r,
                                                 int bm) {
   const long long blocks = (long long)(M / bm) * ((bm + RB - 1) / RB);
   return blocks * ((long long)K * r + (long long)r * N);
+}
+
+// The bf16 dA/dB's plan for E groups in tiles of bm rows (lora_dab_tc.cuh):
+// out[0..7] = C (the members of a group's cluster), S (1), Q (passes over
+// a member's columns), RF (m16 row fragments a chunk), slabs (1 or 2),
+// dynamic shared memory (bytes), workspace (0) and counts (0).
+extern "C" int lora_grouped_dab_plan(int M, int K, int N, int E, int r,
+                                     int bm, long long* out) {
+  if (M < 0 || K < 1 || N < 1 || E < 1 || r < 1 || r > dab_rows::RMAX ||
+      bm < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return dab_tc::plan_figures(true, M, K, N, E, r, bm, out);
 }
 
 extern "C" int lora_grouped_dab(int dtype, const void* x, const void* g,

@@ -34,6 +34,7 @@
 // registers they had when these lived in their own headers.
 #pragma once
 
+#include <cmath>
 #include <cstdint>
 
 #include "common.cuh"
@@ -292,6 +293,14 @@ __device__ __forceinline__ void frag_w(uint32_t (&b)[2][2],
   } else {
     frag_pair4(b, ws, tb, c0, jp, ks, lane);
   }
+}
+
+// s a power of two of magnitude 1 or more: round(s g) = s g exactly for
+// every bf16 g (no subnormal result), so s may multiply an f32 sum of g's
+// products instead (the dense dx's dh, dA/dB's dh and dB)
+inline bool pow2_scale(float s) {
+  int e = 0;
+  return std::fabs(std::frexp(s, &e)) == 0.5f && e >= 1;
 }
 
 inline bool aligned16(const void* p) {

@@ -12,8 +12,10 @@ Replace the TPU kernels of ``src/repro/kernels/lora_fused.py``:
   its own loop (one launch, no dh in device memory), the f32 wrapper
   computes it before its kernel; W0 is read in place;
 * :func:`lora_dab` (``lora_dab``, ``_lora_dab_kernel``):
-  ``dA = xᵀ·dh``, ``dB = hᵀ·round(s·g)`` with h and dh recomputed per row
-  tile, reduced over tiles in a fixed order (no atomics).
+  ``dA = xᵀ·dh``, ``dB = hᵀ·round(s·g)`` with h and dh recomputed on chip:
+  in bf16 one launch on tensor cores (``csrc/lora_dab_tc.cuh``), x and g
+  read once, at most a few sub-run partials added in a fixed order; in f32
+  per 8-row tile, reduced over tiles in a fixed order (no atomics).
 
 "round" is a rounding to x's dtype, where the TPU kernels round; every sum
 is f32. What bounds each kernel on the H100 and how its design answers it
@@ -24,6 +26,9 @@ kernel does not take; a tensor on the CPU gets the plain version
 (``*_ref``). ``<wrapper>.launches`` counts kernel launches.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -37,7 +42,7 @@ _P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
 _FWD_ARGS = [_I] + [_P] * 5 + [_I] * 4 + [_F, _P]
 _DX_ARGS = [_P] * 5 + [_I] * 4 + [_P]
 _DX_TC_ARGS = [_P] * 5 + [_I] * 4 + [_F, _P]
-_DAB_ARGS = [_I] + [_P] * 7 + [_I] * 4 + [_F, _P]
+_DAB_ARGS = [_I] + [_P] * 8 + [_I] * 4 + [_F, _P]
 
 
 # ------------------------------------------------------------ plain versions
@@ -138,7 +143,6 @@ _DX_PLANS = {"none": ("lora_dx", "lora_dx_plan", ()),
 
 
 def _plan(lib, name, lead, M, K, N):
-    import ctypes
     out = ctypes.POINTER(ctypes.c_int)
     fn = _build.function(lib, name, [_I] * (len(lead) + 3) + [out, out])
     split, smem = ctypes.c_int(-1), ctypes.c_int(-1)
@@ -189,6 +193,46 @@ def lora_dx(g, w0, a, b, scale: float = 2.0):
     return dx
 
 
+#: the keys of a bf16 dA/dB plan (``csrc/lora_dab_tc.cuh``)
+DAB_PLAN_KEYS = ("members", "sub_runs", "passes", "row_fragments", "slabs",
+                 "smem_bytes", "workspace", "counts")
+
+
+def dab_plan_of(lib: str, entry: str, *dims) -> dict:
+    """The bf16 dA/dB body's launch plan from ``lib``'s ``entry`` at
+    ``dims``: ``members`` (C, the blocks of a cluster, which share K's and
+    N's columns), ``sub_runs`` (S, the clusters of a dense launch's rows),
+    ``passes`` (Q, over a member's columns), ``row_fragments`` (m16
+    fragments a chunk of rows), ``slabs`` (1 or 2), ``smem_bytes``,
+    ``workspace`` (f32 elements of the S partials) and ``counts`` (the
+    zeroed int32 the launch needs)."""
+    out = (ctypes.c_longlong * 8)()
+    fn = _build.function(lib, entry, [_I] * len(dims) + [_P])
+    _build.check(lib, fn(*dims, out), entry)
+    return dict(zip(DAB_PLAN_KEYS, out))
+
+
+@functools.lru_cache(maxsize=None)
+def dab_plan(M: int, K: int, N: int, r: int) -> dict:
+    """The bf16 :func:`lora_dab`'s plan at x [M, K], g [M, N], rank r
+    (:func:`dab_plan_of`)."""
+    return dab_plan_of("lora_dab", "lora_dab_plan", M, K, N, r)
+
+
+#: per device index: int32 zeros, the counts of the bf16 dA/dB's last-block
+#: sum; each launch leaves them zero (launches on one stream at a time)
+_COUNTS = {}
+
+
+def _zero_counts(device, n: int):
+    t = _COUNTS.get(device.index)
+    if t is None or t.numel() < n:
+        t = _COUNTS[device.index] = torch.zeros(max(n, 64),
+                                                dtype=torch.int32,
+                                                device=device)
+    return t
+
+
 def lora_dab(x, g, a, b, scale: float = 2.0):
     """x [M,K], g [M,N], a [K,r], b [r,N] -> (dA [K,r], dB [r,N]) in a's
     and b's dtype (which is x's)."""
@@ -199,16 +243,25 @@ def lora_dab(x, g, a, b, scale: float = 2.0):
     N = g.shape[1]
     _validate("lora_dab", x, {"x": x, "g": g, "a": a, "b": b},
               {"x": (M, K), "g": (M, N), "a": (K, r), "b": (r, N)})
-    size = _build.function("lora_dab", "lora_dab_workspace",
-                           [_I] * 4, restype=_build.C_LONGLONG)(M, K, N, r)
-    ws = torch.empty(size, dtype=torch.float32, device=x.device)
-    da = torch.empty((K, r), dtype=a.dtype, device=x.device)
-    db = torch.empty((r, N), dtype=b.dtype, device=x.device)
-    fn = _build.function("lora_dab", "lora_dab", _DAB_ARGS)
+    cnt = None
     with torch.cuda.device(x.device):
+        if x.dtype == torch.bfloat16:
+            plan = dab_plan(M, K, N, r)
+            size = plan["workspace"]
+            if plan["counts"]:
+                cnt = _zero_counts(x.device, plan["counts"])
+        else:
+            size = _build.function(
+                "lora_dab", "lora_dab_workspace", [_I] * 4,
+                restype=_build.C_LONGLONG)(M, K, N, r)
+        ws = torch.empty(size, dtype=torch.float32, device=x.device)
+        da = torch.empty((K, r), dtype=a.dtype, device=x.device)
+        db = torch.empty((r, N), dtype=b.dtype, device=x.device)
+        fn = _build.function("lora_dab", "lora_dab", _DAB_ARGS)
         rc = fn(_DTYPES[x.dtype], x.data_ptr(), g.data_ptr(), a.data_ptr(),
-                b.data_ptr(), ws.data_ptr(), da.data_ptr(), db.data_ptr(),
-                M, K, N, r, float(scale), _stream())
+                b.data_ptr(), ws.data_ptr(),
+                None if cnt is None else cnt.data_ptr(), da.data_ptr(),
+                db.data_ptr(), M, K, N, r, float(scale), _stream())
     _build.check("lora_dab", rc, "lora_dab launch")
     lora_dab.launches += 1
     return da, db

@@ -51,7 +51,10 @@ one expert's capacity buffer.
 * :func:`lora_grouped_dab` (``lora_grouped_dab``, ``_grouped_dab_kernel``):
   per group ``dA = xᵀ·dh``, ``dB = round(x@A)ᵀ·round(s·g)`` over the
   group's tiles, h and dh recomputed on chip; a group with no tile gets
-  zeros.
+  zeros. In bf16 one launch on tensor cores (``csrc/lora_dab_tc.cuh``, the
+  dense :func:`~repro_torch.kernels.lora_fused.lora_dab`'s body), a
+  cluster a group, with no workspace; in f32 per 8-row block, reduced per
+  group in a second launch.
 
 Over quantized expert stacks (``Ew == E``): int8 codes q [E, K, N] or
 packed q4 uint8 [E, ceil(K/2), N] with an f32 scale [E, 1, N] (the layouts
@@ -83,6 +86,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.lora_fused import dab_plan_of
 from repro_torch.kernels.lora_pack4 import METHOD_CODES, unpack_weights
 from repro_torch.kernels.lora_quant import validate_base
 
@@ -516,9 +520,9 @@ def lora_grouped_dab(x, g, a, b, gid, scale: float = 2.0, *, bm: int):
         raise ValueError(f"lora_grouped_dab: g must be a contiguous [{M}, "
                          f"{N}] {x.dtype} tensor on {x.device}, got "
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
-    size = _build.function("lora_grouped_train", "lora_grouped_dab_workspace",
-                           [_I] * 5, restype=_build.C_LONGLONG)(M, K, N, r,
-                                                                bm)
+    size = 0 if x.dtype == torch.bfloat16 else _build.function(
+        "lora_grouped_train", "lora_grouped_dab_workspace", [_I] * 5,
+        restype=_build.C_LONGLONG)(M, K, N, r, bm)
     ws = torch.empty(size, dtype=torch.float32, device=x.device)
     da = torch.empty((E, K, r), dtype=a.dtype, device=x.device)
     db = torch.empty((E, r, N), dtype=b.dtype, device=x.device)
@@ -532,6 +536,15 @@ def lora_grouped_dab(x, g, a, b, gid, scale: float = 2.0, *, bm: int):
     _build.check("lora_grouped_train", rc, "lora_grouped_dab launch")
     lora_grouped_dab.launches += 1
     return da, db
+
+
+def dab_plan(M: int, K: int, N: int, E: int, r: int, *, bm: int) -> dict:
+    """The bf16 :func:`lora_grouped_dab`'s plan for x [M, K], g [M, N] in
+    tiles of ``bm`` rows over E groups at rank r
+    (:func:`~repro_torch.kernels.lora_fused.dab_plan_of`; one sub-run, no
+    workspace)."""
+    return dab_plan_of("lora_grouped_train", "lora_grouped_dab_plan", M, K,
+                       N, E, r, bm)
 
 
 def lora_grouped_gemm_q(x, q, s, a, b, gid, scale: float = 2.0, *,

@@ -152,7 +152,14 @@ def test_lora_dx_plain_matches_pallas_kernel(jx, M, K, N, r, scale):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("M,K,N,r", FUSED_CASES)
+# beside FUSED_CASES, the ranks the bf16 dA/dB body takes in its 16- and
+# 32-wide instances, and 40 rows (OLMoE's capacity: a chunk of three m16
+# fragments)
+DAB_CPU_CASES = FUSED_CASES + [(40, 72, 40, 16), (40, 33, 129, 32),
+                               (12, 40, 24, 32)]
+
+
+@pytest.mark.parametrize("M,K,N,r", DAB_CPU_CASES)
 def test_lora_dab_plain_matches_pallas_kernel(jx, M, K, N, r):
     x, w0, a, b, g = _fused_inputs(12, M, K, N, r)
     jnp = jx.jnp
@@ -314,6 +321,7 @@ DEEPEST_SPLIT = (256, 4864, 128)
 @pytest.mark.parametrize("M,K,N,r", FUSED_CASES + [
     (192, 896, 896, 8), (192, 896, 128, 8), (192, 896, 4864, 8),
     (192, 4864, 896, 8), (130, 300, 70, 32), (64, 64, 64, 1),
+    (40, 97, 131, 1), (256, 2048, 2048, 32),
 ] + TC_CASES)
 def test_lora_training_kernels_match_plain_on_card(M, K, N, r, dtype):
     """lora_fused_fwd, lora_dx and lora_dab against their plain versions.
@@ -520,6 +528,122 @@ def test_lora_dx_f32_bits_are_unchanged(M, K, N):
     dx = tlf.lora_dx(g, w0, a, b, 2.0)
     got = hashlib.sha256(dx.cpu().numpy().tobytes()).hexdigest()
     assert got == DX_F32_SHA256[(M, K, N)]
+
+
+# the bf16 dA/dB's card cases (M, K, N, r): every path shape (q, o; k, v;
+# gate, up; down; OLMoE's 2048 x 2048) at M 192 and 256 (8 sub-runs of 24
+# and 32 rows); M 1, 16, 40, 63, 64 and 65 (one sub-run, then several, one
+# to four m16 fragments a chunk); r 1, 16 and 32 (the 8-, 16- and 32-wide
+# instances; 32 at gate/up takes two passes over a member's columns);
+# ragged, unaligned K and N (x, g and B element by element)
+DAB_CASES = (
+    [(m, k, n, 8) for m in (192, 256) for k, n in DX_PATH_SHAPES]
+    + [(m, 896, 4864, 8) for m in (1, 16, 40, 63, 64, 65)]
+    + [(256, 896, 4864, r) for r in (1, 16, 32)]
+    + [(65, 4864, 896, 32), (40, 2048, 2048, 16), (63, 97, 131, 8),
+       (40, 97, 131, 3), (130, 300, 70, 32), (300, 97, 131, 16)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", DX_SCALES)
+@pytest.mark.parametrize("M,K,N,r", DAB_CASES)
+def test_lora_dab_bf16_matches_plain_on_card(M, K, N, r, scale):
+    """The bf16 dA/dB on tensor cores (one launch, x and g read once, h and
+    dh recomputed on chip) against its plain version: one output rounding
+    (2^-8 relative), doubled where a rounding of h or dh flips, and an
+    absolute floor relative to the largest output (the other LoRA kernels'
+    card tolerance). At s 1.5 round(s g) really rounds, in the kernel's
+    registers. Two launches give the same bits; the workspace holds at most
+    8 sub-run partials."""
+    _need_card()
+    x, _, a, b, g = [t.to(torch.bfloat16).cuda() for t in _t(
+        *_fused_inputs(20, M, K, N, r))]
+    before = tlf.lora_dab.launches
+    da, db = tlf.lora_dab(x, g, a, b, scale)
+    torch.cuda.synchronize()
+    assert tlf.lora_dab.launches == before + 1
+    assert da.dtype == db.dtype == torch.bfloat16
+    wda, wdb = tlf.lora_dab_ref(x, g, a, b, scale)
+    for got, want in ((da, wda), (db, wdb)):
+        _assert_close_scaled(got, want, dict(rtol=2.0 ** -6, atol=1e-2))
+    da2, db2 = tlf.lora_dab(x, g, a, b, scale)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+    plan = tlf.dab_plan(M, K, N, r)
+    assert 1 <= plan["members"] <= 8 and 1 <= plan["sub_runs"] <= 8
+    assert plan["workspace"] == (0 if plan["sub_runs"] == 1 else
+                                 plan["sub_runs"] * r * (K + N))
+    assert 0 < plan["smem_bytes"] <= 232448
+    if M >= 192:   # the path's rows fill the card: 8 sub-runs of 8 members
+        assert plan["sub_runs"] * plan["members"] >= 48
+
+
+# one bf16 lora_dab call (M 256, gate/up: 8 sub-runs) and one bf16
+# lora_grouped_dab call (OLMoE's E 64 x 40 rows) under torch.profiler, in a
+# process of its own (as _PROFILE_DX)
+_PROFILE_DAB = r"""
+import json
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels import lora_fused as lf
+from repro_torch.kernels import lora_grouped as lg
+
+gen = torch.Generator(device="cuda").manual_seed(0)
+rn = lambda *s: torch.randn(s, generator=gen, device="cuda").bfloat16()
+x, g, a, b = rn(256, 896), rn(256, 4864), rn(896, 8), rn(8, 4864)
+xe, ge, ae, be = rn(2560, 2048), rn(2560, 1024), rn(64, 2048, 8), rn(64, 8,
+                                                                    1024)
+gid = torch.arange(64, dtype=torch.int32, device="cuda")
+calls = [lambda: lf.lora_dab(x, g, a, b, 2.0),
+         lambda: lg.lora_grouped_dab(xe, ge, ae, be, gid, 2.0, bm=40)]
+for fn in calls:
+    fn()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU,
+                         ProfilerActivity.CUDA]) as prof:
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+print(json.dumps([e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]))
+"""
+
+
+@pytest.mark.cuda
+def test_lora_dab_bf16_is_one_device_kernel():
+    """A bf16 dA/dB call, dense or grouped, runs one device kernel, the
+    tensor-core body (dab_tc<8>): no reduce pass. And no PyTorch operator
+    but the allocations of the outputs and of the few sub-run partials."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    from torch.utils._python_dispatch import TorchDispatchMode
+    _need_card()
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    out = subprocess.run([sys.executable, "-c", _PROFILE_DAB], env=env,
+                         check=True, capture_output=True, text=True).stdout
+    kernels = json.loads(out.strip().splitlines()[-1])
+    assert len(kernels) == 2, kernels
+    assert all("dab_tc<8>" in k for k in kernels), kernels
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.names = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.names.append(str(func))
+            return func(*args, **(kwargs or {}))
+    x, _, a, b, g = [t.to(torch.bfloat16).cuda() for t in _t(
+        *_fused_inputs(21, 256, 896, 4864, 8))]
+    tlf.lora_dab(x, g, a, b, 2.0)   # the zeroed counts are made once
+    with Ops() as ops:
+        tlf.lora_dab(x, g, a, b, 2.0)
+    assert set(ops.names) == {"aten.empty.memory_format"}, ops.names
 
 
 @pytest.mark.cuda

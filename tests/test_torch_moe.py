@@ -698,6 +698,53 @@ def test_grouped_train_kernels_match_plain_on_card(M, K, N, E, r, bm, gid,
     assert torch.equal(da, da2) and torch.equal(db, db2)
 
 
+# the bf16 dA/dB's card cases (M, K, N, E, r, bm, gid): the path's gate/up
+# and down (E 64, C = bm 40: one cluster a group); runs of three and two
+# 128-row tiles (a cluster walks several chunks, the two slabs in turn);
+# bm 8, 16, 63, 64 and 65 (chunks of one to four m16 fragments, a tile over
+# two chunks); r 1, 16 and 32 (32 at 2048 x 1024: more members, no second
+# pass); odd, unaligned K and N (x, g and B element by element); an empty
+# group
+DAB_CARD_CASES = [
+    (2560, 2048, 1024, 64, 8, 40, list(range(64))),
+    (2560, 1024, 2048, 64, 8, 40, list(range(64))),
+    (640, 512, 384, 2, 8, 128, [0, 0, 0, 1, 1]),
+    (24, 300, 130, 3, 1, 8, [2, 0, 0]),
+    (64, 97, 131, 2, 16, 16, [1, 1, 0, 0]),
+    (126, 97, 131, 2, 8, 63, [0, 1]),
+    (128, 896, 896, 2, 32, 64, [1, 0]),
+    (195, 640, 512, 4, 8, 65, [0, 3, 1]),
+    (120, 2048, 1024, 3, 32, 40, [2, 1, 0]),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [2.0, 1.5])
+@pytest.mark.parametrize("M,K,N,E,r,bm,gid", DAB_CARD_CASES)
+def test_grouped_dab_bf16_matches_plain_on_card(M, K, N, E, r, bm, gid,
+                                                scale):
+    """The bf16 dA/dB on tensor cores (one launch, a cluster a group, no
+    workspace) against its plain version at the bf16 card tolerance; at s
+    1.5 round(s g) really rounds. Two launches give the same bits."""
+    _need_card()
+    x, _, a, b, g = [t.to(torch.bfloat16).cuda() for t in _t(*_gid_inputs(
+        46, M, K, N, E, r))]
+    gid = torch.tensor(gid, dtype=torch.int32, device="cuda")
+    before = tlg.lora_grouped_dab.launches
+    da, db = tlg.lora_grouped_dab(x, g, a, b, gid, scale, bm=bm)
+    torch.cuda.synchronize()
+    assert tlg.lora_grouped_dab.launches == before + 1
+    wda, wdb = tlg.lora_grouped_dab_ref(x, g, a, b, gid, scale, bm=bm)
+    for got, want in ((da, wda), (db, wdb)):
+        _close_scaled(got, want, dict(rtol=2.0 ** -6, atol=1e-2))
+    da2, db2 = tlg.lora_grouped_dab(x, g, a, b, gid, scale, bm=bm)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+    plan = tlg.dab_plan(M, K, N, E, r, bm=bm)
+    assert 1 <= plan["members"] <= 8 and plan["sub_runs"] == 1
+    assert plan["workspace"] == 0 and plan["counts"] == 0
+    assert 0 < plan["smem_bytes"] <= 232448
+
+
 # (M, K, N, E, r, bm): the path's gate/up tiling and the odd edge, whose x,
 # W0 and B rows are loaded element by element
 REPEAT_CASES = [(320, 2048, 1024, 8, 8, 40), (120, 97, 131, 3, 8, 40)]
@@ -763,10 +810,18 @@ def test_grouped_dx_bf16_marks_bad_gid_as_plain():
 
 
 @pytest.mark.cuda
-def test_grouped_train_kernels_mark_bad_gid_and_reject_bad_input():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_grouped_train_kernels_mark_bad_gid_and_reject_bad_input(dtype):
+    """A gid outside [0, E) gives NaN rows (forward, dx) and adds its tile
+    to no group (dA/dB); a group whose tiles are not one run gets NaN in
+    its dA and dB, an empty group zeros: on exactly the plain version's
+    entries, in f32 (rtol = atol = 1e-4) and bf16 (the card tolerance of
+    the bf16 kernels, its floor relative to the largest output). The bad
+    input is rejected in f32."""
     _need_card()
-    x, w0, a, b, g = [t.cuda() for t in _t(*_gid_inputs(41, 32, 24, 16, 3,
-                                                        4))]
+    dt = getattr(torch, dtype)
+    x, w0, a, b, g = [t.to(dt).cuda() for t in _t(*_gid_inputs(
+        41, 32, 24, 16, 3, 4))]
     for gid in ([0, 7, 1, -1], [1, 0, 1, 2]):
         gid = torch.tensor(gid, dtype=torch.int32, device="cuda")
         outs = (tlg.lora_grouped_gemm(x, w0, a, b, gid, 2.0, bm=8),
@@ -778,8 +833,17 @@ def test_grouped_train_kernels_mark_bad_gid_and_reject_bad_input():
                  *tlg.lora_grouped_dab_ref(x, g, a, b, gid, 2.0, bm=8))
         for got, want in zip(outs, wants):
             assert torch.equal(got.isnan(), want.isnan())
-            torch.testing.assert_close(got.nan_to_num(), want.nan_to_num(),
-                                       rtol=1e-4, atol=1e-4)
+            if dtype == "float32":
+                torch.testing.assert_close(got.nan_to_num(),
+                                           want.nan_to_num(), rtol=1e-4,
+                                           atol=1e-4)
+            else:
+                _close_scaled(got.nan_to_num(), want.nan_to_num(),
+                              dict(rtol=2.0 ** -6, atol=1e-2))
+        if gid.tolist() == [0, 7, 1, -1]:   # group 2 has no tile
+            assert not outs[2][2].any() and not outs[3][2].any()
+    if dtype == "bfloat16":
+        return
     gid = torch.arange(4, dtype=torch.int32, device="cuda") % 3
     with pytest.raises(TypeError, match="int32"):
         tlg.lora_grouped_gemm(x, w0, a, b, gid.long(), 2.0, bm=8)
