@@ -9,7 +9,11 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
 2. Holds each kernel against its plain PyTorch version on the card and
    times the kernel and the plain version beside the bound from bytes and
    operations: the serving kernels in bf16 at the qwen2.5-0.5b decode
-   shapes (with ``F.rms_norm`` as a library yardstick), the training
+   shapes (with ``F.rms_norm`` as a library yardstick, and
+   ``torch.matmul`` of x@W0 beside the grouped forward as context; the
+   grouped forward's bf16 tensor-core body with its plan per shape and its
+   registers and spills (ptxas), and the SHA-256 of its f32 CUDA-core
+   body's output at each shape), the training
    kernels (LoRA forward, dx, dA/dB, RMSNorm backward) in bf16 and f32 at
    the training shapes, 192 rows (batch 4 x seq 48), the LoRA forward,
    dx and dA/dB also at the paper path's 256 rows (batch 1 x seq 256),
@@ -453,17 +457,34 @@ def _bound_ms(nbytes, flops):
                                  "operations")
 
 
+def _sha256(t):
+    """SHA-256 of a tensor's bytes (bf16 as its 16-bit patterns)."""
+    import hashlib
+    import torch
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def _f32_decode_sha256(torch, make, call):
+    """SHA-256 of the f32 decode output (the CUDA-core body, whose bits
+    must not change) on one input set ``make()`` draws."""
+    out = call(*make())
+    torch.cuda.synchronize()
+    return _sha256(out)
+
+
 def check_grouped(torch, lg):
     gen = torch.Generator(device="cuda").manual_seed(1)
     gid = torch.tensor([3, 0, 3, 1], dtype=torch.int32, device="cuda")
     used = int(torch.unique(gid).numel())
     shapes = []
     for (K, N), per_step in GROUPED_SHAPES.items():
-        def make():
+        def make(dtype=torch.bfloat16):
             rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
-            return (rn(M, K).bfloat16(), (rn(K, N) * K ** -0.5).bfloat16(),
-                    (rn(R, K, RANK) * RANK ** -0.5).bfloat16(),
-                    (rn(R, RANK, N) * 0.05).bfloat16(), gid.clone())
+            return (rn(M, K).to(dtype), (rn(K, N) * K ** -0.5).to(dtype),
+                    (rn(R, K, RANK) * RANK ** -0.5).to(dtype),
+                    (rn(R, RANK, N) * 0.05).to(dtype), gid.clone())
         args = make()
         got = lg.lora_grouped(*args, 2.0, bm=BM)
         torch.cuda.synchronize()
@@ -475,14 +496,22 @@ def check_grouped(torch, lg):
         flops = 2 * M * K * N + 2 * M * K * RANK + 2 * M * RANK * N
         bound, by = _bound_ms(nbytes, flops)
         sets = _cold_sets(make, nbytes)
+        call = lambda *a: lg.lora_grouped(*a, 2.0, bm=BM)
         shapes.append({
             "K": K, "N": N, "M": M, "bm": BM, "R": R, "r": RANK,
             "launches_per_decode_step": per_step, "max_abs_err": err,
-            "ms": _time_ms(lambda *a: lg.lora_grouped(*a, 2.0, bm=BM), sets),
+            "ms": _time_ms(call, sets),
             "plain_ms": _time_ms(
                 lambda *a: lg.lora_grouped_ref(*a, 2.0, bm=BM), sets),
-            "library_ms": None, "bound_ms": bound, "bound_by": by,
-            "bytes": nbytes, "flops": flops})
+            "library_ms": None,
+            # context: x @ W0 alone over the same bf16 W0
+            "matmul_ms": _time_ms(lambda x, w, a, b, g: torch.matmul(x, w),
+                                  sets),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "flops": flops, "plan_bf16": lg.decode_plan(M, K, N, RANK, bm=BM),
+            "f32_sha256": _f32_decode_sha256(
+                torch, lambda: make(torch.float32), call)})
+        del sets
     return shapes
 
 
@@ -940,7 +969,11 @@ def check_grouped_quant(torch, quant, lg):
                 "plain_ms": _time_ms(plain, sets, QUANT_CALLS),
                 "library_ms": None, "matmul_ms": _time_ms(mm, sets),
                 "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-                "flops": flops})
+                "flops": flops,
+                "plan_bf16": lg.decode_plan(M_, K, N, r, bm=bm),
+                "f32_sha256": _f32_decode_sha256(torch, _grouped_q_cases(
+                    torch, quant, gen, torch.float32, method, M_, K, N, R_,
+                    r, gid), kern)})
             del sets
     return figures, edges
 
@@ -1691,6 +1724,22 @@ def grouped_tc_figures(build, formats, bm=MOE_BM, body="fwd"):
             "smem_bm": bm}
 
 
+def decode_tc_figures(build, fmt):
+    """The bf16 decode body's registers and spills (``BN``: its column
+    tile, 32 or 64) over W0 format ``fmt`` ("dense", "int8", "int4",
+    "nf4"), parsed from this run's ``nvcc -Xptxas -v`` log of
+    ``lora_grouped_fwd``."""
+    ptx = {}
+    for kern, figs in build["lora_grouped_fwd"]["ptxas"].items():
+        m = re.search(r"decode_fwd_tcILi(\d+)ELN4wfmt4WFmtE(\d)E", kern)
+        if m and int(m.group(2)) == TC_FORMATS[fmt]:
+            ptx[f"BN{m.group(1)}"] = figs
+    if not ptx:
+        raise AssertionError(f"no ptxas figures for the bf16 decode body "
+                             f"over {fmt} in the build log")
+    return ptx
+
+
 # the dense forward's and dx's libraries by base format (lora_fused's
 # forward_plan / dx_plan names)
 DENSE_TC_LIBS = {"fwd": {"none": "lora_fused_fwd", "int8": "lora_quant",
@@ -2380,12 +2429,15 @@ def main() -> int:
                     + [v["max_abs_err"] for v in gq_edges["int4"].values()]),
                 "edges_int4": gq_edges["int4"],
                 "bf16_codebook_rounding": nf4_rounding}
+        if method == "nf4":
+            extra["ptxas_bf16_int4"] = decode_tc_figures(build, "int4")
         e = kernel_entry(
             name, "src/repro_torch/csrc/lora_grouped_fwd.cu", line, fn,
             shapes, paths(name), ssteps[method], path=f"serve_{method}",
             method=method, decode_step=f"serve --quantize {method}",
             matmul_ms=sum(s["matmul_ms"] * s["launches_per_decode_step"]
-                          for s in shapes), edges=edges, **extra)
+                          for s in shapes), edges=edges,
+            ptxas_bf16=decode_tc_figures(build, method), **extra)
         e["max_abs_err"] = e["max_err"] = max(
             [e["max_abs_err"]] + [v["max_abs_err"] for v in edges.values()]
             + ([extra["int4_max_abs_err"]] if extra else []))
@@ -2490,7 +2542,11 @@ def main() -> int:
                      "src/repro/kernels/lora_grouped.py:183",
                      "src/repro/kernels/lora_grouped.py:lora_grouped "
                      "(_grouped_fwd_kernel :69)", grouped,
-                     paths("lora_grouped_fwd"), steps),
+                     paths("lora_grouped_fwd"), steps,
+                     matmul_ms=sum(s_["matmul_ms"]
+                                   * s_["launches_per_decode_step"]
+                                   for s_ in grouped),
+                     ptxas_bf16=decode_tc_figures(build, "dense")),
         grouped_q_entry("lora_grouped_q",
                         "src/repro/kernels/lora_grouped.py:205",
                         "src/repro/kernels/lora_grouped.py:lora_grouped_q "

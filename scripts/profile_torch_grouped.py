@@ -16,7 +16,7 @@ its inputs out of L2). It uses the ``chip_smoke`` and ``repro_torch`` found
 on the path, so one call can time two checkouts in turns:
 
     PYTHONPATH=src:. python scripts/profile_torch_grouped.py \
-        [--family grouped|dense|both|dab] [--label L]
+        [--family grouped|dense|both|dab|decode] [--label L]
 
 Prints one JSON line: ms per launch by format and shape, the bound (bytes
 at 3.35 TB/s or FLOPs at 989 TFLOP/s), the card and its power limit; and,
@@ -66,6 +66,25 @@ the bf16 dA and dB, and of the f32 dA and dB on one f32 input set (the
 CUDA-core body, which must keep its bits); and, on a tree that has it, the
 bf16 body's plan at each shape (``lora_fused.dab_plan``,
 ``lora_grouped.dab_plan``).
+
+Decode (``--family decode``): the grouped forward over one shared base
+(``lora_grouped``, ``lora_grouped_q``, ``lora_grouped_q4``) at the
+qwen2.5-0.5b decode shapes (8 slots in tiles of 2, 4 adapters, r 8, the
+routing of ``chip_smoke.PATH_GID``; inputs from ``chip_smoke``'s decode
+checks), over bf16, int8, int4 and nf4, cold as above: ms per launch of
+the bf16 kernel, its plain version and ``torch.matmul`` of x @ W0 over the
+bf16 (or dequantized) W0, beside the bound (x, W0 or its codes and scale,
+the A and B of the slots in use and gid read once, y written once), and
+the ms of a decode step (each shape's launches a step: 48, 48, 48, 24);
+the share of outputs that round otherwise than the plain version and the
+mean |error| of each against an f64 product of the same operands (the
+codes as weights, h as the plain version rounds it); the SHA-256 of the
+bf16 output and of the f32 output (the CUDA-core body, which must keep
+its bits) on seeded input sets; on a tree that has it, the bf16 body's
+plan (``lora_grouped.decode_plan``). Then the RMSNorm forward at [8, 896]
+(decode), [256, 896] and [256, 2048] (training), warm, as
+``chip_smoke.py`` times it: ms per launch of the kernel, its plain
+version and ``F.rms_norm``, and the bound.
 """
 from __future__ import annotations
 
@@ -526,9 +545,183 @@ def dab():
             "dab_plan": plans}
 
 
+# the decode path: (K, N) -> launches a decode step, and its routing
+DECODE_SHAPES = {"q_o": (896, 896), "k_v": (896, 128),
+                 "gate_up": (896, 4864), "down": (4864, 896)}
+DECODE_PER_STEP = {"q_o": 48, "k_v": 48, "gate_up": 48, "down": 24}
+RMS_SHAPES = {"decode": (8, 896), "train": (256, 896),
+              "olmoe": (256, 2048)}
+
+
+def _decode_cases(gen, dtype, method, K, N):
+    """make() of the decode inputs: (x, codes..., a, b, gid, W0 in dtype),
+    the dense ones as ``chip_smoke.check_grouped`` draws them, the
+    quantized ones by ``chip_smoke._grouped_q_cases``."""
+    if method != "dense":
+        return cs._grouped_q_cases(torch, quant, gen, dtype, method, cs.M, K,
+                                   N, cs.R, cs.RANK, cs.PATH_GID)
+    gid = torch.tensor(cs.PATH_GID, dtype=torch.int32, device="cuda")
+
+    def make():
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        w = (rn(K, N) * K ** -0.5).to(dtype)
+        return (rn(cs.M, K).to(dtype), w,
+                (rn(cs.R, K, cs.RANK) * cs.RANK ** -0.5).to(dtype),
+                (rn(cs.R, cs.RANK, N) * 0.05).to(dtype), gid.clone(), w)
+    return make
+
+
+def _decode_calls(method):
+    """(kernel, plain version, x @ W0) on a ``_decode_cases`` input set."""
+    if method == "dense":
+        return (lambda x, w, a, b, g, w2: lg.lora_grouped(x, w, a, b, g, 2.0,
+                                                          bm=cs.BM),
+                lambda x, w, a, b, g, w2: lg.lora_grouped_ref(
+                    x, w, a, b, g, 2.0, bm=cs.BM),
+                lambda x, w, a, b, g, w2: torch.matmul(x, w2))
+    return cs._grouped_q_calls(torch, lg, method, cs.BM)
+
+
+def decode_rounding(method, args):
+    """The bf16 decode kernel and its plain version against f64 on one
+    input set: share of outputs that differ, each one's mean |error|
+    against (x @ w) [· S] + 2 · round(x @ A[g]) @ B[g] in f64 over the same
+    operands (w the bf16 W0 or the codes as weights), and the SHA-256 of
+    the kernel's output."""
+    kern, plain, _ = _decode_calls(method)
+    got, ref = kern(*args), plain(*args)
+    x, a, b, gid = args[0], args[-4], args[-3], args[-2]
+    if method == "dense":
+        w, s = args[1].double(), None
+    elif method == "int8":
+        w, s = args[1].double(), args[2].double()
+    else:
+        w = lp4.unpack_weights(args[1], method, torch.bfloat16,
+                               x.shape[1]).double()
+        s = args[2].double()
+    row = gid.long().repeat_interleave(cs.BM)
+    h = torch.einsum("mk,mkr->mr", x.float(), a[row].float()).to(x.dtype)
+    acc = x.double() @ w
+    if s is not None:
+        acc = acc * s
+    exact = acc + 2.0 * torch.einsum("mr,mrn->mn", h.double(),
+                                     b[row].double())
+    torch.cuda.synchronize()
+    return {"differ_share": float((got != ref).double().mean()),
+            "kernel_mean_abs_err": float((got.double() - exact).abs().mean()),
+            "plain_mean_abs_err": float((ref.double() - exact).abs().mean()),
+            "sha256": hashlib.sha256(
+                got.view(torch.int16).cpu().numpy().tobytes()).hexdigest()}
+
+
+def decode():
+    """The decode forward's per-launch times, rounding and output hashes
+    at the decode shapes in every format, and RMSNorm's beside
+    ``F.rms_norm``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rn
+    out, rnd, f32_bits, plans, per_step = {}, {}, {}, {}, {}
+    used = len(set(cs.PATH_GID))
+    for method in ("dense", "int8", "int4", "nf4"):
+        kern, plain, mm = _decode_calls(method)
+        step = {"ms": 0.0, "plain_ms": 0.0, "matmul_ms": 0.0, "bound_ms": 0.0}
+        for i, (shape, (K, N)) in enumerate(DECODE_SHAPES.items()):
+            gen = torch.Generator(device="cuda").manual_seed(30 + i)
+            codes = {"dense": 2 * K * N, "int8": K * N}.get(
+                method, (K + 1) // 2 * N)
+            nbytes = codes + (0 if method == "dense" else 4 * N) \
+                + 2 * cs.M * (K + N) + 2 * used * cs.RANK * (K + N) \
+                + 4 * len(cs.PATH_GID)
+            flops = 2 * cs.M * K * N + 2 * cs.M * cs.RANK * (K + N)
+            bound, by = cs._bound_ms(nbytes, flops)
+            sets = cs._cold_sets(_decode_cases(gen, torch.bfloat16, method,
+                                               K, N), nbytes)
+            key = f"{method}/{shape}"
+            out[key] = {"ms": cs._time_ms(kern, sets, CALLS),
+                        "plain_ms": cs._time_ms(plain, sets, CALLS // 4),
+                        "matmul_ms": cs._time_ms(mm, sets, CALLS),
+                        "bound_ms": bound, "bound_by": by}
+            for k in step:
+                step[k] += out[key][k] * DECODE_PER_STEP[shape]
+            rnd[key] = decode_rounding(method, sets[0])
+            del sets
+            f32 = _decode_cases(torch.Generator(device="cuda").manual_seed(
+                40 + i), torch.float32, method, K, N)()
+            y = kern(*f32)
+            torch.cuda.synchronize()
+            f32_bits[key] = hashlib.sha256(
+                y.cpu().numpy().tobytes()).hexdigest()
+            del f32, y
+            if hasattr(lg, "decode_plan"):
+                plans[shape] = lg.decode_plan(cs.M, K, N, cs.RANK, bm=cs.BM)
+        per_step[method] = step
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    rms = {}
+    for shape, (M, d) in RMS_SHAPES.items():
+        x = (torch.randn(M, d, generator=gen, device="cuda") * 3).bfloat16()
+        w = torch.randn(d, generator=gen, device="cuda").bfloat16()
+        sets = [(x, w)] * 256     # warm, as chip_smoke.py times it
+        bound, by = cs._bound_ms(2 * (2 * M * d + d), 4 * M * d)
+        rms[shape] = {
+            "M": M, "d": d,
+            "ms": cs._time_ms(lambda x, w: rn.rmsnorm(x, w, 1e-6), sets),
+            "library_ms": cs._time_ms(
+                lambda x, w: F.rms_norm(x, (d,), w, 1e-6), sets),
+            "plain_ms": cs._time_ms(lambda x, w: rn.rmsnorm_ref(x, w, 1e-6),
+                                    sets),
+            "bound_ms": bound, "bound_by": by}
+    return {"decode_ms_per_launch": out, "decode_ms_per_step": per_step,
+            "decode_rounding_and_sha256": rnd,
+            "decode_f32_sha256": f32_bits, "decode_plan": plans,
+            "rmsnorm_fwd_ms_per_launch": rms}
+
+
+# plans of the bf16 decode body swept at each shape: (split, bn); and
+# shapes that isolate its fixed cost (one slab, one column tile)
+SWEEP_PLANS = [(split, bn) for bn in (64, 128) for split in range(1, 9)]
+
+
+def decode_sweep():
+    """The bf16 decode body over a bf16 base under other plans than
+    ``decode_plan``'s, through its C entry: ms per launch, cold and warm
+    (one input set again and again, W0 in L2), at the decode shapes and at
+    two that isolate the fixed cost of a launch and of a cluster."""
+    from repro_torch.kernels import _build
+    fn = _build.function("lora_grouped_fwd", "lora_grouped_fwd",
+                         lg._ARGTYPES)
+    shapes = {**DECODE_SHAPES, "one_slab": (lg.DECODE_KD, 32),
+              "eight_slabs": (8 * lg.DECODE_KD, 32)}
+    out = {}
+    for i, (shape, (K, N)) in enumerate(shapes.items()):
+        gen = torch.Generator(device="cuda").manual_seed(60 + i)
+        nbytes = 2 * K * N + 2 * cs.M * (K + N)
+        make = _decode_cases(gen, torch.bfloat16, "dense", K, N)
+        sets = cs._cold_sets(make, nbytes)
+        base = lg.decode_plan(cs.M, K, N, cs.RANK, bm=cs.BM)
+        for split, bn in SWEEP_PLANS:
+            if split > base["slabs"]:
+                continue
+            y = torch.empty(cs.M, N, dtype=torch.bfloat16, device="cuda")
+
+            def call(x, w, a, b, g, w2, split=split, bn=bn, y=y):
+                rc = fn(1, x.data_ptr(), w.data_ptr(), a.data_ptr(),
+                        b.data_ptr(), g.data_ptr(), y.data_ptr(), cs.M, K, N,
+                        cs.R, cs.RANK, cs.BM, 2.0, split, bn, base["part"],
+                        base["h_cols"],
+                        torch.cuda.current_stream().cuda_stream)
+                _build.check("lora_grouped_fwd", rc, "sweep launch")
+            out[f"{shape}/split{split}/bn{bn}"] = {
+                "cold_ms": cs._time_ms(call, sets, CALLS),
+                "warm_ms": cs._time_ms(call, [sets[0]] * 64, CALLS)}
+        del sets
+    return {"decode_sweep_ms_per_launch": out}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--family", choices=("grouped", "dense", "both", "dab"),
+    ap.add_argument("--family",
+                    choices=("grouped", "dense", "both", "dab", "decode",
+                             "decode_sweep"),
                     default="both")
     ap.add_argument("--label", default="", help="a name for this checkout")
     args = ap.parse_args()
@@ -541,6 +734,10 @@ def main() -> int:
         res.update(dense())
     if args.family == "dab":
         res.update(dab())
+    if args.family == "decode":
+        res.update(decode())
+    if args.family == "decode_sweep":
+        res.update(decode_sweep())
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

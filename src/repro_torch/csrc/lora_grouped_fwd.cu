@@ -19,6 +19,13 @@
 //   weights: y = round_T(acc * s[n] + scale * (round_T(h) @ B[g])), the
 //   TPU kernels' _finish.
 //
+// Two bodies. Every bf16 instance of the three entries runs the
+// tensor-core body of lora_grouped_decode_tc.cuh (mma.sync over a cp.async
+// ring, h summed on the tensor cores in the same loop, K split across a
+// cluster by a plan the host chooses per shape: its header has the design).
+// Every f32 instance runs the CUDA-core body below, whose bits do not
+// change (tensor cores would take f32 as TF32).
+//
 // What bounds it. Decode multiplies a handful of rows (M = 8 slots) by the
 // whole frozen base, so the kernel is bound by reading W0 from device
 // memory: about 2·M FLOPs per W0 element, far below the ~295 FLOP/byte the
@@ -28,7 +35,7 @@
 // and 179 MB packed (~0.053 ms), plus 1.2 MB of scale rows and the resident
 // adapters' A and B.
 //
-// Design (simple and right first):
+// The f32 body, on CUDA cores:
 // * A cluster of CS = 8 blocks owns BN output columns and RB = 8 rows; its
 //   blocks split K eight ways (on whole byte rows of a packed base). Inside
 //   a block the 8 warps interleave over the block's code rows (K rows, or
@@ -36,12 +43,10 @@
 //   contiguous (coalesced). A float W0 gives a lane 2 columns (BN = 64); a
 //   quantized one 4 columns, loaded as one 4-byte word where the row allows
 //   it (BN = 128), so a warp reads 128 bytes of codes per code row. Each warp
-//   issues the loads of 8 K rows before it uses them, so enough bytes are in
-//   flight to stream W0: the narrow projections (N = 128, 896) still get
-//   8-112 blocks.
+//   issues the loads of 8 K rows before it uses them.
 // * All rows of the block share each W0 element it loads, so at decode
-//   (M <= 8) W0 is read from device memory once. The Pallas grid re-read W0
-//   once per row tile; with M > 8 this kernel re-reads it once per 8 rows.
+//   (M <= 8) W0 is read from device memory once; with M > 8 it is re-read
+//   once per 8 rows.
 // * h = x @ A[g] ([rows, r], r <= 16) is summed in the same K loop as
 //   x @ W0, as the TPU kernel does: each block sums its K range, and the
 //   cluster adds the eight partial sums through distributed shared memory.
@@ -57,12 +62,8 @@
 //   and no dense float W0 is written anywhere. A packed base with odd K has
 //   a pad nibble in its last byte row; it meets an x column the stager has
 //   masked to zero.
-// * At decode every block is short, so its time is a chain of memory round
-//   trips (gid, x, W0 and A, B). Each stage issues all of its loads, into
-//   registers of the raw type, before it converts or uses one, so a stage
-//   costs one round trip, not one per load.
-// Not yet: tensor cores (wgmma), TMA pipelining. Those are for a later
-// change.
+// * Each stage issues all of its loads, into registers of the raw type,
+//   before it converts or uses one, so a stage costs one round trip.
 
 #include <cooperative_groups.h>
 #include <math.h>
@@ -70,6 +71,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "lora_grouped_decode_tc.cuh"
 #include "wfmt.cuh"
 
 namespace cg = cooperative_groups;
@@ -388,42 +390,46 @@ void launch(const void* x, const void* w, const void* s, const void* a,
 template <WFmt F>
 int launch_as(int dtype, const void* x, const void* w, const void* s,
               const void* a, const void* b, const void* gid, void* y, int M,
-              int K, int N, int R, int r, int bm, float scale, void* stream) {
+              int K, int N, int R, int r, int bm, float scale, int split,
+              int bn, int part, int hc, void* stream) {
   if (r < 1 || r > RMAX || bm < 1 || M % bm != 0 || K < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0 || N == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
-    launch<__nv_bfloat16, F>(x, w, s, a, b, gid, y, M, K, N, R, r, bm, scale,
-                             st);
-  else if (dtype == DTYPE_F32)
-    launch<float, F>(x, w, s, a, b, gid, y, M, K, N, R, r, bm, scale, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+    return decode_tc::launch<F>(x, w, s, a, b, gid, y, M, K, N, R, r, bm,
+                                scale, split, bn, part, hc, st);
+  if (dtype != DTYPE_F32) return static_cast<int>(cudaErrorInvalidValue);
+  launch<float, F>(x, w, s, a, b, gid, y, M, K, N, R, r, bm, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Each returns cudaGetLastError() after the launch (0 when it was accepted).
+// split, bn, part, hc: the bf16 body's plan (kernels/lora_grouped.py,
+// decode_plan): members of a cluster over K, column tile, rows of a part,
+// h columns of a part; the f32 body takes none of them.
 
 // float W0 [K, N] in x's type
 extern "C" int lora_grouped_fwd(int dtype, const void* x, const void* w,
                                 const void* a, const void* b, const void* gid,
                                 void* y, int M, int K, int N, int R, int r,
-                                int bm, float scale, void* stream) {
+                                int bm, float scale, int split, int bn,
+                                int part, int hc, void* stream) {
   return launch_as<WFmt::kDense>(dtype, x, w, nullptr, a, b, gid, y, M, K, N,
-                                 R, r, bm, scale, stream);
+                                 R, r, bm, scale, split, bn, part, hc,
+                                 stream);
 }
 
 // int8 codes q [K, N], f32 scale s [N]
 extern "C" int lora_grouped_q(int dtype, const void* x, const void* q,
                               const void* s, const void* a, const void* b,
                               const void* gid, void* y, int M, int K, int N,
-                              int R, int r, int bm, float scale,
-                              void* stream) {
+                              int R, int r, int bm, float scale, int split,
+                              int bn, int part, int hc, void* stream) {
   return launch_as<WFmt::kInt8>(dtype, x, q, s, a, b, gid, y, M, K, N, R, r,
-                                bm, scale, stream);
+                                bm, scale, split, bn, part, hc, stream);
 }
 
 // packed codes q4 [ceil(K/2), N] (method 0 int4, 1 nf4), f32 scale s [N]
@@ -431,12 +437,13 @@ extern "C" int lora_grouped_q4(int dtype, int method, const void* x,
                                const void* q4, const void* s, const void* a,
                                const void* b, const void* gid, void* y, int M,
                                int K, int N, int R, int r, int bm,
-                               float scale, void* stream) {
+                               float scale, int split, int bn, int part,
+                               int hc, void* stream) {
   if (method == 0)
     return launch_as<WFmt::kInt4>(dtype, x, q4, s, a, b, gid, y, M, K, N, R,
-                                  r, bm, scale, stream);
+                                  r, bm, scale, split, bn, part, hc, stream);
   if (method == 1)
     return launch_as<WFmt::kNF4>(dtype, x, q4, s, a, b, gid, y, M, K, N, R,
-                                 r, bm, scale, stream);
+                                 r, bm, scale, split, bn, part, hc, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,47 +5,171 @@
 //
 //   y = x * rsqrt(mean(x^2) + eps) * w,   x [M, d], w [d], y in x's type
 //
+// (an f32 sum of squares, rsqrt(sum / d + eps), y = (x * rms) * w rounded
+// once to x's type).
+//
 // What bounds it. Each element is read once and written once with ~4 FLOPs
 // in between, so it is bound by bytes; at decode (M = 8, d = 896: 14 KB in
-// and out) the work is so small that the launch itself is the cost.
+// and out) the work is so small that the launch and the chain of memory
+// round trips inside it are the cost.
 //
-// Design: one block per row. Its threads stride the row summing squares in
-// f32, a warp-shuffle and shared-memory reduction gives the row's sum, and a
-// second pass over the row (now in L1/L2) writes the normalised output. No
-// row is padded; any d works.
+// Design: one warp a row, four rows a block, so a block needs no barrier.
+// A lane loads its share of x and of w in one round trip, into registers:
+// NV units of 16 bytes (8 bf16 or 4 f32 values), unit u of lane l at
+// element 16/sizeof(T) * (l + 32 u), when d and the bases of x, w and y
+// allow 16-byte accesses; otherwise the same registers hold elements
+// l + 32 (u V + e), loaded one by one, coalesced across the warp. The sum
+// of squares is a warp shuffle; the output is written from the registers,
+// so x is read once. NV (1 to 16) is the smallest power of two that holds
+// a row; a wider row (more than 4,096 bf16 or 2,048 f32 values) is summed
+// in passes of 16 units and read again for the output. Any d works; no row
+// is padded.
+
+#include <cstdint>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;
+constexpr int NV_MAX = 16;
 
 template <typename T>
+struct alignas(16) Unit {
+  static constexpr int V = 16 / sizeof(T);  // values in 16 bytes
+  T v[V];
+};
+
+// Unit u (of NV) of a lane's share of the row chunk at `base`: 16 bytes at
+// element base + V (lane + 32 u), or V elements base + lane + 32 (u V + e),
+// zero past d.
+template <typename T, int NV>
+__device__ __forceinline__ void load_units(Unit<T> (&out)[NV], const T* row,
+                                           int base, int d, int lane,
+                                           bool vec) {
+  constexpr int V = Unit<T>::V;
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    if (vec) {
+      const int c = base + V * (lane + 32 * u);
+      if (c < d) {
+        *reinterpret_cast<uint4*>(out[u].v) =
+            *reinterpret_cast<const uint4*>(row + c);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) out[u].v[e] = from_f<T>(0.f);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int c = base + lane + 32 * (u * V + e);
+        out[u].v[e] = c < d ? row[c] : from_f<T>(0.f);
+      }
+    }
+  }
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ float sum_squares(const Unit<T> (&xs)[NV]) {
+  float ss = 0.f;
+#pragma unroll
+  for (int u = 0; u < NV; ++u)
+#pragma unroll
+    for (int e = 0; e < Unit<T>::V; ++e) {
+      const float v = to_f(xs[u].v[e]);
+      ss += v * v;
+    }
+  return ss;
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ void store_units(T* yrow, const Unit<T> (&xs)[NV],
+                                            const Unit<T> (&ws)[NV],
+                                            float rms, int base, int d,
+                                            int lane, bool vec) {
+  constexpr int V = Unit<T>::V;
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    Unit<T> o;
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      o.v[e] = from_f<T>(to_f(xs[u].v[e]) * rms * to_f(ws[u].v[e]));
+    if (vec) {
+      const int c = base + V * (lane + 32 * u);
+      if (c < d)
+        *reinterpret_cast<uint4*>(yrow + c) =
+            *reinterpret_cast<const uint4*>(o.v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int c = base + lane + 32 * (u * V + e);
+        if (c < d) yrow[c] = o.v[e];
+      }
+    }
+  }
+}
+
+template <typename T, int NV>
 __global__ void __launch_bounds__(THREADS) rmsnorm_fwd_kernel(
     const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
-    int d, float eps) {
-  __shared__ float part[THREADS / 32];
-  const T* xr = x + (size_t)blockIdx.x * d;
-  T* yr = y + (size_t)blockIdx.x * d;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
+    int M, int d, float eps, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (row >= M) return;  // a whole warp
+  const T* xr = x + (size_t)row * d;
+  T* yr = y + (size_t)row * d;
+  constexpr int CHUNK = 32 * Unit<T>::V * NV;  // values a pass holds
+  Unit<T> xs[NV], ws[NV];
+  if (d <= CHUNK) {  // the whole row in registers: x read once
+    load_units<T, NV>(xs, xr, 0, d, lane, vec);
+    load_units<T, NV>(ws, w, 0, d, lane, vec);
+    const float rms = rsqrtf(warp_sum(sum_squares<T, NV>(xs)) / d + eps);
+    store_units<T, NV>(yr, xs, ws, rms, 0, d, lane, vec);
+    return;
+  }
   float ss = 0.f;
-  for (int j = threadIdx.x; j < d; j += THREADS) {
-    const float v = to_f(xr[j]);
-    ss += v * v;
+  for (int base = 0; base < d; base += CHUNK) {
+    load_units<T, NV>(xs, xr, base, d, lane, vec);
+    ss += sum_squares<T, NV>(xs);
   }
-  ss = warp_sum(ss);
-  if (lane == 0) part[warp] = ss;
-  __syncthreads();
-  if (warp == 0) {
-    float v = lane < THREADS / 32 ? part[lane] : 0.f;
-    v = warp_sum(v);
-    if (lane == 0) part[0] = v;
+  const float rms = rsqrtf(warp_sum(ss) / d + eps);
+  for (int base = 0; base < d; base += CHUNK) {
+    load_units<T, NV>(xs, xr, base, d, lane, vec);
+    load_units<T, NV>(ws, w, base, d, lane, vec);
+    store_units<T, NV>(yr, xs, ws, rms, base, d, lane, vec);
   }
-  __syncthreads();
-  const float rms = rsqrtf(part[0] / d + eps);
-  for (int j = threadIdx.x; j < d; j += THREADS)
-    yr[j] = from_f<T>(to_f(xr[j]) * rms * to_f(w[j]));
+}
+
+template <typename T>
+int launch(const void* x, const void* w, void* y, int M, int d, float eps,
+           cudaStream_t s) {
+  constexpr int V = Unit<T>::V;
+  const bool vec = d % V == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(w) |
+                     reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int units = (d + 32 * V - 1) / (32 * V);  // a lane's share
+  const dim3 grid((M + WARPS - 1) / WARPS);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* yp = static_cast<T*>(y);
+  if (units <= 1)
+    rmsnorm_fwd_kernel<T, 1><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d, eps,
+                                                      vec);
+  else if (units <= 2)
+    rmsnorm_fwd_kernel<T, 2><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d, eps,
+                                                      vec);
+  else if (units <= 4)
+    rmsnorm_fwd_kernel<T, 4><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d, eps,
+                                                      vec);
+  else if (units <= 8)
+    rmsnorm_fwd_kernel<T, 8><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d, eps,
+                                                      vec);
+  else
+    rmsnorm_fwd_kernel<T, NV_MAX><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d,
+                                                           eps, vec);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -57,15 +181,7 @@ extern "C" int rmsnorm_fwd(int dtype, const void* x, const void* w, void* y,
   if (M == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == DTYPE_BF16)
-    rmsnorm_fwd_kernel<__nv_bfloat16><<<M, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(y), d, eps);
-  else if (dtype == DTYPE_F32)
-    rmsnorm_fwd_kernel<float><<<M, THREADS, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<float*>(y), d, eps);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch<__nv_bfloat16>(x, w, y, M, d, eps, s);
+  if (dtype == DTYPE_F32) return launch<float>(x, w, y, M, d, eps, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

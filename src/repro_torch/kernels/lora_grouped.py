@@ -33,9 +33,14 @@ What bounds them on the H100: reading W0. Decode multiplies 8 rows by the
 whole frozen base (2·M FLOPs per weight), far below the card's ridge of
 ~295 FLOPs per byte; one qwen2.5-0.5b decode step streams ~716 MB of W0
 through the float kernel, ~358 MB of int8 codes or ~179 MB of packed ones.
-Each W0 element is read once for up to 8 rows, h = x @ A[g] stays in
-shared memory, and the ragged edges are masked instead of padded (the
-source's header has the details).
+In bf16 all three run one tensor-core body (``csrc/lora_grouped_decode_tc.
+cuh``): W0 read once for up to 16 rows through a ring of 16-byte copies,
+mma.sync on x and W0's fragments built in registers from every format,
+h = x @ A[g] summed on the tensor cores in the same loop and kept on chip,
+K split across a thread-block cluster by the plan :func:`decode_plan`
+chooses per shape on the host and passes to the C entry. In f32 they run
+the CUDA-core body of ``lora_grouped_fwd.cu``. Ragged edges are masked
+instead of padded (the sources' headers have the details).
 
 Training over expert stacks (``lora_grouped_train.cu``): W0 [E, K, N] per
 expert (``Ew == E``), A [E, K, r], B [E, r, N], each tile of ``bm`` rows
@@ -83,6 +88,8 @@ the host would stall the stream on every call).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
@@ -97,9 +104,11 @@ MAX_RANK = 16
 TRAIN_MAX_RANK = 32
 
 _P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
-_ARGTYPES = [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]
-_Q_ARGTYPES = [_I] + [_P] * 7 + [_I] * 6 + [_F, _P]
-_Q4_ARGTYPES = [_I, _I] + [_P] * 7 + [_I] * 6 + [_F, _P]
+# the decode entries: ..., scale, then the bf16 body's plan (split, bn,
+# part, hc) and the stream
+_ARGTYPES = [_I] + [_P] * 6 + [_I] * 6 + [_F] + [_I] * 4 + [_P]
+_Q_ARGTYPES = [_I] + [_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P]
+_Q4_ARGTYPES = [_I, _I] + [_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P]
 _GEMM_ARGS = [_I] + [_P] * 6 + [_I] * 6 + [_F, _P]
 _GDX_ARGS = [_I] + [_P] * 6 + [_I] * 6 + [_P]
 _GDAB_ARGS = [_I] + [_P] * 8 + [_I] * 6 + [_F, _P]
@@ -198,17 +207,91 @@ def _validate(x, w0, a, b, gid, bm):
     return M, K, R, r
 
 
+#: the bf16 decode body's slab depth (K rows, whole byte rows of a packed
+#: base), largest K split (the portable cluster size), h columns of a part
+#: at most, and SM count the plan assumes when given none
+DECODE_KD, DECODE_MAX_SPLIT, DECODE_MAX_H_COLS, H100_SMS = 128, 8, 64, 132
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def _max_slots(M: int, part: int, bm: int) -> int:
+    """The most tiles of ``bm`` rows that one part of ``part`` rows of M
+    touches (``max_slots`` of ``csrc/lora_grouped_decode_tc.cuh``)."""
+    most = 0
+    for p in range(min(_cdiv(M, part), bm)):
+        m0 = p * part
+        most = max(most, (min(m0 + part, M) - 1) // bm - m0 // bm + 1)
+    return most
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(M: int, K: int, N: int, r: int, *, bm: int,
+                sms: int = H100_SMS) -> dict:
+    """The bf16 decode body's plan for x [M, K] -> y [M, N] at rank r in
+    tiles of ``bm`` rows on a card of ``sms`` SMs. It depends on the
+    shapes alone:
+
+    * ``part``: rows a block holds, one m16 fragment (16), or 8 or 4 where
+      the part's slots side by side would need more than 64 h columns
+      (each slot r rounded up to 8 or 16); ``h_cols``: those columns, the
+      sum rounded up to 16;
+    * ``bn``: the column tile, 128 where N has two such tiles, else 64
+      (128 holds one block an SM, 64 two);
+    * ``split``: the members of a cluster over K's slabs of 128 rows, as
+      many as the SMs hold of the tiles' blocks at once, at most 8 and at
+      most one a slab.
+
+    Each block's chain of round trips and barriers, and the x and A every
+    block reads beside its W0 columns, set a launch's time more than the
+    number of blocks does: fewer, wider blocks won at every decode shape
+    (``scripts/profile_torch_grouped.py --family decode_sweep``).
+
+    Also the grid's ``blocks`` and each member's K range (``k_ranges``,
+    for the first member of a cluster [0, ...), whole slabs)."""
+    rw = 8 if r <= 8 else 16
+    part = next(p for p in (16, 8, 4)
+                if _max_slots(M, p, bm) * rw <= DECODE_MAX_H_COLS)
+    h_cols = _cdiv(_max_slots(M, part, bm) * rw, 16) * 16
+    parts, nk = _cdiv(M, part), _cdiv(K, DECODE_KD)
+    bn = 128 if N > 128 else 64
+    tiles = _cdiv(N, bn) * parts
+    per_sm = 1 if bn == 128 else 2
+    split = max(1, min(DECODE_MAX_SPLIT, nk, per_sm * sms // tiles))
+    ranges = [(z * nk // split * DECODE_KD,
+               min(K, (z + 1) * nk // split * DECODE_KD))
+              for z in range(split)]
+    return {"split": split, "bn": bn, "part": part, "h_cols": h_cols,
+            "slabs": nk, "blocks": tiles * split, "k_ranges": ranges}
+
+
+_SMS = {}
+
+
+def _sms(device) -> int:
+    """SMs of ``device`` (cached: no call to the runtime after the first)."""
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def _launch(lib_fn, argtypes, lead, x, base, a, b, gid, M, K, N, R, r, bm,
             scale):
     """Allocate y, launch ``lib_fn`` of ``lora_grouped_fwd`` with the
-    leading int arguments ``lead`` and the base's pointers ``base``, check
-    the launch."""
+    leading int arguments ``lead``, the base's pointers ``base`` and the
+    bf16 body's plan (the f32 body takes none), check the launch."""
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     fn = _build.function("lora_grouped_fwd", lib_fn, argtypes)
+    plan = decode_plan(M, K, N, r, bm=bm, sms=_sms(x.device))
     with torch.cuda.device(x.device):
         rc = fn(*lead, x.data_ptr(), *(t.data_ptr() for t in base),
                 a.data_ptr(), b.data_ptr(), gid.data_ptr(), y.data_ptr(), M,
-                K, N, R, r, bm, float(scale),
+                K, N, R, r, bm, float(scale), plan["split"], plan["bn"],
+                plan["part"], plan["h_cols"],
                 torch.cuda.current_stream().cuda_stream)
     _build.check("lora_grouped_fwd", rc, f"{lib_fn} launch")
     return y

@@ -147,10 +147,11 @@ def lora_grouped_decode(x, w0, a, b, tile_gid, bias=None, scale: float = 2.0,
     b [R,r,N], and ``tile_gid`` int32 [M // bm], a device tensor holding
     each slot tile's AdapterStore slot. The ``cuda`` backend runs the
     grouped kernel of the base's format (``lora_grouped``,
-    ``lora_grouped_q``, ``lora_grouped_q4``), which reads the codes and
-    never writes a dense W0; the ``structured`` backend runs the gather
-    reference over ``quant.maybe_dequant(w0)`` (same math, plain PyTorch),
-    as the reference's dispatch does. The bias is added after the kernel.
+    ``lora_grouped_q``, ``lora_grouped_q4``; in bf16 one tensor-core body,
+    ``csrc/lora_grouped_decode_tc.cuh``, in f32 a CUDA-core one), which
+    reads the codes and never writes a dense W0; the ``structured`` backend
+    runs the gather reference over ``quant.maybe_dequant(w0)`` (same math,
+    plain PyTorch), as the reference's dispatch does. The bias is added after the kernel.
     A base the grouped path does not take raises under every backend: a
     per-expert stack (``Ew == E``, MoE) or a packed leaf of another K."""
     M, K = x.shape

@@ -14,8 +14,12 @@ formulas in f32:
 
 What bounds both on the H100: bytes (each element read once and written
 once, a few FLOPs each); at decode, with 8 rows of 896, the launch itself.
-The design is one block per row: block-wide f32 sums, then one pass that
-writes the row. Any row count and width, nothing padded.
+The forward runs one warp a row: x and w come in one round trip of
+16-byte loads where the width and the bases allow them (element by element
+otherwise), x stays in registers, and a warp shuffle gives the sum of
+squares, so no block barrier and one read of x. The backward runs one
+block a row: block-wide f32 sums, then one pass that writes the row. Any
+row count and width, nothing padded.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; a tensor on the CPU gets the plain version

@@ -187,6 +187,53 @@ def test_rmsnorm_bwd_plain_matches_pallas_kernel(jx, M, d):
     assert none is None and torch.equal(dx2, dx)
 
 
+# the bf16 decode body's plan (kernels/lora_grouped.decode_plan): decode
+# shapes (M, K, N, r, bm) and edges of rank, tile and K
+DECODE_SHAPES = [(896, 896), (896, 128), (896, 4864), (4864, 896)]
+PLAN_CASES = ([(8, K, N, 8, bm) for K, N in DECODE_SHAPES for bm in (2, 4)]
+              + [(16, 97, 131, 16, 2), (24, 301, 130, 16, 3),
+                 (16, 896, 896, 16, 1), (16, 896, 896, 8, 1),
+                 (16, 896, 896, 16, 2), (32, 128, 64, 16, 1),
+                 (32, 4863, 896, 3, 2), (5, 33, 129, 8, 5)])
+
+
+@pytest.mark.parametrize("M,K,N,r,bm", PLAN_CASES)
+def test_decode_plan_splits_k_in_whole_code_rows(M, K, N, r, bm):
+    """Each member of a cluster gets a nonempty K range that starts on a
+    whole code row (even: a packed byte holds two K rows) and the ranges
+    cover K in order; the cluster is at most 8; a part's slots fit the h
+    columns, which the body holds at most 128 of."""
+    plan = tlg.decode_plan(M, K, N, r, bm=bm)
+    ranges = plan["k_ranges"]
+    assert 1 <= plan["split"] <= 8 and len(ranges) == plan["split"]
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(hi > lo and lo % 2 == 0 and lo % tlg.DECODE_KD == 0
+               for lo, hi in ranges)
+    part, rw = plan["part"], 8 if r <= 8 else 16
+    slots = max((min(m0 + part, M) - 1) // bm - m0 // bm + 1
+                for m0 in range(0, M, part))
+    assert slots * rw <= plan["h_cols"] <= tlg.DECODE_MAX_H_COLS
+    assert plan["h_cols"] % 16 == 0 and part in (4, 8, 16)
+    assert plan["bn"] in (64, 128)
+    assert plan["blocks"] == (-(-N // plan["bn"]) * -(-M // part)
+                              * plan["split"])
+
+
+@pytest.mark.parametrize("K,N,bn,split", [
+    (896, 896, 128, 7), (896, 128, 64, 7), (896, 4864, 128, 3),
+    (4864, 896, 128, 8)])
+def test_decode_plan_at_the_decode_shapes(K, N, bn, split):
+    """At the decode path's shapes (8 slots in tiles of 2, r 8) on an H100's
+    132 SMs: 128-column tiles but at k·v (N 128: two of 64), the widest
+    split at q·o, k·v (a member a slab of K 896) and down, gate·up split 3;
+    every grid runs in one wave (one block an SM at 128 columns)."""
+    plan = tlg.decode_plan(8, K, N, 8, bm=2)
+    assert (plan["bn"], plan["split"], plan["part"], plan["h_cols"]) == \
+        (bn, split, 16, 32)
+    assert plan["blocks"] <= (1 if bn == 128 else 2) * tlg.H100_SMS
+
+
 def test_cpu_tensors_never_launch_kernels():
     tops.reset_launch_counts()
     x, w0, a, b, g, bias = _grouped_inputs(4, 8, 16, 24, 2, 4, [0, 1, 1, 0])
@@ -278,7 +325,9 @@ def test_grouped_kernel_marks_bad_gid_and_rejects_bad_input():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,d", [(8, 896), (3, 1000), (64, 72)])
+@pytest.mark.parametrize("M,d", [(8, 896), (3, 1000), (64, 72), (1, 896),
+                                 (256, 896), (256, 2048), (5, 899),
+                                 (3, 5000)])
 def test_rmsnorm_kernel_matches_plain_on_card(M, d, dtype):
     _need_card()
     dt = getattr(torch, dtype)
@@ -291,6 +340,97 @@ def test_rmsnorm_kernel_matches_plain_on_card(M, d, dtype):
     tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else \
         dict(rtol=1e-2, atol=1e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_kernel_takes_an_unaligned_row_base(dtype):
+    """x, w and y one element (2 bytes in bf16) off 16-byte alignment: the
+    kernel's element-by-element loads, held as tightly as the aligned
+    ones."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    M, d = 8, 896
+    g = torch.Generator().manual_seed(8)
+    xb = (torch.randn(M * d + 1, generator=g) * 3).to(dt).cuda()
+    wb = torch.randn(d + 1, generator=g).to(dt).cuda()
+    x, w = xb[1:].view(M, d), wb[1:]
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    got = trn.rmsnorm(x, w, 1e-6)
+    torch.cuda.synchronize()
+    want = trn.rmsnorm_ref(x, w, 1e-6)
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else \
+        dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+# the bf16 decode body (csrc/lora_grouped_decode_tc.cuh) over a bf16 base:
+# (M, bm, K, N, R, r, gid). The decode shapes at M 8 in tiles of 2 and of
+# 4 (the serve CLI's default tile for 8 slots), two parts of 16 rows and
+# more, M 24 in tiles of 3 (parts that start inside a tile), and
+# chip_smoke.GROUPED_Q_EDGES (odd K, ragged N, ranks 3 and 16, repeated
+# slots, a bad gid)
+DECODE_GID = [3, 0, 3, 1]
+DECODE_CASES = {
+    **{f"M8_bm{bm}_{K}x{N}": (8, bm, K, N, 4, 8, DECODE_GID[:8 // bm])
+       for K, N in DECODE_SHAPES for bm in (2, 4)},
+    "M16": (16, 2, 896, 896, 4, 8, [3, 0, 3, 1, 2, 2, 0, 1]),
+    "M24_bm3": (24, 3, 896, 4864, 4, 8, [1, 0, 0, 1, 1, 0, 1, 0]),
+    "M32": (32, 2, 4864, 896, 4, 8, [i % 4 for i in range(16)]),
+    "odd_k_ragged_n": (8, 2, 97, 131, 4, 8, DECODE_GID),
+    "odd_k_wide": (8, 2, 4863, 896, 4, 8, DECODE_GID),
+    "n130_rank3": (8, 2, 896, 130, 4, 3, [1, 2, 3, 0]),
+    "rank16": (8, 2, 896, 896, 4, 16, DECODE_GID),
+    "rows16": (16, 2, 896, 128, 4, 8, [3, 0, 3, 1, 2, 2, 0, 1]),
+    "gid_repeated": (8, 2, 896, 4864, 4, 8, [2, 2, 0, 2]),
+    "bad_gid": (8, 2, 896, 896, 4, 8, [3, 7, 0, -1]),
+    "bm1_rank16": (16, 1, 300, 200, 16, 16, list(range(15, -1, -1))),
+}
+
+
+def _decode_bf16(case, seed):
+    M, bm, K, N, R, r, gid = DECODE_CASES[case]
+    x, w0, a, b, g, _ = _grouped_inputs(seed, M, K, N, R, r, gid)
+    args = [t.cuda().to(torch.bfloat16) for t in _t(x, w0, a, b)]
+    return args + [torch.from_numpy(g).cuda()], bm, R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_grouped_decode_bf16_matches_plain_on_card(case):
+    """One launch of the tensor-core body, within chip_smoke.KERNEL_TOL's
+    scheme of the plain version (one output rounding, doubled where a
+    rounding of h flips; the floor relative to the largest output); rows
+    of a gid outside [0, R) NaN in both."""
+    _need_card()
+    args, bm, R = _decode_bf16(case, 9)
+    before = tlg.lora_grouped.launches
+    got = tlg.lora_grouped(*args, 2.0, bm=bm)
+    torch.cuda.synchronize()
+    assert tlg.lora_grouped.launches == before + 1
+    want = tlg.lora_grouped_ref(*args, 2.0, bm=bm)
+    bad = torch.tensor([not 0 <= t < R for t in args[4].tolist()],
+                       device="cuda").repeat_interleave(bm)
+    for t in (got, want):
+        assert torch.equal(torch.isnan(t).all(1), bad)
+        assert torch.isfinite(t[~bad]).all()
+    scale = max(1.0, float(want[~bad].float().abs().max()))
+    torch.testing.assert_close(got[~bad].float(), want[~bad].float(),
+                               rtol=2.0 ** -6, atol=1e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["M8_bm2_896x4864", "M8_bm2_4864x896",
+                                  "M24_bm3", "odd_k_ragged_n"])
+def test_grouped_decode_bf16_is_bitwise_on_repeat(case):
+    """Partials are added in a fixed order of members and warps: two
+    launches on the same inputs give the same bits."""
+    _need_card()
+    args, bm, _ = _decode_bf16(case, 10)
+    y1 = tlg.lora_grouped(*args, 2.0, bm=bm)
+    y2 = tlg.lora_grouped(*args, 2.0, bm=bm)
+    torch.cuda.synchronize()
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
 
 
 def _assert_close_scaled(got, want, tol):

@@ -512,6 +512,76 @@ def test_grouped_quant_kernels_match_plain_on_card(M, K, N, R, r, bm, gid,
                                atol=tol["atol"] * scale)
 
 
+# the bf16 decode body (csrc/lora_grouped_decode_tc.cuh) over codes:
+# (M, bm, K, N, R, r, gid). The decode shapes at M 8 in tiles of 2 and 4,
+# two parts of 16 rows and more, M 24 in tiles of 3, and
+# chip_smoke.GROUPED_Q_EDGES (odd K, ragged N, ranks 3 and 16, repeated
+# slots, a bad gid)
+DECODE_GID = [3, 0, 3, 1]
+DECODE_CASES = {
+    **{f"M8_bm{bm}_{K}x{N}": (8, bm, K, N, 4, 8, DECODE_GID[:8 // bm])
+       for K, N in ((896, 896), (896, 128), (896, 4864), (4864, 896))
+       for bm in (2, 4)},
+    "M16": (16, 2, 896, 896, 4, 8, [3, 0, 3, 1, 2, 2, 0, 1]),
+    "M24_bm3": (24, 3, 896, 4864, 4, 8, [1, 0, 0, 1, 1, 0, 1, 0]),
+    "M32": (32, 2, 4864, 896, 4, 8, [i % 4 for i in range(16)]),
+    "odd_k_ragged_n": (8, 2, 97, 131, 4, 8, DECODE_GID),
+    "odd_k_wide": (8, 2, 4863, 896, 4, 8, DECODE_GID),
+    "n130_rank3": (8, 2, 896, 130, 4, 3, [1, 2, 3, 0]),
+    "rank16": (8, 2, 896, 896, 4, 16, DECODE_GID),
+    "rows16": (16, 2, 896, 128, 4, 8, [3, 0, 3, 1, 2, 2, 0, 1]),
+    "gid_repeated": (8, 2, 896, 4864, 4, 8, [2, 2, 0, 2]),
+    "bad_gid": (8, 2, 896, 896, 4, 8, [3, 7, 0, -1]),
+}
+
+
+def _decode_bf16(method, case, seed):
+    M, bm, K, N, R, r, gid = DECODE_CASES[case]
+    x, w, a, b, g, _ = _t(*_grouped_inputs(seed, M, K, N, R, r, gid))
+    leaf = {k: v.cuda() for k, v in tq.quantize_leaf(w, method).items()}
+    x, a, b = (t.to(torch.bfloat16).cuda() for t in (x, a, b))
+    return x, leaf, a, b, g.cuda(), bm, R
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_grouped_decode_bf16_over_codes_matches_plain_on_card(case, method):
+    """One launch of the tensor-core body over int8, int4 or nf4 codes,
+    within chip_smoke.KERNEL_TOL's scheme of the plain version (the floor
+    relative to the largest output); rows of a gid outside [0, R) NaN in
+    both."""
+    _need_card()
+    x, leaf, a, b, g, bm, R = _decode_bf16(method, case, 9)
+    name = "lora_grouped_q" if method == "int8" else "lora_grouped_q4"
+    before = tops.launch_counts()[name]
+    got = _card_call(method, x, leaf, a, b, g, bm)
+    torch.cuda.synchronize()
+    assert tops.launch_counts()[name] == before + 1
+    want = _card_call(method, x, leaf, a, b, g, bm, ref=True)
+    bad = torch.tensor([not 0 <= t < R for t in g.tolist()],
+                       device="cuda").repeat_interleave(bm)
+    for t in (got, want):
+        assert torch.equal(torch.isnan(t).all(1), bad)
+        assert torch.isfinite(t[~bad]).all()
+    scale = max(1.0, float(want[~bad].float().abs().max()))
+    torch.testing.assert_close(got[~bad].float(), want[~bad].float(),
+                               rtol=2.0 ** -6, atol=1e-2 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("case", ["M8_bm2_896x4864", "M8_bm2_4864x896",
+                                  "M24_bm3", "odd_k_ragged_n"])
+def test_grouped_decode_bf16_over_codes_is_bitwise_on_repeat(case, method):
+    _need_card()
+    x, leaf, a, b, g, bm, _ = _decode_bf16(method, case, 10)
+    y1 = _card_call(method, x, leaf, a, b, g, bm)
+    y2 = _card_call(method, x, leaf, a, b, g, bm)
+    torch.cuda.synchronize()
+    assert torch.equal(y1.view(torch.int16), y2.view(torch.int16))
+
+
 @pytest.mark.cuda
 def test_grouped_nf4_kernel_rounds_the_codebook_to_bf16():
     """With A = B = 0 the bf16 output must lie nearer the plain version
