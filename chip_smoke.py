@@ -13,13 +13,16 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    ``torch.matmul`` of x@W0 beside the grouped forward as context; the
    grouped forward's bf16 tensor-core body with its plan per shape and its
    registers and spills (ptxas), and the SHA-256 of its f32 CUDA-core
-   body's output at each shape), the training
+   body's output at each shape; the RMSNorm forward's output SHA-256s at
+   ``RMS_SHAPES``, which must equal ``RMS_FWD_SHA256``), the training
    kernels (LoRA forward, dx, dA/dB, RMSNorm backward) in bf16 and f32 at
    the training shapes, 192 rows (batch 4 x seq 48), the LoRA forward,
    dx and dA/dB also at the paper path's 256 rows (batch 1 x seq 256),
    with ``torch.matmul``'s time for the dominant x@W0 / g@W0^T product
    as context (for dA/dB two ``torch.mm`` of its row contractions' shapes;
-   no single PyTorch call computes those functions). The bf16 LoRA
+   no single PyTorch call computes those functions), and the RMSNorm
+   backward beside ``aten._fused_rms_norm_backward`` (``rms_bwd_library``)
+   with its registers and spills (ptxas). The bf16 LoRA
    forwards and dx (over bf16, int8, int4 and nf4) and dA/dB, on tensor
    cores, carry their split of the work per shape (forward and dx: of the
    contraction; dA/dB: members, sub-runs, passes, row fragments) and
@@ -141,7 +144,8 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
 13. The standalone RoPE kernel (on no path of either package) and its
    VJP (the kernel at -sin) bit for bit against the plain rotation in f32
    and bf16 at [1, 256, 14, 64] (qwen2.5-0.5b's q), [1, 256, 16, 128]
-   (OLMoE's) and an odd N, timed beside the plain rotation and the bound.
+   (OLMoE's) and an odd N, timed beside the plain rotation and the bound,
+   with its registers and spills (ptxas).
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
@@ -163,7 +167,6 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -325,6 +328,25 @@ GROUPED_TRAIN_Q = {"int8": ("lora_grouped_gemm_q", "lora_grouped_dx_q"),
                    "nf4": ("lora_grouped_gemm_q4", "lora_grouped_dx_q4")}
 # the forward and dx see no split group (only dA/dB's reduction does)
 MOE_Q_EDGES = {k: v for k, v in MOE_EDGES.items() if k != "split_group"}
+# the RMSNorm forward's shapes: decode, the paper path's, OLMoE's
+RMS_SHAPES = {"decode": (8, 896), "train": (256, 896), "olmoe": (256, 2048)}
+# SHA-256 of the RMSNorm forward's output at RMS_SHAPES (rmsnorm_fwd_sha256)
+# as the kernel gave them on an H100 before its row loads moved into
+# csrc/rownorm.cuh, which it shares with the backward: that move must leave
+# its bits as they were
+RMS_FWD_SHA256 = {
+    "decode/float32":
+        "482046cec33cdad0443b41c6dc6904623c10112a340f8ac0f4a0ce2699830503",
+    "decode/bfloat16":
+        "f3a96e579abdf26625e95e685c6701d670f59e1c7f7c492aee786ec6a10397e2",
+    "train/float32":
+        "bcd1c55e7d8445dcc75e94ae24cebd7aa34626e023ccdd1ff9182771e8bfd020",
+    "train/bfloat16":
+        "8d6745c56ae35fb9943c5981b1a08735cbb2407cd2613d974652f10575540704",
+    "olmoe/float32":
+        "6daaeec380c1071b0f9067bad9365af5bca7618f6805132867f59511820e713d",
+    "olmoe/bfloat16":
+        "e4d712e5d1a14110c494aebafa6d735b88a94824335b45c79af5bb37c0847377"}
 # the standalone RoPE kernel's check (step 13): x [B, N, H, D]
 ROPE_CASES = {"qwen": (1, 256, 14, 64), "olmoe": (1, 256, 16, 128),
               "odd_n": (1, 255, 16, 128)}
@@ -543,6 +565,22 @@ def check_rmsnorm(torch, rn):
              "flops": 4 * M * D_MODEL}]
 
 
+def rmsnorm_fwd_sha256(torch, rn):
+    """{"shape/dtype": SHA-256 of the RMSNorm forward's output} at
+    ``RMS_SHAPES`` in f32 and bf16, on inputs that numpy draws from fixed
+    seeds (the same on every machine)."""
+    import numpy as np
+    out = {}
+    for i, (shape, (M_, d)) in enumerate(RMS_SHAPES.items()):
+        rng = np.random.default_rng(70 + i)
+        x = torch.from_numpy(rng.standard_normal((M_, d), np.float32) * 3)
+        w = torch.from_numpy(rng.standard_normal(d, np.float32))
+        for dtype in (torch.float32, torch.bfloat16):
+            y = rn.rmsnorm(x.to(dtype).cuda(), w.to(dtype).cuda(), 1e-6)
+            out[f"{shape}/{str(dtype)[6:]}"] = _sha256(y)
+    return out
+
+
 def kernel_entry(name, source, replaces, tpu_kernel, shapes, launches,
                  steps, step="decode", path=None, **extra):
     """One kernel's line entry: figures per ``step`` (decode or train; each
@@ -600,6 +638,30 @@ def _close_scaled(got, want, tol, what):
 
 
 TRAIN_KERNELS = ("lora_fused_fwd", "lora_dx", "lora_dab", "rmsnorm_bwd")
+
+
+def rms_bwd_library(torch, x, w, g):
+    """One PyTorch call that computes the RMSNorm backward's dx on ``x, w,
+    g`` [M, d], as a yardstick (the port calls none): (its name, its input
+    sets for ``_time_ms``, the call). ``aten._fused_rms_norm_backward`` with
+    ``rstd`` made by ``aten._fused_rms_norm`` outside the timed call; where
+    this PyTorch lacks it on the card, ``F.rms_norm``'s forward and backward
+    through autograd."""
+    import torch.nn.functional as F
+    d, aten = x.shape[1], torch.ops.aten
+    try:
+        rstd = aten._fused_rms_norm(x, [d], w, 1e-6)[1]
+        aten._fused_rms_norm_backward(g, x, [d], rstd, w, [True, False])
+        torch.cuda.synchronize()
+    except (AttributeError, NotImplementedError, RuntimeError):
+        xr = x.detach().requires_grad_(True)
+        return ("F.rms_norm forward and backward (autograd)",
+                [(xr, w, g)] * 256,
+                lambda x, w, g: torch.autograd.grad(
+                    F.rms_norm(x, (d,), w, 1e-6), x, g)[0])
+    return ("aten._fused_rms_norm_backward", [(x, w, g, rstd)] * 256,
+            lambda x, w, g, r: aten._fused_rms_norm_backward(
+                g, x, [d], r, w, [True, False])[0])
 
 
 def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
@@ -693,12 +755,16 @@ def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
     bwd = lambda x, w, g: rn.rmsnorm_bwd(x, w, g, 1e-6, need_dw=False)
     plain = lambda x, w, g: rn.rmsnorm_bwd_ref(x, w, g, 1e-6)[0]
     sets = [make_rms()] * 256     # warm: g was just written by the step
+    lib_op, lib_sets, lib = rms_bwd_library(torch, *sets[0])
+    lib_err = float((lib(*lib_sets[0]).float()
+                     - plain(*sets[0]).float()).abs().max())
     out["rmsnorm_bwd"].append({
         "M": M_, "d": d, "launches_per_train_step": rms_bwd,
         "max_abs_err": errs[torch.bfloat16],
         "max_abs_err_f32": errs[torch.float32],
         "ms": _time_ms(bwd, sets), "plain_ms": _time_ms(plain, sets),
-        "library_ms": None, "bound_ms": bound, "bound_by": by,
+        "library_ms": _time_ms(lib, lib_sets), "library_op": lib_op,
+        "library_max_abs_err": lib_err, "bound_ms": bound, "bound_by": by,
         "bytes": nbytes, "flops": 10 * M_ * d})
     return out
 
@@ -2031,6 +2097,11 @@ def main() -> int:
 
     grouped = check_grouped(torch, lg)
     rms = check_rmsnorm(torch, rn)
+    rms_sha = rmsnorm_fwd_sha256(torch, rn)
+    if rms_sha != RMS_FWD_SHA256:
+        raise AssertionError(f"rmsnorm_fwd output bits {rms_sha} differ "
+                             f"from before the shared row loads: "
+                             f"{RMS_FWD_SHA256}")
     training = check_training_kernels(torch, lf, rn)
     # the LoRA forward and dx at the paper path's 256 rows (the same
     # launches a step as at seq 48)
@@ -2511,7 +2582,7 @@ def main() -> int:
                 "seq 256)",
         "ms": head["ms"], "plain_ms": head["plain_ms"], "library_ms": None,
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "shapes": rope_fig}
+        "ptxas": build["rope"]["ptxas"], "shapes": rope_fig}
 
     def paper_entry(name, cu, line, fn, body):
         """The bf16 dense LoRA forward's, dx's or dA/dB's entry: the seq-48
@@ -2560,7 +2631,8 @@ def main() -> int:
             "rmsnorm_fwd", "src/repro_torch/csrc/rmsnorm_fwd.cu",
             "src/repro/kernels/rmsnorm.py:26",
             "src/repro/kernels/rmsnorm.py:rmsnorm (_rmsnorm_kernel :19)",
-            rms, paths("rmsnorm_fwd"), steps, train_shape=rms_train),
+            rms, paths("rmsnorm_fwd"), steps, train_shape=rms_train,
+            sha256=rms_sha, sha256_before_rownorm=RMS_FWD_SHA256),
             moe_dense["rmsnorm_fwd"]),
         paper_entry("lora_fused_fwd", "lora_fused_fwd.cu",
                     "src/repro/kernels/lora_fused.py:87",
@@ -2574,10 +2646,11 @@ def main() -> int:
                     "src/repro/kernels/lora_fused.py:225",
                     "src/repro/kernels/lora_fused.py:lora_dab "
                     "(_lora_dab_kernel :175)", "dab"),
-        train_entry("rmsnorm_bwd", "rmsnorm_bwd.cu",
-                    "src/repro/kernels/rmsnorm.py:61",
-                    "src/repro/kernels/rmsnorm.py:rmsnorm_bwd "
-                    "(_rmsnorm_bwd_kernel :48)"),
+        dict(train_entry("rmsnorm_bwd", "rmsnorm_bwd.cu",
+                         "src/repro/kernels/rmsnorm.py:61",
+                         "src/repro/kernels/rmsnorm.py:rmsnorm_bwd "
+                         "(_rmsnorm_bwd_kernel :48)"),
+             ptxas=build["rmsnorm_bwd"]["ptxas"]),
         flash_entry("flash_fwd", "flash_fwd.cu",
                     "src/repro/kernels/flash_attention.py:216",
                     "src/repro/kernels/flash_attention.py:"
@@ -2719,4 +2792,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # the port of this checkout (a script that imports this module puts
+    # the port it measures on its own path)
+    sys.path.insert(0, str(ROOT / "src"))
     sys.exit(main())

@@ -16,7 +16,8 @@ its inputs out of L2). It uses the ``chip_smoke`` and ``repro_torch`` found
 on the path, so one call can time two checkouts in turns:
 
     PYTHONPATH=src:. python scripts/profile_torch_grouped.py \
-        [--family grouped|dense|both|dab|decode] [--label L]
+        [--family grouped|dense|both|dab|decode|decode_sweep|norm_rope|
+                  rmsnorm_bwd_sweep] [--label L]
 
 Prints one JSON line: ms per launch by format and shape, the bound (bytes
 at 3.35 TB/s or FLOPs at 989 TFLOP/s), the card and its power limit; and,
@@ -85,6 +86,27 @@ plan (``lora_grouped.decode_plan``). Then the RMSNorm forward at [8, 896]
 (decode), [256, 896] and [256, 2048] (training), warm, as
 ``chip_smoke.py`` times it: ms per launch of the kernel, its plain
 version and ``F.rms_norm``, and the bound.
+
+Norms and RoPE (``--family norm_rope``): the RMSNorm backward in bf16,
+need_dw false, warm as ``chip_smoke.py`` times it and cold, at [192, 896] and
+[256, 896] (the dense paths) and [256, 2048] (OLMoE): ms per launch of the
+kernel, its plain version and the library's one call
+(``chip_smoke.rms_bwd_library``), beside the bound (x and g read once, w
+once, dx written once); the standalone RoPE in bf16, cold, at
+``chip_smoke.ROPE_CASES`` beside the plain rotation, a copy of x (one
+read and one write of it, as context) and the bound; and
+the RMSNorm forward's output SHA-256s (``chip_smoke.rmsnorm_fwd_sha256``).
+``chip_smoke`` puts no port on the path when imported, so from a parent
+checkout (``cd checkout/parent && PYTHONPATH=src:../.. python
+../../scripts/profile_torch_grouped.py --family norm_rope``) this
+measures the parent's kernels with this tree's inputs and timing.
+
+Rows a block (``--family rmsnorm_bwd_sweep``): the RMSNorm backward of the
+``repro_torch`` on the path, built as it is and, where its source takes
+``-DRMS_BWD_WARPS``, with 1, 2 and 4 warps (rows) a block (one ``nvcc``
+each into the build directory), timed warm through its C entry at 8 to
+1,024 rows of 896 and of 2048, and whether the builds give the same dx
+bits. From a parent checkout (as above) it times the parent's kernel.
 """
 from __future__ import annotations
 
@@ -549,8 +571,6 @@ def dab():
 DECODE_SHAPES = {"q_o": (896, 896), "k_v": (896, 128),
                  "gate_up": (896, 4864), "down": (4864, 896)}
 DECODE_PER_STEP = {"q_o": 48, "k_v": 48, "gate_up": 48, "down": 24}
-RMS_SHAPES = {"decode": (8, 896), "train": (256, 896),
-              "olmoe": (256, 2048)}
 
 
 def _decode_cases(gen, dtype, method, K, N):
@@ -657,7 +677,7 @@ def decode():
         per_step[method] = step
     gen = torch.Generator(device="cuda").manual_seed(50)
     rms = {}
-    for shape, (M, d) in RMS_SHAPES.items():
+    for shape, (M, d) in cs.RMS_SHAPES.items():
         x = (torch.randn(M, d, generator=gen, device="cuda") * 3).bfloat16()
         w = torch.randn(d, generator=gen, device="cuda").bfloat16()
         sets = [(x, w)] * 256     # warm, as chip_smoke.py times it
@@ -717,11 +737,121 @@ def decode_sweep():
     return {"decode_sweep_ms_per_launch": out}
 
 
+# the RMSNorm backward's shapes: the seq-48 and the paper path's, OLMoE's
+RMS_BWD_SHAPES = {"train48": (192, 896), "train": (256, 896),
+                  "olmoe": (256, 2048)}
+
+
+def _rms_bwd_args(M, d, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rn_ = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    return ((rn_(M, d) * 3).bfloat16(), rn_(d).bfloat16(),
+            rn_(M, d).bfloat16())
+
+
+def norm_rope():
+    """The RMSNorm backward's and the standalone RoPE's per-launch times
+    beside their plain versions, the library call (RMSNorm) and the bound,
+    and the RMSNorm forward's output hashes."""
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import rope
+    bwd = {}
+    for i, (shape, (M, d)) in enumerate(RMS_BWD_SHAPES.items()):
+        args = _rms_bwd_args(M, d, 80 + i)
+        sets = [args] * 256      # warm: g was just written by the step
+        op, lib_sets, lib = cs.rms_bwd_library(torch, *args)
+        bound, by = cs._bound_ms(2 * (3 * M * d + d), 10 * M * d)
+        kern = lambda x, w, g: rn.rmsnorm_bwd(x, w, g, 1e-6, need_dw=False)
+        cold = cs._cold_sets(lambda: _rms_bwd_args(M, d, 85 + i),
+                             2 * (3 * M * d + d))
+        bwd[shape] = {
+            "M": M, "d": d, "ms": cs._time_ms(kern, sets),
+            "cold_ms": cs._time_ms(kern, cold),
+            "library_ms": cs._time_ms(lib, lib_sets), "library_op": op,
+            "plain_ms": cs._time_ms(
+                lambda x, w, g: rn.rmsnorm_bwd_ref(x, w, g, 1e-6)[0], sets),
+            "bound_ms": bound, "bound_by": by}
+        del cold
+    rot = {}
+    for i, (case, (B, N, H, D)) in enumerate(cs.ROPE_CASES.items()):
+        gen = torch.Generator(device="cuda").manual_seed(90 + i)
+        cos, sin = rope.rope_tables(torch.arange(N, device="cuda"), 1e6, D)
+        make = lambda: (torch.randn(B, N, H, D, generator=gen,
+                                    device="cuda").bfloat16(), cos, sin)
+        nbytes = 2 * 2 * B * N * H * D + 2 * 4 * N * (D // 2)
+        bound, by = cs._bound_ms(nbytes, 6 * B * N * H * (D // 2))
+        sets = cs._cold_sets(make, nbytes)
+        rot[case] = {"B": B, "N": N, "H": H, "D": D,
+                     "ms": cs._time_ms(rope.rope_fwd, sets),
+                     "plain_ms": cs._time_ms(rope.rope_fwd_ref, sets),
+                     "copy_ms": cs._time_ms(lambda x, c, s: x.clone(), sets),
+                     "bound_ms": bound, "bound_by": by}
+        del sets
+    return {"rmsnorm_bwd_ms_per_launch": bwd, "rope_fwd_ms_per_launch": rot,
+            "rmsnorm_fwd_sha256": cs.rmsnorm_fwd_sha256(torch, rn)}
+
+
+# rows of the RMSNorm backward's sweep: from a few (one warp's chain) to
+# more than the card's 132 SMs take at once in blocks of one to four rows
+SWEEP_ROWS = (8, 64, 192, 256, 1024)
+
+
+def rmsnorm_bwd_sweep():
+    """The RMSNorm backward of the ``repro_torch`` on the path built as it
+    is and, where its source takes ``RMS_BWD_WARPS``, with 1, 2 and 4 rows
+    a block; each timed through its C entry, warm, at ``SWEEP_ROWS`` rows
+    of 896 and 2048; and whether the builds give the same dx bits."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rn
+    src = _build.CSRC / "rmsnorm_bwd.cu"
+    builds = {"as_built": []}
+    if "RMS_BWD_WARPS" in src.read_text():
+        builds.update({f"warps{w}": [f"-DRMS_BWD_WARPS={w}"]
+                       for w in (1, 2, 4)})
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for name, flags in builds.items():
+        lib = _build.BUILD_DIR / f"rmsnorm_bwd_sweep_{name}.so"
+        jobs[name] = (lib, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, *flags, "-I",
+             str(_build.CSRC), "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fns = {}
+    for name, (lib, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f"nvcc rmsnorm_bwd.cu {builds[name]}: {log}")
+        fns[name] = ctypes.CDLL(str(lib)).rmsnorm_bwd
+        fns[name].argtypes = rn._BWD_ARGTYPES
+        fns[name].restype = _build.C_INT
+    out, same = {}, {}
+    for i, (M, d) in enumerate((M, d) for d in (896, 2048)
+                               for M in SWEEP_ROWS):
+        args = _rms_bwd_args(M, d, 100 + i)
+        bits = []
+        for name, fn in fns.items():
+            dx = torch.empty_like(args[0])
+
+            def call(x, w, g, fn=fn, dx=dx, M=M, d=d):
+                rc = fn(1, x.data_ptr(), w.data_ptr(), g.data_ptr(),
+                        dx.data_ptr(), None, M, d, 1e-6,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"rmsnorm_bwd sweep launch: {rc}")
+            out[f"{M}x{d}/{name}"] = cs._time_ms(call, [args] * 256)
+            bits.append(dx.clone())
+        same[f"{M}x{d}"] = all(torch.equal(bits[0], b) for b in bits[1:])
+    return {"rmsnorm_bwd_sweep_ms_per_launch": out,
+            "rmsnorm_bwd_sweep_same_bits": same}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--family",
                     choices=("grouped", "dense", "both", "dab", "decode",
-                             "decode_sweep"),
+                             "decode_sweep", "norm_rope",
+                             "rmsnorm_bwd_sweep"),
                     default="both")
     ap.add_argument("--label", default="", help="a name for this checkout")
     args = ap.parse_args()
@@ -738,6 +868,10 @@ def main() -> int:
         res.update(decode())
     if args.family == "decode_sweep":
         res.update(decode_sweep())
+    if args.family == "norm_rope":
+        res.update(norm_rope())
+    if args.family == "rmsnorm_bwd_sweep":
+        res.update(rmsnorm_bwd_sweep())
     smi = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],

@@ -11,8 +11,9 @@ two warm SGD steps, then traces ``--steps`` steps with
 ms per step (the union of kernel intervals on the card's timeline), the
 device idle share, device kernels launched per step, the kernels that
 took the most device time, and the flash-attention, grouped (MoE) and
-dense LoRA forward and dx kernels' and the LoRA factor gradients' (dense
-and grouped dA/dB) time. With ``--peak`` it then prints the peak
+dense LoRA forward and dx kernels', the LoRA factor gradients' (dense
+and grouped dA/dB) and the RMSNorm kernels' time, with the RMSNorm
+backward's share of the busy time. With ``--peak`` it then prints the peak
 ``torch.cuda.max_memory_allocated`` of one ``value_and_grad`` with remat
 off, and above what was allocated before it (``chip_smoke.py``'s
 ``peak_memory`` reading, on the trained weights).
@@ -37,6 +38,17 @@ from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core import mesp, quant
 from repro_torch.data import make_batch_iterator
 from repro_torch.models import model as model_lib
+
+
+def _durations(kernels, key):
+    """{kernel name: [µs of each launch]} for the kernels whose name holds
+    ``key``."""
+    out = {}
+    for e in kernels:
+        if key in e.name:
+            out.setdefault(e.name, []).append(
+                e.time_range.end - e.time_range.start)
+    return out
 
 
 def main(argv=None) -> int:
@@ -109,6 +121,16 @@ def main(argv=None) -> int:
         # (lora_dab_*, grouped_dab_*), the bf16 tensor-core body (dab_tc)
         "dab_ms_per_step": {k[:100]: v / 1e3 / ns.steps
                             for k, v in by_name.items() if "dab" in k},
+        "rmsnorm_ms_per_step": {k[:100]: v / 1e3 / ns.steps
+                                for k, v in by_name.items()
+                                if "rmsnorm" in k},
+        "rmsnorm_bwd_share_of_busy": sum(
+            v for k, v in by_name.items() if "rmsnorm_bwd" in k)
+        / 1e3 / ns.steps / busy_ms,
+        # each RMSNorm launch's µs in the step: min, median, max
+        "rmsnorm_us_per_launch": {
+            k[:100]: [min(d), sorted(d)[len(d) // 2], max(d)]
+            for k, d in _durations(kernels, "rmsnorm").items()},
         "device": torch.cuda.get_device_name(0)}}))
     if ns.peak:
         del prof, kernels

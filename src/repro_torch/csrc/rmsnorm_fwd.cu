@@ -23,52 +23,15 @@
 // so x is read once. NV (1 to 16) is the smallest power of two that holds
 // a row; a wider row (more than 4,096 bf16 or 2,048 f32 values) is summed
 // in passes of 16 units and read again for the output. Any d works; no row
-// is padded.
+// is padded. The row loads and stores are rownorm.cuh's, shared with the
+// backward.
 
-#include <cstdint>
-
-#include "common.cuh"
+#include "rownorm.cuh"
 
 namespace {
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
-constexpr int NV_MAX = 16;
-
-template <typename T>
-struct alignas(16) Unit {
-  static constexpr int V = 16 / sizeof(T);  // values in 16 bytes
-  T v[V];
-};
-
-// Unit u (of NV) of a lane's share of the row chunk at `base`: 16 bytes at
-// element base + V (lane + 32 u), or V elements base + lane + 32 (u V + e),
-// zero past d.
-template <typename T, int NV>
-__device__ __forceinline__ void load_units(Unit<T> (&out)[NV], const T* row,
-                                           int base, int d, int lane,
-                                           bool vec) {
-  constexpr int V = Unit<T>::V;
-#pragma unroll
-  for (int u = 0; u < NV; ++u) {
-    if (vec) {
-      const int c = base + V * (lane + 32 * u);
-      if (c < d) {
-        *reinterpret_cast<uint4*>(out[u].v) =
-            *reinterpret_cast<const uint4*>(row + c);
-      } else {
-#pragma unroll
-        for (int e = 0; e < V; ++e) out[u].v[e] = from_f<T>(0.f);
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const int c = base + lane + 32 * (u * V + e);
-        out[u].v[e] = c < d ? row[c] : from_f<T>(0.f);
-      }
-    }
-  }
-}
 
 template <typename T, int NV>
 __device__ __forceinline__ float sum_squares(const Unit<T> (&xs)[NV]) {
@@ -83,31 +46,16 @@ __device__ __forceinline__ float sum_squares(const Unit<T> (&xs)[NV]) {
   return ss;
 }
 
+// y = (x rms) w, rounded once to T, into xs's registers
 template <typename T, int NV>
-__device__ __forceinline__ void store_units(T* yrow, const Unit<T> (&xs)[NV],
+__device__ __forceinline__ void scale_units(Unit<T> (&xs)[NV],
                                             const Unit<T> (&ws)[NV],
-                                            float rms, int base, int d,
-                                            int lane, bool vec) {
-  constexpr int V = Unit<T>::V;
+                                            float rms) {
 #pragma unroll
-  for (int u = 0; u < NV; ++u) {
-    Unit<T> o;
+  for (int u = 0; u < NV; ++u)
 #pragma unroll
-    for (int e = 0; e < V; ++e)
-      o.v[e] = from_f<T>(to_f(xs[u].v[e]) * rms * to_f(ws[u].v[e]));
-    if (vec) {
-      const int c = base + V * (lane + 32 * u);
-      if (c < d)
-        *reinterpret_cast<uint4*>(yrow + c) =
-            *reinterpret_cast<const uint4*>(o.v);
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; ++e) {
-        const int c = base + lane + 32 * (u * V + e);
-        if (c < d) yrow[c] = o.v[e];
-      }
-    }
-  }
+    for (int e = 0; e < Unit<T>::V; ++e)
+      xs[u].v[e] = from_f<T>(to_f(xs[u].v[e]) * rms * to_f(ws[u].v[e]));
 }
 
 template <typename T, int NV>
@@ -125,7 +73,8 @@ __global__ void __launch_bounds__(THREADS) rmsnorm_fwd_kernel(
     load_units<T, NV>(xs, xr, 0, d, lane, vec);
     load_units<T, NV>(ws, w, 0, d, lane, vec);
     const float rms = rsqrtf(warp_sum(sum_squares<T, NV>(xs)) / d + eps);
-    store_units<T, NV>(yr, xs, ws, rms, 0, d, lane, vec);
+    scale_units<T, NV>(xs, ws, rms);
+    store_units<T, NV>(yr, xs, 0, d, lane, vec);
     return;
   }
   float ss = 0.f;
@@ -137,38 +86,21 @@ __global__ void __launch_bounds__(THREADS) rmsnorm_fwd_kernel(
   for (int base = 0; base < d; base += CHUNK) {
     load_units<T, NV>(xs, xr, base, d, lane, vec);
     load_units<T, NV>(ws, w, base, d, lane, vec);
-    store_units<T, NV>(yr, xs, ws, rms, base, d, lane, vec);
+    scale_units<T, NV>(xs, ws, rms);
+    store_units<T, NV>(yr, xs, base, d, lane, vec);
   }
 }
 
 template <typename T>
 int launch(const void* x, const void* w, void* y, int M, int d, float eps,
            cudaStream_t s) {
-  constexpr int V = Unit<T>::V;
-  const bool vec = d % V == 0 &&
-                   ((reinterpret_cast<uintptr_t>(x) |
-                     reinterpret_cast<uintptr_t>(w) |
-                     reinterpret_cast<uintptr_t>(y)) & 15) == 0;
-  const int units = (d + 32 * V - 1) / (32 * V);  // a lane's share
+  const bool vec = rows_take_units<T>(d, {x, w, y});
   const dim3 grid((M + WARPS - 1) / WARPS);
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  T* yp = static_cast<T*>(y);
-  if (units <= 1)
-    rmsnorm_fwd_kernel<T, 1><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d, eps,
-                                                      vec);
-  else if (units <= 2)
-    rmsnorm_fwd_kernel<T, 2><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d, eps,
-                                                      vec);
-  else if (units <= 4)
-    rmsnorm_fwd_kernel<T, 4><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d, eps,
-                                                      vec);
-  else if (units <= 8)
-    rmsnorm_fwd_kernel<T, 8><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d, eps,
-                                                      vec);
-  else
-    rmsnorm_fwd_kernel<T, NV_MAX><<<grid, THREADS, 0, s>>>(xp, wp, yp, M, d,
-                                                           eps, vec);
+  with_units<T>(d, [&](auto nv) {
+    rmsnorm_fwd_kernel<T, decltype(nv)::value><<<grid, THREADS, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+        M, d, eps, vec);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -14,12 +14,13 @@ formulas in f32:
 
 What bounds both on the H100: bytes (each element read once and written
 once, a few FLOPs each); at decode, with 8 rows of 896, the launch itself.
-The forward runs one warp a row: x and w come in one round trip of
-16-byte loads where the width and the bases allow them (element by element
-otherwise), x stays in registers, and a warp shuffle gives the sum of
-squares, so no block barrier and one read of x. The backward runs one
-block a row: block-wide f32 sums, then one pass that writes the row. Any
-row count and width, nothing padded.
+Both run one warp a row (``csrc/rownorm.cuh`` holds their row loads): the
+row's operands (x and w; x, g and w) come in one round trip of 16-byte
+loads where the width and the bases allow them (element by element
+otherwise) and stay in registers, warp shuffles give the f32 sums (Σx²;
+Σx² and Σ(g·w)·x), and the output is written from the registers, so no
+block barrier and one read of x and g up to 4,096 bf16 or 2,048 f32
+values a row. Any row count and width, nothing padded.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
 kernel does not take; a tensor on the CPU gets the plain version

@@ -17,7 +17,9 @@ at −θ (``sin`` negated), and it saves nothing but the tables, which get no
 gradient. As in the reference, no path of the model runs it: the training
 path fuses RoPE into the flash kernels or rotates with the plain tables.
 What bounds the kernel on the H100 is bytes (x read once, written once);
-one thread rotates one pair (the source's header has the details).
+a block rotates one position's heads, a thread 16 bytes of each half with
+its cos and sin held in registers across the heads (the source's header
+has the details).
 
 The wrapper launches the kernel for CUDA tensors and raises on what it
 does not take; a tensor on the CPU gets the plain version.

@@ -801,16 +801,18 @@ def test_lora_training_kernels_reject_bad_input():
         tlf.lora_fused(x, w0, a, b[:, :39].contiguous())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("M,d", [(192, 896), (3, 1000), (64, 72)])
-def test_rmsnorm_bwd_kernel_matches_plain_on_card(M, d, dtype):
-    _need_card()
+def _rms_bwd_inputs(M, d, dtype, seed, off=0):
+    """x, w, g for the RMSNorm backward, each ``off`` elements into a fresh
+    buffer (off 1: bases off 16-byte alignment)."""
     dt = getattr(torch, dtype)
-    gen = torch.Generator().manual_seed(8)
-    x = (torch.randn(M, d, generator=gen) * 3).to(dt).cuda()
-    w = torch.randn(d, generator=gen).to(dt).cuda()
-    g = torch.randn(M, d, generator=gen).to(dt).cuda()
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(M * d + off, generator=gen) * 3).to(dt).cuda()
+    w = torch.randn(d + off, generator=gen).to(dt).cuda()
+    g = torch.randn(M * d + off, generator=gen).to(dt).cuda()
+    return x[off:].view(M, d), w[off:], g[off:].view(M, d)
+
+
+def _check_rms_bwd(x, w, g, dtype):
     before = trn.rmsnorm_bwd.launches
     dx, dw = trn.rmsnorm_bwd(x, w, g, 1e-6)
     torch.cuda.synchronize()
@@ -822,3 +824,42 @@ def test_rmsnorm_bwd_kernel_matches_plain_on_card(M, d, dtype):
     _assert_close_scaled(dw, wdw, tol)
     dx2, none = trn.rmsnorm_bwd(x, w, g, 1e-6, need_dw=False)
     assert none is None and torch.equal(dx2, dx)
+
+
+# one row, a part block of rows, the paths' [192-256, 896] and [256, 2048]
+# in 16-byte units, widths that take element loads (1000, 72, 899), and a
+# row wider than a warp holds (5000: two passes)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,d", [(192, 896), (3, 1000), (64, 72), (1, 896),
+                                 (8, 896), (256, 896), (256, 2048), (5, 899),
+                                 (3, 5000)])
+def test_rmsnorm_bwd_kernel_matches_plain_on_card(M, d, dtype):
+    _need_card()
+    _check_rms_bwd(*_rms_bwd_inputs(M, d, dtype, 8), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_kernel_takes_an_unaligned_row_base(dtype):
+    """x, w and g one element (2 bytes in bf16) off 16-byte alignment: the
+    kernel's element-by-element loads, held as tightly as the aligned
+    ones."""
+    _need_card()
+    x, w, g = _rms_bwd_inputs(8, 896, dtype, 9, off=1)
+    assert x.data_ptr() % 16 and x.is_contiguous()
+    _check_rms_bwd(x, w, g, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("M,d", [(256, 896), (256, 2048), (3, 5000)])
+def test_rmsnorm_bwd_kernel_is_bitwise_on_repeat(M, d, dtype):
+    """Two launches on the same inputs give the same dx and dw bits (sums
+    by warp shuffles and dw partials added in a fixed order)."""
+    _need_card()
+    x, w, g = _rms_bwd_inputs(M, d, dtype, 10)
+    dx, dw = trn.rmsnorm_bwd(x, w, g, 1e-6)
+    dx2, dw2 = trn.rmsnorm_bwd(x, w, g, 1e-6)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)

@@ -699,20 +699,34 @@ def test_quantized_grouped_kernels_reject_bad_input():
         tlg.lora_grouped_gemm_q(x, q, s, a, b, gid, 2.0, bm=8)
 
 
+def _placed(t, off):
+    """A contiguous copy of ``t`` that starts ``off`` elements into a fresh
+    buffer (off 1: its base is off 16-byte alignment)."""
+    buf = torch.empty(t.numel() + off, dtype=t.dtype, device=t.device)
+    v = buf[off:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("off", [0, 1])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,N,H,D", ROPE_CASES + [(1, 256, 16, 128)])
-def test_rope_kernel_matches_plain_bitwise_on_card(B, N, H, D, dtype):
+@pytest.mark.parametrize("B,N,H,D", ROPE_CASES + [
+    (1, 256, 16, 128), (2, 7, 3, 10), (1, 40, 1, 128)])
+def test_rope_kernel_matches_plain_bitwise_on_card(B, N, H, D, dtype, off):
     """The RoPE kernel and its VJP (the kernel at −sin) equal the plain
-    rotation bit for bit."""
+    rotation bit for bit: 16-byte units of the half (D 16 one unit in
+    bf16), an odd half (D 10) and x and its cotangent off 16-byte alignment
+    (element loads), one head and many."""
     _need_card()
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(57)
-    x = torch.from_numpy(_rand(rng, B, N, H, D)).to(dt).cuda()
-    cot = torch.from_numpy(_rand(rng, B, N, H, D)).to(dt).cuda()
+    x = _placed(torch.from_numpy(_rand(rng, B, N, H, D)).to(dt).cuda(), off)
+    cot = _placed(torch.from_numpy(_rand(rng, B, N, H, D)).to(dt).cuda(), off)
+    assert (x.data_ptr() % 16 != 0) == bool(off)
     cos, sin = trope.rope_tables(torch.arange(N, device="cuda"), 1e6, D)
     before = trope.rope_fwd.launches
-    xr = x.clone().requires_grad_(True)
+    xr = _placed(x, off).requires_grad_(True)
     y = trope.rope_apply(xr, cos, sin)
     (dx,) = torch.autograd.grad(y, xr, cot)
     torch.cuda.synchronize()
