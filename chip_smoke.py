@@ -146,12 +146,43 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    and bf16 at [1, 256, 14, 64] (qwen2.5-0.5b's q), [1, 256, 16, 128]
    (OLMoE's) and an odd N, timed beside the plain rotation and the bound,
    with its registers and spills (ptxas).
+14. The paper's §4.3 loop: one ``sequential_train_step`` (engine
+   ``mesp_seq``) of full-width qwen2.5-0.5b at batch 1 x seq 256, bf16,
+   every LoRA B drawn nonzero, under the ``cuda`` policy, counts zeroed
+   just before and read just after (``PAPER_PER_STEP``, the production
+   step's: every block recomputed in the reverse loop); the peak memory
+   of one such step beside one ``mesp.train_step`` (Table 4's MeSP-seq
+   row beside MeSP); in f32, its updated LoRA leaves against mesp_cuda's
+   ``value_and_grad`` + SGD at ``GRAD_TOL`` (the updates, at
+   ``CHECK_LR``), and whether they are equal bit for bit.
+15. MeZO on the same model in f32: one dense ``spsa_grad`` at MeZO's eps
+   under the ``cuda`` policy, counts zeroed just before and read just
+   after (two probe forwards: ``ZO_PER_PROBE`` twice, no backward kernel);
+   the projection (L+ - L-)/2eps at ``ZO_CHECK_EPS`` against
+   <g_exact, z>, g_exact from mesp_cuda, within ``ZO_TOL`` ||g_exact||,
+   beside the projection at eps 1e-2, 1e-3 and 1e-4, the f32 loss's
+   rounding (the kernels' loss against the plain backend's) and z bit for
+   bit on a second draw from its seed; Table 3 on the card
+   (``zo.gradquality.probe``: global and per-layer cosine, sign agreement,
+   relative error of mezo against mesp_cuda); Table 4's MeZO row: the
+   bf16 peak of one mezo step beside one mesp_cuda step.
+16. 2 steps of each new engine or optimizer through its registry builder
+   under the policy the train CLI gives it (``NEW_RUNS``: mesp_seq, the
+   five mezo*, mesp_cuda with sgd_momentum and with adamw) on one bf16
+   full-width params tree: finite losses, moved LoRA leaves, every frozen
+   leaf (and the given tree) bit for bit unchanged.
+17. ``core/flash.py`` (the structured backend's chunked flash, plain
+   PyTorch) against the flash kernels at ``CORE_FLASH_SHAPE``, chunk
+   ``CORE_FLASH_CHUNK``, causal: out, dq, dk, dv in f32 and bf16 at the
+   flash card tests' tolerances.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
-``{"train_quant": ...}``, ``{"train_moe": ...}`` and
-``{"train_moe_quant": ...}`` line each, the card's name and power limit,
-and last ``{"ok": true, "device": ...}``. Any mismatch or exception exits
+``{"train_quant": ...}``, ``{"train_moe": ...}``,
+``{"train_moe_quant": ...}``, ``{"train_seq": ...}``, ``{"zo": ...}``,
+``{"train_engines": ...}`` (with the run's seconds) and
+``{"core_flash": ...}`` line each, the card's name and power limit, and
+last ``{"ok": true, "device": ...}``. Any mismatch or exception exits
 non-zero. Imports nothing of JAX or of the JAX package ``repro``.
 """
 from __future__ import annotations
@@ -164,6 +195,7 @@ import math
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2043,6 +2075,290 @@ def check_rope(torch, rope):
     return out
 
 
+# ------------------------------------------------------------ steps 14-17
+# the paper's other training engines (``mesp_seq``, the ``mezo*`` family,
+# ``sgd_momentum`` / ``adamw``) and the structured backend's chunked flash
+
+#: the paper's lr, for the steps whose peak memory is read
+SEQ_LR = 1e-4
+#: the f32 check of mesp_seq's update against mesp_cuda's: an lr of 1 makes
+#: the update the gradient itself, well above the f32 rounding of p
+CHECK_LR = 1.0
+#: 2 steps of each new engine: an lr at which bf16 LoRA leaves move
+ENGINES_LR = 1e-2
+#: (engine, optimizer) of the {"train_engines"} phase
+NEW_RUNS = (("mesp_seq", "sgd"), ("mezo", "sgd"), ("mezo_sparse", "sgd"),
+            ("mezo_lowrank", "sgd"), ("mezo_block", "sgd"),
+            ("mezo_avg4", "sgd"), ("mesp_cuda", "sgd_momentum"),
+            ("mesp_cuda", "adamw"))
+ZO_SEED, ZO_EPS = 0, 1e-3
+#: |(L+ - L-)/2eps - <g_exact, z>| <= ZO_TOL * ||g_exact|| (f32), held at
+#: ZO_CHECK_EPS: at MeZO's eps (1e-3) the perturbation's norm eps·||z|| is
+#: 2.1 at this width and the central difference's truncation alone is about
+#: ||g_exact|| (the projection converges on <g, z> as eps shrinks, PERF.md)
+ZO_TOL, ZO_CHECK_EPS = 0.05, 1e-5
+#: two probe forwards of the full model: forward kernels only
+ZO_PER_PROBE = {"lora_fused_fwd": 7 * N_LAYERS,
+                "rmsnorm_fwd": RMS_PER_STEP,
+                "flash_fwd": N_LAYERS}
+#: core/flash.py against the flash kernels: (B, H, Hkv, N, D), chunk
+CORE_FLASH_SHAPE, CORE_FLASH_CHUNK = (1, N_HEADS, N_KV_HEADS, 2048,
+                                      HEAD_DIM), 512
+
+
+def _lora_leaves(tree, prefix="", lora=True):
+    """{path: leaf} of the LoRA factors ('a'/'b') of a params tree, or with
+    ``lora=False`` of its other (frozen) leaves."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_lora_leaves(v, f"{prefix}/{k}", lora))
+        elif (k in ("a", "b")) == lora:
+            out[f"{prefix}/{k}"] = v
+    return out
+
+
+def _peak(torch, fn):
+    """Peak allocated bytes of ``fn()`` above what was allocated before."""
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    return {"peak_bytes": peak, "above_start_bytes": peak - base,
+            "start_bytes": base}
+
+
+def _check_counts(counts, want, what):
+    want = {**{k: 0 for k in counts}, **want}
+    if counts != want:
+        raise AssertionError(f"{what}: launch counts {counts}, expected "
+                             f"{want}")
+
+
+def train_seq(torch, cfg, params, batch):
+    """One ``sequential_train_step`` (paper §4.3) under the ``cuda`` policy
+    at the paper's setting, counts zeroed just before and read just after
+    (``PAPER_PER_STEP``, the production step's); its peak memory beside
+    one ``mesp.train_step`` (mesp_cuda); in f32, its updated LoRA leaves
+    against mesp_cuda's value_and_grad + SGD at ``GRAD_TOL`` (the updates,
+    at ``CHECK_LR``), and whether they are equal bit for bit."""
+    from repro_torch.api.policy import ExecutionPolicy
+    from repro_torch.core import mesp
+    from repro_torch.kernels import ops
+    pol = ExecutionPolicy(backend="cuda", device="cuda")
+    _release(torch)
+    ops.reset_launch_counts()
+    new, loss = mesp.sequential_train_step(params, cfg, batch, SEQ_LR,
+                                           policy=pol)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    _check_counts(counts, PAPER_PER_STEP, "mesp_seq")
+    if not math.isfinite(float(loss)):
+        raise AssertionError(f"mesp_seq: loss {float(loss)}")
+    if not all(bool(torch.isfinite(t).all())
+               for t in _lora_leaves(new).values()):
+        raise AssertionError("mesp_seq: non-finite LoRA leaves")
+    del new
+    peaks = {
+        "mesp_seq": _peak(torch, lambda: mesp.sequential_train_step(
+            params, cfg, batch, SEQ_LR, policy=pol)),
+        "mesp_cuda": _peak(torch, lambda: mesp.train_step(
+            params, cfg, batch, SEQ_LR, policy=pol))}
+
+    f32, p32 = dataclasses.replace(cfg, dtype="float32"), _f32(params)
+    seq, seq_loss = mesp.sequential_train_step(p32, f32, batch, CHECK_LR,
+                                               policy=pol)
+    prod, prod_loss = mesp.train_step(p32, f32, batch, CHECK_LR, policy=pol)
+    before, s, p = (_lora_leaves(t) for t in (p32, seq, prod))
+    rel = {k: float(torch.linalg.vector_norm(s[k] - p[k])
+                    / torch.linalg.vector_norm(p[k] - before[k]))
+           for k in before}
+    bitwise = all(torch.equal(s[k], p[k]) for k in before) and \
+        torch.equal(seq_loss, prod_loss)
+    if max(rel.values()) > GRAD_TOL or len(rel) != 14:
+        raise AssertionError(f"mesp_seq f32 updates differ from mesp_cuda's "
+                             f"over {GRAD_TOL}: {rel}")
+    del seq, prod, p32, s, p, before
+    return {"loss": float(loss), "launches": counts,
+            "launches_per_step": PAPER_PER_STEP, "lr": SEQ_LR,
+            "peak_memory_one_step": peaks,
+            "f32_vs_mesp_cuda": {"lr": CHECK_LR, "rel_l2": rel,
+                                 "worst": max(rel.values()),
+                                 "bitwise": bitwise,
+                                 "loss": [float(seq_loss),
+                                          float(prod_loss)]}}
+
+
+def zo_check(torch, cfg, params, batch):
+    """In f32, one dense ``spsa_grad`` at MeZO's ``ZO_EPS`` under the
+    ``cuda`` policy, counts zeroed just before and read just after (two
+    probe forwards: forward kernels only); the projection (L+ - L-)/2eps
+    at ``ZO_CHECK_EPS`` against <g_exact, z>, g_exact from mesp_cuda,
+    within ``ZO_TOL`` ||g_exact||, beside the projection at other eps and
+    the f32 loss's rounding (the kernels' loss against the plain
+    backend's), and z bit for bit on a second draw from its seed; Table 3
+    (``gradquality.probe``, mezo against mesp_cuda, at ``ZO_EPS``); then
+    Table 4's MeZO row: the bf16 peak of one mezo step beside one
+    mesp_cuda step (registry builders, cuda policy)."""
+    import types
+    from repro_torch.api.policy import ExecutionPolicy
+    from repro_torch.api.registry import get_engine
+    from repro_torch.core import mesp
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import optimizers
+    from repro_torch.zo import estimator, gradquality
+    from repro_torch.zo.samplers import DenseSampler
+    pol = ExecutionPolicy(backend="cuda", device="cuda")
+    f32, p32 = dataclasses.replace(cfg, dtype="float32"), _f32(params)
+    _release(torch)
+    l_exact, g = mesp.value_and_grad(p32, f32, batch, policy=pol)
+    g = _lora_leaves(g)
+    train, _ = model_lib.split_params(p32)
+    z = _lora_leaves(DenseSampler().sample(ZO_SEED, train))
+    replay = _lora_leaves(DenseSampler().sample(ZO_SEED, train))
+    if not all(torch.equal(z[k], replay[k]) for k in z):
+        raise AssertionError("DenseSampler: two draws from one seed differ "
+                             "on the card")
+    del replay
+    dot = lambda u, v: sum(float(torch.sum(u[k].double() * v[k].double()))
+                           for k in u)
+    zz = dot(z, z)
+    ops.reset_launch_counts()
+    loss, est = estimator.spsa_grad(p32, f32, batch, ZO_SEED, eps=ZO_EPS,
+                                    policy=pol)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    _check_counts(counts, {k: 2 * v for k, v in ZO_PER_PROBE.items()},
+                  "spsa_grad")
+    by_eps = {str(ZO_EPS): dot(_lora_leaves(est), z) / zz}   # est = proj·z
+    for eps in (1e-2, 1e-4, ZO_CHECK_EPS):
+        _, est = estimator.spsa_grad(p32, f32, batch, ZO_SEED, eps=eps,
+                                     policy=pol)
+        by_eps[str(eps)] = dot(_lora_leaves(est), z) / zz
+    del est
+    proj = by_eps[str(ZO_CHECK_EPS)]
+    g_z, g_norm = dot(g, z), math.sqrt(dot(g, g))
+    err = abs(proj - g_z)
+    if not all(map(math.isfinite, by_eps.values())) or \
+            err > ZO_TOL * g_norm:
+        raise AssertionError(f"spsa_grad: projection {proj} at eps "
+                             f"{ZO_CHECK_EPS} against <g, z> {g_z}, |g| "
+                             f"{g_norm} (tol {ZO_TOL}); by eps {by_eps}")
+    plain = float(model_lib.loss_fn(p32, f32, batch, policy=ExecutionPolicy(
+        backend="plain", device="cuda")))
+    rounding = abs(float(l_exact) - plain)
+    del z, g
+    table3 = gradquality.probe("mezo", p32, f32, batch, ZO_SEED,
+                               reference="mesp_cuda", policy=pol)
+    del p32
+    peaks = {}
+    for name in ("mezo", "mesp_cuda"):
+        opt = optimizers.make_optimizer("sgd", SEQ_LR)
+        step = get_engine(name).build_step(
+            types.SimpleNamespace(seed=ZO_SEED, optimizer="sgd", lr=SEQ_LR),
+            cfg, opt, pol)
+        peaks[name] = _peak(torch, lambda: step(params, opt.init(params),
+                                                batch))
+    return {"dtype": "float32", "layers": cfg.n_layers, "eps": ZO_EPS,
+            "seed": ZO_SEED, "loss": float(loss),
+            "loss_exact": float(l_exact), "check_eps": ZO_CHECK_EPS,
+            "proj": proj, "g_dot_z": g_z, "g_norm": g_norm, "abs_err": err,
+            "tol": ZO_TOL * g_norm, "proj_by_eps": by_eps,
+            "seed_replay_bitwise": True,
+            "loss_rounding_vs_plain": rounding,
+            "loss_rounding_in_proj": {e: rounding / (2 * float(e))
+                                      for e in by_eps},
+            "launches": counts, "gradient_quality": table3,
+            "peak_memory_one_step_bf16": peaks}
+
+
+def train_engines(torch, cfg, params, batch):
+    """2 steps of each of ``NEW_RUNS`` through its registry builder, under
+    the policy the train CLI gives it, on one bf16 params tree: the
+    losses finite, the LoRA leaves moved, every frozen leaf and the given
+    tree bit for bit unchanged."""
+    import time
+    import types
+    from repro_torch.api.engines import ENGINES
+    from repro_torch.api.policy import ExecutionPolicy
+    from repro_torch.api.registry import get_engine
+    from repro_torch.optim import optimizers
+    lora0 = {k: v.clone() for k, v in _lora_leaves(params).items()}
+    frozen0 = _lora_leaves(params, lora=False)
+    out = {}
+    for engine, optimizer in NEW_RUNS:
+        _release(torch)
+        pol = ExecutionPolicy(backend=ENGINES[engine], device="cuda")
+        opt = optimizers.make_optimizer(optimizer, ENGINES_LR)
+        step = get_engine(engine).build_step(types.SimpleNamespace(
+            seed=0, optimizer=optimizer, lr=ENGINES_LR), cfg, opt, pol)
+        p, s, losses, secs = params, opt.init(params), [], []
+        for _ in range(2):
+            t0 = time.monotonic()
+            p, s, loss = step(p, s, batch)
+            torch.cuda.synchronize()
+            secs.append(time.monotonic() - t0)
+            losses.append(float(loss))
+        what = f"{engine} --optimizer {optimizer}"
+        if not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{what}: losses {losses}")
+        lora, frozen = _lora_leaves(p), _lora_leaves(p, lora=False)
+        moved = sum(not torch.equal(lora[k], lora0[k]) for k in lora0)
+        if not moved or not all(bool(torch.isfinite(t).all())
+                                for t in lora.values()):
+            raise AssertionError(f"{what}: LoRA leaves did not move")
+        if frozen.keys() != frozen0.keys() or not all(
+                torch.equal(frozen[k], frozen0[k]) for k in frozen0):
+            raise AssertionError(f"{what}: a frozen leaf changed")
+        if not all(torch.equal(v, lora0[k])
+                   for k, v in _lora_leaves(params).items()):
+            raise AssertionError(f"{what}: the given params changed")
+        out[f"{engine}/{optimizer}"] = {
+            "backend": pol.backend, "losses": losses, "seconds": secs,
+            "lora_leaves_moved": moved}
+        del p, s
+    return out
+
+
+def check_core_flash(torch, ops, flash):
+    """``core/flash.py`` (the structured backend's chunked flash, plain
+    PyTorch) against the flash kernels (``ops.sdpa``) at
+    ``CORE_FLASH_SHAPE``, chunk ``CORE_FLASH_CHUNK``, causal: out, dq, dk
+    and dv in f32 at ``FLASH_F32_TOL`` and bf16 at ``KERNEL_TOL`` (the
+    flash card tests' tolerances), the floor scaled by the output's
+    largest magnitude."""
+    B, H, Hkv, N, D = CORE_FLASH_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda") * 0.7
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = FLASH_F32_TOL if dtype == torch.float32 else KERNEL_TOL
+        q, k, v, g = (t.to(dtype) for t in (rn(B, H, N, D), rn(B, Hkv, N, D),
+                                            rn(B, Hkv, N, D),
+                                            rn(B, H, N, D)))
+        runs = {}
+        for name, fn in (("kernels", lambda a, b, c: ops.sdpa(
+                a, b, c, causal=True)),
+                         ("core_flash", lambda a, b, c: flash.flash_attention(
+                             a, b, c, 0, True, CORE_FLASH_CHUNK,
+                             CORE_FLASH_CHUNK))):
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = fn(*ins)
+            runs[name] = (o.detach(), *torch.autograd.grad(o, ins, g))
+        torch.cuda.synchronize()
+        what = str(dtype).split(".")[-1]
+        out[what] = {n: _close_scaled(c, w, tol, f"core.flash {n} {what}")
+                     for n, c, w in zip(("out", "dq", "dk", "dv"),
+                                        runs["core_flash"], runs["kernels"])}
+        out[what]["tol"] = tol
+    return {"shape": {"B": B, "H": H, "Hkv": Hkv, "N": N, "D": D},
+            "chunk": CORE_FLASH_CHUNK, "causal": True, "max_abs_err": out}
+
+
 def ptxas(log):
     """{kernel (mangled name): its registers, spills and static shared
     memory} from ``nvcc -Xptxas -v``'s log."""
@@ -2059,11 +2375,13 @@ def ptxas(log):
 
 
 def main() -> int:
+    t_start = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card is visible", file=sys.stderr)
         return 1
     from repro_torch.api.policy import ExecutionPolicy
+    from repro_torch.core import flash as core_flash
     from repro_torch.core import mesp
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
@@ -2422,6 +2740,30 @@ def main() -> int:
     del batch
     moe_init = {quant.weights_format(m): init_memory(torch, mcfg, m)
                 for m in ("none", "int8", "nf4")}
+
+    # the paper's other engines on qwen2.5-0.5b at batch 1 x seq 256; each
+    # main path's counts zeroed just before and read just after it
+    _release(torch)
+    t_new = time.monotonic()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _with_b(torch, model_lib.init_params(cfg, generator=gen), gen)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+        make_batch_iterator(cfg.vocab, PAPER_SEQ, PAPER_BATCH,
+                            seed=0)).items()}
+    phase_s = {}
+    for phase, fn in (("train_seq", train_seq), ("zo", zo_check),
+                      ("train_engines", train_engines)):
+        t0 = time.monotonic()
+        phase_s[phase] = (fn(torch, cfg, params, batch),
+                          time.monotonic() - t0)
+    del params, batch
+    _release(torch)
+    t0 = time.monotonic()
+    phase_s["core_flash"] = (check_core_flash(torch, ops, core_flash),
+                             time.monotonic() - t0)
+    (seq_fig, zo_fig, engines_fig, core_flash_fig), new_s = zip(
+        *phase_s.values())
+    new_seconds = time.monotonic() - t_new
 
     paths = lambda k: {"serve": counts[k],
                        **{f"serve_{m}": c[k] for m, c in scounts.items()},
@@ -2784,6 +3126,22 @@ def main() -> int:
             "repeat_bitwise": True,
             "peak_memory_one_value_and_grad": mq_peaks},
         "init_memory": moe_init, "device": name}}))
+    print(json.dumps({"train_seq": {
+        "arch": "qwen2.5-0.5b", "engine": "mesp_seq", "dtype": "bfloat16",
+        "batch": PAPER_BATCH, "seq": PAPER_SEQ, "b_scale": B_SCALE,
+        "grad_tol": GRAD_TOL, **seq_fig, "seconds": new_s[0],
+        "device": name}}))
+    print(json.dumps({"zo": {
+        "arch": "qwen2.5-0.5b", "engine": "mezo", "batch": PAPER_BATCH,
+        "seq": PAPER_SEQ, "b_scale": B_SCALE, **zo_fig,
+        "seconds": new_s[1], "device": name}}))
+    print(json.dumps({"train_engines": {
+        "arch": "qwen2.5-0.5b", "dtype": "bfloat16", "batch": PAPER_BATCH,
+        "seq": PAPER_SEQ, "lr": ENGINES_LR, "runs": engines_fig,
+        "seconds": new_s[2], "new_phases_seconds": new_seconds,
+        "run_seconds": time.monotonic() - t_start, "device": name}}))
+    print(json.dumps({"core_flash": {**core_flash_fig, "seconds": new_s[3],
+                                     "device": name}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

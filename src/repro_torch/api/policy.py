@@ -16,6 +16,10 @@
   raises when the params' leaves hold another format, so a run cannot
   train a base other than the one it asked for.
 * ``device``: where parameters, caches and inputs are made.
+* ``flash_min_seq``: the sequence length from which the ``structured``
+  and ``store_h`` backends take the chunked flash path (``core/flash.py``)
+  in place of the dense sdpa; ``flash_chunk``: its q/k chunk. The ``cuda``
+  backend runs the flash kernels from 64 query rows whatever these say.
 * ``remat``: recompute each block in the backward from its stored input
   (``torch.utils.checkpoint`` per block, the paper's §4.3 schedule).
 * ``fuse_rope``: ``cuda`` backend only: rotate q and k inside the flash
@@ -41,6 +45,8 @@ class ExecutionPolicy:
     backend: str = "structured"
     quantize: str = "none"
     device: torch.device = torch.device("cpu")
+    flash_min_seq: int = 1024
+    flash_chunk: int = 1024
     remat: bool = True
     fuse_rope: bool = False
 

@@ -1,6 +1,8 @@
-"""MeSP training engine (``repro.core.mesp``, paper §4).
+"""MeSP training engines (``repro.core.mesp``, paper §4).
 
-:func:`value_and_grad` is the production form: the model's loop over blocks
+Two forms, with the same gradients:
+
+1. :func:`value_and_grad` is the production form: the model's loop over blocks
 stores only block inputs (``torch.utils.checkpoint`` per block under
 ``policy.remat``) and every inner op is a hand-derived autograd Function
 (``core/structured.py``; with the ``cuda`` backend the same rules through
@@ -9,8 +11,10 @@ the paper's recompute schedule. LoRA gradients are applied once per step;
 for SGD that equals the paper's immediate per-block update, because the
 LoRA parameters of different blocks are disjoint.
 
-The paper's §4.3 loop with an immediate update per block (the reference's
-``sequential_train_step``, engine ``mesp_seq``) is not ported yet.
+2. :func:`sequential_train_step` is the paper's §4.3 loop verbatim (engine
+   ``mesp_seq``): a reverse Python loop over blocks, each recomputed from
+   its stored input, its LoRA gradients taken with ``torch.autograd.grad``
+   and SGD applied at once, before the next block's backward.
 """
 from __future__ import annotations
 
@@ -18,9 +22,28 @@ import torch
 
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import quant
+from repro_torch.core import quant, structured
+from repro_torch.models import layers
 from repro_torch.models import model as model_lib
 from repro_torch.optim import optimizers
+
+
+def _check_base(params, policy: ExecutionPolicy) -> None:
+    found = quant.tree_method(params)
+    if found != policy.quantize:
+        raise ValueError(f"the frozen base is {found!r} but "
+                         f"policy.quantize is {policy.quantize!r}")
+
+
+def _lift(tree, mask, leaves):
+    """``tree`` with each LoRA leaf (or view) replaced by a detached leaf that
+    needs grad (appended to ``leaves``)."""
+    if isinstance(tree, dict):
+        return {k: _lift(tree[k], mask[k], leaves) for k in tree}
+    if not mask:
+        return tree
+    leaves.append(tree.detach().requires_grad_(True))
+    return leaves[-1]
 
 
 def value_and_grad(params, cfg: ArchConfig, batch: dict, *,
@@ -29,27 +52,16 @@ def value_and_grad(params, cfg: ArchConfig, batch: dict, *,
     nesting, with None at frozen leaves. ``params`` is left as it is: the
     trainable leaves are differentiated through detached copies. The
     frozen base's format must be ``policy.quantize``."""
-    found = quant.tree_method(params)
-    if found != policy.quantize:
-        raise ValueError(f"the frozen base is {found!r} but "
-                         f"policy.quantize is {policy.quantize!r}")
-    leaves = []
-
-    def lift(tree, mask):
-        if isinstance(tree, dict):
-            return {k: lift(tree[k], mask[k]) for k in tree}
-        if not mask:
-            return tree
-        leaves.append(tree.detach().requires_grad_(True))
-        return leaves[-1]
+    _check_base(params, policy)
 
     def fill(mask, grads):
         if isinstance(mask, dict):
             return {k: fill(v, grads) for k, v in mask.items()}
         return next(grads) if mask else None
 
-    mask = model_lib.trainable_mask(params)
-    loss = model_lib.loss_fn(lift(params, mask), cfg, batch, policy=policy)
+    mask, leaves = model_lib.trainable_mask(params), []
+    loss = model_lib.loss_fn(_lift(params, mask, leaves), cfg, batch,
+                             policy=policy)
     grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), fill(mask, iter(grads))
 
@@ -59,3 +71,77 @@ def train_step(params, cfg: ArchConfig, batch: dict, lr: float, *,
     """One SGD step over the LoRA params. Returns (params, loss)."""
     loss, grads = value_and_grad(params, cfg, batch, policy=policy)
     return optimizers.sgd_apply(params, grads, lr), loss
+
+
+def _lora_copy(tree, mask):
+    """``tree`` with its LoRA leaves copied (the step's output) and its
+    frozen leaves shared."""
+    if isinstance(tree, dict):
+        return {k: _lora_copy(tree[k], mask[k]) for k in tree}
+    return tree.clone() if mask else tree
+
+
+def _views(tree, mask):
+    """The LoRA leaves of a block's tree of views, in ``_lift``'s order."""
+    if isinstance(tree, dict):
+        return [v for k in tree for v in _views(tree[k], mask[k])]
+    return [tree] if mask else []
+
+
+def sequential_train_step(params, cfg: ArchConfig, batch: dict, lr: float,
+                          *, policy: ExecutionPolicy = STRUCTURED):
+    """Paper §4.3: the forward stores only block inputs; the backward walks
+    the blocks in reverse, recomputes each from its input, takes its LoRA
+    gradients and applies SGD to them at once. Dense family only. Returns
+    (params, loss); ``params`` is left as it is.
+
+    Block 0's input, the frozen embedding, needs no gradient, so block 0
+    runs no input-gradient work (as in :func:`value_and_grad`). The
+    updates go, under ``no_grad``, into rows of copies of the stacked LoRA
+    leaves made once per step; nothing of block i's graph or gradients
+    outlives its iteration."""
+    if cfg.family != "dense":
+        raise ValueError("sequential_train_step runs the dense family only, "
+                         f"not {cfg.family!r}")
+    _check_base(params, policy)
+    mask = model_lib.trainable_mask(params["blocks"])
+    blocks = _lora_copy(params["blocks"], mask)
+    n = blocks["ln1"].shape[0]
+
+    def block(bp, x):
+        return model_lib.dense_block(bp, x, cfg, cache=None,
+                                     policy=policy)[0]
+
+    # forward: store only the block inputs
+    with torch.no_grad():
+        x = layers.embed(params["embed"], batch["tokens"], cfg)
+        inputs = []
+        for i in range(n):
+            inputs.append(x)
+            x = block(model_lib._layer(blocks, i), x)
+
+    # head: the loss and its gradient at the last block's output
+    with torch.enable_grad():
+        x = x.requires_grad_(True)
+        xn = layers.norm(params["final_norm"], x, cfg, policy=policy)
+        loss = structured.softmax_xent(
+            layers.unembed(params["embed"], xn, cfg), batch["labels"])
+        (g,) = torch.autograd.grad(loss, x)
+    del x, xn
+
+    # backward: reverse loop, recompute, update at once
+    for i in reversed(range(n)):
+        bp = model_lib._layer(blocks, i)
+        leaves = []
+        with torch.enable_grad():
+            xi = inputs[i].requires_grad_(i > 0)
+            y = block(_lift(bp, mask, leaves), xi)
+            grads = torch.autograd.grad(y, leaves + [xi] * (i > 0), g)
+        del y
+        with torch.no_grad():
+            for p, gp in zip(_views(bp, mask), grads):
+                p.sub_(lr * gp.to(p.dtype))
+        g = grads[-1] if i > 0 else None
+        inputs[i] = None
+        del grads, leaves, bp, xi
+    return {**params, "blocks": blocks}, loss.detach()

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import quant, structured
+from repro_torch.core import flash, quant, structured
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rope as krope
 
@@ -196,9 +196,10 @@ def attention(p, x, cfg: ArchConfig, *, cache=None,
 
     Training attention: ``plain`` autograd of the plain forward, ``cuda``
     the kernel dispatch (``kops.sdpa``: the flash kernels from 64 query
-    rows, the structured Function below), else the structured Function at
-    every length (the reference's structured backend switches to its
-    chunked flash path from 1024 rows, same values; not ported yet). Under
+    rows, the structured Function below), else (``structured``,
+    ``store_h``) the chunked flash Function of ``core/flash.py`` from
+    ``policy.flash_min_seq`` rows in chunks of ``policy.flash_chunk``, the
+    structured sdpa Function below that, as in the reference. Under
     ``cuda`` with ``policy.fuse_rope`` q and k reach ``kops.sdpa``
     unrotated, with the RoPE tables, and the flash kernels rotate them on
     load."""
@@ -223,6 +224,9 @@ def attention(p, x, cfg: ArchConfig, *, cache=None,
             tabs = krope.rope_tables(qpos, cfg.rope_theta, hd) if fuse \
                 else None
             out = kops.sdpa(q, k, v, causal=True, rope=tabs)
+        elif N >= policy.flash_min_seq:
+            out = flash.flash_attention(q, k, v, 0, True, policy.flash_chunk,
+                                        policy.flash_chunk)
         else:
             out = structured.sdpa(q, k, v, 0, True)
         out = out.transpose(1, 2).reshape(B, N, cfg.n_heads * hd)

@@ -193,3 +193,23 @@ def trainable_mask(params):
         return key in ("a", "b")
 
     return mark(params)
+
+
+def split_params(params):
+    """(trainable, frozen): two trees with the params' nesting, the LoRA
+    leaves in the first and the others in the second, ``None`` elsewhere."""
+    mask = trainable_mask(params)
+
+    def part(tree, m, keep):
+        if isinstance(tree, dict):
+            return {k: part(tree[k], m[k], keep) for k in tree}
+        return tree if m == keep else None
+
+    return part(params, mask, True), part(params, mask, False)
+
+
+def merge_params(train, frozen):
+    """Inverse of :func:`split_params`."""
+    if isinstance(frozen, dict):
+        return {k: merge_params(train[k], frozen[k]) for k in frozen}
+    return train if frozen is None else frozen

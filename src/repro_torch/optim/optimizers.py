@@ -2,9 +2,11 @@
 (``repro.optim.optimizers``).
 
 Gradient trees from the engines have ``None`` at frozen leaves, so state is
-kept for the trainable parameters only. The port has plain SGD, the
-paper's optimizer (§5.1, lr 1e-4) and the training default; the
-reference's ``sgd_momentum`` and ``adamw`` are not ported yet.
+kept for the trainable parameters only: a moment is made (in f32, on the
+parameter's device) the first time its leaf has a gradient, and stays
+``None`` elsewhere. Plain SGD is the paper's optimizer (§5.1, lr 1e-4) and
+the training default; ``sgd_momentum`` and ``adamw`` keep their moments in
+f32 whatever the parameter dtype and cast the update back on apply.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-OPTIMIZERS = ("sgd",)
+OPTIMIZERS = ("sgd", "sgd_momentum", "adamw")
 
 
 class Optimizer(NamedTuple):
@@ -20,13 +22,25 @@ class Optimizer(NamedTuple):
     update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (params, state)
 
 
+def _map(f, *trees):
+    """``f`` over the leaves of trees with the nesting of the first; a
+    ``None`` where the first tree has a dict stands for a tree of Nones."""
+    if isinstance(trees[0], dict):
+        return {k: _map(f, *(t[k] if isinstance(t, dict) else None
+                             for t in trees)) for k in trees[0]}
+    return f(*trees)
+
+
+def _lr(lr, step):
+    return lr(step) if callable(lr) else lr
+
+
 @torch.no_grad()
 def sgd_apply(params, grads, lr: float):
     """``p - lr · g`` (g cast to p's dtype) where g is not None; frozen
     leaves are returned as they are."""
-    if isinstance(params, dict):
-        return {k: sgd_apply(params[k], grads[k], lr) for k in params}
-    return params if grads is None else params - lr * grads.to(params.dtype)
+    return _map(lambda p, g: p if g is None else p - lr * g.to(p.dtype),
+                params, grads)
 
 
 def sgd(lr) -> Optimizer:
@@ -36,15 +50,68 @@ def sgd(lr) -> Optimizer:
 
     def update(grads, state, params):
         step = state["step"] + 1
-        lr_t = lr(step) if callable(lr) else lr
-        return sgd_apply(params, grads, lr_t), {"step": step}
+        return sgd_apply(params, grads, _lr(lr, step)), {"step": step}
 
     return Optimizer(init, update)
 
 
-def make_optimizer(name: str, lr) -> Optimizer:
+def sgd_momentum(lr, beta: float = 0.9) -> Optimizer:
+    """``m = beta · m + g``, ``p - lr · m``."""
+    def init(params):
+        return {"step": 0, "m": None}
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = _lr(lr, step)
+        m = _map(lambda g, m_, p: None if g is None else
+                 beta * (m_ if m_ is not None else
+                         torch.zeros_like(p, dtype=torch.float32))
+                 + g.float(), grads, state["m"], params)
+        new = _map(lambda p, mi: p if mi is None else
+                   (p - lr_t * mi).to(p.dtype), params, m)
+        return new, {"step": step, "m": m}
+
+    return Optimizer(init, update)
+
+
+def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    """Adam with bias correction and decoupled ``weight_decay``."""
+    def init(params):
+        return {"step": 0, "m": None, "v": None}
+
+    def zeros(p):
+        return torch.zeros_like(p, dtype=torch.float32)
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state["step"] + 1
+        lr_t = _lr(lr, step)
+        m = _map(lambda g, m_, p: None if g is None else
+                 b1 * (m_ if m_ is not None else zeros(p))
+                 + (1 - b1) * g.float(), grads, state["m"], params)
+        v = _map(lambda g, v_, p: None if g is None else
+                 b2 * (v_ if v_ is not None else zeros(p))
+                 + (1 - b2) * g.float().square(), grads, state["v"], params)
+        c1, c2 = 1 - b1 ** step, 1 - b2 ** step
+
+        def apply(p, mi, vi):
+            if mi is None:
+                return p
+            upd = (mi / c1) / ((vi / c2).sqrt() + eps)
+            if weight_decay:
+                upd = upd + weight_decay * p.float()
+            return (p - lr_t * upd).to(p.dtype)
+
+        return _map(apply, params, m, v), {"step": step, "m": m, "v": v}
+
+    return Optimizer(init, update)
+
+
+def make_optimizer(name: str, lr, **kw) -> Optimizer:
     if name not in OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet; the port has "
-            f"{OPTIMIZERS}")
-    return sgd(lr)
+        raise ValueError(f"unknown optimizer {name!r}; expected one of "
+                         f"{OPTIMIZERS}")
+    return {"sgd": sgd, "sgd_momentum": sgd_momentum,
+            "adamw": adamw}[name](lr, **kw)

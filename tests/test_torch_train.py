@@ -447,8 +447,9 @@ def test_train_cli_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="--device cpu"):
         ttrain.main(["--reduced", "--steps", "1"])
-    with pytest.raises(NotImplementedError, match="adamw"):
-        ttrain.train(_CPU_RUN + ["--optimizer", "adamw"])
+    with pytest.raises(ValueError, match="adamw"):
+        ttrain.train(_CPU_RUN + ["--engine", "mesp_seq", "--optimizer",
+                                 "adamw"])
 
 
 @pytest.fixture(scope="module")
