@@ -175,13 +175,38 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    PyTorch) against the flash kernels at ``CORE_FLASH_SHAPE``, chunk
    ``CORE_FLASH_CHUNK``, causal: out, dq, dk, dv in f32 and bf16 at the
    flash card tests' tolerances.
+18. The production launcher (``launch.train.run``, what ``main`` runs:
+   TrainSpec, the Trainer, the resilient loop) on full-width qwen2.5-0.5b,
+   bf16, mesp_cuda, seq 256, each run with a checkpoint directory of its
+   own under a temporary directory the phase deletes, counts zeroed just
+   before and read just after each run: (a) 12 steps at batch 2 with
+   telemetry, exactly 12 x ``PAPER_PER_STEP``, finite losses, LoRA leaves
+   bit for bit the bare loop's, the median step and the run's peak beside
+   the bare loop's; (b) the same with ``crash@6``: resumed, its LoRA
+   leaves bit for bit (a)'s; (c) ``oom@3,corrupt@6,crash@6,nan@8,stall@10``
+   with the stall and the watchdog sized from (a)'s step: every kind fired
+   once, one straggler restart, a quarantine, a guard skip,
+   ``halve_batch`` to batch 1, the kernels' counts for every step run;
+   (d) a real ``torch.cuda.OutOfMemoryError`` at batch 4 under a
+   ``set_per_process_memory_fraction`` cap between one step's peak at
+   batch 4 and at batch 2, classified as an OOM and answered by
+   ``halve_batch``; (e) ``--mem-budget-mb`` with 0.9 x the budget between
+   the residency after a step over an int8 and over the bf16 base: the
+   rungs and the residency after each, ending under the limit (or with
+   the ladder exhausted), no rung leaving ``mesp_cuda`` and every step
+   the kernels' counts of the format then in force; (f) MB a save, seconds a save and a restore
+   (every ``sha256_16`` verified); (g) every record of (a) valid, the
+   watermark's peak equal to ``max_memory_allocated`` over the run, the
+   ``data_fetch`` and ``step`` spans, and a ``--profile on`` run's
+   ``torch.profiler`` Chrome trace read by ``json.load``.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
 ``{"train_quant": ...}``, ``{"train_moe": ...}``,
 ``{"train_moe_quant": ...}``, ``{"train_seq": ...}``, ``{"zo": ...}``,
-``{"train_engines": ...}`` (with the run's seconds) and
-``{"core_flash": ...}`` line each, the card's name and power limit, and
+``{"train_engines": ...}`` (with the run's seconds),
+``{"core_flash": ...}`` and ``{"trainer": ...}`` line each, the card's
+name and power limit, and
 last ``{"ok": true, "device": ...}``. Any mismatch or exception exits
 non-zero. Imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -2374,6 +2399,386 @@ def ptxas(log):
     return out
 
 
+
+# ---------------------------------------------------- step 18: the Trainer
+#: the Trainer phase: full-width qwen2.5-0.5b, bf16, mesp_cuda, seq 256
+BARE_CMD = ["--arch", "qwen2.5-0.5b", "--engine", "mesp_cuda", "--device",
+            "cuda", "--seq", str(PAPER_SEQ), "--seed", "0"]
+TRAINER_CMD = BARE_CMD + ["--quiet"]
+TRAINER_BATCH, TRAINER_STEPS, TRAINER_CKPT_EVERY = 2, 12, 4
+#: (c): the stall is this many times (a)'s median step, the watchdog's
+#: factor is STALL_FACTOR, its limit 1: the stall alone forces a restart
+STALL_STEPS, STALL_FACTOR = 12, 8.0
+#: (d): a real CUDA OOM at batch OOM_BATCH under a cap between one step's
+#: peak at OOM_BATCH and at half of it
+OOM_BATCH, OOM_STEPS = 4, 6
+#: (e): steps of the proactive walk (two samples a rung; on the card the
+#: walk is halve_batch, then quantize_int8, which ends under the limit)
+PRESSURE_STEPS = 10
+#: (g): steps of the profiled run
+PROFILE_STEPS = 2
+MIB = 2 ** 20
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if len(xs) % 2 else (xs[len(xs) // 2 - 1]
+                                                   + xs[len(xs) // 2]) / 2
+
+
+def _lora_equal(torch, a, b):
+    la, lb = _lora_leaves(a), _lora_leaves(b)
+    return la.keys() == lb.keys() and len(la) == 14 and all(
+        torch.equal(la[k], lb[k]) for k in la)
+
+
+def _one_step_memory(torch, cfg, batch, quantize="none"):
+    """One bare mesp_cuda step at ``batch`` x PAPER_SEQ on fresh weights:
+    its peak ``max_memory_allocated`` and the ``memory_allocated`` after
+    it, with the state the loop keeps (params, optimizer state) alive."""
+    from repro_torch.api.registry import get_engine
+    from repro_torch.api.spec import TrainSpec
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import optimizers
+    spec = TrainSpec(engine="mesp_cuda", quantize=quantize, batch=batch,
+                     seq=PAPER_SEQ)
+    opt = optimizers.make_optimizer("sgd", spec.lr)
+    step = get_engine("mesp_cuda").build_step(spec, cfg, opt, spec.policy())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model_lib.init_params(cfg, generator=gen, quantize=quantize)
+    state = opt.init(params)
+    data = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+        make_batch_iterator(cfg.vocab, PAPER_SEQ, batch, seed=0)).items()}
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    params, state, loss = step(params, state, data)
+    float(loss)
+    torch.cuda.synchronize()
+    out = {"peak_bytes": torch.cuda.max_memory_allocated(),
+           "after_step_bytes": torch.cuda.memory_allocated()}
+    del params, state, loss, data
+    _release(torch)
+    return out
+
+
+def _events(path):
+    from repro_torch.telemetry.events import read_jsonl
+    return read_jsonl(path) if Path(path).exists() else []
+
+
+def trainer_phase(torch, cfg):
+    """Step 18: the production launcher (``launch.train.run``, what
+    ``main`` runs) on full-width qwen2.5-0.5b, bf16, mesp_cuda, seq 256,
+    each run with a checkpoint directory of its own under a temporary
+    directory that the phase deletes. (a) a clean run with telemetry, its
+    launch counts, step times and peak beside the bare loop's; (b) the same
+    run crashed at step 6 and resumed: its LoRA leaves bit for bit (a)'s;
+    (c) a chaos plan; (d) a real CUDA OOM under a memory cap, answered by
+    halve_batch; (e) the proactive ladder under ``--mem-budget-mb``; (f)
+    checkpoint sizes and times; (g) the telemetry checks."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer, save_checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import fault_tolerance as ft
+    from repro_torch.telemetry.events import validate_record
+    t_phase = time.monotonic()
+    root = Path(tempfile.mkdtemp(prefix="repro_torch_trainer_"))
+    out = {}
+    base = TRAINER_CMD + ["--batch", str(TRAINER_BATCH), "--ckpt-interval",
+                          str(TRAINER_CKPT_EVERY)]
+
+    def launch(name, argv):
+        """One launcher run, counts zeroed just before and read just
+        after, the peak over the run; returns (result, counts, peak)."""
+        _release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.monotonic()
+        res = train_cli.run(argv + ["--ckpt-dir", str(root / name)])
+        counts = ops.launch_counts()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        res.metrics["run_seconds"] = time.monotonic() - t0
+        return res, counts, peak
+
+    def want(n_steps):
+        return {k: v * n_steps for k, v in PAPER_PER_STEP.items()}
+
+    try:
+        # (a) the bare loop at the same shape first (only its LoRA leaves
+        # kept), then the clean run with telemetry: counts, finite losses,
+        # figures
+        _release(torch)
+        torch.cuda.reset_peak_memory_stats()
+        bare = train_cli.train(BARE_CMD + [
+            "--batch", str(TRAINER_BATCH), "--steps", str(TRAINER_STEPS)])
+        bare_peak = torch.cuda.max_memory_allocated()
+        bare_ms = [1e3 * s for s in bare["seconds"]]
+        bare_lora = {k: v.clone() for k, v in
+                     _lora_leaves(bare.pop("params")).items()}
+        del bare
+        tdir = root / "telemetry_a"
+        res_a, counts, peak_a = launch("a", base + [
+            "--steps", str(TRAINER_STEPS), "--telemetry", "on",
+            "--telemetry-dir", str(tdir)])
+        _check_counts(counts, want(TRAINER_STEPS), "trainer (a)")
+        losses = [h.loss for h in res_a.history]
+        if len(losses) != TRAINER_STEPS or \
+                not all(map(math.isfinite, losses)):
+            raise AssertionError(f"trainer (a): losses {losses}")
+        step_ms = [1e3 * h.seconds for h in res_a.history]
+        lora_a = _lora_leaves(res_a.params)
+        if lora_a.keys() != bare_lora.keys() or len(lora_a) != 14 or \
+                not all(torch.equal(v, bare_lora[k])
+                        for k, v in lora_a.items()):
+            raise AssertionError("trainer (a): the Trainer's LoRA leaves "
+                                 "differ from the bare loop's")
+        del bare_lora, lora_a
+        # (g) on (a): every record validates; the watermark's peak is the
+        # allocator's over the same window; span totals
+        recs = _events(tdir / "events.jsonl")
+        bad = [(r.get("kind"), validate_record(r)) for r in recs
+               if validate_record(r)]
+        kinds = sorted({r["kind"] for r in recs})
+        if not recs or bad or not {"run", "step", "checkpoint",
+                                   "watermark"} <= set(kinds):
+            raise AssertionError(f"trainer (g): records {kinds}, "
+                                 f"invalid {bad[:3]}")
+        wm = res_a.metrics["watermark"]
+        if wm["source"] != "device_stats" or \
+                wm["measured_peak_mb"] != round(peak_a / MIB, 3):
+            raise AssertionError(f"trainer (g): watermark {wm} against "
+                                 f"max_memory_allocated {peak_a / MIB} MB")
+        spans = res_a.metrics["spans"]
+        out["a_clean"] = {
+            "steps": TRAINER_STEPS, "batch": TRAINER_BATCH,
+            "losses": losses, "launches": counts,
+            "launches_per_step": PAPER_PER_STEP,
+            "step_ms": step_ms, "median_step_ms": _median(step_ms[1:]),
+            "bare_train_step_ms": bare_ms,
+            "bare_median_step_ms": _median(bare_ms[1:]),
+            "run_peak_bytes": peak_a, "bare_run_peak_bytes": bare_peak,
+            "lora_equal_to_bare": True,
+            "run_seconds": res_a.metrics["run_seconds"]}
+        out["g_telemetry"] = {
+            "records": len(recs), "kinds": kinds, "all_valid": True,
+            "watermark": wm, "max_memory_allocated_mib": peak_a / MIB,
+            "spans": {k: spans[k] for k in ("data_fetch", "step",
+                                            "checkpoint") if k in spans},
+            "events_by_kind": res_a.metrics["events_by_kind"]}
+
+        # (f) checkpoint figures from (a)'s newest checkpoint
+        ck = Checkpointer(str(root / "a"))
+        newest = root / "a" / f"step_{TRAINER_STEPS:08d}"
+        mb = sum(f.stat().st_size for f in newest.iterdir()) / 1e6
+        n_arrays = len(ck.read_manifest(TRAINER_STEPS)["arrays"])
+        del res_a
+        _release(torch)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        restored = ck.restore_latest(device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        save_checkpoint(str(root / "f"), TRAINER_STEPS, restored["params"],
+                        restored["opt_state"], restored["data_state"])
+        save_s = time.monotonic() - t0
+        a_params = restored["params"]
+        del restored
+        shutil.rmtree(root / "f")
+        out["f_checkpoint"] = {
+            "mb_per_save": mb, "arrays": n_arrays, "save_s": save_s,
+            "restore_s": restore_s, "restore_verified_sha256_16": n_arrays,
+            "saves_in_a": sorted(p.name for p in (root / "a").iterdir())}
+
+        # (b) crash at 6, resumed: (a)'s LoRA leaves bit for bit
+        res_b, counts, _ = launch("b", base + [
+            "--steps", str(TRAINER_STEPS), "--inject-faults", "crash@6"])
+        fc = res_b.fault_counts
+        _check_counts(counts, want(len(res_b.history)), "trainer (b)")
+        if fc["step_failures"] != 1 or fc["steps_replayed"] <= 0 or \
+                res_b.history[-1].step != TRAINER_STEPS:
+            raise AssertionError(f"trainer (b): counters {fc}")
+        if not _lora_equal(torch, res_b.params, a_params):
+            diff = [k for k, v in _lora_leaves(res_b.params).items()
+                    if not torch.equal(v, _lora_leaves(a_params)[k])]
+            raise AssertionError(f"trainer (b): the resumed run's LoRA "
+                                 f"leaves differ from (a)'s: {diff[:4]}")
+        out["b_resume"] = {"fault_counts": fc, "launches": counts,
+                           "executed_steps": len(res_b.history),
+                           "lora_bitwise_equal_to_a": True,
+                           "run_seconds": res_b.metrics["run_seconds"]}
+        del res_b, a_params
+        shutil.rmtree(root / "a"), shutil.rmtree(root / "b")
+
+        # (c) the chaos plan, the stall sized from (a)'s step time
+        stall_s = STALL_STEPS * out["a_clean"]["median_step_ms"] / 1e3
+        plan = f"oom@3,corrupt@6,crash@6,nan@8,stall@10:{stall_s:.3f}"
+        res_c, counts, _ = launch("c", base + [
+            "--steps", str(TRAINER_STEPS), "--inject-faults", plan,
+            "--straggler-factor", str(STALL_FACTOR), "--straggler-limit",
+            "1"])
+        fc = res_c.fault_counts
+        executed = (len(res_c.history) + fc["guard_skips"]
+                    + fc["straggler_restarts"])
+        _check_counts(counts, want(executed), "trainer (c)")
+        if res_c.history[-1].step != TRAINER_STEPS or fc["injected"] != {
+                "oom": 1, "corrupt": 1, "crash": 1, "nan": 1, "stall": 1} \
+                or fc["straggler_restarts"] != 1 \
+                or fc["ckpt_quarantines"] < 1 or fc["guard_skips"] < 1 \
+                or res_c.degradations != ["halve_batch"] \
+                or res_c.final_spec.batch != 1 \
+                or not all(math.isfinite(h.loss) for h in res_c.history):
+            raise AssertionError(f"trainer (c): {plan}: counters {fc}, "
+                                 f"rungs {res_c.degradations}, final batch "
+                                 f"{res_c.final_spec.batch}")
+        out["c_chaos"] = {"plan": plan, "straggler_factor": STALL_FACTOR,
+                          "fault_counts": fc, "degradations":
+                          res_c.degradations, "final_batch": 1,
+                          "executed_steps": executed, "launches": counts,
+                          "losses": [h.loss for h in res_c.history],
+                          "run_seconds": res_c.metrics["run_seconds"]}
+        del res_c
+        shutil.rmtree(root / "c")
+
+        # (d) a real CUDA OOM: one step's peak at OOM_BATCH and at half
+        # of it, a cap between the two, then OOM_STEPS steps under it
+        mem = {b: _one_step_memory(torch, cfg, b)
+               for b in (OOM_BATCH, OOM_BATCH // 2)}
+        hi, lo = (mem[b]["peak_bytes"] for b in (OOM_BATCH, OOM_BATCH // 2))
+        cap = (hi + lo) // 2
+        total = torch.cuda.get_device_properties(0).total_memory
+        seen = []
+        real_is_oom = ft.is_oom_error
+
+        def classify(e):
+            seen.append((type(e).__name__, real_is_oom(e)))
+            return seen[-1][1]
+
+        _release(torch)
+        torch.cuda.set_per_process_memory_fraction(cap / total)
+        ft.is_oom_error = classify
+        try:
+            res_d, counts, peak_d = launch("d", TRAINER_CMD + [
+                "--batch", str(OOM_BATCH), "--steps", str(OOM_STEPS),
+                "--ckpt-interval", str(TRAINER_CKPT_EVERY)])
+        finally:
+            ft.is_oom_error = real_is_oom
+            torch.cuda.set_per_process_memory_fraction(1.0)
+        fc = res_d.fault_counts
+        if seen != [("OutOfMemoryError", True)] or fc["oom_events"] != 1 \
+                or res_d.degradations != ["halve_batch"] or fc["injected"] \
+                or res_d.history[-1].step != OOM_STEPS \
+                or res_d.final_spec.batch != OOM_BATCH // 2:
+            raise AssertionError(f"trainer (d): failures seen {seen}, "
+                                 f"counters {fc}, rungs "
+                                 f"{res_d.degradations}")
+        # the steps run, plus what the failed batch-4 step launched
+        # before its allocation failed: at most one step's launches
+        partial = {k: counts[k] - v for k, v in
+                   want(len(res_d.history)).items()}
+        if any(not 0 <= n <= PAPER_PER_STEP[k] for k, n in partial.items()):
+            raise AssertionError(f"trainer (d): launch counts {counts} for "
+                                 f"{len(res_d.history)} steps and one "
+                                 "failed step")
+        out["d_real_oom"] = {
+            "one_step_peak_bytes": {str(b): m["peak_bytes"]
+                                    for b, m in mem.items()},
+            "cap_bytes": cap, "fraction": cap / total,
+            "failures_seen": seen, "fault_counts": fc,
+            "degradations": res_d.degradations,
+            "final_batch": res_d.final_spec.batch,
+            "run_peak_bytes": peak_d, "launches": counts,
+            "launches_of_the_failed_step": partial,
+            "run_seconds": res_d.metrics["run_seconds"]}
+        del res_d
+        shutil.rmtree(root / "d")
+
+        # (e) proactive: 0.9 x budget between the residency after a step
+        # over an int8 base and over the bf16 base
+        after = {q: _one_step_memory(torch, cfg, TRAINER_BATCH, q)
+                 ["after_step_bytes"] for q in ("none", "int8")}
+        limit_mb = (after["none"] + after["int8"]) / 2 / MIB
+        budget_mb = limit_mb / 0.9
+        tdir_e = root / "telemetry_e"
+        res_e, counts, _ = launch("e", base + [
+            "--steps", str(PRESSURE_STEPS), "--mem-budget-mb",
+            repr(budget_mb), "--telemetry", "on", "--telemetry-dir",
+            str(tdir_e)])
+        fc = res_e.fault_counts
+        recs = _events(tdir_e / "events.jsonl")
+        marks = [(r["step"], r["measured_mb"]) for r in recs
+                 if r["kind"] == "watermark"]
+        rungs = [(r["step"], r["rung"], r["engine"], r["quantize"],
+                  r["batch"]) for r in recs if r["kind"] == "degrade"]
+        after_rung = [{"rung": name, "engine": eng, "quantize": q,
+                       "batch": b, "residency_mb_after": next(
+                           (m for s, m in marks if s > step), None)}
+                      for step, name, eng, q, b in rungs]
+        ended_under = bool(marks) and marks[-1][1] < limit_mb
+        exhausted = not ended_under and res_e.degradations and \
+            fc["watermark_triggers"] > len(res_e.degradations)
+        if fc["oom_events"] or fc["watermark_triggers"] < 1 or \
+                fc["guard_skips"] or fc["straggler_restarts"] or \
+                res_e.history[-1].step != PRESSURE_STEPS or \
+                not (ended_under or exhausted):
+            raise AssertionError(f"trainer (e): counters {fc}, rungs "
+                                 f"{after_rung}, limit {limit_mb} MiB, "
+                                 f"last sample {marks[-1:]}")
+        # every rung keeps the kernels: the engine stays mesp_cuda on the
+        # card, and each step launched the kernel counts of the format in
+        # force at that step (a rung at step s takes effect from step s)
+        if any(eng != "mesp_cuda" for _, _, eng, _, _ in rungs):
+            raise AssertionError(f"trainer (e): a rung left mesp_cuda: "
+                                 f"{after_rung}")
+        starts = [(0, "none")] + [(st, q) for st, _, _, q, _ in rungs]
+        ends = [st for st, _ in starts[1:]] + [PRESSURE_STEPS]
+        want_e = {k: 0 for k in counts}
+        for (st, q), end in zip(starts, ends):
+            per = PAPER_PER_STEP if q == "none" else quant_per_step(q)
+            for k, v in per.items():
+                want_e[k] += v * (end - st)
+        _check_counts(counts, want_e, "trainer (e)")
+        out["e_proactive"] = {
+            "after_step_bytes": after, "budget_mib": budget_mb,
+            "limit_mib": limit_mb, "rungs": after_rung,
+            "degradations": res_e.degradations,
+            "final_spec": {k: getattr(res_e.final_spec, k) for k in
+                           ("engine", "quantize", "batch", "seq")},
+            "samples_mib": marks, "ended_under_limit": ended_under,
+            "fault_counts": fc, "launches": counts,
+            "launches_match_each_rungs_kernels": True,
+            "run_seconds": res_e.metrics["run_seconds"]}
+        del res_e
+        shutil.rmtree(root / "e")
+
+        # (g) --profile on: a torch.profiler Chrome trace json.load reads
+        tdir_g = root / "telemetry_g"
+        res_g, counts, _ = launch("g", base + [
+            "--steps", str(PROFILE_STEPS), "--telemetry", "on",
+            "--telemetry-dir", str(tdir_g), "--profile", "on"])
+        _check_counts(counts, want(PROFILE_STEPS), "trainer (g) profile")
+        trace = tdir_g / "profile" / "trace.json"
+        with open(trace) as fh:
+            doc = json.load(fh)
+        names = [e.get("name", "") for e in doc.get("traceEvents", [])]
+        on_card = [e for e in doc.get("traceEvents", [])
+                   if e.get("cat") == "kernel"]
+        if not names:
+            raise AssertionError(f"trainer (g): profile {trace} is empty")
+        out["g_telemetry"]["profile"] = {
+            "events": len(names), "device_kernels": len(on_card),
+            "bytes": Path(trace).stat().st_size}
+        del res_g
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.monotonic() - t_phase
+    return out
+
+
 def main() -> int:
     t_start = time.monotonic()
     import torch
@@ -2765,6 +3170,10 @@ def main() -> int:
         *phase_s.values())
     new_seconds = time.monotonic() - t_new
 
+    # the production launcher around the step: every run's counts zeroed
+    # just before and read just after it, inside the phase
+    trainer_fig = trainer_phase(torch, cfg)
+
     paths = lambda k: {"serve": counts[k],
                        **{f"serve_{m}": c[k] for m, c in scounts.items()},
                        "train": tcounts[k],
@@ -3142,6 +3551,10 @@ def main() -> int:
         "run_seconds": time.monotonic() - t_start, "device": name}}))
     print(json.dumps({"core_flash": {**core_flash_fig, "seconds": new_s[3],
                                      "device": name}}))
+    print(json.dumps({"trainer": {
+        "arch": "qwen2.5-0.5b", "engine": "mesp_cuda", "dtype": "bfloat16",
+        "seq": PAPER_SEQ, **trainer_fig, "mib": MIB, "device": name,
+        "power": smi}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

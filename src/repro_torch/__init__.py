@@ -11,5 +11,9 @@ Ported so far: the multi-tenant LoRA serving path of a dense model
 quantized (int8, packed int4 / nf4) frozen base, with the grouped-LoRA,
 LoRA forward / dx / dA-dB (dense and quantized), RMSNorm forward / backward
 and flash-attention kernels written by hand in CUDA for Hopper
-(``repro_torch/csrc``).
+(``repro_torch/csrc``). The training launcher runs through the
+reference's runtime: ``TrainSpec`` and the ``Trainer`` (``api/``), atomic
+checkpoints (``checkpoint/``), fault injection, the step guard, the
+degradation ladder and the resilient loop (``runtime/``), and telemetry
+(``telemetry/``).
 """

@@ -8,9 +8,11 @@ baseline, the store-h ablation, MeZO's zeroth-order estimates.
 Each registration declares what the rest of the port needs to offer it:
 
 * ``build_step``: ``(spec, cfg, opt, policy) -> step(params, opt_state,
-  batch) -> (params, opt_state, loss)``, used by ``launch/train.py``. Until
-  the reference's ``TrainSpec`` is ported, ``spec`` is the train CLI's
-  parsed arguments (``optimizer``, ``lr``, ``seed``);
+  batch) -> (params, opt_state, loss)``, used by the Trainer
+  (``api/trainer.py``) and the bare loop of ``launch/train.py``; ``spec``
+  is a ``TrainSpec`` (``api/spec.py``), of which ``build_step`` reads
+  ``optimizer``, ``lr`` and ``seed``. The step never writes into the
+  trees it is given: the step guard's rewind keeps them;
 * ``value_and_grad``: ``(params, cfg, batch, *, policy, seed=None) ->
   (loss, grads over the LoRA leaves)``, used by the gradient-quality
   probe (``zo/gradquality.py``); ``seed`` draws a ZO engine's probes;

@@ -141,19 +141,28 @@ def dequantize_packed(q4, scale, method: str, dtype=torch.bfloat16,
 # ------------------------------------------------------------ leaf formats
 
 
+def _stacked(n: int, part) -> dict:
+    """The leaf dicts ``part(0) .. part(n - 1)`` stacked on a new leading
+    axis, into outputs made once from the first (one matrix at a time). On
+    the ``meta`` device only the first is made: the outputs' shapes and
+    dtypes are all there is."""
+    first = part(0)
+    out = {k: v.new_empty((n, *v.shape)) for k, v in first.items()}
+    if next(iter(first.values())).is_meta:
+        return out
+    for i in range(n):
+        p = first if i == 0 else part(i)
+        for k, v in p.items():
+            out[k][i] = v
+    return out
+
+
 def quantize_leaf(w: torch.Tensor, method: str) -> dict:
     """Dense frozen weight -> the quantized leaf dict of ``method``. A
     stacked ``[..., K, N]`` weight is quantized one matrix at a time into
     outputs made once, so the f32 transients stay one matrix's size."""
     if w.ndim > 2:
-        first = quantize_leaf(w[0], method)
-        out = {k: v.new_empty((w.shape[0], *v.shape))
-               for k, v in first.items()}
-        for i in range(w.shape[0]):
-            part = first if i == 0 else quantize_leaf(w[i], method)
-            for k, v in part.items():
-                out[k][i] = v
-        return out
+        return _stacked(w.shape[0], lambda i: quantize_leaf(w[i], method))
     if method == "int8":
         q, s = quantize_int8(w)
         return {"q": q, "scale": s}
@@ -240,25 +249,63 @@ def maybe_dequant(p, dtype=torch.bfloat16):
     return p
 
 
+def _requantize_leaf(leaf: dict, method: str) -> dict:
+    """A quantized leaf in ``method``'s format, one matrix of a stack at a
+    time: each matrix dequantized to f32 and quantized again, so the f32
+    transients stay one matrix's size."""
+    codes = leaf["q"] if is_quantized(leaf) else leaf["q4"]
+    if codes.ndim > 2:
+        return _stacked(codes.shape[0], lambda i: _requantize_leaf(
+            {k: v[i] for k, v in leaf.items()}, method))
+    return quantize_leaf(maybe_dequant(leaf, torch.float32), method)
+
+
+def quantize_frozen_(params, *, method: str = "int8",
+                     skip_keys=("a", "b", "bias")):
+    """:func:`quantize_frozen` in place, for a tree of dicts and lists the
+    caller owns: each frozen leaf's codes replace it in its container as
+    soon as they are made, so its source (a bf16 stack, or the codes of
+    another format) is freed there, before the next leaf is read, when
+    nothing else holds it. Stacks go one matrix at a time. Returns
+    ``params``."""
+    def walk(node):
+        keys = list(node) if isinstance(node, dict) else range(len(node))
+        for key in keys:
+            leaf = node[key] if key not in skip_keys else None
+            if is_quantized(leaf) or is_packed(leaf):
+                node[key] = None
+                node[key] = _requantize_leaf(leaf, method)
+            elif isinstance(leaf, (dict, list)):
+                walk(leaf)
+            elif key == "w" and isinstance(leaf, torch.Tensor) \
+                    and leaf.ndim >= 2:
+                node[key] = None
+                node[key] = quantize_leaf(leaf, method)
+            del leaf
+
+    walk(params)
+    return params
+
+
+def _owned(tree):
+    """``tree``'s dicts and lists copied (tuples as lists), its tensors
+    shared: a tree :func:`quantize_frozen_` may rewrite."""
+    if isinstance(tree, dict):
+        return {k: _owned(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_owned(v) for v in tree]
+    return tree
+
+
 def quantize_frozen(params, *, method: str = "int8",
                     skip_keys=("a", "b", "bias")):
     """Every frozen >= 2-D ``w`` leaf as its ``method`` format; a new tree,
-    the rest of it shared. Leaves already quantized are dequantized to f32
-    and quantized again (int8 -> int4 is a plain re-call)."""
-    def one(leaf, key):
-        if key in skip_keys:
-            return leaf
-        if is_quantized(leaf) or is_packed(leaf):
-            leaf = maybe_dequant(leaf, torch.float32)
-        elif isinstance(leaf, dict):
-            return {k: one(v, k) for k, v in leaf.items()}
-        elif isinstance(leaf, (list, tuple)):
-            return type(leaf)(one(v, None) for v in leaf)
-        if key == "w" and isinstance(leaf, torch.Tensor) and leaf.ndim >= 2:
-            return quantize_leaf(leaf, method)
-        return leaf
-
-    return one(params, None)
+    the rest of it shared. Leaves already quantized are quantized again
+    from their f32 values (int8 -> int4 is a plain re-call), one matrix of
+    a stack at a time (:func:`quantize_frozen_` on a copy of the tree's
+    containers)."""
+    return quantize_frozen_(_owned(params), method=method,
+                            skip_keys=skip_keys)
 
 
 def weights_format(method) -> str:

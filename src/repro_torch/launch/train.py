@@ -1,9 +1,30 @@
-"""Training launcher of the port: LoRA fine-tuning of a dense or MoE model
-(``repro.launch.train``, for the subset of its flags that the port
-supports). Every step runs through the engine registry's ``build_step``
-(``repro_torch.api.registry``).
+"""Training launcher of the port (``repro.launch.train``): LoRA
+fine-tuning of a dense or MoE model, with two entry points.
 
-``--engine`` picks the engine (``repro_torch.api.engines``): ``mesp_cuda``
+* :func:`main` is the launcher: ``TrainSpec.from_cli_args(argv)`` →
+  ``Trainer.from_spec(spec).fit()`` (``repro_torch.api.trainer``) →
+  ``telemetry.log_run_summary``, as the reference's is (:func:`run` is
+  the same and returns the ``TrainResult``). It takes the
+  reference's flags (less ``--pallas-interpret``, plus ``--device``):
+  checkpoints go to ``--ckpt-dir`` every ``--ckpt-interval`` steps and at
+  the end, atomically, and a run resumes from the newest one there (pass a
+  directory of its own to start afresh); ``--inject-faults`` plays a chaos
+  plan; an OOM, or with ``--mem-budget-mb`` a measured residency above 90%
+  of the budget, walks the degradation ladder (``--degrade``); the step
+  guard (``--guard``) skips and rewinds NaN or spiking steps; the straggler
+  watchdog restarts from the checkpoint; ``--telemetry on`` writes typed
+  JSONL events, spans and memory watermarks under ``--telemetry-dir``
+  (``--profile on`` adds a ``torch.profiler`` Chrome trace).
+* :func:`train` is the bare loop: it parses the same flags into a
+  TrainSpec, builds the engine's step through the registry and runs
+  ``--steps`` of it on the data pipeline's batches; it reads the flags of
+  the run itself (those below) and no checkpoint, guard, ladder or
+  telemetry flag. The kernel phases of ``chip_smoke.py`` and the CPU
+  parity tests call it.
+
+Every step runs through the engine registry's ``build_step``
+(``repro_torch.api.registry``). ``--engine`` picks the engine
+(``repro_torch.api.engines``): ``mesp_cuda``
 runs every LoRA linear through the LoRA kernels (forward, dx, dA/dB),
 every norm through the RMSNorm kernels and, from 64 tokens on, attention
 through the flash-attention kernels (forward, dq, dk/dv); ``mesp`` the
@@ -30,60 +51,31 @@ cpu`` is given; with no card visible the default fails rather than
 falling back.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-0.5b \\
-        --engine mesp_cuda --steps 4 [--fuse-rope] [--quantize nf4]
-    PYTHONPATH=src python -m repro_torch.launch.train --engine mesp_seq
-    PYTHONPATH=src python -m repro_torch.launch.train --engine mezo_avg4 \\
-        --optimizer adamw
-    PYTHONPATH=src python -m repro_torch.launch.train --arch olmoe-1b-7b \\
-        --engine mesp_cuda --steps 3 [--quantize nf4]
+        --engine mesp_cuda --steps 4 --ckpt-dir /path/to/run1
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
+        --device cpu --steps 6 --ckpt-dir /path/to/run2 \\
+        --inject-faults 'oom@2,crash@4,nan@5'
 
-The reference's Trainer facade (checkpoints, the step guard, the
-degradation ladder, telemetry) and its schedule flags are not ported yet.
+The reference's schedule flags are not ported yet.
 """
 from __future__ import annotations
 
-import argparse
 import logging
 import time
 
 import torch
 
-from repro_torch.api.engines import ENGINES
-from repro_torch.api.policy import ExecutionPolicy
-from repro_torch.api.registry import engine_names, get_engine
-from repro_torch.configs import REGISTRY, get_config
-from repro_torch.core import quant
+from repro_torch import telemetry
+from repro_torch.api.registry import get_engine
+# re-exported: the launcher's parser, generated from the registry
+from repro_torch.api.spec import TrainSpec, build_arg_parser  # noqa: F401
+from repro_torch.api.trainer import Trainer
+from repro_torch.configs import get_config
 from repro_torch.data import make_batch_iterator
 from repro_torch.models import model as model_lib
 from repro_torch.optim import optimizers, schedules
 
 log = logging.getLogger("repro_torch.train")
-
-
-def build_arg_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
-    ap.add_argument("--arch", default="qwen2.5-0.5b", choices=sorted(REGISTRY))
-    ap.add_argument("--reduced", action="store_true",
-                    help="use the tiny same-family config")
-    ap.add_argument("--engine", default="mesp", choices=engine_names())
-    ap.add_argument("--optimizer", default="sgd",
-                    choices=optimizers.OPTIMIZERS)
-    ap.add_argument("--lr", type=float, default=1e-4)
-    ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--seq", type=int, default=256)
-    ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    ap.add_argument("--fuse-rope", action="store_true",
-                    help="mesp_cuda: apply RoPE inside the flash kernels "
-                         "(q and k rotated on load, never stored rotated)")
-    ap.add_argument("--quantize", default="none", choices=quant.METHODS,
-                    help="format of the frozen base weights")
-    ap.add_argument("--flash-min-seq", type=int, default=1024,
-                    help="structured backend: sequence length from which "
-                         "attention takes the chunked flash path")
-    ap.add_argument("--flash-chunk", type=int, default=1024)
-    return ap
 
 
 def _sync(device: torch.device) -> None:
@@ -96,34 +88,33 @@ def train(argv=None) -> dict:
     optimizer steps on batches of the port's data pipeline. Returns
     ``losses`` and ``seconds`` (one per step; a step's time ends in a
     synchronise), ``params`` (the trained ones), ``cfg`` and ``policy``."""
-    ap = build_arg_parser()
-    ns = ap.parse_args(argv)
-    if ns.device == "cuda" and not torch.cuda.is_available():
+    spec = TrainSpec.from_cli_args(argv)
+    if spec.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card and none is "
                            "visible; pass --device cpu to train on the CPU")
-    device = torch.device(ns.device)
-    cfg = get_config(ns.arch)
-    if ns.reduced:
+    device = torch.device(spec.device)
+    cfg = get_config(spec.arch)
+    if spec.reduced:
         cfg = cfg.reduced()
-    policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
-                             fuse_rope=ns.fuse_rope, quantize=ns.quantize,
-                             flash_min_seq=ns.flash_min_seq,
-                             flash_chunk=ns.flash_chunk)
-    opt = optimizers.make_optimizer(ns.optimizer, schedules.constant(ns.lr))
-    step_fn = get_engine(ns.engine).build_step(ns, cfg, opt, policy)
+    policy = spec.policy()
+    opt = optimizers.make_optimizer(spec.optimizer,
+                                    schedules.constant(spec.lr))
+    step_fn = get_engine(spec.engine).build_step(spec, cfg, opt, policy)
 
-    gen = torch.Generator(device=device).manual_seed(ns.seed)
-    params = model_lib.init_params(cfg, generator=gen, quantize=ns.quantize)
+    gen = torch.Generator(device=device).manual_seed(spec.seed)
+    params = model_lib.init_params(cfg, generator=gen,
+                                   quantize=spec.quantize)
     state = opt.init(params)
-    data = make_batch_iterator(cfg.vocab, ns.seq, ns.batch, seed=ns.seed)
+    data = make_batch_iterator(cfg.vocab, spec.seq, spec.batch,
+                               seed=spec.seed)
     log.info("arch=%s layers=%d d_model=%d engine=%s backend=%s device=%s "
              "batch=%d seq=%d optimizer=%s fuse_rope=%s quantize=%s",
-             cfg.name, cfg.n_layers, cfg.d_model, ns.engine, policy.backend,
-             device, ns.batch, ns.seq, ns.optimizer, ns.fuse_rope,
-             ns.quantize)
+             cfg.name, cfg.n_layers, cfg.d_model, spec.engine, policy.backend,
+             device, spec.batch, spec.seq, spec.optimizer, spec.fuse_rope,
+             spec.quantize)
 
     losses, seconds = [], []
-    for step in range(ns.steps):
+    for step in range(spec.steps):
         batch = {k: torch.from_numpy(v).long().to(device)
                  for k, v in next(data).items()}
         t0 = time.monotonic()
@@ -137,9 +128,36 @@ def train(argv=None) -> dict:
             "cfg": cfg, "policy": policy}
 
 
+def run(argv=None):
+    """The launcher's run: ``argv`` as a TrainSpec, through the Trainer,
+    with the end-of-run summary logged. Returns the TrainResult."""
+    spec = TrainSpec.from_cli_args(argv).validate()
+
+    logging.basicConfig(
+        level=logging.WARNING if spec.quiet else logging.INFO)
+    trainer = Trainer.from_spec(spec)
+    cfg = trainer.cfg
+    log.info("arch=%s layers=%d d_model=%d engine=%s quantize=%s device=%s",
+             cfg.name, cfg.n_layers, cfg.d_model, spec.engine, spec.quantize,
+             spec.device)
+
+    result = trainer.fit()
+    # end-of-run reporting goes through the structured choke point
+    # (repro_torch.telemetry): per-step lines already did during fit
+    telemetry.log_run_summary(result, quiet=spec.quiet)
+    if result.degradations:
+        fs = result.final_spec
+        log.info("final spec after degradation: engine=%s batch=%d "
+                 "seq=%d quantize=%s", fs.engine, fs.batch, fs.seq,
+                 fs.quantize)
+    if spec.telemetry == "on":
+        log.info("telemetry: %s", result.metrics.get("telemetry_dir"))
+    return result
+
+
 def main(argv=None) -> int:
-    logging.basicConfig(level=logging.INFO)
-    train(argv)
+    """The launcher (``python -m repro_torch.launch.train``)."""
+    run(argv)
     return 0
 
 

@@ -491,11 +491,12 @@ def test_train_cli_engines_give_one_loss_curve_at_flash_lengths(
                                rtol=1e-5, atol=1e-5)
 
 
-def test_train_cli_loss_descends():
+def test_train_cli_loss_descends(tmp_path):
     out = ttrain.train(_CPU_RUN + ["--engine", "mesp_cuda", "--lr", "5e-2",
                                    "--steps", "4"])
     losses = out["losses"]
     assert losses[-1] < losses[0], losses
     assert out["policy"].backend == "cuda"
     assert out["params"]["blocks"]["attn"]["q"]["b"].abs().max() > 0
-    assert ttrain.main(_CPU_RUN + ["--steps", "1"]) == 0
+    assert ttrain.main(_CPU_RUN + ["--steps", "1", "--ckpt-dir",
+                                   str(tmp_path)]) == 0
