@@ -199,13 +199,47 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    watermark's peak equal to ``max_memory_allocated`` over the run, the
    ``data_fetch`` and ``step`` spans, and a ``--profile on`` run's
    ``torch.profiler`` Chrome trace read by ``json.load``.
+19. The rest of the dense catalog (``dense_catalog_phase``): (a) the
+   flash kernels' 256 instance against their plain versions in f32 and
+   bf16 at ``FLASH_D256_CASES`` (Gemma3-12B's two path shapes, B*H 16,
+   B*Hkv 8, N 2048, D 256, causal, window 1024 and 0, RoPE on and off;
+   ragged N, Nq != Nk, D 200, G 1), timed at both path shapes beside their
+   plain versions, ``F.scaled_dot_product_attention`` (with the window's
+   mask) and the bound, with the 256 instances' ptxas figures and dynamic
+   shared memory; (b) the LoRA forward, dx, dA/dB and both RMSNorm kernels
+   at Gemma3's five (K, N) and M 2048 (through ``check_training_kernels``),
+   its grouped decode forward at those (K, N), M 8 in tiles of 2 over 4
+   tenants (``check_grouped``), and its RMSNorm forward at decode, [8,
+   3840] (``check_rmsnorm``); the kernels of (g)'s configs at their shapes,
+   M 256 (``config_kernels``: dA/dB and both RMSNorm kernels, and the
+   LoRA forward and dx, over nf4 for qwen2.5-32b); (c) full-width,
+   full-depth gemma3-12b through
+   ``launch.train``: mesp_cuda, bf16, batch 1 x seq 2048, 3 SGD steps,
+   counts zeroed just before and read just after (``dense_per_step``:
+   672 / 333 / 336 LoRA, 193 / 96 RMSNorm, 96 / 48 / 48 flash a step),
+   finite losses, and the peak of one ``value_and_grad`` for mesp_cuda and
+   mebp (remat on); (d) at full width and one group (5 local layers, 1
+   global), every LoRA B nonzero (at ``b_scale_for``: the LoRA term at
+   qwen2.5-0.5b's size), the loss and LoRA gradients through the kernels
+   in bf16 and f32 against the plain backend in bf16 and f32
+   (``compare_grads``; the f32 kernels within ``CATALOG_F32_GRAD_TOL``);
+   (f) that group decoding ``RING_POSITIONS`` positions of a batch of 2
+   through the per-slot caches (the local layers' rings wrap past 1,024),
+   its logits against the forward's through the kernels and in f32 in the
+   logit check's scheme; (e) full-width gemma3-12b served through
+   ``launch.serve`` (8 slots in tiles of 2, 4 tenants, 8 requests of 8 +
+   8 tokens; 336 grouped and 97 RMSNorm launches a decode step); (g)
+   granite-8b and minitron-4b in bf16 and qwen2.5-32b over nf4, each at
+   full size, 2 mesp_cuda steps at batch 1 x seq 256 with exact counts and
+   finite losses, beside ``init_params``' peak and what it leaves.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
 ``{"train_quant": ...}``, ``{"train_moe": ...}``,
 ``{"train_moe_quant": ...}``, ``{"train_seq": ...}``, ``{"zo": ...}``,
 ``{"train_engines": ...}`` (with the run's seconds),
-``{"core_flash": ...}`` and ``{"trainer": ...}`` line each, the card's
+``{"core_flash": ...}``, ``{"trainer": ...}`` and ``{"dense_catalog":
+...}`` line each, the card's
 name and power limit, and
 last ``{"ok": true, "device": ...}``. Any mismatch or exception exits
 non-zero. Imports nothing of JAX or of the JAX package ``repro``.
@@ -224,6 +258,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+if __name__ == "__main__":
+    # the port of this checkout (a script that imports this module puts
+    # the port it measures on its own path)
+    sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.configs import get_config  # noqa: E402
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
@@ -231,12 +270,83 @@ BF16_FLOPS_PER_S = 989e12
 F32_FLOPS_PER_S = 67e12         # outside the tensor cores
 L2_BYTES = 50 * 2**20
 
+# every kernel a wrapper counts launches of (ops.launch_counts' names)
+KERNEL_NAMES = (
+    "lora_fused_fwd", "lora_dx", "lora_dab", "rmsnorm_fwd", "rmsnorm_bwd",
+    "lora_grouped_fwd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+    "lora_fused_q", "lora_dx_q", "lora_fused_q4", "lora_dx_q4",
+    "lora_grouped_q", "lora_grouped_q4", "lora_grouped_gemm",
+    "lora_grouped_dx", "lora_grouped_dab", "lora_grouped_gemm_q",
+    "lora_grouped_gemm_q4", "lora_grouped_dx_q", "lora_grouped_dx_q4",
+    "rope_fwd")
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# method -> (forward, dx) kernel over that base
+QUANT_KERNELS = {"int8": ("lora_fused_q", "lora_dx_q"),
+                 "int4": ("lora_fused_q4", "lora_dx_q4"),
+                 "nf4": ("lora_fused_q4", "lora_dx_q4")}
+
+
+def dense_linears(cfg):
+    """(K, N) -> LoRA linears of that shape in a layer of a dense config:
+    q, k and v, o, gate and up, down."""
+    d, q, kv = cfg.d_model, cfg.q_size, cfg.kv_size
+    out = {}
+    for s, n in (((d, q), 1), ((d, kv), 2), ((q, d), 1), ((d, cfg.d_ff), 2),
+                 ((cfg.d_ff, d), 1)):
+        out[s] = out.get(s, 0) + n
+    return out
+
+
+def decode_shapes(cfg):
+    """(K, N) -> grouped decode launches a decode step of a dense config:
+    one a LoRA linear of every layer."""
+    return {s: n * cfg.n_layers for s, n in dense_linears(cfg).items()}
+
+
+def dense_shapes_per_step(cfg):
+    """{kernel: {(K, N): launches a step}} of a dense config's LoRA
+    kernels: every block's forward twice (torch.utils.checkpoint recomputes
+    it in the backward), its backward once, block 0's q/k/v without dx
+    (they take the frozen embedding through the frozen ln1: no input
+    gradient, ctx.needs_input_grad)."""
+    d = cfg.d_model
+    no_dx = {(d, cfg.q_size): 1}
+    no_dx[(d, cfg.kv_size)] = no_dx.get((d, cfg.kv_size), 0) + 2
+    L = cfg.n_layers
+    lin = dense_linears(cfg)
+    return {"lora_fused_fwd": {s: 2 * n * L for s, n in lin.items()},
+            "lora_dx": {s: n * L - no_dx.get(s, 0) for s, n in lin.items()},
+            "lora_dab": {s: n * L for s, n in lin.items()}}
+
+
+def dense_per_step(cfg, seq, quantize="none"):
+    """Launches of every kernel a training step of a dense config at
+    ``seq`` tokens over a base in ``quantize``'s format: the LoRA kernels
+    of ``dense_shapes_per_step``; the RMSNorm forward for ln1 and ln2 twice
+    a block (recompute) and the final norm, its backward for ln2 of every
+    block, ln1 of blocks 1.. (block 0's input needs no gradient) and the
+    final norm; from 64 query rows the flash kernels (forward twice a
+    block, backward once; below, attention takes the structured sdpa)."""
+    L = cfg.n_layers
+    fwd, dx = QUANT_KERNELS.get(quantize, ("lora_fused_fwd", "lora_dx"))
+    per = {k: sum(v.values()) for k, v in dense_shapes_per_step(cfg).items()}
+    want = {k: 0 for k in KERNEL_NAMES}
+    want.update({fwd: per["lora_fused_fwd"], dx: per["lora_dx"],
+                 "lora_dab": per["lora_dab"], "rmsnorm_fwd": 4 * L + 1,
+                 "rmsnorm_bwd": 2 * L})
+    if seq >= 64:
+        want.update({"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                     "flash_bwd_dkv": L})
+    return want
+
+
+#: qwen2.5-0.5b (configs/qwen2_5_0_5b.py), the model of steps 2-18
+QWEN = get_config("qwen2.5-0.5b")
 M, BM, R, RANK = 8, 2, 4, 8           # decode: 8 slots, tile 2, 4 adapters
-D_MODEL, D_FF, KV = 896, 4864, 128
-N_LAYERS = 24
+D_MODEL, D_FF, KV = QWEN.d_model, QWEN.d_ff, QWEN.kv_size
+N_LAYERS = QWEN.n_layers
 # (K, N) -> grouped launches per decode step: q,o / k,v / gate,up / down
-GROUPED_SHAPES = {(D_MODEL, D_MODEL): 2 * N_LAYERS, (D_MODEL, KV): 2 * N_LAYERS,
-                  (D_MODEL, D_FF): 2 * N_LAYERS, (D_FF, D_MODEL): N_LAYERS}
+GROUPED_SHAPES = decode_shapes(QWEN)
 RMS_PER_STEP = 2 * N_LAYERS + 1
 GROUPED_PER_STEP = sum(GROUPED_SHAPES.values())
 # bf16 against the plain version on the same inputs: both sum in f32 and
@@ -256,54 +366,22 @@ LOGIT_TOL = 0.1
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 48, 4
 TM = TRAIN_BATCH * TRAIN_SEQ          # rows through every linear: 192
 # (K, N) -> LoRA linears of that shape in a layer: q,o / k,v / gate,up / down
-LINEARS = {(D_MODEL, D_MODEL): 2, (D_MODEL, KV): 2, (D_MODEL, D_FF): 2,
-           (D_FF, D_MODEL): 1}
-# block 0's q/k/v take the frozen embedding through the frozen ln1: no
-# input gradient, so no dx launch (ctx.needs_input_grad)
-NO_DX_IN_BLOCK0 = {(D_MODEL, D_MODEL): 1, (D_MODEL, KV): 2}
-# launches per training step of each kernel at each (K, N): every block's
-# forward runs twice (torch.utils.checkpoint recomputes it in the backward)
-TRAIN_SHAPES = {
-    "lora_fused_fwd": {s: 2 * n * N_LAYERS for s, n in LINEARS.items()},
-    "lora_dx": {s: n * N_LAYERS - NO_DX_IN_BLOCK0.get(s, 0)
-                for s, n in LINEARS.items()},
-    "lora_dab": {s: n * N_LAYERS for s, n in LINEARS.items()},
-}
-TRAIN_PER_STEP = {
-    **{k: sum(v.values()) for k, v in TRAIN_SHAPES.items()},
-    # ln1, ln2 twice per block (recompute) + the final norm
-    "rmsnorm_fwd": 4 * N_LAYERS + 1,
-    # ln2 of every block, ln1 of blocks 1.. (block 0's input needs no
-    # gradient), the final norm
-    "rmsnorm_bwd": 2 * N_LAYERS,
-    "lora_grouped_fwd": 0,
-    # below 64 query rows attention takes the structured sdpa
-    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-    # a dense base runs no quantized kernel, and training no grouped one
-    "lora_fused_q": 0, "lora_dx_q": 0, "lora_fused_q4": 0, "lora_dx_q4": 0,
-    "lora_grouped_q": 0, "lora_grouped_q4": 0,
-    # MoE's grouped training kernels run only on the MoE path
-    "lora_grouped_gemm": 0, "lora_grouped_dx": 0, "lora_grouped_dab": 0,
-    "lora_grouped_gemm_q": 0, "lora_grouped_gemm_q4": 0,
-    "lora_grouped_dx_q": 0, "lora_grouped_dx_q4": 0,
-    # the standalone RoPE kernel runs on no path
-    "rope_fwd": 0,
-}
+LINEARS = dense_linears(QWEN)
+# launches per training step of each LoRA kernel at each (K, N)
+TRAIN_SHAPES = dense_shapes_per_step(QWEN)
+# below 64 query rows no flash launch; a dense base runs no quantized
+# kernel, training no grouped one, no path the standalone RoPE kernel
+TRAIN_PER_STEP = dense_per_step(QWEN, TRAIN_SEQ)
 # the paper's setting, where attention runs the flash kernels
 PAPER_BATCH, PAPER_SEQ, PAPER_STEPS, ROPE_STEPS = 1, 256, 4, 2
-N_HEADS, N_KV_HEADS, HEAD_DIM = 14, 2, 64
-# every block's flash forward runs twice (checkpoint recompute), its
-# backward once; the LoRA and norm launches do not depend on seq
-FLASH_PER_STEP = {"flash_fwd": 2 * N_LAYERS, "flash_bwd_dq": N_LAYERS,
-                  "flash_bwd_dkv": N_LAYERS}
-PAPER_PER_STEP = {**TRAIN_PER_STEP, **FLASH_PER_STEP}
+N_HEADS, N_KV_HEADS = QWEN.n_heads, QWEN.n_kv_heads
+HEAD_DIM = QWEN.resolved_head_dim
+PAPER_PER_STEP = dense_per_step(QWEN, PAPER_SEQ)
+# the LoRA and norm launches do not depend on seq
+FLASH_PER_STEP = {k: PAPER_PER_STEP[k] for k in FLASH_KERNELS}
 # the quantized base at the paper's setting: --quantize runs, 3 steps each
 QUANT_RUNS, QUANT_STEPS = ("int8", "nf4"), 3
 QM = PAPER_BATCH * PAPER_SEQ          # rows through every linear: 256
-# method -> (forward, dx) kernel over that base
-QUANT_KERNELS = {"int8": ("lora_fused_q", "lora_dx_q"),
-                 "int4": ("lora_fused_q4", "lora_dx_q4"),
-                 "nf4": ("lora_fused_q4", "lora_dx_q4")}
 # the ragged odd-K case of the quantized kernels' check: (M, K, N)
 QUANT_RAGGED = (50, 97, 131)
 # the serve phase's command (step 3), and its --quantize runs (step 10)
@@ -344,7 +422,7 @@ MOE_SHAPES = {
                      "lora_grouped_dx": MOE_L, "lora_grouped_dab": MOE_L},
 }
 MOE_PER_STEP = {
-    **{k: 0 for k in TRAIN_PER_STEP},
+    **{k: 0 for k in KERNEL_NAMES},
     # q, k, v, o through the dense LoRA kernels; block 0's q/k/v take the
     # frozen embedding (no dx)
     "lora_fused_fwd": 2 * 4 * MOE_L, "lora_dx": 4 * MOE_L - 3,
@@ -553,12 +631,16 @@ def _f32_decode_sha256(torch, make, call):
     return _sha256(out)
 
 
-def check_grouped(torch, lg):
-    gen = torch.Generator(device="cuda").manual_seed(1)
+def check_grouped(torch, lg, shapes=GROUPED_SHAPES, seed=1, calls=2000):
+    """The grouped decode forward against its plain version at ``shapes``
+    ((K, N) -> launches a decode step; M rows in tiles of BM over R
+    tenants), timed in bf16 (``calls`` calls a timing) beside its plain
+    version, x @ W0 and the bound. Returns [shape figures]."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     gid = torch.tensor([3, 0, 3, 1], dtype=torch.int32, device="cuda")
     used = int(torch.unique(gid).numel())
-    shapes = []
-    for (K, N), per_step in GROUPED_SHAPES.items():
+    out = []
+    for (K, N), per_step in shapes.items():
         def make(dtype=torch.bfloat16):
             rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
             return (rn(M, K).to(dtype), (rn(K, N) * K ** -0.5).to(dtype),
@@ -576,50 +658,54 @@ def check_grouped(torch, lg):
         bound, by = _bound_ms(nbytes, flops)
         sets = _cold_sets(make, nbytes)
         call = lambda *a: lg.lora_grouped(*a, 2.0, bm=BM)
-        shapes.append({
+        out.append({
             "K": K, "N": N, "M": M, "bm": BM, "R": R, "r": RANK,
             "launches_per_decode_step": per_step, "max_abs_err": err,
-            "ms": _time_ms(call, sets),
+            "ms": _time_ms(call, sets, calls),
             "plain_ms": _time_ms(
-                lambda *a: lg.lora_grouped_ref(*a, 2.0, bm=BM), sets),
+                lambda *a: lg.lora_grouped_ref(*a, 2.0, bm=BM), sets, calls),
             "library_ms": None,
             # context: x @ W0 alone over the same bf16 W0
             "matmul_ms": _time_ms(lambda x, w, a, b, g: torch.matmul(x, w),
-                                  sets),
+                                  sets, calls),
             "bound_ms": bound, "bound_by": by, "bytes": nbytes,
             "flops": flops, "plan_bf16": lg.decode_plan(M, K, N, RANK, bm=BM),
             "f32_sha256": _f32_decode_sha256(
                 torch, lambda: make(torch.float32), call)})
         del sets
-    return shapes
+    return out
 
 
-def check_rmsnorm(torch, rn):
+def check_rmsnorm(torch, rn, d=D_MODEL, launches=RMS_PER_STEP, seed=2,
+                  calls=2000):
+    """The RMSNorm forward at decode, [M, d] (``launches`` a decode step),
+    against its plain version in bf16, timed warm beside its plain version,
+    ``F.rms_norm`` and the bound. Returns [shape figures]."""
     import torch.nn.functional as F
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def make():
-        return ((torch.randn(M, D_MODEL, generator=gen, device="cuda") * 3
+        return ((torch.randn(M, d, generator=gen, device="cuda") * 3
                  ).bfloat16(),
-                torch.randn(D_MODEL, generator=gen, device="cuda").bfloat16())
+                torch.randn(d, generator=gen, device="cuda").bfloat16())
     args = make()
     got = rn.rmsnorm(*args, 1e-6)
     torch.cuda.synchronize()
     err = _check_close(got, rn.rmsnorm_ref(*args, 1e-6), KERNEL_TOL,
-                       "rmsnorm_fwd")
-    nbytes = 2 * (2 * M * D_MODEL + D_MODEL)
-    bound, by = _bound_ms(nbytes, 4 * M * D_MODEL)
+                       f"rmsnorm_fwd [{M}, {d}]")
+    nbytes = 2 * (2 * M * d + d)
+    bound, by = _bound_ms(nbytes, 4 * M * d)
     # warm: at decode the norm's input was written by the step just before
     sets = [args] * 256
-    return [{"M": M, "d": D_MODEL, "launches_per_decode_step": RMS_PER_STEP,
+    return [{"M": M, "d": d, "launches_per_decode_step": launches,
              "max_abs_err": err,
-             "ms": _time_ms(lambda x, w: rn.rmsnorm(x, w, 1e-6), sets),
+             "ms": _time_ms(lambda x, w: rn.rmsnorm(x, w, 1e-6), sets, calls),
              "plain_ms": _time_ms(lambda x, w: rn.rmsnorm_ref(x, w, 1e-6),
-                                  sets),
+                                  sets, calls),
              "library_ms": _time_ms(
-                 lambda x, w: F.rms_norm(x, (D_MODEL,), w, 1e-6), sets),
+                 lambda x, w: F.rms_norm(x, (d,), w, 1e-6), sets, calls),
              "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-             "flops": 4 * M * D_MODEL}]
+             "flops": 4 * M * d}]
 
 
 def rmsnorm_fwd_sha256(torch, rn):
@@ -723,15 +809,15 @@ def rms_bwd_library(torch, x, w, g):
 
 def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
                            rms_bwd=TRAIN_PER_STEP["rmsnorm_bwd"], seed=3,
-                           kernels=TRAIN_KERNELS):
+                           kernels=TRAIN_KERNELS, n_calls=2000):
     """The LoRA training kernels and the RMSNorm backward (those of
     ``kernels``) against their plain versions at a path's shapes, in bf16
     and f32 (f32: summation order only, rtol = atol = 1e-4); times, bounds
     and the matmul context in bf16. ``M_`` rows through every linear;
     ``linears``: {(K, N): {kernel: launches a step}} (by default the seq-48
     training path's, whose counts the paper path's equal); the norm over
-    [M_, d], ``rms_bwd`` launches a step. Returns {kernel: [shape
-    figures]}."""
+    [M_, d], ``rms_bwd`` launches a step; ``n_calls`` calls a timing.
+    Returns {kernel: [shape figures]}."""
     if linears is None:
         linears = {s: {k: v[s] for k, v in TRAIN_SHAPES.items()}
                    for s in LINEARS}
@@ -784,9 +870,10 @@ def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
                 "launches_per_train_step": per[name],
                 "max_abs_err": errs[(name, torch.bfloat16)],
                 "max_abs_err_f32": errs[(name, torch.float32)],
-                "ms": _time_ms(kern, sets), "plain_ms": _time_ms(plain, sets),
+                "ms": _time_ms(kern, sets, n_calls),
+                "plain_ms": _time_ms(plain, sets, n_calls),
                 "library_ms": None,
-                "matmul_ms": _time_ms(mm, sets) if mm else None,
+                "matmul_ms": _time_ms(mm, sets, n_calls) if mm else None,
                 "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                 "flops": flops})
     if "rmsnorm_bwd" not in kernels:
@@ -819,15 +906,17 @@ def check_training_kernels(torch, lf, rn, M_=TM, linears=None, d=D_MODEL,
         "M": M_, "d": d, "launches_per_train_step": rms_bwd,
         "max_abs_err": errs[torch.bfloat16],
         "max_abs_err_f32": errs[torch.float32],
-        "ms": _time_ms(bwd, sets), "plain_ms": _time_ms(plain, sets),
-        "library_ms": _time_ms(lib, lib_sets), "library_op": lib_op,
+        "ms": _time_ms(bwd, sets, n_calls),
+        "plain_ms": _time_ms(plain, sets, n_calls),
+        "library_ms": _time_ms(lib, lib_sets, n_calls), "library_op": lib_op,
         "library_max_abs_err": lib_err, "bound_ms": bound, "bound_by": by,
         "bytes": nbytes, "flops": 10 * M_ * d})
     return out
 
 
 def rmsnorm_train_shape(torch, rn, M_=TM, d=D_MODEL,
-                        launches=TRAIN_PER_STEP["rmsnorm_fwd"], seed=4):
+                        launches=TRAIN_PER_STEP["rmsnorm_fwd"], seed=4,
+                        calls=2000):
     """The RMSNorm forward at a training shape [M_, d] (by default the
     seq-48 path's [192, 896]) against its plain version in f32 (rtol = atol
     = 1e-5) and bf16; times in bf16, warm."""
@@ -847,11 +936,11 @@ def rmsnorm_train_shape(torch, rn, M_=TM, d=D_MODEL,
     return {"M": M_, "d": d, "launches_per_train_step": launches,
             "max_abs_err": errs[torch.bfloat16],
             "max_abs_err_f32": errs[torch.float32],
-            "ms": _time_ms(lambda x, w: rn.rmsnorm(x, w, 1e-6), sets),
+            "ms": _time_ms(lambda x, w: rn.rmsnorm(x, w, 1e-6), sets, calls),
             "plain_ms": _time_ms(lambda x, w: rn.rmsnorm_ref(x, w, 1e-6),
-                                 sets),
+                                 sets, calls),
             "library_ms": _time_ms(
-                lambda x, w: F.rms_norm(x, (d,), w, 1e-6), sets),
+                lambda x, w: F.rms_norm(x, (d,), w, 1e-6), sets, calls),
             "bound_ms": bound, "bound_by": by}
 
 
@@ -899,6 +988,46 @@ def _quant_calls(torch, lq, lp4, method):
                 lambda x, q, s, a, b, g, w: torch.matmul(g, w.T))}
 
 
+def _quant_errors(torch, quant, calls, gen, method, M_, K, N):
+    """The quantized kernels of ``calls`` (``_quant_calls``) against their
+    plain versions at [M_, K] x [K, N] in f32 (summation order only, rtol =
+    atol = 1e-4) and bf16. Returns {(kernel, dtype): max |err|}."""
+    errs = {}
+    for dtype, tol in ((torch.float32, dict(rtol=1e-4, atol=1e-4)),
+                       (torch.bfloat16, KERNEL_TOL)):
+        args = _quant_cases(torch, quant, gen, dtype, method, M_, K, N)()
+        for name, (kern, plain, _) in calls.items():
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            errs[(name, dtype)] = _close_scaled(
+                got, want, tol, f"{name} {method} {dtype} M={M_} K={K} N={N}")
+    return errs
+
+
+def _quant_figures(torch, quant, calls, gen, method, M_, K, N, errs,
+                   launches, n_calls=QUANT_CALLS):
+    """{kernel: its figures at one shape}: bf16 times (cold) of the kernel,
+    its plain version and the matmul context, bound and ``errs``;
+    ``launches``: {kernel: launches a step}."""
+    # reads x (or g), the codes, the scale, A and B; writes y (dx)
+    codes = K * N if method == "int8" else (K + 1) // 2 * N
+    nbytes = 2 * M_ * (K + N) + codes + 4 * N + 2 * (K * RANK + RANK * N)
+    flops = 2 * M_ * K * N + 2 * M_ * RANK * (K + N)
+    bound, by = _bound_ms(nbytes, flops)
+    sets = _cold_sets(_quant_cases(torch, quant, gen, torch.bfloat16, method,
+                                   M_, K, N), nbytes)
+    return {name: {
+        "K": K, "N": N, "M": M_, "r": RANK, "method": method,
+        "launches_per_train_step": launches[name],
+        "max_abs_err": errs[(name, torch.bfloat16)],
+        "max_abs_err_f32": errs[(name, torch.float32)],
+        "ms": _time_ms(kern, sets, n_calls),
+        "plain_ms": _time_ms(plain, sets, n_calls),
+        "library_ms": None, "matmul_ms": _time_ms(mm, sets, n_calls),
+        "bound_ms": bound, "bound_by": by, "bytes": nbytes, "flops": flops}
+        for name, (kern, plain, mm) in calls.items()}
+
+
 def check_quant_kernels(torch, quant, lq, lp4):
     """The quantized LoRA kernels against their plain versions for int8,
     int4 and nf4, in f32 (summation order only, rtol = atol = 1e-4) and
@@ -911,7 +1040,6 @@ def check_quant_kernels(torch, quant, lq, lp4):
     # OLMoE's shape draws from its own generator: the others draw their
     # inputs as before it was added
     gen_moe = torch.Generator(device="cuda").manual_seed(13)
-    f32_tol = dict(rtol=1e-4, atol=1e-4)
     figures, ragged, moe = {}, {}, {}
     for method in QUANT_KERNELS:
         calls = _quant_calls(torch, lq, lp4, method)
@@ -922,17 +1050,7 @@ def check_quant_kernels(torch, quant, lq, lp4):
                 QUANT_RAGGED, (QM, MOE_D, MOE_D)]:
             olmoe = (K, N) == (MOE_D, MOE_D)
             g_ = gen_moe if olmoe else gen
-            errs = {}
-            for dtype, tol in ((torch.float32, f32_tol),
-                               (torch.bfloat16, KERNEL_TOL)):
-                args = _quant_cases(torch, quant, g_, dtype, method, M_, K,
-                                    N)()
-                for name, (kern, plain, _) in calls.items():
-                    got, want = kern(*args), plain(*args)
-                    torch.cuda.synchronize()
-                    errs[(name, dtype)] = _close_scaled(
-                        got, want, tol,
-                        f"{name} {method} {dtype} M={M_} K={K} N={N}")
+            errs = _quant_errors(torch, quant, calls, g_, method, M_, K, N)
             if (M_, K, N) == QUANT_RAGGED:
                 for name in calls:
                     ragged[(name, method)] = {
@@ -940,31 +1058,14 @@ def check_quant_kernels(torch, quant, lq, lp4):
                         "max_abs_err": errs[(name, torch.bfloat16)],
                         "max_abs_err_f32": errs[(name, torch.float32)]}
                 continue
-            # reads x (or g), the codes, the scale, A and B; writes y (dx)
-            codes = K * N if method == "int8" else (K + 1) // 2 * N
-            nbytes = 2 * M_ * (K + N) + codes + 4 * N \
-                + 2 * (K * RANK + RANK * N)
-            flops = 2 * M_ * K * N + 2 * M_ * RANK * (K + N)
-            bound, by = _bound_ms(nbytes, flops)
-            sets = _cold_sets(_quant_cases(torch, quant, g_, torch.bfloat16,
-                                           method, M_, K, N), nbytes)
-            for name, (kern, plain, mm) in calls.items():
-                dense = "lora_fused_fwd" if name.startswith("lora_fused") \
-                    else "lora_dx"
-                (moe if olmoe else figures)[(name, method)].append({
-                    "K": K, "N": N, "M": M_, "r": RANK, "method": method,
-                    "launches_per_train_step": moe_quant_per_step(
-                        method)[name] if olmoe
-                    else TRAIN_SHAPES[dense][(K, N)],
-                    "max_abs_err": errs[(name, torch.bfloat16)],
-                    "max_abs_err_f32": errs[(name, torch.float32)],
-                    "ms": _time_ms(kern, sets, QUANT_CALLS),
-                    "plain_ms": _time_ms(plain, sets, QUANT_CALLS),
-                    "library_ms": None,
-                    "matmul_ms": _time_ms(mm, sets, QUANT_CALLS),
-                    "bound_ms": bound, "bound_by": by, "bytes": nbytes,
-                    "flops": flops})
-            del sets
+            dense = {name: "lora_fused_fwd" if name.startswith("lora_fused")
+                     else "lora_dx" for name in calls}
+            launches = {name: moe_quant_per_step(method)[name] if olmoe
+                        else TRAIN_SHAPES[dense[name]][(K, N)]
+                        for name in calls}
+            for name, f in _quant_figures(torch, quant, calls, g_, method,
+                                          M_, K, N, errs, launches).items():
+                (moe if olmoe else figures)[(name, method)].append(f)
     return figures, ragged, moe
 
 
@@ -1169,10 +1270,22 @@ def check_flash(torch, fa, rope_tables):
     times in bf16 at the Qwen path's shape and at OLMoE's. Returns
     ({kernel: [Qwen shape figures]}, {kernel: OLMoE shape figures})."""
     gen = torch.Generator(device="cuda").manual_seed(5)
+    errs = _flash_errors(torch, fa, rope_tables, gen, FLASH_CASES)
+    qwen = _flash_times(torch, fa, gen, errs, FLASH_CASES["path"],
+                        FLASH_PER_STEP)
+    olmoe = _flash_times(torch, fa, gen, errs, FLASH_CASES["olmoe"],
+                         {k: MOE_PER_STEP[k] for k in FLASH_PER_STEP})
+    return qwen, {k: v[0] for k, v in olmoe.items()}
+
+
+def _flash_errors(torch, fa, rope_tables, gen, cases):
+    """The flash kernels against their plain versions on every case of
+    ``cases`` in f32 and bf16 (the backward's plain version from the
+    kernel's own out and lse), dk/dv's bits on a repeated call. Returns
+    {(kernel, dtype): the largest error}."""
     errs = {(n, d): 0.0 for n in FLASH_PER_STEP
             for d in (torch.float32, torch.bfloat16)}
-    for case, (BHkv, G, nq, nk, D, causal, window, rope) in \
-            FLASH_CASES.items():
+    for case, (BHkv, G, nq, nk, D, causal, window, rope) in cases.items():
         tabs = tuple(t.cuda() for t in rope_tables(
             torch.arange(nq), 10000.0, D)) if rope else None
         kw = dict(causal=causal, window=window, q_per_kv=G)
@@ -1208,20 +1321,16 @@ def check_flash(torch, fa, rope_tables):
                     _close_scaled(dv, wdv, tol, f"flash_bwd_dkv dv {what}"))
             errs[("flash_bwd_dkv", dtype)] = max(
                 errs[("flash_bwd_dkv", dtype)], e)
-
-    qwen = _flash_times(torch, fa, gen, errs, "path", FLASH_PER_STEP)
-    olmoe = _flash_times(torch, fa, gen, errs, "olmoe",
-                         {k: MOE_PER_STEP[k] for k in FLASH_PER_STEP})
-    return qwen, {k: v[0] for k, v in olmoe.items()}
+    return errs
 
 
-def _flash_times(torch, fa, gen, errs, case, per_step):
-    """The flash kernels' figures at ``FLASH_CASES[case]``'s shape, bf16,
-    with ``per_step`` launches a step and the errors of ``check_flash``;
-    warm: q, k, v were just written by the q/k/v linears, g by the o
-    linear's backward."""
+def _flash_times(torch, fa, gen, errs, shape, per_step, n_calls=2000):
+    """The flash kernels' figures at ``shape`` (a ``FLASH_CASES`` tuple),
+    bf16, with ``per_step`` launches a step and the errors of
+    ``_flash_errors``, ``n_calls`` calls a timing; warm: q, k, v were just
+    written by the q/k/v linears, g by the o linear's backward."""
     import torch.nn.functional as F
-    BHkv, G, N, _, D, causal, window, _ = FLASH_CASES[case]
+    BHkv, G, N, _, D, causal, window, _ = shape
     BH = BHkv * G
     kw = dict(causal=causal, window=window, q_per_kv=G)
     q, k, v, g = _flash_inputs(torch, gen, torch.bfloat16, BHkv, G, N, N, D)
@@ -1231,7 +1340,10 @@ def _flash_times(torch, fa, gen, errs, case, per_step):
     # the pairs this mask leaves (the work depends on it) and the bytes of
     # each input read once and each output written once
     pos = torch.arange(N)
-    pairs = BH * int((pos[:, None] >= pos[None, :]).sum())     # causal
+    ok = pos[:, None] >= pos[None, :]                           # causal
+    if window:
+        ok &= pos[:, None] - pos[None, :] < window
+    pairs = BH * int(ok.sum())
     tile, kv, rows = 2 * BH * N * D, 2 * BHkv * N * D, 4 * BH * N
     work = {"flash_fwd": (2 * tile + 2 * kv + rows, 4 * D * pairs),
             "flash_bwd_dq": (3 * tile + 2 * kv + 2 * rows, 6 * D * pairs),
@@ -1254,15 +1366,18 @@ def _flash_times(torch, fa, gen, errs, case, per_step):
     # the library yardstick, never called on the path: one PyTorch call,
     # forward, and forward plus backward through autograd
     q4, k4, v4, g4 = (t.view(1, -1, N, D) for t in (q, k, v, g))
+    mask = ok.cuda() if window else None     # a window takes a mask
     lib_fwd = lambda q, k, v, g: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True)
+        q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
     leaves = tuple(t.detach().clone().requires_grad_(True)
                    for t in (q4, k4, v4))
 
     def lib_fwd_bwd(q, k, v, g):
         return torch.autograd.grad(lib_fwd(q, k, v, g), (q, k, v), g)
-    library = {"fwd_ms": _time_ms(lib_fwd, [(q4, k4, v4, g4)] * 64),
-               "fwd_bwd_ms": _time_ms(lib_fwd_bwd, [(*leaves, g4)] * 64)}
+    library = {"fwd_ms": _time_ms(lib_fwd, [(q4, k4, v4, g4)] * 64,
+                                  n_calls),
+               "fwd_bwd_ms": _time_ms(lib_fwd_bwd, [(*leaves, g4)] * 64,
+                                      n_calls)}
     figures = {}
     for name, (kern, plain) in calls.items():
         nbytes, flops = work[name]
@@ -1273,7 +1388,8 @@ def _flash_times(torch, fa, gen, errs, case, per_step):
             "launches_per_train_step": per_step[name],
             "max_abs_err": errs[(name, torch.bfloat16)],
             "max_abs_err_f32": errs[(name, torch.float32)],
-            "ms": _time_ms(kern, sets), "plain_ms": _time_ms(plain, sets),
+            "ms": _time_ms(kern, sets, n_calls),
+            "plain_ms": _time_ms(plain, sets, n_calls),
             "library_ms": library["fwd_ms"] if name == "flash_fwd" else None,
             "library_fwd_bwd_ms": library["fwd_bwd_ms"],
             "bound_ms": bound, "bound_by": by, "bytes": nbytes,
@@ -1295,16 +1411,16 @@ def _launched_smem(name, D):
     return n.value
 
 
-def _with_b(torch, tree, gen):
-    """``tree`` with every LoRA B redrawn nonzero from ``gen`` (B = 0 at
-    init would leave dA and the h@B term untested)."""
+def _with_b(torch, tree, gen, scale=B_SCALE):
+    """``tree`` with every LoRA B redrawn nonzero from ``gen`` at ``scale``
+    (B = 0 at init would leave dA and the h@B term untested)."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
-            out[k] = _with_b(torch, v, gen)
+            out[k] = _with_b(torch, v, gen, scale)
         elif k == "b":
             out[k] = (torch.randn(v.shape, generator=gen, device=v.device)
-                      * B_SCALE).to(v.dtype)
+                      * scale).to(v.dtype)
         else:
             out[k] = v
     return out
@@ -1406,13 +1522,19 @@ def _check_grads(d, grad_tol=GRAD_TOL):
     _check_loss(d)
 
 
-def compare_grads(torch, cfg, params, batch, quantize="none"):
+def compare_grads(torch, cfg, params, batch, quantize="none",
+                  f32_tol=None):
     """The loss and LoRA gradients of the kernels against the plain backend
     in bf16 and f32 (``_grad_runs``), checked: per leaf, kernels vs plain
     bf16 within ``GRAD_TOL`` and no further from f32 than twice the plain
-    bf16 backend (+1e-3); the loss within ``LOSS_TOL``."""
-    d = _distances(torch, *_grad_runs(torch, cfg, params, batch, quantize))
+    bf16 backend (+1e-3); the loss within ``LOSS_TOL``; with ``f32_tol``
+    also the kernels in f32 within ``f32_tol`` of the plain f32 run
+    (``_check_f32_kernels``)."""
+    d = _distances(torch, *_grad_runs(torch, cfg, params, batch, quantize,
+                                      f32_kernels=f32_tol is not None))
     _check_grads(d)
+    if f32_tol is not None:
+        _check_f32_kernels(d, f32_tol)
     return d
 
 
@@ -1455,16 +1577,16 @@ def _check_cosines(d):
     _check_loss(d)
 
 
-def _check_f32_kernels(d):
-    """Per leaf, the kernels' gradient in f32 within ``GRAD_TOL`` (relative
-    L2) of the plain f32 one: the two differ in summation order alone, so
-    at full depth, where bf16's roundings have grown into gradients of
-    their own, this still tells a right gradient from a wrong one."""
+def _check_f32_kernels(d, tol=GRAD_TOL):
+    """Per leaf, the kernels' gradient in f32 within ``tol`` (relative L2)
+    of the plain f32 one: the two differ in summation order alone, so at
+    full depth, where bf16's roundings have grown into gradients of their
+    own, this still tells a right gradient from a wrong one."""
     bad = {path: e["kernels_f32_vs_f32"] for path, e in d["leaves"].items()
-           if not e["kernels_f32_vs_f32"] <= GRAD_TOL}
+           if not e["kernels_f32_vs_f32"] <= tol}
     if bad or len(d["leaves"]) != 14:
         raise AssertionError(
-            f"LoRA gradients: f32 kernels vs plain f32 over {GRAD_TOL}: "
+            f"LoRA gradients: f32 kernels vs plain f32 over {tol}: "
             f"{bad}; all leaves: {d['leaves']}")
 
 
@@ -2779,6 +2901,342 @@ def trainer_phase(torch, cfg):
     return out
 
 
+
+# ------------------------------- step 19: the rest of the dense catalog
+#: Gemma3-12B (configs/gemma3_12b.py): 48 layers, d 3840, 16 q heads over 8
+#: kv heads of 256, d_ff 15360, windows (1024,) * 5 + (0,), vocab 262,144
+GEMMA_ARCH, GEMMA_SEQ, GEMMA_STEPS = "gemma3-12b", 2048, 3
+GEMMA_GROUP = 6                       # one period: 5 local layers, 1 global
+# (B*Hkv, G, Nq, Nk, D, causal, window, rope): Gemma3's two path shapes at
+# batch 1 x seq 2048 (a local layer's window of 1024 masks keys) and the
+# 256 instance's edges: ragged N, Nq != Nk, D 200 (padded to 208), G 1
+FLASH_D256_CASES = {
+    "gemma3_local": (8, 2, 2048, 2048, 256, True, 1024, False),
+    "gemma3_global": (8, 2, 2048, 2048, 256, True, 0, False),
+    "gemma3_global_rope": (8, 2, 2048, 2048, 256, True, 0, True),
+    "d256_ragged300": (2, 2, 300, 300, 256, True, 0, True),
+    "d256_nq_ne_nk": (2, 2, 200, 136, 256, True, 0, False),
+    "d200_window48_rope": (2, 2, 256, 256, 200, True, 48, True),
+    "d256_G1": (4, 1, 256, 256, 256, False, 0, False),
+}
+#: calls a timing at the catalog's shapes (a call takes 0.1-10 ms)
+CATALOG_CALLS = 200
+#: the serve run: 8 slots in tiles of 2, 4 tenants, 8 requests of 8 + 8
+GEMMA_SERVE_CMD = ["--arch", GEMMA_ARCH, "--engine", "mesp_cuda", "--device",
+                   "cuda", "--batch", str(M), "--tile", str(BM), "--adapters",
+                   "4", "--store-capacity", "4", "--requests", "8",
+                   "--prompt-len", "8", "--max-new", "8", "--max-len", "32",
+                   "--seed", "0"]
+#: ring decode against the forward: one group, batch 2, past the window
+RING_BATCH, RING_POSITIONS = 2, 1100
+#: the other dense configs: arch -> (base format, steps) at 1 x 256
+CATALOG_RUNS = {"granite-8b": ("none", 2), "minitron-4b": ("none", 2),
+                "qwen2.5-32b": ("nf4", 2)}
+#: step 19 (d): the f32 kernels' LoRA gradients against the plain f32
+#: ones over one Gemma3 group, relative L2 per leaf. The two differ in
+#: summation order alone; GRAD_TOL, set for bf16, would pass faults that
+#: move a leaf by a quarter (PERF.md: the sound reading and those of faults
+#: planted by scripts/profile_torch_grad_floor.py --model gemma3)
+CATALOG_F32_GRAD_TOL = 1e-3
+
+
+def check_flash_d256(torch, fa, rope_tables, build):
+    """Step 19 (a): the flash kernels' 256 instance against their plain
+    versions on ``FLASH_D256_CASES`` in f32 and bf16, then timed in bf16
+    at Gemma3's two path shapes (a local layer, window 1024, 40 of the 48
+    launches a step; a global one, 8) beside their plain versions,
+    ``F.scaled_dot_product_attention`` and the bound, with the 256
+    instances' registers and spills (ptxas) and the bf16 kernels' dynamic
+    shared memory. Returns {kernel: [figures at the two shapes]}."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    errs = _flash_errors(torch, fa, rope_tables, gen, FLASH_D256_CASES)
+    L = 48
+    out = {k: [] for k in FLASH_PER_STEP}
+    for case, layers_ in (("gemma3_local", L * 5 // 6),
+                          ("gemma3_global", L // 6)):
+        per = {"flash_fwd": 2 * layers_, "flash_bwd_dq": layers_,
+               "flash_bwd_dkv": layers_}
+        figs = _flash_times(torch, fa, gen, errs, FLASH_D256_CASES[case],
+                            per, CATALOG_CALLS)
+        for name, (f,) in figs.items():
+            lib = "flash_fwd" if name == "flash_fwd" else "flash_bwd"
+            f["case"] = case
+            f["ptxas_256"] = {k: v for k, v in build[lib]["ptxas"].items()
+                              if "Li256E" in k}
+            out[name].append(f)
+    return out
+
+
+def check_quant_shapes(torch, quant, lq, lp4, method, shapes, per_step,
+                       M_=QM, seed=29):
+    """The quantized LoRA forward and dx of ``method`` against their plain
+    versions in f32 and bf16 at ``shapes`` ((K, N), M_ rows), timed in bf16
+    beside their plain versions, the bound and ``torch.matmul`` over the
+    dequantized W0. ``per_step``: {kernel: {(K, N): launches a step}}.
+    Returns {kernel: [shape figures]}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    calls = _quant_calls(torch, lq, lp4, method)
+    out = {name: [] for name in calls}
+    for K, N in shapes:
+        errs = _quant_errors(torch, quant, calls, gen, method, M_, K, N)
+        figs = _quant_figures(torch, quant, calls, gen, method, M_, K, N,
+                              errs, {n: per_step[n][(K, N)] for n in calls},
+                              CATALOG_CALLS)
+        for name, f in figs.items():
+            out[name].append(f)
+    return out
+
+
+def config_kernels(torch, lf, rn, lq, lp4, quant, cfg, method, seed):
+    """The kernels of a dense config's training step (step 19 (g)) against
+    their plain versions at its shapes, ``QM`` rows: the LoRA dA/dB and the
+    RMSNorm backward (``check_training_kernels``) and forward
+    (``rmsnorm_train_shape``) at [QM, d]; over a bf16 base the LoRA
+    forward and dx, over a quantized one ``method``'s forward and dx
+    (``check_quant_shapes``). Returns {kernel: [shape figures]}."""
+    per, lin = dense_shapes_per_step(cfg), dense_linears(cfg)
+    kernels = TRAIN_KERNELS if method == "none" else ("lora_dab",
+                                                      "rmsnorm_bwd")
+    out = check_training_kernels(
+        torch, lf, rn, QM, {s: {k: v[s] for k, v in per.items()}
+                            for s in lin},
+        cfg.d_model, 2 * cfg.n_layers, seed=seed, kernels=kernels,
+        n_calls=CATALOG_CALLS)
+    if method != "none":
+        fwd, dx = QUANT_KERNELS[method]
+        out.update(check_quant_shapes(
+            torch, quant, lq, lp4, method, lin,
+            {fwd: per["lora_fused_fwd"], dx: per["lora_dx"]}, seed=seed + 1))
+    out["rmsnorm_fwd"] = [rmsnorm_train_shape(
+        torch, rn, QM, cfg.d_model, 4 * cfg.n_layers + 1, seed=seed + 2,
+        calls=CATALOG_CALLS)]
+    return out
+
+
+def b_scale_for(cfg):
+    """B of a wider model's gradient and decode checks: ``B_SCALE`` times
+    sqrt(896 / d_model), so that the LoRA term s (x A) B, which grows as
+    sqrt(d_model) with A ~ N(0, 1/r) and B fixed, has qwen2.5-0.5b's size
+    (where ``GRAD_TOL`` and ``LOGIT_TOL`` were set). At B_SCALE itself the
+    term dominates Gemma3's layers and the random model turns chaotic: the
+    plain bf16 gradients stand 0.63-0.92 from the f32 ones (PERF.md)."""
+    return B_SCALE * (D_MODEL / cfg.d_model) ** 0.5
+
+
+def _train_run(torch, ops, train_cli, argv, want, what):
+    """One ``launch.train.train`` run, counts zeroed just before and read
+    just after, checked against ``want`` (launches a step); losses finite.
+    Returns (the run, its counts, its peak above the start)."""
+    _release(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    run = train_cli.train(argv)
+    counts = ops.launch_counts()
+    torch.cuda.synchronize()
+    steps = int(argv[argv.index("--steps") + 1])
+    _check_counts(counts, {k: v * steps for k, v in want.items()}, what)
+    if len(run["losses"]) != steps or \
+            not all(map(math.isfinite, run["losses"])):
+        raise AssertionError(f"{what}: losses {run['losses']}")
+    secs = run["seconds"]
+    run["figures"] = {
+        "steps": steps, "losses": run["losses"], "seconds": secs,
+        "ms_per_step": 1e3 * sum(secs[1:]) / max(1, len(secs) - 1),
+        "first_step_ms": 1e3 * secs[0], "launches": counts,
+        "launches_per_step": want,
+        "run_peak_above_start_bytes": torch.cuda.max_memory_allocated()
+        - base}
+    return run, counts
+
+
+def ring_decode_check(torch, cfg, params):
+    """Step 19 (f): one group of Gemma3 (5 local layers, 1 global) decodes
+    ``RING_POSITIONS`` positions of a batch of 2 through the per-slot
+    caches (the local layers' rings of 1,024 slots wrap past 1,024) with
+    the kernels (the grouped decode forward over a store of one tenant,
+    RMSNorm), and its logits are held against the forward's in the logit
+    check's scheme: the forward through the kernels (bf16) and plainly in
+    f32; per position, each difference over the f32 logits' largest
+    magnitude; the decode no further than ``LOGIT_TOL`` from the kernels'
+    forward, nor further from f32 than twice the kernels' forward is (+1e-3),
+    over all positions and over those past the window."""
+    from repro_torch.api.policy import ExecutionPolicy
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import AdapterStore
+    pol = ExecutionPolicy(backend="cuda", device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    toks = torch.randint(0, cfg.vocab, (RING_BATCH, RING_POSITIONS),
+                         generator=gen, device="cuda")
+    with torch.no_grad():
+        fwd = model_lib.forward(params, cfg, toks, policy=pol)
+        f32_cfg = dataclasses.replace(cfg, dtype="float32")
+        f32 = model_lib.forward(_f32(params), f32_cfg, toks,
+                                policy=ExecutionPolicy(backend="plain",
+                                                       device="cuda"))
+    _release(torch)
+    store = AdapterStore(params, capacity=1)
+    store.acquire("t", params)
+    cache = model_lib.init_cache(cfg, RING_BATCH, RING_POSITIONS,
+                                 device="cuda")
+    shapes = {k: tuple(v["k"].shape) for k, v in cache["groups"].items()}
+    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    dec = torch.empty_like(fwd)
+    t0 = time.monotonic()
+    for t in range(RING_POSITIONS):
+        dec[:, t] = model_lib.decode_step(store.params, cfg, cache,
+                                          toks[:, t:t + 1], policy=pol,
+                                          adapter_tiles=tiles)[0][:, 0]
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError("ring decode: non-finite logits")
+    scale = f32.abs().amax((0, 2))                      # per position
+    rel = lambda u, v: (u - v).abs().amax((0, 2)) / scale
+    d = {"decode_vs_forward": rel(dec, fwd), "decode_vs_f32": rel(dec, f32),
+         "forward_vs_f32": rel(fwd, f32)}
+    window = cfg.window_pattern[0]
+    worst = {part: {k: float(v[sl].max()) for k, v in d.items()}
+             for part, sl in (("all", slice(None)),
+                              ("past_window", slice(window, None)))}
+    for part, w in worst.items():
+        if w["decode_vs_forward"] > LOGIT_TOL or \
+                w["decode_vs_f32"] > 2 * w["forward_vs_f32"] + 1e-3:
+            raise AssertionError(f"ring decode ({part}): {w} (tolerance "
+                                 f"{LOGIT_TOL}, and at most twice the "
+                                 "forward's distance from f32)")
+    return {"layers": cfg.n_layers, "batch": RING_BATCH,
+            "positions": RING_POSITIONS, "cache_k_shapes": shapes,
+            "worst": worst, "logits_tol": LOGIT_TOL,
+            "decode_seconds": seconds}
+
+
+def dense_catalog_phase(torch, build, ops, fa, lf, lg, rn, lq, lp4, quant,
+                        rope_tables, train_cli, serve_cli):
+    """Step 19: Gemma3-12B's flash instance, its training kernels' shapes,
+    its training and serving at full width and depth, its gradients and
+    ring decode at one group; granite-8b, minitron-4b and qwen2.5-32b
+    (nf4) training. Every run's counts zeroed just before and read just
+    after it. Returns (figures, {path: counts}, {kernel: shape figures})."""
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.models import model as model_lib
+    t_phase = time.monotonic()
+    cfg = get_config(GEMMA_ARCH)
+    fig, counts = {}, {}
+    M_ = GEMMA_SEQ
+    # (a) flash at head dim 256; (b) the training kernels at Gemma3's
+    # shapes, M 2048, and its decode kernels at M 8
+    shapes = check_flash_d256(torch, fa, rope_tables, build)
+    per = dense_shapes_per_step(cfg)
+    shapes.update(check_training_kernels(
+        torch, lf, rn, M_, {s: {k: v[s] for k, v in per.items()}
+                            for s in dense_linears(cfg)},
+        cfg.d_model, 2 * cfg.n_layers, seed=31, n_calls=CATALOG_CALLS))
+    shapes["rmsnorm_fwd"] = [rmsnorm_train_shape(
+        torch, rn, M_, cfg.d_model, 4 * cfg.n_layers + 1, seed=32,
+        calls=CATALOG_CALLS)] + check_rmsnorm(
+        torch, rn, cfg.d_model, 2 * cfg.n_layers + 1, seed=33,
+        calls=CATALOG_CALLS)
+    shapes["lora_grouped_fwd"] = check_grouped(
+        torch, lg, decode_shapes(cfg), seed=34, calls=CATALOG_CALLS)
+    for figs in shapes.values():
+        for f in figs:
+            f["arch"] = GEMMA_ARCH
+    # (g)'s configs' kernels at their shapes, M 256 (qwen2.5-32b over nf4;
+    # its dA/dB at K or N 27,648 in 16-member clusters: a member's slice of
+    # 8 does not fit shared memory)
+    for i, (arch, (method, _)) in enumerate(CATALOG_RUNS.items()):
+        for name, figs in config_kernels(
+                torch, lf, rn, lq, lp4, quant, get_config(arch), method,
+                seed=40 + 4 * i).items():
+            for f in figs:
+                f["arch"] = arch
+            shapes.setdefault(name, []).extend(figs)
+    fig["kernel_checks_seconds"] = time.monotonic() - t_phase
+
+    # (c) training at full width and depth, 1 x 2048, 3 steps
+    argv = ["--arch", GEMMA_ARCH, "--engine", "mesp_cuda", "--device",
+            "cuda", "--batch", "1", "--seq", str(GEMMA_SEQ), "--steps",
+            str(GEMMA_STEPS), "--seed", "0"]
+    run, counts["train_gemma3"] = _train_run(
+        torch, ops, train_cli, argv, dense_per_step(cfg, GEMMA_SEQ),
+        GEMMA_ARCH)
+    fig["train"] = run["figures"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _with_b(torch, run["params"], gen)
+    del run
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+        make_batch_iterator(cfg.vocab, GEMMA_SEQ, 1, seed=0)).items()}
+    fig["train"]["params_bytes"] = quant.tree_bytes(params)
+    fig["train"]["peak_memory_one_value_and_grad"] = peak_memory(
+        torch, cfg, params, batch, [("mesp_cuda", True), ("mebp", True)])
+    del params
+    _release(torch)
+
+    # (d) gradients at full width, one group (5 local layers, 1 global)
+    cut = dataclasses.replace(cfg, n_layers=GEMMA_GROUP)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _with_b(torch, model_lib.init_params(cut, generator=gen), gen,
+                     b_scale_for(cut))
+    fig["b_scale_checks"] = b_scale_for(cut)
+    fig["grads_one_group"] = compare_grads(torch, cut, params, batch,
+                                           f32_tol=CATALOG_F32_GRAD_TOL)
+    fig["grads_one_group"]["f32_kernels_tol"] = CATALOG_F32_GRAD_TOL
+    del batch
+
+    # (f) ring decode against the forward, the same group
+    fig["ring_decode"] = ring_decode_check(torch, cut, params)
+    del params
+    _release(torch)
+
+    # (e) serving at full width and depth
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = serve_cli.serve(GEMMA_SERVE_CMD)
+    counts["serve_gemma3"] = ops.launch_counts()
+    torch.cuda.synchronize()
+    steps = out["steps"] + out["warmup_steps"]
+    _check_counts(counts["serve_gemma3"], {
+        "lora_grouped_fwd": 7 * cfg.n_layers * steps,
+        "rmsnorm_fwd": (2 * cfg.n_layers + 1) * steps},
+        f"{GEMMA_ARCH} serve, {steps} decode steps")
+    if out["tokens"] != 8 * 8 or out["requests"] != 8:
+        raise AssertionError(f"{GEMMA_ARCH} serve: {out['requests']} "
+                             f"requests / {out['tokens']} tokens, expected "
+                             "8 / 64")
+    fig["serve"] = {
+        "requests": out["requests"], "tokens": out["tokens"],
+        "steps": out["steps"], "warmup_steps": out["warmup_steps"],
+        "seconds": out["seconds"], "tok_s": out["tokens"] / out["seconds"],
+        "ms_per_step": 1e3 * out["seconds"] / out["steps"],
+        "launches": counts["serve_gemma3"],
+        "launches_per_step": {"lora_grouped_fwd": 7 * cfg.n_layers,
+                              "rmsnorm_fwd": 2 * cfg.n_layers + 1},
+        "params_bytes": out["params_bytes"],
+        "allocated_at_start": start,
+        "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    del out
+    _release(torch)
+
+    # (g) the other dense configs at full size, 2 steps at 1 x 256
+    fig["configs"] = {}
+    for arch, (method, nsteps) in CATALOG_RUNS.items():
+        c = get_config(arch)
+        init = init_memory(torch, c, method)
+        argv = ["--arch", arch, "--engine", "mesp_cuda", "--device", "cuda",
+                "--batch", str(PAPER_BATCH), "--seq", str(PAPER_SEQ),
+                "--steps", str(nsteps), "--seed", "0", "--quantize", method]
+        run, counts[f"train_{arch}"] = _train_run(
+            torch, ops, train_cli, argv, dense_per_step(c, PAPER_SEQ, method),
+            f"{arch} --quantize {method}")
+        fig["configs"][arch] = {"layers": c.n_layers, "quantize": method,
+                                **run["figures"], "init": init}
+        del run
+    fig["seconds"] = time.monotonic() - t_phase
+    return fig, counts, shapes
+
+
 def main() -> int:
     t_start = time.monotonic()
     import torch
@@ -3174,7 +3632,14 @@ def main() -> int:
     # just before and read just after it, inside the phase
     trainer_fig = trainer_phase(torch, cfg)
 
-    paths = lambda k: {"serve": counts[k],
+    # the rest of the dense catalog: every run's counts zeroed just before
+    # and read just after it, inside the phase
+    catalog, ccounts, cshapes = dense_catalog_phase(
+        torch, build, ops, fa, lf, lg, rn, lq, lp4, quant, rope_tables,
+        train_cli, serve_cli)
+
+    paths = lambda k: {**{p: c[k] for p, c in ccounts.items()},
+                       "serve": counts[k],
                        **{f"serve_{m}": c[k] for m, c in scounts.items()},
                        "train": tcounts[k],
                        **{run: c[k] for run, c in pcounts.items()},
@@ -3458,6 +3923,15 @@ def main() -> int:
                     "(_grouped_dx_q4_kernel :297)", "nf4"),
         rope_entry,
     ]
+    # each kernel's figures at the catalog's shapes beside its own (Gemma3:
+    # flash at head dim 256, the training kernels at M 2048; qwen2.5-32b's
+    # MLP over nf4), their errors in its own
+    for e in kernels:
+        figs = cshapes.get(e["name"])
+        if figs:
+            e["catalog_shapes"] = figs
+            e["max_abs_err"] = e["max_err"] = max(
+                [e["max_abs_err"]] + [f["max_abs_err"] for f in figs])
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {
@@ -3555,6 +4029,11 @@ def main() -> int:
         "arch": "qwen2.5-0.5b", "engine": "mesp_cuda", "dtype": "bfloat16",
         "seq": PAPER_SEQ, **trainer_fig, "mib": MIB, "device": name,
         "power": smi}}))
+    print(json.dumps({"dense_catalog": {
+        "arch": GEMMA_ARCH, "engine": "mesp_cuda", "dtype": "bfloat16",
+        "batch": 1, "seq": GEMMA_SEQ, "grad_tol": GRAD_TOL,
+        "loss_tol": LOSS_TOL, "b_scale": B_SCALE, **catalog, "device": name,
+        "power": smi, "run_seconds": time.monotonic() - t_start}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -3563,7 +4042,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    # the port of this checkout (a script that imports this module puts
-    # the port it measures on its own path)
-    sys.path.insert(0, str(ROOT / "src"))
     sys.exit(main())

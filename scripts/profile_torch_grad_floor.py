@@ -50,11 +50,22 @@ its last 16 columns, B zero, taken off); ``dx_swap_expert``;
 ``dab_h_unrounded`` (per tile, with its group's A) and
 ``dab_swap_expert`` (expert 0's tiles added to expert 1's dA and dB).
 
+``--model gemma3``: full-width Gemma3-12B cut to one group (5 local
+layers of window 1,024, 1 global) at batch 1 x seq 2048 with B at
+``chip_smoke.b_scale_for``, as ``chip_smoke.py``'s step 19 (d) draws it,
+and the distance that ``CATALOG_F32_GRAD_TOL`` holds: per leaf, the f32
+kernels' gradient from the plain f32 one. Faults go into the f32 calls of
+the flash wrappers (head dim 256), so the bf16 runs never see them:
+``window_off``, the forward and both backward kernels called with window 0
+(a mask that ignores the local layers' window); ``dq_d_tail``, dq's last
+16 of D zero (a staging of D in passes that drops its last columns);
+``dkv_d_tail``, dk's and dv's last 16 of D zero. Base ``none`` only.
+
 It uses the ``chip_smoke`` and ``repro_torch`` found on the path, so one
 call can read two checkouts in turns:
 
     PYTHONPATH=src:. python scripts/profile_torch_grad_floor.py \\
-        [--model dense|moe|both] [--faults none,dx_k_tail,...] \\
+        [--model dense|moe|gemma3|both] [--faults none,dx_k_tail,...] \\
         [--bases none,nf4] [--label L]
 
 Prints one JSON line per model, base and fault, as each is read, then one
@@ -63,6 +74,7 @@ with the limits and the card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import subprocess
@@ -73,6 +85,7 @@ import chip_smoke as cs
 from repro_torch.configs import get_config
 from repro_torch.data import make_batch_iterator
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lora_fused as lf
 from repro_torch.kernels import lora_grouped as lg
 from repro_torch.kernels import lora_pack4 as lp4
@@ -96,6 +109,10 @@ WRAPPERS = {
                (lg, "lora_grouped_dx_q4", 3)),
     "dense_dab": ((lf, "lora_dab", 2),),
     "moe_dab": ((lg, "lora_grouped_dab", 2),),
+    "flash": ((fa, "flash_attention_fwd", None), (fa, "flash_bwd_dq", None),
+              (fa, "flash_bwd_dkv", None)),
+    "flash_dq": ((fa, "flash_bwd_dq", None),),
+    "flash_dkv": ((fa, "flash_bwd_dkv", None),),
 }
 
 
@@ -227,6 +244,22 @@ def dab_h_unrounded(fn, x, args, kw, b_at, state):
     return da, (db.float() + move).to(db.dtype)
 
 
+def window_off(fn, q, args, kw, b_at, state):
+    """A flash kernel called with window 0: every key up to the query's
+    position, where a local layer sees only the last 1,024."""
+    return fn(q, *args, **{**kw, "window": 0})
+
+
+def d_tail(fn, q, args, kw, b_at, state):
+    """A flash backward kernel's results with their last TAIL columns of
+    D zero."""
+    out = fn(q, *args, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    for t in outs:
+        t[..., -TAIL:] = 0
+    return out
+
+
 # each model's faults: (fault, the WRAPPERS it goes into)
 FAULTS = {"dense": {"k_tail": (k_tail, "dense"),
                     "code_off": (code_off, "dense"),
@@ -244,19 +277,24 @@ FAULTS = {"dense": {"k_tail": (k_tail, "dense"),
                   "dx_code_off": (code_off, "moe_dx"),
                   "dab_m_tail": (dab_m_tail, "moe_dab"),
                   "dab_h_unrounded": (dab_h_unrounded, "moe_dab"),
-                  "dab_swap_expert": (swap_expert, "moe_dab")}}
+                  "dab_swap_expert": (swap_expert, "moe_dab")},
+          "gemma3": {"window_off": (window_off, "flash"),
+                     "dq_d_tail": (d_tail, "flash_dq"),
+                     "dkv_d_tail": (d_tail, "flash_dkv")}}
 
 
 def planted(model, fault):
-    """Patch every bf16 wrapper that ``model``'s fault ``fault`` goes into;
-    returns the function that restores them."""
+    """Patch every wrapper that ``model``'s fault ``fault`` goes into, in
+    its bf16 calls (its f32 calls for gemma3); returns the function that
+    restores them."""
     fault, target = FAULTS[model][fault]
     state, saved = {}, []
+    dtype = torch.float32 if model == "gemma3" else torch.bfloat16
 
     def wrap(fn, b_at):
         @functools.wraps(fn)  # the wrapper counts launches on its name
         def faulty(x, *args, **kw):
-            if x.dtype != torch.bfloat16:
+            if x.dtype != dtype:
                 return fn(x, *args, **kw)
             return fault(fn, x, args, kw, b_at, state)
         return faulty
@@ -323,9 +361,33 @@ def moe_reading(cfg, batch, quantize, fault):
                              for p, e in d["leaves"].items()}}
 
 
+def gemma3_reading(cfg, batch, quantize, fault):
+    """Step 19 (d)'s distances (``compare_grads`` unchecked, with the f32
+    kernels): per leaf, the f32 kernels' gradient from the plain f32 one
+    (relative L2), which ``CATALOG_F32_GRAD_TOL`` holds."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = cs._with_b(torch, model_lib.init_params(cfg, generator=gen),
+                        gen, cs.b_scale_for(cfg))
+    restore = planted("gemma3", fault) if fault else (lambda: None)
+    try:
+        d = cs._distances(torch, *cs._grad_runs(
+            torch, cfg, params, batch, quantize, f32_kernels=True))
+    finally:
+        restore()
+    del params
+    cs._release(torch)
+    rel = {p: e["kernels_f32_vs_f32"] for p, e in d["leaves"].items()}
+    return {"f32_kernels_worst_rel": max(rel.values()),
+            "f32_kernels_least_rel": min(rel.values()),
+            "passes": max(rel.values()) <= cs.CATALOG_F32_GRAD_TOL,
+            "passes_at_grad_tol": max(rel.values()) <= cs.GRAD_TOL,
+            "bf16_worst_rel": d["worst"]["kernels_vs_plain"],
+            "leaves": len(rel), "loss": d["loss"], "rel_per_leaf": rel}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--model", choices=("dense", "moe", "both"),
+    ap.add_argument("--model", choices=("dense", "moe", "gemma3", "both"),
                     default="both")
     ap.add_argument("--faults", default="",
                     help="comma-separated faults to read (none: sound); "
@@ -342,12 +404,20 @@ def main() -> int:
     _build.build_all()
     models = ("dense", "moe") if args.model == "both" else (args.model,)
     for model in models:
-        cfg = get_config(DENSE_ARCH if model == "dense" else cs.MOE_ARCH)
+        seq = cs.PAPER_SEQ
+        if model == "gemma3":
+            cfg = dataclasses.replace(get_config(cs.GEMMA_ARCH),
+                                      n_layers=cs.GEMMA_GROUP)
+            seq = cs.GEMMA_SEQ
+        else:
+            cfg = get_config(DENSE_ARCH if model == "dense" else cs.MOE_ARCH)
         batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
-            make_batch_iterator(cfg.vocab, cs.PAPER_SEQ, cs.PAPER_BATCH,
+            make_batch_iterator(cfg.vocab, seq, cs.PAPER_BATCH,
                                 seed=0)).items()}
-        read = dense_reading if model == "dense" else moe_reading
-        for base in args.bases.split(","):
+        read = {"dense": dense_reading, "moe": moe_reading,
+                "gemma3": gemma3_reading}[model]
+        bases = "none" if model == "gemma3" else args.bases
+        for base in bases.split(","):
             for fault in [None, *FAULTS[model]]:
                 if only is not None and (fault or "none") not in only:
                     continue
@@ -362,6 +432,7 @@ def main() -> int:
         check=True, capture_output=True, text=True).stdout.strip()
     print(json.dumps({"label": args.label, "grad_tol": cs.GRAD_TOL,
                       "cos_floor": cs.MOE_COS_FLOOR,
+                      "f32_grad_tol": cs.CATALOG_F32_GRAD_TOL,
                       "device": torch.cuda.get_device_name(0),
                       "nvidia_smi": smi}))
     return 0

@@ -69,10 +69,11 @@ register_engine(
 def _mesp_seq_builder(spec, cfg, opt, policy):
     from repro_torch.core import mesp
 
-    if cfg.family != "dense":
+    if cfg.family != "dense" or cfg.window_pattern:
         raise ValueError(
             "engine mesp_seq (paper §4.3) supports dense, non-patterned "
-            f"architectures only; got family={cfg.family!r}")
+            f"architectures only; got family={cfg.family!r}, "
+            f"window_pattern={cfg.window_pattern!r}")
     if spec.optimizer != "sgd":
         raise ValueError(
             "engine mesp_seq applies immediate per-block SGD (paper §4.3); "

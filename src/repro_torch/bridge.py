@@ -4,7 +4,8 @@ nested dict of tensors.
 The caller converts the JAX tree to numpy arrays on its side
 (``jax.tree_util.tree_map(np.asarray, params)``), so this module needs no
 JAX. Keys and shapes are kept as they are: stacked ``[L, ...]`` block
-leaves, ``{"w", "a", "b"[, "bias"]}`` linears and ``AdapterStore``-stacked
+leaves, a window pattern's ``groups`` leaves ``[n_groups, period, ...]``,
+``{"w", "a", "b"[, "bias"]}`` linears and ``AdapterStore``-stacked
 ``[L, R, d, r]`` adapter leaves all come through unchanged, and so do
 quantized weight leaves (``core/quant.py``: ``{"q", "scale"}`` int8,
 ``{"q4", "scale"[, "code"][, "kpad"]}`` packed 4-bit): their integer bytes

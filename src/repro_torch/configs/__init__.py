@@ -1,13 +1,17 @@
-"""Config registry of the port: the dense Qwen2.5 configs and the MoE
-configs (OLMoE-1B-7B, DeepSeekMoE-16B). ``get_config(name)`` returns the
-full :class:`ArchConfig`."""
+"""Config registry of the port: the dense configs (the paper's Qwen2.5
+0.5B-3B, Granite-8B, Minitron-4B, Qwen2.5-32B and Gemma3-12B with its 5:1
+local:global pattern) and the MoE configs (OLMoE-1B-7B, DeepSeekMoE-16B).
+``get_config(name)`` returns the full :class:`ArchConfig`."""
 from __future__ import annotations
 
-from . import deepseek_moe_16b, olmoe_1b_7b, qwen2_5_paper
+from . import (deepseek_moe_16b, gemma3_12b, granite_8b, minitron_4b,
+               olmoe_1b_7b, qwen2_5_32b, qwen2_5_paper)
 from .base import ArchConfig, LoRAConfig, MoEConfig
 
-REGISTRY = {c.name: c for c in (*qwen2_5_paper.CONFIGS, olmoe_1b_7b.CONFIG,
-                                deepseek_moe_16b.CONFIG)}
+REGISTRY = {c.name: c for c in (
+    *qwen2_5_paper.CONFIGS, olmoe_1b_7b.CONFIG, deepseek_moe_16b.CONFIG,
+    granite_8b.CONFIG, gemma3_12b.CONFIG, qwen2_5_32b.CONFIG,
+    minitron_4b.CONFIG)}
 
 
 def get_config(name: str) -> ArchConfig:

@@ -1,9 +1,10 @@
 """Architecture configuration (the port's own copy of ``repro.configs.base``).
 
 Only what the ported families read is kept: :class:`LoRAConfig`,
-:class:`MoEConfig` and the dense and MoE fields of :class:`ArchConfig`,
-with the same ``reduced()`` cut to size as the reference, so a reduced
-config names the same shapes in both packages.
+:class:`MoEConfig` and the dense and MoE fields of :class:`ArchConfig`
+(with the per-layer sliding windows, ``window_pattern``), with the same
+``reduced()`` cut to size as the reference, so a reduced config names the
+same shapes in both packages.
 """
 from __future__ import annotations
 
@@ -50,6 +51,9 @@ class ArchConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     dtype: str = "bfloat16"
+    # attention layout: per-layer sliding window sizes, repeated over the
+    # layers; () => all-global. gemma3 uses 5 local : 1 global.
+    window_pattern: Tuple[int, ...] = ()  # 0 = global, >0 = local window
     moe: Optional[MoEConfig] = None
     lora: LoRAConfig = field(default_factory=LoRAConfig)
     notes: str = ""
@@ -65,6 +69,20 @@ class ArchConfig:
     @property
     def kv_size(self) -> int:
         return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def embed_scale(self) -> Optional[float]:
+        """What the token rows are scaled by: sqrt(d_model) for the Gemma
+        families, as the reference's embed does; None for the others."""
+        if self.name.startswith(("gemma", "recurrentgemma")):
+            return self.d_model ** 0.5
+        return None
+
+    def layer_window(self, i: int) -> int:
+        """Layer i's sliding window (0: global attention)."""
+        if not self.window_pattern:
+            return 0
+        return self.window_pattern[i % len(self.window_pattern)]
 
     def _attn_params(self) -> int:
         hd = self.resolved_head_dim
@@ -98,12 +116,14 @@ class ArchConfig:
     def reduced(self) -> "ArchConfig":
         """A tiny same-family config (the reference's cut: for MoE, 4
         experts, top-2, d_expert 32, at most one shared expert, and a dense
-        layer 0 kept where the full config has one)."""
+        layer 0 kept where the full config has one; a window pattern cut to
+        a 2-layer (local 8, global) period)."""
         moe = self.moe
         if moe is not None:
             moe = MoEConfig(n_experts=4, top_k=2, d_expert=32,
                             n_shared=min(moe.n_shared, 1),
                             first_layer_dense=moe.first_layer_dense)
+        pattern = {"window_pattern": (8, 0)} if self.window_pattern else {}
         return dataclasses.replace(
             self,
             n_layers=min(self.n_layers, 2),
@@ -116,4 +136,5 @@ class ArchConfig:
             dtype="float32",
             moe=moe,
             lora=LoRAConfig(rank=4, alpha=8.0, targets=self.lora.targets),
+            **pattern,
         )

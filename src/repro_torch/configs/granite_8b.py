@@ -1,0 +1,18 @@
+"""Granite-8B-Code [arXiv:2405.04324; hf].
+
+36L d_model=4096 32H (GQA kv=8) d_ff=14336 vocab=49152, llama-arch.
+"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-8b",
+    family="dense",
+    n_layers=36,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=14336,
+    vocab=49152,
+    rope_theta=10000.0,
+    notes="llama-arch, code [arXiv:2405.04324; hf]",
+)

@@ -1,0 +1,17 @@
+"""Minitron-4B [arXiv:2407.14679; hf].
+
+32L d_model=3072 24H (GQA kv=8) d_ff=9216 vocab=256000, pruned Nemotron.
+"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="minitron-4b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    d_ff=9216,
+    vocab=256000,
+    notes="pruned nemotron [arXiv:2407.14679; hf]",
+)

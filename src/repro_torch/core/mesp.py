@@ -92,7 +92,8 @@ def sequential_train_step(params, cfg: ArchConfig, batch: dict, lr: float,
                           *, policy: ExecutionPolicy = STRUCTURED):
     """Paper §4.3: the forward stores only block inputs; the backward walks
     the blocks in reverse, recomputes each from its input, takes its LoRA
-    gradients and applies SGD to them at once. Dense family only. Returns
+    gradients and applies SGD to them at once. Dense family without a
+    window pattern only, as in the reference. Returns
     (params, loss); ``params`` is left as it is.
 
     Block 0's input, the frozen embedding, needs no gradient, so block 0
@@ -100,9 +101,10 @@ def sequential_train_step(params, cfg: ArchConfig, batch: dict, lr: float,
     updates go, under ``no_grad``, into rows of copies of the stacked LoRA
     leaves made once per step; nothing of block i's graph or gradients
     outlives its iteration."""
-    if cfg.family != "dense":
-        raise ValueError("sequential_train_step runs the dense family only, "
-                         f"not {cfg.family!r}")
+    if cfg.family != "dense" or cfg.window_pattern:
+        raise ValueError("sequential_train_step runs the dense family "
+                         "without a window pattern only, not "
+                         f"{cfg.name!r} ({cfg.family})")
     _check_base(params, policy)
     mask = model_lib.trainable_mask(params["blocks"])
     blocks = _lora_copy(params["blocks"], mask)

@@ -31,10 +31,11 @@
 // bits.
 //
 // bf16 (the *_tc kernels, flash_common.cuh's flash::tc): 4 warps, 16 rows
-// each, every product on mma.sync m16n8k16 (bf16 operands, f32 sums), the
-// next tile pair copied by cp.async into a second buffer while the current
-// one is multiplied, p and ds rounded to bf16 and repacked from score
-// fragments into A fragments in registers.
+// each (dk/dv above 128 columns: 8, see below), every product on mma.sync
+// m16n8k16 (bf16 operands, f32 sums), the next tile pair copied by cp.async
+// into a second buffer while the current one is multiplied, p and ds
+// rounded to bf16 and repacked from score fragments into A fragments in
+// registers.
 // * dq: s = q k^T and dp = g v^T, then dq += ds k with k's B fragments
 //   from ldmatrix.trans. dq is staged in f32, counter-rotated and cast once.
 // * dk/dv compute the transposes, s^T = k q^T and dp^T = v g^T, so p^T and
@@ -49,10 +50,17 @@
 //   its share of the tile's rows through distributed shared memory, in
 //   rank order, so dk and dv are summed over g = 0 .. G-1 in a fixed order
 //   (no atomics, no scratch in device memory, one launch); then dk is
-//   counter-rotated and both are cast once.
+//   counter-rotated and both are cast once. Above 128 columns a D-wide
+//   accumulator takes 128 registers: dq walks a tile's keys in two passes
+//   of 32, and dk/dv runs 8 warps, warps 0-3 summing dv and 4-7 dk over the
+//   same 16-row slices (the dv warps compute no dp).
 // f32 (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): the CUDA-core body on
 // f32 tiles (tensor cores would round f32 operands to TF32); one dk/dv
-// block per (k tile, b*hkv) walks the G members in turn.
+// block per (k tile, b*hkv) walks the G members in turn. Above 128 columns
+// the staged [64][D + 1] tiles would exceed shared memory (dq 279,808 B,
+// dk/dv 296,448 at D 256): k and v (dq), and q and g with ds and round(p)
+// (dk/dv), take turns in one staged tile each, with the same sums in the
+// same order.
 
 #include <cooperative_groups.h>
 
@@ -67,15 +75,12 @@ using namespace flash;
 // p and ds of the thread's 4 x 4 (q row, k column) pairs of tile (q_lo,
 // k_lo), given the staged tiles and the rows' lse and delta; ds rounded to
 // T is staged in DSs, round(p) in Ps (when Ps is not null)
+// the same from the thread's scores s and dp already summed; s becomes p
 template <typename T>
-__device__ __forceinline__ void probs_ds(
-    float* Ps, float* DSs, const float* Qs, const float* Ks, const float* Gs,
-    const float* Vs, const float (&lse_r)[4], const float (&dl_r)[4], int ld,
-    int D, int q_lo, int k_lo, int nq, int nk, int causal, int window,
-    float scale, int ty, int tx) {
-  float s[4][4], dp[4][4];
-  dot_tile(s, Qs, Ks, ld, D, ty, tx);
-  dot_tile(dp, Gs, Vs, ld, D, ty, tx);
+__device__ __forceinline__ void ds_of(
+    float* Ps, float* DSs, float (&s)[4][4], const float (&dp)[4][4],
+    const float (&lse_r)[4], const float (&dl_r)[4], int q_lo, int k_lo,
+    int nq, int nk, int causal, int window, float scale, int ty, int tx) {
   const bool inner = interior(q_lo, k_lo, nq, nk, causal, window);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -87,7 +92,21 @@ __device__ __forceinline__ void probs_ds(
       const float p = ok ? expf(__fmul_rn(s[i][j], scale) - lse_r[i]) : 0.f;
       DSs[r * PS + c] = round_to<T>(p * (dp[i][j] - dl_r[i]) * scale);
       if (Ps) Ps[r * PS + c] = round_to<T>(p);
+      s[i][j] = p;
     }
+}
+
+template <typename T>
+__device__ __forceinline__ void probs_ds(
+    float* Ps, float* DSs, const float* Qs, const float* Ks, const float* Gs,
+    const float* Vs, const float (&lse_r)[4], const float (&dl_r)[4], int ld,
+    int D, int q_lo, int k_lo, int nq, int nk, int causal, int window,
+    float scale, int ty, int tx) {
+  float s[4][4], dp[4][4];
+  dot_tile(s, Qs, Ks, ld, D, ty, tx);
+  dot_tile(dp, Gs, Vs, ld, D, ty, tx);
+  ds_of<T>(Ps, DSs, s, dp, lse_r, dl_r, q_lo, k_lo, nq, nk, causal, window,
+           scale, ty, tx);
 }
 
 // lse and delta of the thread's q rows ty + 16 i of tile q_lo (0 past nq:
@@ -112,12 +131,15 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
     const float* __restrict__ sin, T* __restrict__ dq, int G, int nq, int nk,
     int D, int causal, int window, float scale) {
   constexpr int JC = DMAX / 16;
+  // above 128 columns four [64][D + 1] tiles exceed shared memory: k and v
+  // take turns in one (v for dp, then k for s and ds k)
+  constexpr bool ONE_KV = DMAX > 128;
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* Qs = smem;
   float* Gs = Qs + BQ * ld;
   float* Ks = Gs + BQ * ld;
-  float* Vs = Ks + BK * ld;
+  float* Vs = ONE_KV ? Ks : Ks + BK * ld;
   float* DSs = Vs + BK * ld;
 
   const int bh = blockIdx.y, q_lo = blockIdx.x * BQ;
@@ -142,11 +164,24 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   for (int kt = lo; kt < hi; ++kt) {
     const int k_lo = kt * BK;
     __syncthreads();
-    load_tile<T>(Ks, ld, kb, k_lo, nk, D, cos, sin);
-    load_tile<T>(Vs, ld, vb, k_lo, nk, D, nullptr, nullptr);
-    __syncthreads();
-    probs_ds<T>(nullptr, DSs, Qs, Ks, Gs, Vs, lse_r, dl_r, ld, D, q_lo, k_lo,
-                nq, nk, causal, window, scale, ty, tx);
+    if constexpr (ONE_KV) {
+      load_tile<T>(Vs, ld, vb, k_lo, nk, D, nullptr, nullptr);
+      __syncthreads();
+      float s[4][4], dp[4][4];
+      dot_tile(dp, Gs, Vs, ld, D, ty, tx);
+      __syncthreads();
+      load_tile<T>(Ks, ld, kb, k_lo, nk, D, cos, sin);
+      __syncthreads();
+      dot_tile(s, Qs, Ks, ld, D, ty, tx);
+      ds_of<T>(nullptr, DSs, s, dp, lse_r, dl_r, q_lo, k_lo, nq, nk, causal,
+               window, scale, ty, tx);
+    } else {
+      load_tile<T>(Ks, ld, kb, k_lo, nk, D, cos, sin);
+      load_tile<T>(Vs, ld, vb, k_lo, nk, D, nullptr, nullptr);
+      __syncthreads();
+      probs_ds<T>(nullptr, DSs, Qs, Ks, Gs, Vs, lse_r, dl_r, ld, D, q_lo,
+                  k_lo, nq, nk, causal, window, scale, ty, tx);
+    }
     __syncthreads();
     acc_tile<JC, false>(acc, DSs, Ks, ld, D, ty, tx);
   }
@@ -172,14 +207,18 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     const float* __restrict__ sin, T* __restrict__ dk, T* __restrict__ dv,
     int G, int nq, int nk, int D, int causal, int window, float scale) {
   constexpr int JC = DMAX / 16;
+  // above 128 columns four [64][D + 1] tiles and two score tiles exceed
+  // shared memory: q and g take turns in one tile and ds and round(p) in
+  // one score tile (g for dp, q for s and dk, g again for dv)
+  constexpr bool ONE_QG = DMAX > 128;
   extern __shared__ float smem[];
   const int ld = D + 1;
   float* Ks = smem;
   float* Vs = Ks + BK * ld;
   float* Qs = Vs + BK * ld;
-  float* Gs = Qs + BQ * ld;
+  float* Gs = ONE_QG ? Qs : Qs + BQ * ld;
   float* Ps = Gs + BQ * ld;
-  float* DSs = Ps + BQ * PS;
+  float* DSs = ONE_QG ? Ps : Ps + BQ * PS;
 
   const int bkv = blockIdx.y, k_lo = blockIdx.x * BK;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -200,17 +239,42 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     const size_t bh = (size_t)bkv * G + gh;
     for (int qt = lo; qt < hi; ++qt) {
       const int q_lo = qt * BQ;
-      __syncthreads();
-      load_tile<T>(Qs, ld, q + bh * nq * D, q_lo, nq, D, cos, sin);
-      load_tile<T>(Gs, ld, g + bh * nq * D, q_lo, nq, D, nullptr, nullptr);
-      __syncthreads();
       float lse_r[4], dl_r[4];
-      row_stats(lse_r, dl_r, lse + bh * nq, delta + bh * nq, q_lo, nq, ty);
-      probs_ds<T>(Ps, DSs, Qs, Ks, Gs, Vs, lse_r, dl_r, ld, D, q_lo, k_lo,
-                  nq, nk, causal, window, scale, ty, tx);
       __syncthreads();
-      acc_tile<JC, true>(dv_acc, Ps, Gs, ld, D, ty, tx);
-      acc_tile<JC, true>(dk_acc, DSs, Qs, ld, D, ty, tx);
+      if constexpr (ONE_QG) {
+        load_tile<T>(Gs, ld, g + bh * nq * D, q_lo, nq, D, nullptr, nullptr);
+        __syncthreads();
+        float s[4][4], dp[4][4];
+        dot_tile(dp, Gs, Vs, ld, D, ty, tx);
+        __syncthreads();
+        load_tile<T>(Qs, ld, q + bh * nq * D, q_lo, nq, D, cos, sin);
+        __syncthreads();
+        dot_tile(s, Qs, Ks, ld, D, ty, tx);
+        row_stats(lse_r, dl_r, lse + bh * nq, delta + bh * nq, q_lo, nq, ty);
+        ds_of<T>(nullptr, DSs, s, dp, lse_r, dl_r, q_lo, k_lo, nq, nk,
+                 causal, window, scale, ty, tx);
+        __syncthreads();
+        acc_tile<JC, true>(dk_acc, DSs, Qs, ld, D, ty, tx);
+        __syncthreads();  // ds and q are read: round(p) and g take their place
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            Ps[(ty + 16 * i) * PS + tx + 16 * j] = round_to<T>(s[i][j]);
+        load_tile<T>(Gs, ld, g + bh * nq * D, q_lo, nq, D, nullptr, nullptr);
+        __syncthreads();
+        acc_tile<JC, true>(dv_acc, Ps, Gs, ld, D, ty, tx);
+      } else {
+        load_tile<T>(Qs, ld, q + bh * nq * D, q_lo, nq, D, cos, sin);
+        load_tile<T>(Gs, ld, g + bh * nq * D, q_lo, nq, D, nullptr, nullptr);
+        __syncthreads();
+        row_stats(lse_r, dl_r, lse + bh * nq, delta + bh * nq, q_lo, nq, ty);
+        probs_ds<T>(Ps, DSs, Qs, Ks, Gs, Vs, lse_r, dl_r, ld, D, q_lo, k_lo,
+                    nq, nk, causal, window, scale, ty, tx);
+        __syncthreads();
+        acc_tile<JC, true>(dv_acc, Ps, Gs, ld, D, ty, tx);
+        acc_tile<JC, true>(dk_acc, DSs, Qs, ld, D, ty, tx);
+      }
     }
   }
 
@@ -269,6 +333,7 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dq_tc(
   using tc::bf16;
   constexpr int KS = DMAX / 16, NT = DMAX / 8;
   constexpr bool HOLD = DMAX <= 64;  // at 128 the registers go to acc
+  constexpr int KW = DMAX > 128 ? 32 : BK;  // keys a pass
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int ts = tc::stride(D);
   bf16* Qs = reinterpret_cast<bf16*>(tc_smem);
@@ -320,22 +385,27 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dq_tc(
     const bf16* Kt = Ks + buf * BK * ts;
     const bf16* Vt = Vs + buf * BK * ts;
 
-    float s[8][4], dp[8][4];
-    tc::dot_tile(s, qf, Kt, D, lane);
-    tc::dot_tile(dp, gf, Vt, D, lane);
     const bool inner = interior(q_lo, k_lo, nq, nk, causal, window);
+    // the tile's keys in one pass (in two of 32 above 128 columns, where
+    // acc takes the registers)
+#pragma unroll 1
+    for (int k0 = 0; k0 < BK; k0 += KW) {
+      float s[KW / 8][4], dp[KW / 8][4];
+      tc::dot_tile(s, qf, Kt + k0 * ts, D, lane);
+      tc::dot_tile(dp, gf, Vt + k0 * ts, D, lane);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < KW / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const bool ok = inner || valid(r0 + 8 * h,
-                                       k_lo + 8 * j + c0 + (e & 1), nq, nk,
-                                       causal, window);
-        const float p = ok ? expf(__fmul_rn(s[j][e], scale) - lr[h]) : 0.f;
-        s[j][e] = p * (dp[j][e] - dr[h]) * scale;  // ds, rounded when packed
-      }
-    tc::acc_tile(acc, s, Kt, D, lane);
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const bool ok = inner || valid(r0 + 8 * h,
+                                         k_lo + k0 + 8 * j + c0 + (e & 1), nq,
+                                         nk, causal, window);
+          const float p = ok ? expf(__fmul_rn(s[j][e], scale) - lr[h]) : 0.f;
+          s[j][e] = p * (dp[j][e] - dr[h]) * scale;  // ds, rounded when packed
+        }
+      tc::acc_tile(acc, s, Kt + k0 * ts, D, lane);
+    }
     __syncthreads();
   }
   mma::cp_async_wait<0>();
@@ -350,8 +420,15 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dq_tc(
                                 cos, sin);
 }
 
+// threads of a dk/dv block: 4 warps, or above 128 columns 8 in two warp
+// groups, one summing dv and the other dk over the same 16-row slices (one
+// D-wide accumulator each: two would take 256 registers)
+__host__ __device__ constexpr int dkv_threads(int dmax) {
+  return dmax > 128 ? 2 * tc::THREADS : tc::THREADS;
+}
+
 template <int DMAX>
-__global__ void __launch_bounds__(tc::THREADS) flash_bwd_dkv_tc(
+__global__ void __launch_bounds__(dkv_threads(DMAX)) flash_bwd_dkv_tc(
     const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
     const tc::bf16* __restrict__ v, const tc::bf16* __restrict__ g,
     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -361,6 +438,8 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dkv_tc(
   using tc::bf16;
   constexpr int KS = DMAX / 16, NT = DMAX / 8;
   constexpr bool HOLD = DMAX <= 64;
+  constexpr bool SPLIT = DMAX > 128;
+  constexpr int NTH = dkv_threads(DMAX);
   extern __shared__ __align__(16) unsigned char tc_smem[];
   const int ts = tc::stride(D);
   bf16* Ks = reinterpret_cast<bf16*>(tc_smem);
@@ -375,32 +454,38 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dkv_tc(
   const int C = gridDim.z, rank = blockIdx.z;
   const int m_lo = rank * G / C, per = (rank + 1) * G / C - m_lo;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = k_lo + 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
-  tc::zero_pads(Ks, 6 * BK, D);
+  // the warp's 16-row slice, and (SPLIT) its sum: 0 dv, 1 dk
+  const int rw = warp % 4, role = warp / 4;
+  const int r0 = k_lo + 16 * rw + (lane >> 2), c0 = 2 * (lane & 3);
+  tc::zero_pads<NTH>(Ks, 6 * BK, D);
   int lo, hi;
   q_range(k_lo, nq, nk, causal, window, &lo, &hi);
   const int T = max(hi - lo, 0), steps = per * T;
-  tc::load_tile(Ks, k + (size_t)bkv * nk * D, k_lo, nk, D, cos, sin);
-  tc::load_tile(Vs, v + (size_t)bkv * nk * D, k_lo, nk, D, nullptr, nullptr);
+  tc::load_tile<NTH>(Ks, k + (size_t)bkv * nk * D, k_lo, nk, D, cos, sin);
+  tc::load_tile<NTH>(Vs, v + (size_t)bkv * nk * D, k_lo, nk, D, nullptr,
+                     nullptr);
   // step i (member m_lo + i / T, q tile lo + i % T) into buffer b:
   // q (rotated), g, lse, delta
   auto load_q = [&](int b, int i) {
     const size_t bh = (size_t)bkv * G + m_lo + i / T;
     const int q_lo = (lo + i % T) * BQ;
-    tc::load_tile(Qs + b * BQ * ts, q + bh * nq * D, q_lo, nq, D, cos, sin);
-    tc::load_tile(Gs + b * BQ * ts, g + bh * nq * D, q_lo, nq, D, nullptr,
-                  nullptr);
-    tc::load_rows(Ls + b * BQ, lse + bh * nq, q_lo, nq);
-    tc::load_rows(Ds + b * BQ, delta + bh * nq, q_lo, nq);
+    tc::load_tile<NTH>(Qs + b * BQ * ts, q + bh * nq * D, q_lo, nq, D, cos,
+                       sin);
+    tc::load_tile<NTH>(Gs + b * BQ * ts, g + bh * nq * D, q_lo, nq, D,
+                       nullptr, nullptr);
+    tc::load_rows<NTH>(Ls + b * BQ, lse + bh * nq, q_lo, nq);
+    tc::load_rows<NTH>(Ds + b * BQ, delta + bh * nq, q_lo, nq);
   };
   if (steps > 0) load_q(0, 0);
   mma::cp_async_commit();
 
   tc::AFrags<KS, HOLD> kf, vf;
   // rows r0 and r0 + 8 of this k tile, summed over this block's members
-  float dka[NT][4], dva[NT][4];
+  // (SPLIT: acc is dv in warp group 0 and dk in warp group 1)
+  float dka[NT][4], dva[SPLIT ? 1 : NT][4];
+  float(&acc)[NT][4] = dka;
   tc::zero(dka);
-  tc::zero(dva);
+  if constexpr (!SPLIT) tc::zero(dva);
   for (int i = 0; i < steps; ++i) {
     const int buf = i & 1, q_lo = (lo + i % T) * BQ;
     if (i + 1 < steps) load_q(buf ^ 1, i + 1);
@@ -408,8 +493,8 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dkv_tc(
     mma::cp_async_wait<1>();
     __syncthreads();
     if (i == 0) {
-      kf.init(Ks + 16 * warp * ts, D, lane);
-      vf.init(Vs + 16 * warp * ts, D, lane);
+      kf.init(Ks + 16 * rw * ts, D, lane);
+      vf.init(Vs + 16 * rw * ts, D, lane);
     }
     const bf16* Qt = Qs + buf * BQ * ts;
     const bf16* Gt = Gs + buf * BQ * ts;
@@ -423,8 +508,9 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dkv_tc(
 #pragma unroll 1
     for (int q0 = 0; q0 < BQ; q0 += 32) {
       float st[4][4], dpt[4][4];
+      const bool want_ds = !SPLIT || role == 1;
       tc::dot_tile(st, kf, Qt + q0 * ts, D, lane);
-      tc::dot_tile(dpt, vf, Gt + q0 * ts, D, lane);
+      if (want_ds) tc::dot_tile(dpt, vf, Gt + q0 * ts, D, lane);
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -434,11 +520,18 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dkv_tc(
                                          causal, window);
           const float p =
               ok ? expf(__fmul_rn(st[j][e], scale) - Lt[c]) : 0.f;
-          dpt[j][e] = p * (dpt[j][e] - Dt[c]) * scale;  // ds^T
-          st[j][e] = p;                                 // p^T
+          if (want_ds) dpt[j][e] = p * (dpt[j][e] - Dt[c]) * scale;  // ds^T
+          st[j][e] = p;                                              // p^T
         }
-      tc::acc_tile(dva, st, Gt + q0 * ts, D, lane);   // dv += round(p)^T g
-      tc::acc_tile(dka, dpt, Qt + q0 * ts, D, lane);  // dk += round(ds)^T q
+      if constexpr (SPLIT) {
+        if (role == 0)
+          tc::acc_tile(acc, st, Gt + q0 * ts, D, lane);   // dv
+        else
+          tc::acc_tile(acc, dpt, Qt + q0 * ts, D, lane);  // dk
+      } else {
+        tc::acc_tile(dva, st, Gt + q0 * ts, D, lane);   // dv += round(p)^T g
+        tc::acc_tile(dka, dpt, Qt + q0 * ts, D, lane);  // dk += round(ds)^T q
+      }
     }
     __syncthreads();
   }
@@ -451,8 +544,12 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dkv_tc(
   // shared memory, counter-rotates dk and casts both once
   const int lf = D + 4;
   float* Fk = reinterpret_cast<float*>(Qs);
-  tc::stage(Fk, lf, dka, 16 * warp, D, lane);
-  tc::stage(Fk + BK * lf, lf, dva, 16 * warp, D, lane);
+  if constexpr (SPLIT) {
+    tc::stage(Fk + (1 - role) * BK * lf, lf, acc, 16 * rw, D, lane);
+  } else {
+    tc::stage(Fk, lf, dka, 16 * warp, D, lane);
+    tc::stage(Fk + BK * lf, lf, dva, 16 * warp, D, lane);
+  }
   cg::cluster_group cluster = cg::this_cluster();
   if (C > 1)
     cluster.sync();
@@ -460,7 +557,7 @@ __global__ void __launch_bounds__(tc::THREADS) flash_bwd_dkv_tc(
     __syncthreads();
   const int half = D / 2, q4 = half / 4;  // units: 4 columns + partners
   const int units = (BK - rank + C - 1) / C * q4;
-  for (int idx = threadIdx.x; idx < units; idx += tc::THREADS) {
+  for (int idx = threadIdx.x; idx < units; idx += NTH) {
     const int r = rank + C * (idx / q4), c = (idx % q4) * 4;
     const int row = k_lo + r;
     if (row >= nk) continue;
@@ -510,7 +607,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* g,
               int D, int causal, int window, cudaStream_t s) {
   auto kern = flash_bwd_dq_kernel<T, DMAX>;
   size_t smem;
-  if (int rc = set_smem(kern, D, 4, 1, &smem)) return rc;
+  if (int rc = set_smem(kern, D, DMAX > 128 ? 3 : 4, 1, &smem)) return rc;
   const dim3 grid((nq + BQ - 1) / BQ, BH);
   kern<<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -526,7 +623,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* g,
                int nk, int D, int causal, int window, cudaStream_t s) {
   auto kern = flash_bwd_dkv_kernel<T, DMAX>;
   size_t smem;
-  if (int rc = set_smem(kern, D, 4, 2, &smem)) return rc;
+  if (int rc = set_smem(kern, D, DMAX > 128 ? 3 : 4, DMAX > 128 ? 1 : 2,
+                        &smem))
+    return rc;
   const dim3 grid((nk + BK - 1) / BK, BHkv);
   kern<<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
@@ -572,7 +671,7 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* g,
   cluster.val.clusterDim.z = C;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((nk + BK - 1) / BK, BHkv, C);
-  cfg.blockDim = dim3(tc::THREADS);
+  cfg.blockDim = dim3(dkv_threads(DMAX));
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cfg.attrs = &cluster;
@@ -587,7 +686,7 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* g,
 }
 
 bool bad_args(int D, int G, int nq, int nk) {
-  return D < 8 || D > 128 || D % 8 || G < 1 || nq < 0 || nk < 0;
+  return D < 8 || D > 256 || D % 8 || G < 1 || nq < 0 || nk < 0;
 }
 
 }  // namespace
@@ -595,8 +694,8 @@ bool bad_args(int D, int G, int nq, int nk) {
 // Each returns cudaGetLastError() after its launch (0 when accepted).
 // q, g [BHkv * G, nq, D], k, v [BHkv, nk, D] of one type; lse, delta f32
 // [BHkv * G, nq]; cos, sin f32 [nq, D / 2] or both null. D a multiple of 8
-// up to 128. bf16: q, k, v, g and the outputs 16-byte aligned (the wrapper
-// checks).
+// up to 256 (instances for D up to 64, 128 and 256). bf16: q, k, v, g and
+// the outputs 16-byte aligned (the wrapper checks).
 
 extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
                             const void* v, const void* g, const void* lse,
@@ -613,16 +712,17 @@ extern "C" int flash_bwd_dq(int dtype, const void* q, const void* k,
               *c = static_cast<const float*>(cos),
               *sn = static_cast<const float*>(sin);
   if (dtype == DTYPE_BF16) {
-    return D <= 64 ? launch_dq_tc<64>(q, k, v, g, l, dl, c, sn, dq, BH, G,
-                                      nq, nk, D, causal, window, s)
-                   : launch_dq_tc<128>(q, k, v, g, l, dl, c, sn, dq, BH, G,
-                                       nq, nk, D, causal, window, s);
+    auto run = D <= 64 ? launch_dq_tc<64> : D <= 128 ? launch_dq_tc<128>
+                                                     : launch_dq_tc<256>;
+    return run(q, k, v, g, l, dl, c, sn, dq, BH, G, nq, nk, D, causal, window,
+               s);
   }
   if (dtype == DTYPE_F32) {
-    return D <= 64 ? launch_dq<float, 64>(q, k, v, g, l, dl, c, sn, dq, BH,
-                                          G, nq, nk, D, causal, window, s)
-                   : launch_dq<float, 128>(q, k, v, g, l, dl, c, sn, dq, BH,
-                                           G, nq, nk, D, causal, window, s);
+    auto run = D <= 64    ? launch_dq<float, 64>
+               : D <= 128 ? launch_dq<float, 128>
+                          : launch_dq<float, 256>;
+    return run(q, k, v, g, l, dl, c, sn, dq, BH, G, nq, nk, D, causal, window,
+               s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -641,19 +741,17 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
               *c = static_cast<const float*>(cos),
               *sn = static_cast<const float*>(sin);
   if (dtype == DTYPE_BF16) {
-    return D <= 64 ? launch_dkv_tc<64>(q, k, v, g, l, dl, c, sn, dk, dv,
-                                       BHkv, G, nq, nk, D, causal, window, s)
-                   : launch_dkv_tc<128>(q, k, v, g, l, dl, c, sn, dk, dv,
-                                        BHkv, G, nq, nk, D, causal, window,
-                                        s);
+    auto run = D <= 64 ? launch_dkv_tc<64> : D <= 128 ? launch_dkv_tc<128>
+                                                      : launch_dkv_tc<256>;
+    return run(q, k, v, g, l, dl, c, sn, dk, dv, BHkv, G, nq, nk, D, causal,
+               window, s);
   }
   if (dtype == DTYPE_F32) {
-    return D <= 64 ? launch_dkv<float, 64>(q, k, v, g, l, dl, c, sn, dk, dv,
-                                           BHkv, G, nq, nk, D, causal,
-                                           window, s)
-                   : launch_dkv<float, 128>(q, k, v, g, l, dl, c, sn, dk, dv,
-                                            BHkv, G, nq, nk, D, causal,
-                                            window, s);
+    auto run = D <= 64    ? launch_dkv<float, 64>
+               : D <= 128 ? launch_dkv<float, 128>
+                          : launch_dkv<float, 256>;
+    return run(q, k, v, g, l, dl, c, sn, dk, dv, BHkv, G, nq, nk, D, causal,
+               window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -662,15 +760,15 @@ extern "C" int flash_bwd_dkv(int dtype, const void* q, const void* k,
 // its last launch, as the runtime holds it (-1 on error). Each returns the
 // CUDA error code.
 extern "C" int flash_bwd_dq_smem(int D, int* bytes) {
-  auto k64 = flash_bwd_dq_tc<64>;
-  auto k128 = flash_bwd_dq_tc<128>;
-  return D <= 64 ? flash::tc::smem_of(k64, bytes)
-                 : flash::tc::smem_of(k128, bytes);
+  auto kern = D <= 64    ? flash_bwd_dq_tc<64>
+              : D <= 128 ? flash_bwd_dq_tc<128>
+                         : flash_bwd_dq_tc<256>;
+  return flash::tc::smem_of(kern, bytes);
 }
 
 extern "C" int flash_bwd_dkv_smem(int D, int* bytes) {
-  auto k64 = flash_bwd_dkv_tc<64>;
-  auto k128 = flash_bwd_dkv_tc<128>;
-  return D <= 64 ? flash::tc::smem_of(k64, bytes)
-                 : flash::tc::smem_of(k128, bytes);
+  auto kern = D <= 64    ? flash_bwd_dkv_tc<64>
+              : D <= 128 ? flash_bwd_dkv_tc<128>
+                         : flash_bwd_dkv_tc<256>;
+  return flash::tc::smem_of(kern, bytes);
 }

@@ -204,7 +204,8 @@ inline int set_smem(K kernel, int D, int tiles, int scores, size_t* bytes) {
 // ---------------------------------------------------------------------------
 // bf16 instance on tensor cores
 //
-// A block is 4 warps (128 threads) over one 64-row tile; warp w owns its
+// A block is 4 warps (128 threads) over one 64-row tile (dk/dv at D above
+// 128: 8, two warp groups, flash_bwd.cu); warp w owns its
 // rows 16 w .. 16 w + 15 and every product of those rows runs on
 // mma.sync m16n8k16 (bf16 operands, f32 sums): a warp's 16 x 64 score tile
 // is 8 accumulator fragments, s[j] holding columns 8 j .. 8 j + 7 (or 4,
@@ -250,24 +251,27 @@ inline int smem_of(K kernel, int* bytes) {
   return static_cast<int>(rc);
 }
 
-// zero the pad columns D .. DP of `rows` staged rows (D % 16 == 8 only)
+// zero the pad columns D .. DP of `rows` staged rows (D % 16 == 8 only);
+// NTH threads share the rows (the load helpers below take the same)
+template <int NTH = THREADS>
 __device__ __forceinline__ void zero_pads(bf16* t, int rows, int D) {
   if (D % 16 == 0) return;
   const int ts = stride(D);
-  for (int r = threadIdx.x; r < rows; r += THREADS)
+  for (int r = threadIdx.x; r < rows; r += NTH)
     *reinterpret_cast<uint4*>(t + (size_t)r * ts + D) = uint4{0, 0, 0, 0};
 }
 
 // Rows [row0, row0 + 64) of x [n, D] into dst [64][TS]: by cp.async, or,
 // with tables, rotated by RoPE at each row's position in f32 and rounded to
 // bf16 (the reference's _rot). Rows past n are zero.
+template <int NTH = THREADS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* x, int row0,
                                           int n, int D, const float* cos,
                                           const float* sin) {
   const int ts = stride(D);
   if (!cos) {
     const int chunks = D / 8;
-    for (int idx = threadIdx.x; idx < BQ * chunks; idx += THREADS) {
+    for (int idx = threadIdx.x; idx < BQ * chunks; idx += NTH) {
       const int r = idx / chunks, c = (idx - r * chunks) * 8;
       const int row = row0 + r;
       const bool ok = row < n;
@@ -276,12 +280,13 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* x, int row0,
     }
     return;
   }
-  flash::load_tile<bf16, THREADS>(dst, ts, x, row0, n, D, cos, sin);
+  flash::load_tile<bf16, NTH>(dst, ts, x, row0, n, D, cos, sin);
 }
 // rows [row0, row0 + 64) of the f32 vector x [n] into dst [64]; 0 past n
+template <int NTH = THREADS>
 __device__ __forceinline__ void load_rows(float* dst, const float* x,
                                           int row0, int n) {
-  for (int r = threadIdx.x; r < BQ; r += THREADS) {
+  for (int r = threadIdx.x; r < BQ; r += NTH) {
     const bool ok = row0 + r < n;
     mma::cp_async4(dst + r, x + (ok ? row0 + r : 0), ok);
   }
@@ -369,12 +374,41 @@ __device__ __forceinline__ void dot_tile(float (&s)[NJ][4],
 }
 
 // acc += round(p) x: p a warp's 16 x 8 NJ fragments (rounded to bf16 here,
-// repacked as A fragments), x the first 8 NJ rows of a staged tile
+// repacked as A fragments), x the first 8 NJ rows of a staged tile. Up to
+// 128 columns (NT 16) a k step loads all its B fragments before its
+// products; wider (NT 32, D up to 256) it loads and multiplies them 4
+// pairs at a time, so that 16 registers and not 64 hold them beside acc.
 template <int NT, int NJ>
 __device__ __forceinline__ void acc_tile(float (&acc)[NT][4],
                                          const float (&p)[NJ][4],
                                          const bf16* x, int D, int lane) {
   const int ts = stride(D), nks = dpad(D) / 16;
+  if constexpr (NT > 16) {
+    constexpr int JB = 4;
+#pragma unroll
+    for (int kk = 0; kk < NJ / 2; ++kk) {
+      const uint32_t a[4] = {
+          mma::pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+          mma::pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+          mma::pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+          mma::pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+      for (int j0 = 0; j0 < NT / 2; j0 += JB) {
+        uint32_t b[JB][4];
+#pragma unroll
+        for (int jb = 0; jb < JB; ++jb)
+          if (j0 + jb < nks) frag_bt(b[jb], x, ts, 16 * (j0 + jb), kk, lane);
+#pragma unroll
+        for (int jb = 0; jb < JB; ++jb) {
+          if (j0 + jb < nks) {
+            mma::mma_bf16(acc[2 * (j0 + jb)], a, b[jb][0], b[jb][1]);
+            mma::mma_bf16(acc[2 * (j0 + jb) + 1], a, b[jb][2], b[jb][3]);
+          }
+        }
+      }
+    }
+    return;
+  }
 #pragma unroll
   for (int kk = 0; kk < NJ / 2; ++kk) {
     uint32_t b[NT / 2][4];

@@ -29,9 +29,10 @@
 //
 // bf16 (flash_fwd_tc, flash_common.cuh's flash::tc): 4 warps, 16 q rows
 // each. The q tile is staged once (rotated first with tables) and held as
-// mma A fragments; k and v tiles are double-buffered in shared memory as
-// bf16 and the next pair is copied by cp.async while the current one is
-// multiplied. s = q k^T and acc += round(p) v run on mma.sync m16n8k16
+// mma A fragments (read from the staged tile at each k tile when D > 128,
+// where the D-wide accumulator takes 128 registers); k and v tiles are
+// double-buffered in shared memory as bf16 and the next pair is copied by
+// cp.async while the current one is multiplied. s = q k^T and acc += round(p) v run on mma.sync m16n8k16
 // (f32 sums); the row max and sum run over the 4 lanes that share a row
 // (each lane keeps its share of l and the 4 are added once at the end); p
 // goes from the score fragments to the A fragments of p v in registers. out
@@ -163,7 +164,9 @@ __global__ void __launch_bounds__(tc::THREADS) flash_fwd_tc(
   }
   mma::cp_async_commit();
 
-  tc::AFrags<KS, true> qf;
+  // above 128 columns q's fragments are read from Qs at each k tile: o
+  // alone takes 128 registers
+  tc::AFrags<KS, (DMAX <= 128)> qf;
   float o[NT][4];
   tc::zero(o);
   // rows r0 and r0 + 8: the running max and this lane's share of the sum
@@ -294,12 +297,13 @@ int launch(const void* q, const void* k, const void* v, const float* cos,
 // Returns cudaGetLastError() after the launch (0 when it was accepted).
 // q [BH, nq, D], k, v [BH / G, nk, D] of one type; out like q; lse f32
 // [BH, nq]; cos, sin f32 [nq, D / 2] or both null. D a multiple of 8 up to
-// 128. bf16: q, k, v and out 16-byte aligned (the wrapper checks).
+// 256 (instances for D up to 64, 128 and 256). bf16: q, k, v and out
+// 16-byte aligned (the wrapper checks).
 extern "C" int flash_fwd(int dtype, const void* q, const void* k,
                          const void* v, const void* cos, const void* sin,
                          void* out, void* lse, int BH, int G, int nq, int nk,
                          int D, int causal, int window, void* stream) {
-  if (D < 8 || D > 128 || D % 8 || G < 1 || BH % G || nq < 0 || nk < 0)
+  if (D < 8 || D > 256 || D % 8 || G < 1 || BH % G || nq < 0 || nk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (BH == 0 || nq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -307,16 +311,14 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
   const float* sn = static_cast<const float*>(sin);
   float* l = static_cast<float*>(lse);
   if (dtype == DTYPE_BF16) {
-    return D <= 64 ? launch_tc<64>(q, k, v, c, sn, out, l, BH, G, nq, nk, D,
-                                   causal, window, s)
-                   : launch_tc<128>(q, k, v, c, sn, out, l, BH, G, nq, nk, D,
-                                    causal, window, s);
+    auto run = D <= 64 ? launch_tc<64> : D <= 128 ? launch_tc<128>
+                                                  : launch_tc<256>;
+    return run(q, k, v, c, sn, out, l, BH, G, nq, nk, D, causal, window, s);
   }
   if (dtype == DTYPE_F32) {
-    return D <= 64 ? launch<float, 64>(q, k, v, c, sn, out, l, BH, G, nq, nk,
-                                       D, causal, window, s)
-                   : launch<float, 128>(q, k, v, c, sn, out, l, BH, G, nq, nk,
-                                        D, causal, window, s);
+    auto run = D <= 64 ? launch<float, 64> : D <= 128 ? launch<float, 128>
+                                                      : launch<float, 256>;
+    return run(q, k, v, c, sn, out, l, BH, G, nq, nk, D, causal, window, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -325,8 +327,7 @@ extern "C" int flash_fwd(int dtype, const void* q, const void* k,
 // its last launch, as the runtime holds it (-1 on error). Returns the CUDA
 // error code.
 extern "C" int flash_fwd_smem(int D, int* bytes) {
-  auto k64 = flash_fwd_tc<64>;
-  auto k128 = flash_fwd_tc<128>;
-  return D <= 64 ? flash::tc::smem_of(k64, bytes)
-                 : flash::tc::smem_of(k128, bytes);
+  auto kern = D <= 64 ? flash_fwd_tc<64> : D <= 128 ? flash_fwd_tc<128>
+                                                    : flash_fwd_tc<256>;
+  return flash::tc::smem_of(kern, bytes);
 }

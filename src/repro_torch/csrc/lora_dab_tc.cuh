@@ -30,7 +30,9 @@
 // cluster barriers, dA and dB, its stores (and, dense, the partials' sum).
 //
 // Design, one launch:
-// * A thread-block cluster of C members (grid x, at most 8) owns a run of
+// * A thread-block cluster of C members (grid x, at most 8, or 16 where a
+//   member's slice of 8 would not fit shared memory: qwen2.5-32b's MLP,
+//   K or N 27,648, through H100's non-portable cluster size) owns a run of
 //   rows: the grouped entry one cluster a group, its run of tiles; the
 //   dense entry the M rows split into S sub-runs (grid y), one cluster
 //   each. Member c owns 16-column tiles [c nKt / C, (c + 1) nKt / C) of K
@@ -94,7 +96,10 @@ namespace cg = cooperative_groups;
 using namespace lora_tc;
 
 constexpr int WARPS = 8, THREADS = 32 * WARPS;
-constexpr int kMaxC = 8;        // the portable cluster size
+constexpr int kMaxC = 8;        // the portable cluster size: plans start
+constexpr int kMaxCWide = 16;   // H100's non-portable cluster size: a plan
+                                // takes more than 8 members only where a
+                                // member's slice would not fit at 8
 constexpr int kMaxSub = 8;      // dense sub-runs at most
 constexpr int kAccTiles = 16;   // m16 x n8 sum tiles a warp holds (64 f32)
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may have
@@ -380,7 +385,7 @@ __global__ void __launch_bounds__(THREADS, 1) dab_tc(const Params p) {
     for (int i = threadIdx.x; i < R * W2; i += THREADS) {
       float v = 0.f;
 #pragma unroll
-      for (int m = 0; m < kMaxC; ++m)
+      for (int m = 0; m < kMaxCWide; ++m)
         if (m < C) v += member(pb, m)[i];
       const int row = i / W2, col = i % W2;
       if (col < RM)
@@ -568,7 +573,7 @@ bool plan_of(bool grouped, int M, int K, int N, int E, int bm, Plan* pl) {
       *pl = {C, S, Q, RF, nbuf, XS, bytes};
       return true;
     }
-    if (C >= kMaxC) return false;
+    if (C >= kMaxCWide) return false;
   }
 }
 
@@ -586,6 +591,11 @@ int launch_rm(Params p, const Plan& pl, int units, cudaStream_t s) {
   if (cudaError_t rc = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem))
     return static_cast<int>(rc);
+  if (pl.C > kMaxC) {
+    if (cudaError_t rc = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))
+      return static_cast<int>(rc);
+  }
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = pl.C;

@@ -22,7 +22,7 @@ positions counted from 0 on both sides; any Nq and Nk. A row that sees no
 key gets out 0 and lse exactly -1e30, and zero gradients.
 
 Each wrapper launches its kernel for CUDA tensors and raises on what the
-kernel does not take (a D that is not a multiple of 8 up to 128, mixed
+kernel does not take (a D that is not a multiple of 8 up to 256, mixed
 types, other than f32 or bf16, a bf16 q, k, v or g not 16-byte aligned);
 bf16 runs on tensor cores, f32 on CUDA cores (tensor cores would round f32
 operands to TF32). A tensor on the CPU gets the plain version
@@ -38,7 +38,7 @@ from repro_torch.kernels.rope import apply_rope_tables
 
 NEG_INF = -1e30
 #: widest head the kernels take (D a multiple of 8 up to this)
-MAX_D = 128
+MAX_D = 256
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = _build.C_PTR, _build.C_INT

@@ -1,7 +1,9 @@
 """Shared model components (``repro.models.layers``) for the dense and MoE
 families: LoRA-adapted linears (single and tenant-stacked), RMSNorm, RoPE,
-GQA attention (full-sequence for training, or over a per-slot KV cache for
-decode), the SwiGLU MLP and the embedding with a tied or untied head.
+GQA attention with an optional sliding window (full-sequence for training,
+or over a per-slot KV cache for decode: a ring buffer of ``window`` slots
+for a local layer whose window is shorter than the cache), the SwiGLU MLP
+and the embedding with a tied or untied head.
 
 Every trainable-path op takes an :class:`ExecutionPolicy` whose backend
 selects the backward regime: ``structured`` (the hand-derived autograd
@@ -65,15 +67,14 @@ def linear_params(gen, d_in: int, d_out: int, cfg: ArchConfig, *,
 def _frozen_w(gen, d_in: int, d_out: int, dtype, lead, quantize):
     """W0 ~ N(0, 1/d_in) [*lead, d_in, d_out], in ``quantize``'s format if
     one is given. A quantized stack with two or more leading dims (MoE's
-    expert stacks [L, E]) is drawn one [d_in, d_out] matrix at a time,
-    each quantized as it is drawn into outputs made once, so no dense
-    stack beyond one matrix is held. The CPU generator gives those draws
+    expert stacks [L, E], a window pattern's [n_groups, period]) is drawn
+    one [d_in, d_out] matrix at a time, each quantized as it is drawn into
+    outputs made once, so no dense stack beyond one matrix is held. The CPU generator gives those draws
     the values of one draw of the whole stack (its normal fill works in
     chunks of 16 values, and a matrix holds a multiple of 16), so there a
     quantized init is the dense init quantized, bit for bit; a CUDA
     generator's values depend on the size of each draw, so on the card
-    the quantized expert stacks hold other draws of the same
-    distribution."""
+    such quantized stacks hold other draws of the same distribution."""
     def draw(shape):
         return _randn(gen, (*shape, d_in, d_out), dtype).mul_(d_in ** -0.5)
 
@@ -187,12 +188,14 @@ def attention_params(gen, cfg: ArchConfig, *, lead: Tuple[int, ...] = (),
     }
 
 
-def attention(p, x, cfg: ArchConfig, *, cache=None,
+def attention(p, x, cfg: ArchConfig, *, window: int = 0, cache=None,
               policy: ExecutionPolicy = STRUCTURED, adapter_tiles=None):
-    """Causal GQA attention. Without ``cache`` (training) over the whole
+    """Causal GQA attention, over keys less than ``window`` positions back
+    when ``window`` > 0. Without ``cache`` (training) over the whole
     sequence x [B, N, d] at positions 0..N-1. With one (decode): ``cache``
     is {"k": [B,Hkv,S,D], "v": ..., "len": int32 [B]}; new k/v are written
-    at each slot's ``len`` in place, and ``len`` advances by N in place.
+    at each slot's ``len`` in place (at ``len % window`` when the cache is
+    a ring of S == window slots), and ``len`` advances by N in place.
 
     Training attention: ``plain`` autograd of the plain forward, ``cuda``
     the kernel dispatch (``kops.sdpa``: the flash kernels from 64 query
@@ -219,16 +222,16 @@ def attention(p, x, cfg: ArchConfig, *, cache=None,
             k = rope(k, qpos, cfg.rope_theta)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # [B,H,N,D]
         if policy.backend == "plain":
-            out = structured._sdpa_ref(q, k, v, 0, True, 0, None)
+            out = structured._sdpa_ref(q, k, v, window, True, 0, None)
         elif policy.backend == "cuda":
             tabs = krope.rope_tables(qpos, cfg.rope_theta, hd) if fuse \
                 else None
-            out = kops.sdpa(q, k, v, causal=True, rope=tabs)
+            out = kops.sdpa(q, k, v, causal=True, window=window, rope=tabs)
         elif N >= policy.flash_min_seq:
-            out = flash.flash_attention(q, k, v, 0, True, policy.flash_chunk,
-                                        policy.flash_chunk)
+            out = flash.flash_attention(q, k, v, window, True,
+                                        policy.flash_chunk, policy.flash_chunk)
         else:
-            out = structured.sdpa(q, k, v, 0, True)
+            out = structured.sdpa(q, k, v, window, True)
         out = out.transpose(1, 2).reshape(B, N, cfg.n_heads * hd)
         return lin(p["o"], out), None
 
@@ -238,30 +241,64 @@ def attention(p, x, cfg: ArchConfig, *, cache=None,
     k = rope(k, qpos, cfg.rope_theta)
 
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B,H,N,D]
-    kc = _cache_write(cache["k"], k, ln)
-    vc = _cache_write(cache["v"], v, ln)
-    out = structured.sdpa(q, kc, vc, 0, True, ln, ln + N)
+    ring = window if 0 < window == cache["k"].shape[2] else 0
+    kc = _cache_write(cache["k"], k, ln, ring)
+    vc = _cache_write(cache["v"], v, ln, ring)
+    if ring:
+        out = _ring_attend(q, kc, vc, ln, ring)
+    else:
+        out = structured.sdpa(q, kc, vc, window, True, ln, ln + N)
     cache["len"] += N
 
     out = out.transpose(1, 2).reshape(B, N, cfg.n_heads * hd)
     return lin(p["o"], out), cache
 
 
-def _cache_write(c, u, ln):
+def _cache_write(c, u, ln, ring: int = 0):
     """Write ``u`` [B,Hkv,N,D] into cache ``c`` [B,Hkv,S,D] in place, each
-    slot b at its own offset ``ln[b]`` (continuous batching)."""
+    slot b at its own offset ``ln[b]`` (continuous batching); into a ring
+    of ``ring`` slots at ``(ln[b] + n) % ring``. A linear cache's offset is
+    clamped to S - N, as the reference's ``dynamic_update_slice`` clamps
+    it: a batcher's idle rows decode on past the end, and nothing reads
+    what they write."""
     rows = torch.arange(c.shape[0], device=c.device)
+    start = ln if ring else ln.clamp(max=c.shape[2] - u.shape[2])
     for n in range(u.shape[2]):
-        c[rows, :, ln + n] = u[:, :, n]
+        at = start + n
+        c[rows, :, at % ring if ring else at] = u[:, :, n]
     return c
 
 
+def _ring_attend(q, kc, vc, qpos, window: int):
+    """Decode attention over a ring-buffer cache (keys roped at write time),
+    as the reference's: q [B,H,1,D]; kc/vc [B,Hkv,W,D]; slot s holds
+    absolute position p(s) = qpos − ((qpos − s) mod W), valid when
+    0 ≤ p(s) ≤ qpos and p(s) > qpos − W; ``qpos`` [B], per slot."""
+    B, H, _, D = q.shape
+    Hkv, W = kc.shape[1], kc.shape[2]
+    G = H // Hkv
+    qp = qpos.long()[:, None]
+    pos = qp - torch.remainder(qp - torch.arange(W, device=q.device), W)
+    valid = (pos >= 0) & (pos > qp - W) & (pos <= qp)          # [B, W]
+    s = torch.einsum("bhgqd,bhkd->bhgqk", q.reshape(B, Hkv, G, 1, D).float(),
+                     kc.float()) / math.sqrt(D)
+    s = s.masked_fill(~valid[:, None, None, None, :], float("-inf"))
+    p = torch.softmax(s, -1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p.to(vc.dtype).float(),
+                       vc.float())
+    return out.reshape(B, H, 1, D).to(q.dtype)
+
+
 def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
-                  lead: Tuple[int, ...] = (), device="cpu") -> dict:
+                  window: int = 0, lead: Tuple[int, ...] = (),
+                  device="cpu") -> dict:
     """Zeroed per-slot KV cache: a [B] length vector holds every slot at
-    its own position (the reference's ``per_slot=True``)."""
+    its own position (the reference's ``per_slot=True``). A sliding-window
+    layer whose window is shorter than ``max_len`` gets a ring buffer of
+    ``window`` slots."""
     hd = cfg.resolved_head_dim
-    shape = (*lead, batch, cfg.n_kv_heads, max_len, hd)
+    slots = window if 0 < window < max_len else max_len
+    shape = (*lead, batch, cfg.n_kv_heads, slots, hd)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -315,7 +352,12 @@ def embed_params(gen, cfg: ArchConfig):
 
 
 def embed(p, tokens, cfg: ArchConfig):
-    return p["tok"][tokens]
+    """Token rows, times ``cfg.embed_scale`` where there is one (rounded to
+    the table's type first, as the reference does)."""
+    x = p["tok"][tokens]
+    if cfg.embed_scale is not None:
+        x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
+    return x
 
 
 def unembed(p, x, cfg: ArchConfig):

@@ -6,15 +6,24 @@ step.
 Block parameters are stacked ``[L, ...]`` as in the reference's tree (the
 weight bridge relies on it). An MoE model stacks ``moe_block``s; a config
 with ``first_layer_dense`` (DeepSeekMoE) puts a dense block of MLP width
-``d_expert · (top_k + n_shared)`` first, unstacked, as ``block0``. The
-forward and the decode step walk the layers in a Python loop where the
-reference scans; in training each stacked block runs under
-``torch.utils.checkpoint`` when ``policy.remat`` is set, so only block
-inputs are stored across the forward (the reference's ``jax.checkpoint``
-around its scan body, paper §4.3); ``block0`` runs outside it, as in the
-reference. The cache is written in place.
+``d_expert · (top_k + n_shared)`` first, unstacked, as ``block0``. A
+config with a ``window_pattern`` (Gemma3: 5 local layers, then a global
+one) stacks its blocks per pattern period, ``groups`` leaves
+``[n_groups, period, ...]``, as the reference does, so each position of
+the period keeps its own window. The forward and the decode step walk the
+layers in a Python loop where the reference scans; in training each
+stacked block (each group of a patterned model) runs under
+``torch.utils.checkpoint`` when ``policy.remat`` is set, so only block (or
+group) inputs are stored across the forward (the reference's
+``jax.checkpoint`` around its scan body, paper §4.3); ``block0`` runs
+outside it, as in the reference. The cache is written in place; a
+patterned model's cache is keyed per position of the period (``l{i}``:
+a ring of ``window`` slots for a local layer whose window is shorter than
+the cache, else linear), stacked over groups.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -33,11 +42,12 @@ def _require(cfg: ArchConfig, families) -> None:
             f"not {cfg.name!r} ({cfg.family})")
 
 
-def dense_block(bp, x, cfg: ArchConfig, *, cache,
+def dense_block(bp, x, cfg: ArchConfig, *, cache, window: int = 0,
                 policy: ExecutionPolicy = STRUCTURED, adapter_tiles=None):
     h, new_cache = layers.attention(
         bp["attn"], layers.norm(bp["ln1"], x, cfg, policy=policy), cfg,
-        cache=cache, policy=policy, adapter_tiles=adapter_tiles)
+        window=window, cache=cache, policy=policy,
+        adapter_tiles=adapter_tiles)
     x = x + h
     x = x + layers.mlp(bp["mlp"],
                        layers.norm(bp["ln2"], x, cfg, policy=policy),
@@ -97,23 +107,37 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
                        "moe": moe_lib.moe_params(gen, cfg, lead=(L,),
                                                  quantize=method)}
         return p
-    p["blocks"] = {"ln1": ones(L, d),
-                   "attn": layers.attention_params(gen, cfg, lead=(L,),
-                                                   quantize=method),
-                   "ln2": ones(L, d),
-                   "mlp": layers.mlp_params(gen, cfg, lead=(L,),
-                                            quantize=method)}
+    lead = (L,)
+    if cfg.window_pattern:
+        gsz = len(cfg.window_pattern)
+        if L % gsz:
+            raise ValueError(f"{cfg.name}: {L} layers are not whole periods "
+                             f"of the window pattern {cfg.window_pattern}")
+        lead = (L // gsz, gsz)
+    stack = {"ln1": ones(*lead, d),
+             "attn": layers.attention_params(gen, cfg, lead=lead,
+                                             quantize=method),
+             "ln2": ones(*lead, d),
+             "mlp": layers.mlp_params(gen, cfg, lead=lead, quantize=method)}
+    p["groups" if cfg.window_pattern else "blocks"] = stack
     return p
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cpu"):
     """Stacked per-layer, per-slot KV caches (the reference's
     ``init_cache(per_slot=True)``): {"blocks": {"k", "v": [L,B,Hkv,S,D],
-    "len": [L,B]}}."""
+    "len": [L,B]}}; with a window pattern {"groups": {"l{i}": {"k", "v":
+    [n_groups,B,Hkv,S_i,D], "len": [n_groups,B]}}}, S_i the window of
+    position i where that is shorter than ``max_len`` (a ring), else
+    ``max_len``."""
     _require(cfg, ("dense",))
-    return {"blocks": layers.make_kv_cache(
-        cfg, batch, max_len, getattr(torch, cfg.dtype),
-        lead=(cfg.n_layers,), device=device)}
+    kv = functools.partial(layers.make_kv_cache, cfg, batch, max_len,
+                           getattr(torch, cfg.dtype), device=device)
+    if cfg.window_pattern:
+        lead = (cfg.n_layers // len(cfg.window_pattern),)
+        return {"groups": {f"l{i}": kv(window=w, lead=lead)
+                           for i, w in enumerate(cfg.window_pattern)}}
+    return {"blocks": kv(lead=(cfg.n_layers,))}
 
 
 def _layer(tree, i: int):
@@ -122,15 +146,24 @@ def _layer(tree, i: int):
     return tree[i]
 
 
-def _unstack(tree, n: int):
-    """Stacked [L, ...] leaves -> n per-layer trees of views. ``unbind``
-    gives all n views one autograd node, so the gradient of a stacked
-    trainable leaf is assembled once, not summed from n zero-padded
-    copies."""
+def _unstack(tree, n: int, lead: int = 1):
+    """Stacked [L, ...] leaves (``lead`` 2: [n_groups, period, ...], taken
+    as one [L, ...]) -> n per-layer trees of views. ``unbind`` gives all n
+    views one autograd node, so the gradient of a stacked trainable leaf is
+    assembled once, not summed from n zero-padded copies."""
     if isinstance(tree, dict):
-        per = {k: _unstack(v, n) for k, v in tree.items()}
+        per = {k: _unstack(v, n, lead) for k, v in tree.items()}
         return [{k: per[k][i] for k in per} for i in range(n)]
-    return tree.unbind(0)
+    return tree.flatten(0, lead - 1).unbind(0)
+
+
+def _layer_list(params, cfg: ArchConfig):
+    """[(block params, window)] for every stacked layer, in order."""
+    if "groups" in params:
+        return list(zip(_unstack(params["groups"], cfg.n_layers, 2),
+                        (cfg.layer_window(i) for i in range(cfg.n_layers))))
+    blocks = params["blocks"]
+    return [(bp, 0) for bp in _unstack(blocks, blocks["ln1"].shape[0])]
 
 
 def forward(params, cfg: ArchConfig, tokens, *,
@@ -142,17 +175,25 @@ def forward(params, cfg: ArchConfig, tokens, *,
         x = dense_block(params["block0"], x, cfg, cache=None,
                         policy=policy)[0]
 
-    def body(x, bp):
-        if cfg.family == "moe":
-            return moe_block(bp, x, cfg, policy=policy)
-        return dense_block(bp, x, cfg, cache=None, policy=policy)[0]
+    def body(x, group):
+        for bp, window in group:
+            if cfg.family == "moe":
+                x = moe_block(bp, x, cfg, policy=policy)
+            else:
+                x = dense_block(bp, x, cfg, cache=None, window=window,
+                                policy=policy)[0]
+        return x
 
-    blocks = params["blocks"]
-    for bp in _unstack(blocks, blocks["ln1"].shape[0]):
+    # one checkpointed unit a block, or a pattern period (the reference's
+    # scan body: its group inputs are all that is stored)
+    per = len(cfg.window_pattern) or 1
+    layer_list = _layer_list(params, cfg)
+    for g in range(0, len(layer_list), per):
+        group = layer_list[g:g + per]
         if policy.remat:
-            x = checkpoint(body, x, bp, use_reentrant=False)
+            x = checkpoint(body, x, group, use_reentrant=False)
         else:
-            x = body(x, bp)
+            x = body(x, group)
     x = layers.norm(params["final_norm"], x, cfg, policy=policy)
     return layers.unembed(params["embed"], x, cfg)
 
@@ -176,10 +217,11 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *,
     """
     _require(cfg, ("dense",))
     x = layers.embed(params["embed"], tokens, cfg)
-    blocks, cblocks = params["blocks"], cache["blocks"]
-    for i in range(cfg.n_layers):
-        lc = _layer(cblocks, i)
-        x, _ = dense_block(_layer(blocks, i), x, cfg, cache=lc,
+    per = len(cfg.window_pattern) or 1
+    for i, (bp, window) in enumerate(_layer_list(params, cfg)):
+        lc = _layer(cache["groups"][f"l{i % per}"], i // per) \
+            if cfg.window_pattern else _layer(cache["blocks"], i)
+        x, _ = dense_block(bp, x, cfg, cache=lc, window=window,
                            policy=policy, adapter_tiles=adapter_tiles)
     x = layers.norm(params["final_norm"], x, cfg, policy=policy)
     return layers.unembed(params["embed"], x, cfg), cache

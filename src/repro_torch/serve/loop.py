@@ -57,10 +57,20 @@ class _Slot:
 
 @torch.no_grad()
 def _reset_slot(cache, b: int) -> None:
-    """Zero slot ``b``'s rows in every stacked ``[L, B, ...]`` cache leaf,
-    in place, so nothing leaks from the row's previous occupant."""
-    for leaf in cache["blocks"].values():
-        leaf[:, b].zero_()
+    """Zero slot ``b``'s rows in every cache leaf, in place, so nothing
+    leaks from the row's previous occupant. Stacked leaves (``[L, B, ...]``
+    blocks, ``[n_groups, B, ...]`` per position of a window pattern's
+    period) carry the slot axis at 1, an unstacked ``block0`` at 0, as in
+    the reference."""
+    def zero(tree, ax):
+        if isinstance(tree, dict):
+            for leaf in tree.values():
+                zero(leaf, ax)
+        else:
+            tree.select(ax, b).zero_()
+
+    for key, sub in cache.items():
+        zero(sub, 0 if key == "block0" else 1)
 
 
 class ContinuousBatcher:

@@ -280,6 +280,15 @@ CARD_CASES = {
     "G16": (1, 16, 130, 130, 64, True, 0, True),
     "G11": (1, 11, 96, 96, 40, False, 0, False),
     "G12-d128": (1, 12, 128, 128, 128, True, 0, True),
+    # the 256 instance: Gemma3-12B's two path shapes (B·H 16, B·Hkv 8, N
+    # 2048, D 256; a local layer's window 1024 and a global layer), ragged
+    # N, Nq != Nk, D 200 (padded to 208) under a window, G 1
+    "gemma3-local": (8, 2, 2048, 2048, 256, True, 1024, False),
+    "gemma3-global-rope": (8, 2, 2048, 2048, 256, True, 0, True),
+    "d256-ragged300": (2, 2, 300, 300, 256, True, 0, True),
+    "d256-nq-ne-nk": (2, 2, 200, 136, 256, True, 0, False),
+    "d200-window48": (2, 2, 256, 256, 200, True, 48, True),
+    "d256-G1": (4, 1, 256, 256, 256, False, 0, False),
 }
 
 
@@ -332,6 +341,10 @@ def test_flash_kernels_reject_bad_input():
     _need_card()
     q, k, v, _ = (torch.from_numpy(a).cuda()
                   for a in _inputs(22, 2, 2, 64, 64, 36))
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention_fwd(q, k, v, q_per_kv=2)
+    q, k, v, _ = (torch.from_numpy(a).cuda()
+                  for a in _inputs(22, 2, 2, 64, 64, tfa.MAX_D + 8))
     with pytest.raises(ValueError, match="head dim"):
         tfa.flash_attention_fwd(q, k, v, q_per_kv=2)
     q, k, v, _ = (torch.from_numpy(a).cuda()

@@ -717,6 +717,34 @@ def test_lora_dab_bf16_matches_plain_on_card(M, K, N, r, scale):
         assert plan["sub_runs"] * plan["members"] >= 48
 
 
+# qwen2.5-32b's MLP (K or N 27,648) and a ragged rank-16 case there: at 8
+# members a member's slice does not fit shared memory, and the plan takes
+# one of H100's non-portable clusters of up to 16
+DAB_WIDE_CASES = [(256, 5120, 27648, 8), (256, 27648, 5120, 8),
+                  (65, 27648, 5120, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,r", DAB_WIDE_CASES)
+def test_lora_dab_bf16_wide_slices_take_wide_clusters(M, K, N, r):
+    """dA/dB where 8 members' slices would not fit: its plan takes 9-16
+    members, and it matches its plain version (the card tolerance above)
+    with the same bits on a second launch."""
+    _need_card()
+    x, _, a, b, g = [t.to(torch.bfloat16).cuda() for t in _t(
+        *_fused_inputs(21, M, K, N, r))]
+    plan = tlf.dab_plan(M, K, N, r)
+    assert 8 < plan["members"] <= 16
+    assert 0 < plan["smem_bytes"] <= 232448
+    da, db = tlf.lora_dab(x, g, a, b, 2.0)
+    torch.cuda.synchronize()
+    wda, wdb = tlf.lora_dab_ref(x, g, a, b, 2.0)
+    for got, want in ((da, wda), (db, wdb)):
+        _assert_close_scaled(got, want, dict(rtol=2.0 ** -6, atol=1e-2))
+    da2, db2 = tlf.lora_dab(x, g, a, b, 2.0)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+
+
 # one bf16 lora_dab call (M 256, gate/up: 8 sub-runs) and one bf16
 # lora_grouped_dab call (OLMoE's E 64 x 40 rows) under torch.profiler, in a
 # process of its own (as _PROFILE_DX)
