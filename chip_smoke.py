@@ -232,14 +232,40 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    granite-8b and minitron-4b in bf16 and qwen2.5-32b over nf4, each at
    full size, 2 mesp_cuda steps at batch 1 x seq 256 with exact counts and
    finite losses, beside ``init_params``' peak and what it leaves.
+20. Single-stream serving and the recurrent families (``recurrent_phase``):
+   the LoRA forward, dx and dA/dB and both RMSNorm kernels at RWKV6-1.6B's
+   and RecurrentGemma-2B's shapes, M 256 (``check_training_kernels``), the
+   RMSNorm kernels at RWKV6's per-head group norm ([8192, 64]), the LoRA
+   forward at M 4 (single-stream decode) at both families', OLMoE's
+   attention (over nf4 too) and qwen2.5-0.5b's shapes, OLMoE's grouped
+   forward over 64
+   buffers of 32 rows (bf16 and nf4), the flash kernels at
+   ``FLASH_G10_CASES`` (RecurrentGemma's MQA: G 10 at head dim 256, N 256,
+   window 2048), each against its plain version and timed; (d)
+   ``ops.lora_grouped_ragged`` at OLMoE's expert shapes in tiles of 8 rows
+   over ``RAGGED_SIZES`` (empty groups among them) in bf16, int8 and nf4:
+   its forward, dx and dA/dB kernels against their plain versions, and the
+   op end to end (one launch of each, its output the kernel's). (a), (b)
+   both models at full width and depth through ``launch.train``: mesp_cuda,
+   bf16, 1 x 256, 3 steps with exact counts (``recurrent_per_step``), the
+   peak of one ``value_and_grad`` for mesp_cuda and mebp, the loss and
+   LoRA gradients at full width over ``RECURRENT_GRAD_LAYERS`` layers
+   against the plain backend (``compare_grads``, B at ``b_scale_for``),
+   and 64 positions decoded single-stream in f32 against the forward
+   (``decode_vs_forward``; RWKV6's plain path also whole in f64, its
+   decode within ``DECODE_F64_TOL`` of its forward). (c) single-stream serving through
+   ``launch.serve`` (``SINGLE_STREAM_RUNS``: RWKV6, RecurrentGemma,
+   OLMoE-1B-7B over bf16 and nf4, qwen2.5-0.5b with ``--adapters 0``; 4
+   sequences, 16 steps), exact counts a step (``decode_per_step``), ms a
+   step and tokens/s.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
 ``{"train_quant": ...}``, ``{"train_moe": ...}``,
 ``{"train_moe_quant": ...}``, ``{"train_seq": ...}``, ``{"zo": ...}``,
 ``{"train_engines": ...}`` (with the run's seconds),
-``{"core_flash": ...}``, ``{"trainer": ...}`` and ``{"dense_catalog":
-...}`` line each, the card's
+``{"core_flash": ...}``, ``{"trainer": ...}``, ``{"dense_catalog":
+...}`` and ``{"recurrent": ...}`` line each, the card's
 name and power limit, and
 last ``{"ok": true, "device": ...}``. Any mismatch or exception exits
 non-zero. Imports nothing of JAX or of the JAX package ``repro``.
@@ -571,7 +597,9 @@ def _cold_sets(make, nbytes):
     more than 3x the L2 cache, so every launch finds its inputs cold."""
     n = max(2, math.ceil(3 * L2_BYTES / nbytes))
     first = make()
-    return [first] + [tuple(t.clone() for t in first) for _ in range(n - 1)]
+    clone = lambda t: {k: v.clone() for k, v in t.items()} \
+        if isinstance(t, dict) else t.clone()     # a quantized W0 leaf
+    return [first] + [tuple(clone(t) for t in first) for _ in range(n - 1)]
 
 
 def _time_ms(fn, sets, calls=2000):
@@ -1414,9 +1442,11 @@ def _launched_smem(name, D):
 def _with_b(torch, tree, gen, scale=B_SCALE):
     """``tree`` with every LoRA B redrawn nonzero from ``gen`` at ``scale``
     (B = 0 at init would leave dA and the h@B term untested)."""
+    if isinstance(tree, list):     # a hybrid's tail
+        return [_with_b(torch, v, gen, scale) for v in tree]
     out = {}
     for k, v in tree.items():
-        if isinstance(v, dict):
+        if isinstance(v, (dict, list)):
             out[k] = _with_b(torch, v, gen, scale)
         elif k == "b":
             out[k] = (torch.randn(v.shape, generator=gen, device=v.device)
@@ -1427,9 +1457,10 @@ def _with_b(torch, tree, gen, scale=B_SCALE):
 
 
 def _grad_leaves(tree, prefix=""):
-    if isinstance(tree, dict):
+    if isinstance(tree, (dict, list)):
         out = {}
-        for k, v in tree.items():
+        for k, v in (tree.items() if isinstance(tree, dict)
+                     else enumerate(tree)):
             out.update(_grad_leaves(v, f"{prefix}/{k}"))
         return out
     return {} if tree is None else {prefix: tree.float()}
@@ -1507,14 +1538,14 @@ def _check_loss(d):
         raise AssertionError(f"losses differ: {d['loss']} (rtol {LOSS_TOL})")
 
 
-def _check_grads(d, grad_tol=GRAD_TOL):
+def _check_grads(d, grad_tol=GRAD_TOL, n_leaves=14):
     """Per leaf, kernels vs plain bf16 within ``grad_tol`` and no further
     from f32 than twice the plain bf16 backend (+1e-3); the loss within
-    ``LOSS_TOL``."""
+    ``LOSS_TOL``; ``n_leaves`` LoRA leaves (a dense model's 7 linears)."""
     bad = {path: e for path, e in d["leaves"].items()
            if e["kernels_vs_plain"] > grad_tol
            or e["kernels_vs_f32"] > 2 * e["plain_vs_f32"] + 1e-3}
-    if bad or len(d["leaves"]) != 14:
+    if bad or len(d["leaves"]) != n_leaves:
         raise AssertionError(
             f"LoRA gradients: kernels vs plain bf16 over {grad_tol}, or "
             f"further from f32 than twice the plain bf16 backend: {bad}; "
@@ -1523,7 +1554,7 @@ def _check_grads(d, grad_tol=GRAD_TOL):
 
 
 def compare_grads(torch, cfg, params, batch, quantize="none",
-                  f32_tol=None):
+                  f32_tol=None, n_leaves=14):
     """The loss and LoRA gradients of the kernels against the plain backend
     in bf16 and f32 (``_grad_runs``), checked: per leaf, kernels vs plain
     bf16 within ``GRAD_TOL`` and no further from f32 than twice the plain
@@ -1532,7 +1563,7 @@ def compare_grads(torch, cfg, params, batch, quantize="none",
     (``_check_f32_kernels``)."""
     d = _distances(torch, *_grad_runs(torch, cfg, params, batch, quantize,
                                       f32_kernels=f32_tol is not None))
-    _check_grads(d)
+    _check_grads(d, n_leaves=n_leaves)
     if f32_tol is not None:
         _check_f32_kernels(d, f32_tol)
     return d
@@ -1723,6 +1754,8 @@ def _f32(tree):
     they are (the f32 run dequantizes the same bytes to f32)."""
     if isinstance(tree, dict):
         return {k: _f32(v) for k, v in tree.items()}
+    if isinstance(tree, list):     # a hybrid's tail
+        return [_f32(v) for v in tree]
     return tree.float() if tree.is_floating_point() else tree
 
 
@@ -3237,6 +3270,597 @@ def dense_catalog_phase(torch, build, ops, fa, lf, lg, rn, lq, lp4, quant,
     return fig, counts, shapes
 
 
+# ---------- step 20: single-stream serving and the recurrent families
+#: RWKV6-1.6B (configs/rwkv6_1_6b.py): 24 attention-free layers, d 2048,
+#: 32 WKV heads of 64, d_ff 7168, vocab 65,536; RecurrentGemma-2B
+#: (configs/recurrentgemma_2b.py): 26 layers in R, R, A order (8 groups and
+#: a tail of two recurrent blocks), d 2560, RG-LRU 2560 wide, MQA (10 q
+#: heads over 1 kv head of 256, window 2048), d_ff 7680, vocab 256,000
+RWKV_ARCH, RG_ARCH = "rwkv6-1.6b", "recurrentgemma-2b"
+RECURRENT_ARCHS = (RWKV_ARCH, RG_ARCH)
+RECURRENT_STEPS = 3
+#: layers of the full-width gradient check: RWKV6 2; RecurrentGemma one
+#: R, R, A group and a tail of two (every block kind and the tail list)
+RECURRENT_GRAD_LAYERS = {RWKV_ARCH: 2, RG_ARCH: 5}
+#: LoRA leaves of those cuts: 8 linears a RWKV6 layer; 3 a recurrent
+#: block, 7 an attention block, over l0, l1, l2 and the two tail blocks
+RECURRENT_GRAD_LEAVES = {RWKV_ARCH: 16, RG_ARCH: 38}
+#: flash at RecurrentGemma's shape (B*Hkv 1, G 10: the first G above a
+#: cluster of 8 at head dim 256, split unevenly over the members; N 256,
+#: causal, window 2048) and a ragged RoPE edge at G 10
+FLASH_G10_CASES = {
+    "recurrentgemma": (1, 10, 256, 256, 256, True, 2048, False),
+    "g10_ragged_rope": (2, 10, 200, 200, 256, True, 0, True),
+}
+#: single-stream serving: 4 sequences, 16 timed decode steps (and one
+#: warmup step), a cache of 32 positions
+SS_BATCH, SS_STEPS, SS_MAX_LEN = 4, 16, 32
+SINGLE_STREAM_RUNS = {
+    RWKV_ARCH: ["--arch", RWKV_ARCH], RG_ARCH: ["--arch", RG_ARCH],
+    "olmoe-1b-7b": ["--arch", "olmoe-1b-7b"],
+    "olmoe-1b-7b/nf4": ["--arch", "olmoe-1b-7b", "--quantize", "nf4"],
+    "qwen2.5-0.5b/adapters0": ["--arch", "qwen2.5-0.5b", "--adapters", "0"],
+}
+#: decode against the forward, f32, full width: positions, batch, and the
+#: largest |logit difference| over the largest |logit| (summation order)
+DECODE_POSITIONS, DECODE_BATCH, DECODE_F32_TOL = 64, 2, 1e-3
+#: the same of RWKV6's plain path run whole in f64, the witness that the
+#: decode code is right at full width (f64 rounding, magnified as f32's
+#: is, stays far below this)
+DECODE_F64_TOL = 1e-8
+#: forwards of RWKV6's plain f32 path with every weight moved one f32 ulp
+#: up or down at random, each read against the f64 forward: the spread
+#: that f32 rounding alone gives the f32 runs' distance from f64
+DECODE_SPREAD_SAMPLES = 3
+#: the ragged grouped op at OLMoE's expert shapes (d 2048 -> d_expert 1024,
+#: rank 8), tiles of 8 rows: groups interleaved with empty ones, and 64
+#: ragged groups, every fifth empty
+RAGGED_K, RAGGED_N, RAGGED_BM = 2048, 1024, 8
+RAGGED_SIZES = {"interleaved": (8, 0, 13, 0, 2),
+                "olmoe64": tuple(0 if g % 5 == 0 else 1 + (7 * g) % 41
+                                 for g in range(64))}
+RAGGED_FORMATS = ("none", "int8", "nf4")
+#: method -> the grouped (forward, dx) kernels over that expert stack
+GROUPED_ROWS_KERNELS = {"none": ("lora_grouped_gemm", "lora_grouped_dx"),
+                        "int8": GROUPED_TRAIN_Q["int8"],
+                        "nf4": GROUPED_TRAIN_Q["nf4"]}
+
+
+def recurrent_layers(cfg):
+    """[(kind, remat)] of a recurrent config's layers in order: "rwkv", or
+    a hybrid's pattern letter; ``remat``: the layer runs under
+    torch.utils.checkpoint (a hybrid's tail does not)."""
+    if cfg.family == "ssm":
+        return [("rwkv", True)] * cfg.n_layers
+    pat = cfg.hybrid.pattern
+    grouped = cfg.n_layers // len(pat) * len(pat)
+    return [(pat[i % len(pat)], i < grouped) for i in range(cfg.n_layers)]
+
+
+def recurrent_layer_linears(cfg, kind):
+    """[(K, N)] of a layer's LoRA linears, and how many of the first read
+    the frozen embedding through the frozen norm when the layer is layer 0
+    (no input gradient, so no dx): RWKV6 r, k, v, g, o and the channel
+    mix's k, v, r; a recurrent block x_proj, gate_proj, out_proj; an
+    attention block q, k, v, o, gate, up, down."""
+    d = cfg.d_model
+    if kind == "rwkv":
+        return [(d, d)] * 5 + [(d, cfg.d_ff), (cfg.d_ff, d), (d, d)], 4
+    if kind == "R":
+        w = cfg.hybrid.lru_width or d
+        return [(d, w), (d, w), (w, d)], 2
+    q, kv, f = cfg.q_size, cfg.kv_size, cfg.d_ff
+    return [(d, q), (d, kv), (d, kv), (q, d), (d, f), (d, f), (f, d)], 3
+
+
+def recurrent_shapes_per_step(cfg):
+    """{kernel: {(K, N): launches}} of the LoRA kernels in a mesp_cuda
+    training step: each linear's forward twice under remat (once in a
+    hybrid's tail), its dA/dB once, its dx once but in layer 0's linears
+    that read the embedding."""
+    out = {k: {} for k in ("lora_fused_fwd", "lora_dx", "lora_dab")}
+    for i, (kind, remat) in enumerate(recurrent_layers(cfg)):
+        lin, no_dx = recurrent_layer_linears(cfg, kind)
+        for j, s in enumerate(lin):
+            for name, n in (("lora_fused_fwd", 2 if remat else 1),
+                            ("lora_dab", 1),
+                            ("lora_dx", 0 if i == 0 and j < no_dx else 1)):
+                out[name][s] = out[name].get(s, 0) + n
+    return out
+
+
+def _layer_norms(kind):
+    """RMSNorm calls of a layer's forward: RWKV6 ln1, the group norm, ln2;
+    a recurrent block its ln; an attention block ln1, ln2."""
+    return {"rwkv": 3, "R": 1}.get(kind, 2)
+
+
+def recurrent_per_step(cfg, seq):
+    """Launches of every kernel in a mesp_cuda training step of RWKV6 or
+    RecurrentGemma at ``seq`` tokens: ``recurrent_shapes_per_step``'s LoRA
+    kernels; the RMSNorm forward of every norm twice under remat (once in
+    the tail) and the final norm; its backward of every norm but layer 0's
+    first (its input is the embedding), and the final norm; from 64 query
+    rows the flash kernels a local-attention layer (forward twice, backward
+    once)."""
+    want = {k: 0 for k in KERNEL_NAMES}
+    want.update({k: sum(v.values())
+                 for k, v in recurrent_shapes_per_step(cfg).items()})
+    layers = recurrent_layers(cfg)
+    want["rmsnorm_fwd"] = 1 + sum((2 if remat else 1) * _layer_norms(kind)
+                                  for kind, remat in layers)
+    want["rmsnorm_bwd"] = sum(_layer_norms(kind) for kind, _ in layers)
+    attn = [remat for kind, remat in layers if kind == "A"]
+    if seq >= 64 and attn:
+        want.update({"flash_fwd": sum(2 if r else 1 for r in attn),
+                     "flash_bwd_dq": len(attn), "flash_bwd_dkv": len(attn)})
+    return want
+
+
+def decode_per_step(cfg, quantize="none"):
+    """Launches of every kernel in one single-stream decode step (a forward
+    at one position: every LoRA linear once through the dense kernels, an
+    MoE's experts through the grouped forward, every norm once)."""
+    want = {k: 0 for k in KERNEL_NAMES}
+    fwd = QUANT_KERNELS.get(quantize, ("lora_fused_fwd",))[0]
+    L = cfg.n_layers
+    if cfg.family in ("ssm", "hybrid"):
+        layers = recurrent_layers(cfg)
+        want[fwd] = sum(len(recurrent_layer_linears(cfg, k)[0])
+                        for k, _ in layers)
+        want["rmsnorm_fwd"] = 1 + sum(_layer_norms(k) for k, _ in layers)
+    elif cfg.family == "moe":
+        grouped = {"none": "lora_grouped_gemm", "int8": GROUPED_TRAIN_Q[
+            "int8"][0]}.get(quantize, GROUPED_TRAIN_Q["nf4"][0])
+        want.update({fwd: 4 * L, grouped: 3 * L, "rmsnorm_fwd": 2 * L + 1})
+    else:
+        want.update({fwd: 7 * L, "rmsnorm_fwd": 2 * L + 1})
+    return want
+
+
+def _grouped_rows_calls(torch, lg, method, bm):
+    """{kernel: (kernel, plain version)} of the grouped forward, dx and
+    dA/dB over packed rows in tiles of ``bm``, W0 stacks in ``method``'s
+    format, on the inputs of ``_grouped_rows_cases``."""
+    if method == "none":
+        fwd, dx = lg.lora_grouped_gemm, lg.lora_grouped_dx
+        fwd_ref, dx_ref = lg.lora_grouped_gemm_ref, lg.lora_grouped_dx_ref
+        pre = lambda w: (w,)
+    else:
+        pre = lambda w: (w["q"] if "q" in w else w["q4"], w["scale"])
+        if method == "int8":
+            fwd, dx = lg.lora_grouped_gemm_q, lg.lora_grouped_dx_q
+            fwd_ref, dx_ref = (lg.lora_grouped_gemm_q_ref,
+                               lg.lora_grouped_dx_q_ref)
+        else:
+            fwd, dx, fwd_ref, dx_ref = (
+                functools.partial(f, method=method) for f in (
+                    lg.lora_grouped_gemm_q4, lg.lora_grouped_dx_q4,
+                    lg.lora_grouped_gemm_q4_ref, lg.lora_grouped_dx_q4_ref))
+    f, d = GROUPED_ROWS_KERNELS[method]
+    return {
+        f: (lambda x, w, a, b, g, gid: fwd(x, *pre(w), a, b, gid, 2.0, bm=bm),
+            lambda x, w, a, b, g, gid: fwd_ref(x, *pre(w), a, b, gid, 2.0,
+                                               bm=bm)),
+        d: (lambda x, w, a, b, g, gid: dx(g, *pre(w), a, b, gid, 2.0, bm=bm),
+            lambda x, w, a, b, g, gid: dx_ref(g, *pre(w), a, b, gid, 2.0,
+                                              bm=bm)),
+        "lora_grouped_dab": (
+            lambda x, w, a, b, g, gid: lg.lora_grouped_dab(x, g, a, b, gid,
+                                                           2.0, bm=bm),
+            lambda x, w, a, b, g, gid: lg.lora_grouped_dab_ref(
+                x, g, a, b, gid, 2.0, bm=bm))}
+
+
+def _grouped_rows_cases(torch, quant, gen, dtype, method, sizes, bm, K, N):
+    """make() of packed ragged rows for the grouped kernels: x [M, K] and
+    g [M, N] with each group's padding rows zero (as ``lora_grouped_ragged``
+    packs them), W0 [E, K, N] in ``method``'s format, a, b (nonzero), gid
+    int32 on the card (``kernels/tiling.py``)."""
+    from repro_torch.kernels import tiling
+    E = len(sizes)
+    gid_np, offs = tiling.grouped_schedule(sizes, bm)
+    gid = torch.from_numpy(gid_np).cuda()
+    M_ = int(offs[-1])
+
+    def make():
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        live = torch.zeros(M_, 1, device="cuda")
+        for e, s in enumerate(sizes):
+            live[int(offs[e]):int(offs[e]) + s] = 1
+        w = rn(E, K, N) * K ** -0.5
+        w = w.to(dtype) if method == "none" else quant.quantize_leaf(w,
+                                                                     method)
+        return ((rn(M_, K) * live).to(dtype), w,
+                (rn(E, K, RANK) * RANK ** -0.5).to(dtype),
+                (rn(E, RANK, N) * 0.1).to(dtype), (rn(M_, N) * live).to(dtype),
+                gid)
+    return make, M_
+
+
+def check_grouped_rows(torch, quant, lg, method, sizes, bm, K, N, per=None,
+                       seed=20, kernels=None):
+    """The grouped forward, dx and dA/dB (those of ``kernels``) over
+    ``sizes`` packed in tiles of ``bm``, W0 stacks in ``method``'s format,
+    against their plain versions in f32 (summation order: 1e-5 relative
+    over a float stack, 1e-4 over codes, floored at the output's largest
+    magnitude) and bf16 (``KERNEL_TOL``); times beside the plain versions
+    and the bound (the live rows' bytes and operations) in bf16, inputs
+    cold. ``per``: {kernel: launches a step}. Returns {kernel: [figure]}."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    calls = _grouped_rows_calls(torch, lg, method, bm)
+    if kernels is not None:
+        calls = {k: v for k, v in calls.items() if k in kernels}
+    errs = {}
+    f32_tol = dict(rtol=1e-5, atol=1e-5) if method == "none" else \
+        dict(rtol=1e-4, atol=1e-4)
+    for dtype, tol in ((torch.float32, f32_tol), (torch.bfloat16, KERNEL_TOL)):
+        make, M_ = _grouped_rows_cases(torch, quant, gen, dtype, method,
+                                       sizes, bm, K, N)
+        args = make()
+        for name, (kern, plain) in calls.items():
+            got, want = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            if name != "lora_grouped_dab":
+                got, want = (got,), (want,)
+            errs[(name, dtype)] = max(
+                _close_scaled(u, v, tol, f"{name} {method} {dtype} "
+                              f"{len(sizes)} groups bm={bm}")
+                for u, v in zip(got, want))
+    make, M_ = _grouped_rows_cases(torch, quant, gen, torch.bfloat16, method,
+                                   sizes, bm, K, N)
+    E, rows, T = len(sizes), sum(sizes), M_ // bm
+    wbytes = {"none": 2 * K * N, "int8": K * N + 4 * N,
+              "nf4": (K + 1) // 2 * N + 4 * N}[method]
+    live = sum(1 for s in sizes if s)       # stacks the tiles read
+    stacks = live * (wbytes + 2 * RANK * (K + N))
+    sets = _cold_sets(make, E * wbytes + 2 * M_ * (K + N))
+    out = {}
+    for name, (kern, plain) in calls.items():
+        if name == "lora_grouped_dab":
+            nbytes = 2 * (rows * (K + N) + 2 * live * RANK * (K + N)) + 4 * T
+            flops = 4 * rows * RANK * (K + N)
+        else:
+            nbytes = 2 * rows * (K + N) + stacks + 4 * T
+            flops = 2 * rows * K * N + 2 * rows * RANK * (K + N)
+        bound, by = _bound_ms(nbytes, flops)
+        out[name] = [{
+            "K": K, "N": N, "M": M_, "rows": rows, "E": E, "bm": bm,
+            "r": RANK, "method": method, "groups": list(sizes),
+            "launches_per_step": (per or {}).get(name),
+            "max_abs_err": errs[(name, torch.bfloat16)],
+            "max_abs_err_f32": errs[(name, torch.float32)],
+            "ms": _time_ms(kern, sets, CATALOG_CALLS),
+            "plain_ms": _time_ms(plain, sets, CATALOG_CALLS),
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "bytes": nbytes, "flops": flops}]
+    return out
+
+
+def check_ragged_op(torch, quant, ops, lg, method, sizes):
+    """``ops.lora_grouped_ragged`` end to end on the card, bf16, through
+    autograd: counts zeroed just before and read just after (one grouped
+    forward, one dx, one dA/dB); its output bit for bit the forward
+    kernel's on the packed rows, unpacked; finite gradients. Returns the
+    counts."""
+    from repro_torch.kernels import tiling
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    make, _ = _grouped_rows_cases(torch, quant, gen, torch.bfloat16, method,
+                                  sizes, RAGGED_BM, RAGGED_K, RAGGED_N)
+    _, w, a, b, _, _ = make()
+    x = torch.randn(sum(sizes), RAGGED_K, generator=gen,
+                    device="cuda").bfloat16().requires_grad_(True)
+    a, b = a.requires_grad_(True), b.requires_grad_(True)
+    ops.reset_launch_counts()
+    y = ops.lora_grouped_ragged(x, sizes, w, a, b, 2.0, bm=RAGGED_BM)
+    grads = torch.autograd.grad((y.float() ** 2).sum(), (x, a, b))
+    counts = {k: v for k, v in ops.launch_counts().items() if v}
+    torch.cuda.synchronize()
+    fwd, dx = GROUPED_ROWS_KERNELS[method]
+    if counts != {fwd: 1, dx: 1, "lora_grouped_dab": 1}:
+        raise AssertionError(f"lora_grouped_ragged {method} {len(sizes)} "
+                             f"groups: launches {counts}")
+    kern = _grouped_rows_calls(torch, lg, method, RAGGED_BM)[fwd][0]
+    gid = torch.from_numpy(tiling.grouped_schedule(sizes, RAGGED_BM)[0]).cuda()
+    want = tiling.unpack_ragged_rows(kern(
+        tiling.pack_ragged_rows(x.detach(), sizes, RAGGED_BM), w, a.detach(),
+        b.detach(), None, gid), sizes, RAGGED_BM)
+    if not torch.equal(y.detach(), want) or not all(
+            bool(torch.isfinite(t).all()) for t in grads):
+        raise AssertionError(f"lora_grouped_ragged {method}: output not the "
+                             "kernel's, or non-finite gradients")
+    return counts
+
+
+def _decode_and_forward(torch, cfg, params, toks, pol):
+    """(forward logits, the logits of ``DecodeServer`` decoding ``toks``
+    one position a step) of the model on ``pol``'s backend."""
+    from repro_torch.launch.serve import DecodeServer
+    from repro_torch.models import model as model_lib
+    with torch.no_grad():
+        fwd = model_lib.forward(params, cfg, toks, policy=pol)
+    server = DecodeServer(cfg, params, toks.shape[0], toks.shape[1], pol)
+    dec = torch.empty_like(fwd)
+    for t in range(toks.shape[1]):
+        server.step(toks[:, t:t + 1])
+        dec[:, t] = server.last_logits[:, 0]
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(dec).all()):
+        raise AssertionError(f"{cfg.name} decode ({pol.backend}, "
+                             f"{cfg.dtype}): non-finite logits")
+    return fwd, dec
+
+
+def decode_vs_forward(torch, cfg):
+    """The model in f32 at full width (every LoRA B nonzero at
+    ``b_scale_for``) decoding ``DECODE_POSITIONS`` positions of a batch of
+    ``DECODE_BATCH`` single-stream (the launcher's ``DecodeServer``)
+    against its forward, through the kernels and, on the same weights,
+    through the plain structured path: per position the largest |logit
+    difference| over the largest |logit|. The two differ in f32 summation
+    order alone, and a deep random RWKV6 magnifies that (its group norm
+    meets rows near its eps; ROADMAP §3), so the kernels' worst may be no
+    more than twice the plain path's, or ``DECODE_F32_TOL``. For RWKV6 the
+    plain path also runs whole in f64 on the same weights: its decode must
+    stand within ``DECODE_F64_TOL`` of its forward (the decode code shared
+    by both f32 runs is right at full width, and their distance is
+    rounding), and both f32 runs' forward and decode are read against the
+    f64 forward, beside ``DECODE_SPREAD_SAMPLES`` plain f32 forwards of
+    weights moved one ulp (the spread rounding alone gives)."""
+    from repro_torch.api.policy import ExecutionPolicy
+    from repro_torch.models import model as model_lib
+    from repro_torch.tree import tree_map
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = _with_b(torch, model_lib.init_params(f32, generator=gen), gen,
+                     b_scale_for(cfg))
+    toks = torch.randint(0, cfg.vocab, (DECODE_BATCH, DECODE_POSITIONS),
+                         generator=gen, device="cuda")
+    out = {"positions": DECODE_POSITIONS, "batch": DECODE_BATCH,
+           "tol": DECODE_F32_TOL}
+    rel = lambda u, v, scale: ((u.double() - v.double()).abs().amax((0, 2))
+                               / scale).tolist()
+    ref = None
+    if cfg.family == "ssm":
+        p64 = tree_map(lambda t: t.double() if t.is_floating_point() else t,
+                       params)
+        t0 = time.monotonic()
+        ref, dec = _decode_and_forward(
+            torch, dataclasses.replace(cfg, dtype="float64"), p64, toks,
+            ExecutionPolicy(backend="plain", device="cuda"))
+        scale = float(ref.abs().max())
+        per_pos = rel(dec, ref, scale)
+        out["f64"] = {"worst_rel": max(per_pos), "per_position_rel": per_pos,
+                      "largest_logit": scale, "tol": DECODE_F64_TOL,
+                      "seconds": time.monotonic() - t0}
+        del p64, dec
+        _release(torch)
+    for name, backend in (("kernels", "cuda"), ("plain", "structured")):
+        fwd, dec = _decode_and_forward(
+            torch, f32, params, toks,
+            ExecutionPolicy(backend=backend, device="cuda"))
+        scale = float(fwd.abs().max())
+        per_pos = rel(dec, fwd, scale)
+        out[name] = {"worst_rel": max(per_pos), "per_position_rel": per_pos,
+                     "largest_logit": scale}
+        if ref is not None:
+            r64 = float(ref.abs().max())
+            for what, got in (("forward", fwd), ("decode", dec)):
+                per_pos = rel(got, ref, r64)
+                out[name][f"{what}_vs_f64_rel"] = max(per_pos)
+                out[name][f"{what}_vs_f64_per_position_rel"] = per_pos
+        del fwd, dec
+    if ref is not None:
+        pol = ExecutionPolicy(backend="structured", device="cuda")
+        out["rounding_spread_forward_vs_f64_rel"] = []
+        out["rounding_spread_per_position_rel"] = []
+        for i in range(DECODE_SPREAD_SAMPLES):
+            g = torch.Generator(device="cuda").manual_seed(100 + i)
+            inf = torch.tensor(math.inf, device="cuda")
+            nudged = tree_map(lambda t: torch.nextafter(t, torch.where(
+                torch.rand(t.shape, generator=g, device="cuda") < 0.5,
+                inf, -inf)) if t.is_floating_point() else t, params)
+            with torch.no_grad():
+                fwd = model_lib.forward(nudged, f32, toks, policy=pol)
+            per_pos = rel(fwd, ref, float(ref.abs().max()))
+            out["rounding_spread_forward_vs_f64_rel"].append(max(per_pos))
+            out["rounding_spread_per_position_rel"].append(per_pos)
+            del nudged, fwd
+    if ref is not None and out["f64"]["worst_rel"] > DECODE_F64_TOL:
+        raise AssertionError(f"{cfg.name}: decode against the forward in "
+                             f"f64 {out['f64']['worst_rel']} (limit "
+                             f"{DECODE_F64_TOL}): a decode fault")
+    worst = out["kernels"]["worst_rel"]
+    if worst > max(DECODE_F32_TOL, 2 * out["plain"]["worst_rel"]):
+        raise AssertionError(f"{cfg.name}: decode against the forward in "
+                             f"f32 {worst}, the plain path's "
+                             f"{out['plain']['worst_rel']}")
+    del params, ref
+    _release(torch)
+    return out
+
+
+def recurrent_phase(torch, build, ops, fa, lf, lg, rn, lq, lp4, quant,
+                    rope_tables, train_cli, serve_cli):
+    """Step 20: the kernels at the recurrent families' and single-stream
+    decode's shapes, flash at G 10, the ragged grouped op; RWKV6-1.6B and
+    RecurrentGemma-2B training at full width and depth with their
+    gradients and decode against the forward; single-stream serving. Every
+    run's counts zeroed just before and read just after it. Returns
+    (figures, {path: counts}, {kernel: shape figures})."""
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.models import model as model_lib
+    t_phase = time.monotonic()
+    fig, counts, shapes = {}, {}, {}
+
+    def add(figs, **tags):
+        for name, fs in figs.items():
+            for f in fs:
+                f.update(tags)
+            shapes.setdefault(name, []).extend(fs)
+
+    # the kernels at the two families' shapes: LoRA at M 256 (training)
+    # and at M SS_BATCH (single-stream decode), the norms at their widths
+    # (RWKV6's group norm: rows of 64, B * N * H of them)
+    for i, arch in enumerate(RECURRENT_ARCHS):
+        cfg = get_config(arch)
+        per = recurrent_shapes_per_step(cfg)
+        step = recurrent_per_step(cfg, PAPER_SEQ)
+        add(check_training_kernels(
+            torch, lf, rn, QM, {s: {k: v[s] for k, v in per.items()}
+                                for s in per["lora_fused_fwd"]},
+            cfg.d_model, step["rmsnorm_bwd"], seed=50 + 4 * i,
+            n_calls=CATALOG_CALLS), arch=arch, path="train")
+        add({"rmsnorm_fwd": [rmsnorm_train_shape(
+            torch, rn, QM, cfg.d_model, step["rmsnorm_fwd"], seed=51 + 4 * i,
+            calls=CATALOG_CALLS)]}, arch=arch, path="train")
+        dec = {s: {"lora_fused_fwd": n} for s, n in
+               recurrent_shapes_per_step(cfg)["lora_dab"].items()}
+        add(check_training_kernels(
+            torch, lf, rn, SS_BATCH, dec, seed=52 + 4 * i,
+            kernels=("lora_fused_fwd",), n_calls=CATALOG_CALLS),
+            arch=arch, path="single_stream")
+    rw = get_config(RWKV_ARCH)
+    gm_rows = PAPER_SEQ * rw.n_heads
+    add(check_training_kernels(
+        torch, lf, rn, gm_rows, {}, rw.resolved_head_dim, rw.n_layers,
+        seed=60, kernels=("rmsnorm_bwd",), n_calls=CATALOG_CALLS),
+        arch=RWKV_ARCH, path="train", norm="group")
+    add({"rmsnorm_fwd": [rmsnorm_train_shape(
+        torch, rn, gm_rows, rw.resolved_head_dim, 2 * rw.n_layers, seed=61,
+        calls=CATALOG_CALLS)]}, arch=RWKV_ARCH, path="train", norm="group")
+    # OLMoE's single-stream decode: q, k, v, o at M SS_BATCH in bf16 and
+    # over nf4; the experts' grouped forward over E 64 buffers of the
+    # SS_BATCH rows' capacity (8 a row), one tile each
+    moe = get_config("olmoe-1b-7b")
+    d, L = moe.d_model, moe.n_layers
+    add(check_training_kernels(
+        torch, lf, rn, SS_BATCH, {(d, d): {"lora_fused_fwd": 4 * L}},
+        seed=62, kernels=("lora_fused_fwd",), n_calls=CATALOG_CALLS),
+        arch="olmoe-1b-7b", path="single_stream")
+    add(check_quant_shapes(torch, quant, lq, lp4, "nf4", [(d, d)],
+                           {"lora_fused_q4": {(d, d): 4 * L},
+                            "lora_dx_q4": {(d, d): 0}}, M_=SS_BATCH,
+                           seed=63), arch="olmoe-1b-7b",
+        path="single_stream")
+    # qwen2.5-0.5b's single-stream decode (--adapters 0): every dense
+    # LoRA linear at M SS_BATCH, at each of its (K, N)
+    add(check_training_kernels(
+        torch, lf, rn, SS_BATCH, {s: {"lora_fused_fwd": n} for s, n in
+                                  decode_shapes(QWEN).items()},
+        seed=65, kernels=("lora_fused_fwd",), n_calls=CATALOG_CALLS),
+        arch=QWEN.name, path="single_stream")
+    C = SS_BATCH * 8
+    for method in ("none", "nf4"):
+        fwd = GROUPED_ROWS_KERNELS[method][0]
+        for K, N, n in ((d, moe.moe.d_expert, 2 * L),
+                        (moe.moe.d_expert, d, L)):
+            add(check_grouped_rows(
+                torch, quant, lg, method, (C,) * moe.moe.n_experts, C, K, N,
+                {fwd: n}, seed=64, kernels=(fwd,)), arch="olmoe-1b-7b",
+                path="single_stream")
+    # (b) flash at G 10, D 256
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    errs = _flash_errors(torch, fa, rope_tables, gen, FLASH_G10_CASES)
+    rg = get_config(RG_ARCH)
+    rg_step = recurrent_per_step(rg, PAPER_SEQ)
+    for name, fs in _flash_times(
+            torch, fa, gen, errs, FLASH_G10_CASES["recurrentgemma"],
+            {k: rg_step[k] for k in FLASH_KERNELS}, CATALOG_CALLS).items():
+        for f in fs:
+            f["G"] = 10
+            f["ptxas_256"] = {k: v for k, v in build[
+                "flash_fwd" if name == "flash_fwd" else "flash_bwd"][
+                "ptxas"].items() if "Li256E" in k}
+        add({name: fs}, arch=RG_ARCH, path="train")
+    # (d) the ragged grouped op at OLMoE's expert shapes, bm 8
+    fig["ragged"] = {}
+    for method in RAGGED_FORMATS:
+        for case, sizes in RAGGED_SIZES.items():
+            add(check_grouped_rows(torch, quant, lg, method, sizes,
+                                   RAGGED_BM, RAGGED_K, RAGGED_N,
+                                   seed=70), path=f"ragged_{case}")
+            counts[f"ragged_{method}_{case}"] = check_ragged_op(
+                torch, quant, ops, lg, method, sizes)
+        fig["ragged"][method] = {
+            c: counts[f"ragged_{method}_{c}"] for c in RAGGED_SIZES}
+    fig["kernel_checks_seconds"] = time.monotonic() - t_phase
+    _release(torch)
+
+    # (a), (b) training at full width and depth, 1 x 256, 3 steps; the
+    # peak of one value_and_grad; gradients at full width over a few layers
+    fig["train"] = {}
+    for arch in RECURRENT_ARCHS:
+        cfg = get_config(arch)
+        argv = ["--arch", arch, "--engine", "mesp_cuda", "--device", "cuda",
+                "--batch", str(PAPER_BATCH), "--seq", str(PAPER_SEQ),
+                "--steps", str(RECURRENT_STEPS), "--seed", "0"]
+        run, counts[f"train_{arch}"] = _train_run(
+            torch, ops, train_cli, argv, recurrent_per_step(cfg, PAPER_SEQ),
+            arch)
+        f = {"layers": cfg.n_layers, **run["figures"]}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = _with_b(torch, run["params"], gen)
+        del run
+        batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+            make_batch_iterator(cfg.vocab, PAPER_SEQ, PAPER_BATCH,
+                                seed=0)).items()}
+        f["params_bytes"] = quant.tree_bytes(params)
+        f["peak_memory_one_value_and_grad"] = peak_memory(
+            torch, cfg, params, batch, [("mesp_cuda", True), ("mebp", True)])
+        del params
+        _release(torch)
+        cut = dataclasses.replace(cfg, n_layers=RECURRENT_GRAD_LAYERS[arch])
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = _with_b(torch, model_lib.init_params(cut, generator=gen),
+                         gen, b_scale_for(cut))
+        f["b_scale_checks"] = b_scale_for(cut)
+        f["grads"] = compare_grads(torch, cut, params, batch,
+                                   n_leaves=RECURRENT_GRAD_LEAVES[arch])
+        f["grads"]["layers"] = cut.n_layers
+        del params, batch
+        _release(torch)
+        f["decode_vs_forward_f32"] = decode_vs_forward(torch, cfg)
+        fig["train"][arch] = f
+
+    # (c) single-stream serving through the launcher
+    fig["serve"] = {}
+    for key, extra in SINGLE_STREAM_RUNS.items():
+        argv = extra + ["--engine", "mesp_cuda", "--device", "cuda",
+                        "--batch", str(SS_BATCH), "--steps", str(SS_STEPS),
+                        "--max-len", str(SS_MAX_LEN), "--seed", "0"]
+        method = extra[extra.index("--quantize") + 1] \
+            if "--quantize" in extra else "none"
+        _release(torch)
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out = serve_cli.serve(argv)
+        counts[f"single_stream_{key}"] = c = ops.launch_counts()
+        torch.cuda.synchronize()
+        per = decode_per_step(out["cfg"], method)
+        steps = out["steps"] + out["warmup_steps"]
+        _check_counts(c, {k: v * steps for k, v in per.items()},
+                      f"single-stream {key}, {steps} decode steps")
+        if out["mode"] != "single_stream" or out["tokens"] != \
+                SS_BATCH * SS_STEPS:
+            raise AssertionError(f"single-stream {key}: {out['mode']}, "
+                                 f"{out['tokens']} tokens")
+        fig["serve"][key] = {
+            "layers": out["cfg"].n_layers, "quantize": method,
+            "batch": SS_BATCH, "steps": out["steps"],
+            "warmup_steps": out["warmup_steps"], "seconds": out["seconds"],
+            "tok_s": out["tok_s"], "ms_per_step": out["ms_per_step"],
+            "launches": c, "launches_per_step": {k: v for k, v in
+                                                 per.items() if v},
+            "params_bytes": out["params_bytes"],
+            "allocated_at_start": start,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del out
+    fig["seconds"] = time.monotonic() - t_phase
+    return fig, counts, shapes
+
+
 def main() -> int:
     t_start = time.monotonic()
     import torch
@@ -3638,7 +4262,14 @@ def main() -> int:
         torch, build, ops, fa, lf, lg, rn, lq, lp4, quant, rope_tables,
         train_cli, serve_cli)
 
+    # single-stream serving and the recurrent families: every run's counts
+    # zeroed just before and read just after it, inside the phase
+    recurrent, rcounts, rshapes = recurrent_phase(
+        torch, build, ops, fa, lf, lg, rn, lq, lp4, quant, rope_tables,
+        train_cli, serve_cli)
+
     paths = lambda k: {**{p: c[k] for p, c in ccounts.items()},
+                       **{p: c.get(k, 0) for p, c in rcounts.items()},
                        "serve": counts[k],
                        **{f"serve_{m}": c[k] for m, c in scounts.items()},
                        "train": tcounts[k],
@@ -3927,11 +4558,13 @@ def main() -> int:
     # flash at head dim 256, the training kernels at M 2048; qwen2.5-32b's
     # MLP over nf4), their errors in its own
     for e in kernels:
-        figs = cshapes.get(e["name"])
-        if figs:
-            e["catalog_shapes"] = figs
-            e["max_abs_err"] = e["max_err"] = max(
-                [e["max_abs_err"]] + [f["max_abs_err"] for f in figs])
+        for key, by_name in (("catalog_shapes", cshapes),
+                             ("recurrent_shapes", rshapes)):
+            figs = by_name.get(e["name"])
+            if figs:
+                e[key] = figs
+                e["max_abs_err"] = e["max_err"] = max(
+                    [e["max_abs_err"]] + [f["max_abs_err"] for f in figs])
     name = torch.cuda.get_device_name(0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"serve": {
@@ -4034,6 +4667,12 @@ def main() -> int:
         "batch": 1, "seq": GEMMA_SEQ, "grad_tol": GRAD_TOL,
         "loss_tol": LOSS_TOL, "b_scale": B_SCALE, **catalog, "device": name,
         "power": smi, "run_seconds": time.monotonic() - t_start}}))
+    print(json.dumps({"recurrent": {
+        "archs": list(RECURRENT_ARCHS), "engine": "mesp_cuda",
+        "dtype": "bfloat16", "batch": PAPER_BATCH, "seq": PAPER_SEQ,
+        "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, **recurrent,
+        "device": name, "power": smi,
+        "run_seconds": time.monotonic() - t_start}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

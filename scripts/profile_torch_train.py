@@ -1,7 +1,8 @@
 """Where a training step of the port spends its time, on the card.
 
-Builds a full-width model (``--arch``, by default qwen2.5-0.5b; also
-olmoe-1b-7b or deepseek-moe-16b; bf16, random weights from seed 0), takes
+Builds a full-width model (``--arch``, by default qwen2.5-0.5b; any arch
+of the registry, e.g. olmoe-1b-7b, rwkv6-1.6b or recurrentgemma-2b; bf16,
+random weights from seed 0), takes
 batches of ``--batch`` x ``--seq`` tokens from the port's data pipeline (by
 default 4 x 48, as ``chip_smoke.py`` first trains it; ``--batch 1 --seq
 256`` is the paper's setting, where attention runs the flash kernels;

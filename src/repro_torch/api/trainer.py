@@ -32,6 +32,7 @@ import torch
 
 from repro_torch.api.registry import Engine, get_engine
 from repro_torch.api.spec import TrainSpec
+from repro_torch.tree import tree_map
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -73,9 +74,8 @@ def _spec_manifest(spec: TrainSpec) -> dict:
 
 
 def _to_meta(tree):
-    if isinstance(tree, dict):
-        return {k: _to_meta(v) for k, v in tree.items()}
-    return torch.empty(tree.shape, dtype=tree.dtype, device="meta")
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device="meta"), tree)
 
 
 class Trainer:

@@ -1,10 +1,11 @@
 """Architecture configuration (the port's own copy of ``repro.configs.base``).
 
 Only what the ported families read is kept: :class:`LoRAConfig`,
-:class:`MoEConfig` and the dense and MoE fields of :class:`ArchConfig`
-(with the per-layer sliding windows, ``window_pattern``), with the same
-``reduced()`` cut to size as the reference, so a reduced config names the
-same shapes in both packages.
+:class:`MoEConfig`, :class:`HybridConfig` and the dense, MoE, ``ssm`` and
+``hybrid`` fields of :class:`ArchConfig` (with the per-layer sliding
+windows, ``window_pattern``), with the same ``reduced()`` cut to size as
+the reference, so a reduced config names the same shapes in both
+packages.
 """
 from __future__ import annotations
 
@@ -36,6 +37,15 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class HybridConfig:
+    """RecurrentGemma-style block pattern."""
+
+    pattern: Tuple[str, ...] = ("R", "R", "A")  # repeated; truncated to n_layers
+    lru_width: int = 0  # defaults to d_model when 0
+    window: int = 2048  # local attention window for 'A' blocks
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str
@@ -55,6 +65,7 @@ class ArchConfig:
     # layers; () => all-global. gemma3 uses 5 local : 1 global.
     window_pattern: Tuple[int, ...] = ()  # 0 = global, >0 = local window
     moe: Optional[MoEConfig] = None
+    hybrid: Optional[HybridConfig] = None
     lora: LoRAConfig = field(default_factory=LoRAConfig)
     notes: str = ""
 
@@ -69,6 +80,10 @@ class ArchConfig:
     @property
     def kv_size(self) -> int:
         return self.n_kv_heads * self.resolved_head_dim
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
 
     @property
     def embed_scale(self) -> Optional[float]:
@@ -94,8 +109,13 @@ class ArchConfig:
 
     def n_params(self) -> int:
         """Approximate parameter count, as the reference counts it (every
-        layer an MoE layer for the MoE family; no biases or norms)."""
+        layer an MoE layer for the MoE family; RWKV6's time and channel
+        mix for ``ssm``; a hybrid's layers all counted as attention and MLP;
+        no biases or norms)."""
         d = self.d_model
+        if self.family == "ssm":
+            return self._emb_params() + self.n_layers * (
+                5 * d * d + 3 * d * self.d_ff)
         if self.moe is not None:
             m = self.moe
             ff = 3 * d * m.d_expert * (m.n_experts + m.n_shared) \
@@ -117,16 +137,21 @@ class ArchConfig:
         """A tiny same-family config (the reference's cut: for MoE, 4
         experts, top-2, d_expert 32, at most one shared expert, and a dense
         layer 0 kept where the full config has one; a window pattern cut to
-        a 2-layer (local 8, global) period)."""
+        a 2-layer (local 8, global) period; a hybrid to 3 layers, an RG-LRU
+        64 wide and a local window of 8)."""
         moe = self.moe
         if moe is not None:
             moe = MoEConfig(n_experts=4, top_k=2, d_expert=32,
                             n_shared=min(moe.n_shared, 1),
                             first_layer_dense=moe.first_layer_dense)
         pattern = {"window_pattern": (8, 0)} if self.window_pattern else {}
+        hybrid = self.hybrid
+        if hybrid is not None:
+            hybrid = HybridConfig(pattern=hybrid.pattern, lru_width=64,
+                                  window=8)
         return dataclasses.replace(
             self,
-            n_layers=min(self.n_layers, 2),
+            n_layers=min(self.n_layers, 3 if hybrid else 2),
             d_model=64,
             n_heads=4,
             n_kv_heads=2 if self.n_kv_heads < self.n_heads else 4,
@@ -135,6 +160,7 @@ class ArchConfig:
             head_dim=16,
             dtype="float32",
             moe=moe,
+            hybrid=hybrid,
             lora=LoRAConfig(rank=4, alpha=8.0, targets=self.lora.targets),
             **pattern,
         )

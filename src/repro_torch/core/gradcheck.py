@@ -11,13 +11,13 @@ from typing import Dict, List
 
 import torch
 
+from repro_torch.tree import tree_leaves, tree_map
+
 
 def _leaves(tree):
     """Leaves in sorted-key order (the reference's flatten order), None
     skipped."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    return [] if tree is None else [tree]
+    return tree_leaves(tree, sort=True)
 
 
 def _flat_concat(tree) -> torch.Tensor:
@@ -37,9 +37,7 @@ def gradient_metrics(g_est, g_true) -> Dict[str, torch.Tensor]:
 
 
 def _row(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _row(v, i) for k, v in tree.items()}
-    return None if tree is None else tree[i]
+    return tree_map(lambda t: None if t is None else t[i], tree)
 
 
 def per_layer_metrics(g_est_blocks, g_true_blocks,

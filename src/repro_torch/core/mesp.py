@@ -26,6 +26,7 @@ from repro_torch.core import quant, structured
 from repro_torch.models import layers
 from repro_torch.models import model as model_lib
 from repro_torch.optim import optimizers
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def _check_base(params, policy: ExecutionPolicy) -> None:
@@ -38,12 +39,13 @@ def _check_base(params, policy: ExecutionPolicy) -> None:
 def _lift(tree, mask, leaves):
     """``tree`` with each LoRA leaf (or view) replaced by a detached leaf that
     needs grad (appended to ``leaves``)."""
-    if isinstance(tree, dict):
-        return {k: _lift(tree[k], mask[k], leaves) for k in tree}
-    if not mask:
-        return tree
-    leaves.append(tree.detach().requires_grad_(True))
-    return leaves[-1]
+    def lift(t, m):
+        if not m:
+            return t
+        leaves.append(t.detach().requires_grad_(True))
+        return leaves[-1]
+
+    return tree_map(lift, tree, mask)
 
 
 def value_and_grad(params, cfg: ArchConfig, batch: dict, *,
@@ -55,9 +57,7 @@ def value_and_grad(params, cfg: ArchConfig, batch: dict, *,
     _check_base(params, policy)
 
     def fill(mask, grads):
-        if isinstance(mask, dict):
-            return {k: fill(v, grads) for k, v in mask.items()}
-        return next(grads) if mask else None
+        return tree_map(lambda m: next(grads) if m else None, mask)
 
     mask, leaves = model_lib.trainable_mask(params), []
     loss = model_lib.loss_fn(_lift(params, mask, leaves), cfg, batch,
@@ -76,16 +76,12 @@ def train_step(params, cfg: ArchConfig, batch: dict, lr: float, *,
 def _lora_copy(tree, mask):
     """``tree`` with its LoRA leaves copied (the step's output) and its
     frozen leaves shared."""
-    if isinstance(tree, dict):
-        return {k: _lora_copy(tree[k], mask[k]) for k in tree}
-    return tree.clone() if mask else tree
+    return tree_map(lambda t, m: t.clone() if m else t, tree, mask)
 
 
 def _views(tree, mask):
     """The LoRA leaves of a block's tree of views, in ``_lift``'s order."""
-    if isinstance(tree, dict):
-        return [v for k in tree for v in _views(tree[k], mask[k])]
-    return [tree] if mask else []
+    return tree_leaves(tree_map(lambda t, m: t if m else None, tree, mask))
 
 
 def sequential_train_step(params, cfg: ArchConfig, batch: dict, lr: float,

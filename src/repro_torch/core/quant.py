@@ -33,6 +33,8 @@ import functools
 
 import torch
 
+from repro_torch.tree import children, is_node
+
 #: Normal-float-4 codebook (QLoRA §3.1): the 16 quantiles of N(0, 1)
 #: renormalised to [-1, 1], with an exact zero at index 7. Each value is
 #: exact in f32; the kernels bake them in, and the tree carries a copy.
@@ -211,12 +213,9 @@ def tree_method(params) -> str:
             found.add("int8")
         elif is_packed(tree):
             found.add(packed_method(tree))
-        elif isinstance(tree, dict):
-            for k, v in tree.items():
+        elif is_node(tree):
+            for k, v in children(tree):
                 walk(v, k)
-        elif isinstance(tree, (list, tuple)):
-            for v in tree:
-                walk(v, None)
         elif key == "w" and isinstance(tree, torch.Tensor) and tree.ndim >= 2:
             found.add("none")
 
@@ -230,10 +229,10 @@ def tree_bytes(tree, key=None, frozen_base=False) -> int:
     """Bytes of a parameter tree's tensors; with ``frozen_base``, of its
     frozen ``w`` leaves alone (dense, or a quantized leaf's codes, scale
     and codebook)."""
-    if isinstance(tree, dict):
-        if is_quantized(tree) or is_packed(tree):
-            return sum(t.numel() * t.element_size() for t in tree.values())
-        return sum(tree_bytes(v, k, frozen_base) for k, v in tree.items())
+    if is_quantized(tree) or is_packed(tree):
+        return sum(t.numel() * t.element_size() for t in tree.values())
+    if is_node(tree):
+        return sum(tree_bytes(v, k, frozen_base) for k, v in children(tree))
     if frozen_base and key != "w":
         return 0
     return tree.numel() * tree.element_size()

@@ -166,6 +166,35 @@ def silu(x):
     return _SiLU.apply(x)
 
 
+# GeLU, tanh approximation (Griffin's gate): the same recompute-from-x
+# discipline; saves x only
+_GELU_C = 0.7978845608028654          # sqrt(2 / pi)
+
+
+def gelu_tanh(x):
+    """``jax.nn.gelu(x, approximate=True)``, in its order of operations."""
+    return x * (0.5 * (1.0 + torch.tanh(_GELU_C * (x + 0.044715 * x ** 3))))
+
+
+class _GeLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return gelu_tanh(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        c = torch.tensor(_GELU_C, dtype=x.dtype, device=x.device)
+        t = torch.tanh(c * (x + 0.044715 * x ** 3))
+        dt = (1 - t * t) * c * (1 + 3 * 0.044715 * x * x)
+        return g * (0.5 * (1 + t) + 0.5 * x * dt)
+
+
+def gelu(x):
+    return _GeLU.apply(x)
+
+
 # ---------------------------------------------------------------------------
 # Scaled-dot-product attention (Appendix A.2), GQA + causal/windowed masks.
 # Saves q, k, v only: the [*, n, n] probabilities are recomputed.

@@ -37,6 +37,7 @@ from repro_torch.kernels import lora_pack4 as _lp4
 from repro_torch.kernels import lora_quant as _lq
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import rope as _rope
+from repro_torch.kernels import tiling as _tiling
 
 #: query rows from which the reference runs its flash-attention kernels
 #: (``PALLAS_ATTN_MIN_SEQ``); below it both take the structured sdpa
@@ -216,93 +217,97 @@ def _pad_rows(t, Cp):
     return t.reshape(E * Cp, n).contiguous()
 
 
-def _grouped_rows(ctx, x, scale):
-    """Tile x [E, C, K]'s capacity buffers for the grouped kernels: bm and
-    the padded capacity Cp go on ``ctx``. Returns (rows [E·Cp, K], gid)."""
+def _grouped_rows(ctx, x, gid, bm, scale):
+    """The grouped kernels' rows [E·Cp, K] of x [E, C, K], E buffers of C
+    rows each zero-padded up to Cp, a multiple of ``bm`` (a view when C ==
+    Cp and x is contiguous); ``gid`` int32 [E·Cp / bm] routes every tile.
+    The layout goes on ``ctx``."""
+    ctx.gid, ctx.bm, ctx.scale = gid, bm, scale
+    return _pad_rows(x, -(-x.shape[1] // bm) * bm)
+
+
+def _grouped_out(y, x):
+    """The kernel's rows [E·Cp, N] as x's buffers [E, C, N]."""
     E, C, _ = x.shape
-    bm = grouped_bm(C)
-    Cp = -(-C // bm) * bm
-    ctx.scale, ctx.bm, ctx.Cp = scale, bm, Cp
-    return _pad_rows(x, Cp), _expert_gid(E, Cp // bm, x.device)
+    return y.view(E, -1, y.shape[-1])[:, :C]
 
 
 def _grouped_backward(ctx, g, x, a, b, ia, dx_fn):
-    """(dx, dA, dB) of a grouped expert linear: ``dx_fn(g rows, gid, bm)``
-    for dx, ``lora_grouped_dab`` for dA and dB (it never reads W0); A and B
-    are the Function's inputs ``ia`` and ``ia + 1``."""
-    E, C, K = x.shape
-    Cp, bm = ctx.Cp, ctx.bm
-    gid = _expert_gid(E, Cp // bm, x.device)
+    """(dx, dA, dB) of a grouped linear: ``dx_fn(g rows)`` for dx,
+    ``lora_grouped_dab`` for dA and dB (it never reads W0); A and B are the
+    Function's inputs ``ia`` and ``ia + 1``."""
+    Cp = -(-x.shape[1] // ctx.bm) * ctx.bm
     g2 = _pad_rows(g.to(x.dtype), Cp)
     dx = da = db = None
     if ctx.needs_input_grad[0]:
-        dx = dx_fn(g2, gid, bm).view(E, Cp, K)[:, :C]
+        dx = _grouped_out(dx_fn(g2), x)
     if ctx.needs_input_grad[ia] or ctx.needs_input_grad[ia + 1]:
-        da, db = _lg.lora_grouped_dab(_pad_rows(x, Cp), g2, a, b, gid,
-                                      ctx.scale, bm=bm)
+        da, db = _lg.lora_grouped_dab(_pad_rows(x, Cp), g2, a, b, ctx.gid,
+                                      ctx.scale, bm=ctx.bm)
     return dx, da, db
 
 
 class _GroupedLoRAKernel(torch.autograd.Function):
-    """x [E, C, K], w0 [E, K, N], a [E, K, r], b [E, r, N] -> [E, C, N].
+    """x [E, C, K] (E buffers of C rows, tile t of the padded rows routed
+    to ``gid[t]``), w0 [G, K, N], a [G, K, r], b [G, r, N] -> [E, C, N].
     Saves exactly (x, w0, a, b): never h, never a copy of the stack."""
 
     @staticmethod
-    def forward(ctx, x, w0, a, b, scale):
-        rows, gid = _grouped_rows(ctx, x, scale)
+    def forward(ctx, x, w0, a, b, gid, bm, scale):
+        rows = _grouped_rows(ctx, x, gid, bm, scale)
         ctx.save_for_backward(x, w0, a, b)
-        y = _lg.lora_grouped_gemm(rows, w0, a, b, gid, scale, bm=ctx.bm)
-        return y.view(x.shape[0], ctx.Cp, -1)[:, :x.shape[1]]
+        return _grouped_out(_lg.lora_grouped_gemm(rows, w0, a, b, gid, scale,
+                                                  bm=bm), x)
 
     @staticmethod
     def backward(ctx, g):
         x, w0, a, b = ctx.saved_tensors
         dx, da, db = _grouped_backward(
-            ctx, g, x, a, b, 2, lambda g2, gid, bm: _lg.lora_grouped_dx(
-                g2, w0, a, b, gid, ctx.scale, bm=bm))
-        return dx, None, da, db, None
+            ctx, g, x, a, b, 2, lambda g2: _lg.lora_grouped_dx(
+                g2, w0, a, b, ctx.gid, ctx.scale, bm=ctx.bm))
+        return dx, None, da, db, None, None, None
 
 
 class _GroupedLoRAKernelQ(torch.autograd.Function):
-    """int8 expert stacks: x [E, C, K], q int8 [E, K, N], s f32 [E, 1, N],
-    a, b -> [E, C, N]. Saves exactly (x, q, s, a, b)."""
+    """int8 stacks: x [E, C, K], q int8 [G, K, N], s f32 [G, 1, N], a, b
+    -> [E, C, N]. Saves exactly (x, q, s, a, b)."""
 
     @staticmethod
-    def forward(ctx, x, q, s, a, b, scale):
-        rows, gid = _grouped_rows(ctx, x, scale)
+    def forward(ctx, x, q, s, a, b, gid, bm, scale):
+        rows = _grouped_rows(ctx, x, gid, bm, scale)
         ctx.save_for_backward(x, q, s, a, b)
-        y = _lg.lora_grouped_gemm_q(rows, q, s, a, b, gid, scale, bm=ctx.bm)
-        return y.view(x.shape[0], ctx.Cp, -1)[:, :x.shape[1]]
+        return _grouped_out(_lg.lora_grouped_gemm_q(rows, q, s, a, b, gid,
+                                                    scale, bm=bm), x)
 
     @staticmethod
     def backward(ctx, g):
         x, q, s, a, b = ctx.saved_tensors
         dx, da, db = _grouped_backward(
-            ctx, g, x, a, b, 3, lambda g2, gid, bm: _lg.lora_grouped_dx_q(
-                g2, q, s, a, b, gid, ctx.scale, bm=bm))
-        return dx, None, None, da, db, None
+            ctx, g, x, a, b, 3, lambda g2: _lg.lora_grouped_dx_q(
+                g2, q, s, a, b, ctx.gid, ctx.scale, bm=ctx.bm))
+        return dx, None, None, da, db, None, None, None
 
 
 class _GroupedLoRAKernelP4(torch.autograd.Function):
-    """Packed 4-bit expert stacks: x [E, C, K], q4 uint8 [E, ceil(K/2), N],
-    s f32 [E, 1, N], a, b -> [E, C, N]. Saves exactly (x, q4, s, a, b)."""
+    """Packed 4-bit stacks: x [E, C, K], q4 uint8 [G, ceil(K/2), N], s f32
+    [G, 1, N], a, b -> [E, C, N]. Saves exactly (x, q4, s, a, b)."""
 
     @staticmethod
-    def forward(ctx, x, q4, s, a, b, scale, method):
-        rows, gid = _grouped_rows(ctx, x, scale)
+    def forward(ctx, x, q4, s, a, b, gid, bm, scale, method):
+        rows = _grouped_rows(ctx, x, gid, bm, scale)
         ctx.method = method
         ctx.save_for_backward(x, q4, s, a, b)
-        y = _lg.lora_grouped_gemm_q4(rows, q4, s, a, b, gid, scale,
-                                     bm=ctx.bm, method=method)
-        return y.view(x.shape[0], ctx.Cp, -1)[:, :x.shape[1]]
+        return _grouped_out(_lg.lora_grouped_gemm_q4(
+            rows, q4, s, a, b, gid, scale, bm=bm, method=method), x)
 
     @staticmethod
     def backward(ctx, g):
         x, q4, s, a, b = ctx.saved_tensors
         dx, da, db = _grouped_backward(
-            ctx, g, x, a, b, 3, lambda g2, gid, bm: _lg.lora_grouped_dx_q4(
-                g2, q4, s, a, b, gid, ctx.scale, bm=bm, method=ctx.method))
-        return dx, None, None, da, db, None, None
+            ctx, g, x, a, b, 3, lambda g2: _lg.lora_grouped_dx_q4(
+                g2, q4, s, a, b, ctx.gid, ctx.scale, bm=ctx.bm,
+                method=ctx.method))
+        return dx, None, None, da, db, None, None, None, None
 
 
 def lora_grouped_linear(x, w0, a, b, scale: float = 2.0):
@@ -315,16 +320,56 @@ def lora_grouped_linear(x, w0, a, b, scale: float = 2.0):
     ``{"q4", "scale", ...}`` leaf, each to the kernels of its format, which
     read the codes as stored. Differentiable in x, a and b; W0 is
     frozen."""
+    E, C, _ = x.shape
+    bm = grouped_bm(C)
+    return _grouped_apply(x, w0, a, b, _expert_gid(E, -(-C // bm), x.device),
+                          bm, scale)
+
+
+def _grouped_apply(x, w0, a, b, gid, bm, scale):
+    """The grouped Function of ``w0``'s format over x [E, C, K] in tiles of
+    ``bm`` rows routed by ``gid``."""
     if quant.is_packed(w0):
         if quant.packed_k(w0) != x.shape[-1]:
             raise ValueError(f"packed expert stack holds K="
                              f"{quant.packed_k(w0)} rows, x has "
                              f"{x.shape[-1]}")
-        return _GroupedLoRAKernelP4.apply(x, w0["q4"], w0["scale"], a, b,
-                                          scale, quant.packed_method(w0))
+        return _GroupedLoRAKernelP4.apply(x, w0["q4"], w0["scale"], a, b, gid,
+                                          bm, scale, quant.packed_method(w0))
     if quant.is_quantized(w0):
-        return _GroupedLoRAKernelQ.apply(x, w0["q"], w0["scale"], a, b, scale)
-    return _GroupedLoRAKernel.apply(x, w0, a, b, scale)
+        return _GroupedLoRAKernelQ.apply(x, w0["q"], w0["scale"], a, b, gid,
+                                         bm, scale)
+    return _GroupedLoRAKernel.apply(x, w0, a, b, gid, bm, scale)
+
+
+def lora_grouped_ragged(x, group_sizes, w0, a, b, scale: float = 2.0, *,
+                        bm: int = 8):
+    """Ragged grouped LoRA linear (the reference's
+    ``ops.lora_grouped_ragged``): x [M, K] is the concatenation of the
+    groups' rows, ``group_sizes[g]`` rows for group g (zero-size groups
+    allowed); w0 [E, K, N] (dense, an int8 ``{"q", "scale"}`` or a packed
+    ``{"q4", "scale", ...}`` stack), a [E, K, r], b [E, r, N], E =
+    ``len(group_sizes)`` -> [M, N]. The rows are packed into tiles of
+    ``bm`` (each group padded to whole tiles, an empty group given none,
+    ``kernels/tiling.py``) in plain PyTorch, so gradients flow through the
+    packing; the grouped kernels' Functions run on the packed rows as one
+    buffer, their tiles routed by the schedule's gid, both made anew each
+    call (group sizes change from call to call). No row at all gives [0,
+    N]."""
+    sizes = tuple(int(s) for s in group_sizes)
+    if quant.is_packed(w0):
+        N = w0["q4"].shape[-1]
+    elif quant.is_quantized(w0):
+        N = w0["q"].shape[-1]
+    else:
+        N = w0.shape[-1]
+    if sum(sizes) == 0:
+        return x.new_zeros((0, N))
+    gid = torch.from_numpy(_tiling.grouped_schedule(sizes, bm)[0]).to(
+        x.device)
+    xp = _tiling.pack_ragged_rows(x, sizes, bm)
+    y = _grouped_apply(xp[None], w0, a, b, gid, bm, scale)[0]
+    return _tiling.unpack_ragged_rows(y, sizes, bm)
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,12 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+def wide(t):
+    """t in f32, or as it is in f64: the precision of the paths that
+    compute in f32, which a whole run in f64 keeps in f64."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _randn(gen, shape, dtype):
     return torch.randn(shape, generator=gen, device=gen.device, dtype=dtype)
 
@@ -141,10 +147,10 @@ def norm(p, x, cfg: ArchConfig, *, policy: ExecutionPolicy = STRUCTURED):
     """RMSNorm: the CUDA kernels (``cuda``), plain autograd (``plain``) or
     the structured Function (saves x; rms recomputed)."""
     if policy.backend == "plain":
-        xf = x.float()
+        xf = wide(x)
         rms = torch.sqrt(torch.mean(xf * xf, -1, keepdim=True)
                          + cfg.norm_eps)
-        return ((xf / rms) * p.float()).to(x.dtype)
+        return ((xf / rms) * wide(p)).to(x.dtype)
     if policy.backend == "cuda":
         return kops.rmsnorm(x, p, cfg.norm_eps)
     return structured.rmsnorm(x, p, cfg.norm_eps)
@@ -153,6 +159,13 @@ def norm(p, x, cfg: ArchConfig, *, policy: ExecutionPolicy = STRUCTURED):
 def act_silu(x, policy: ExecutionPolicy):
     return x * torch.sigmoid(x) if policy.backend == "plain" \
         else structured.silu(x)
+
+
+def act_gelu(x, policy: ExecutionPolicy):
+    """GeLU, tanh approximation: autograd of the plain form (``plain``) or
+    the structured Function (saves x)."""
+    return structured.gelu_tanh(x) if policy.backend == "plain" \
+        else structured.gelu(x)
 
 
 # ---------------------------------------------------------------------------
@@ -361,6 +374,7 @@ def embed(p, tokens, cfg: ArchConfig):
 
 
 def unembed(p, x, cfg: ArchConfig):
-    """logits = x @ tokᵀ (tied) or x @ head (untied), in f32."""
+    """logits = x @ tokᵀ (tied) or x @ head (untied), in f32 (f64 in an
+    f64 run)."""
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
-    return (x @ w).float()
+    return wide(x @ w)

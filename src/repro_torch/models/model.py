@@ -1,7 +1,7 @@
-"""Model assembly (``repro.models.model``) for the dense and MoE
-families: init, the full-sequence forward and loss for training, and, for
-the dense family, the per-slot decode cache and the multi-tenant decode
-step.
+"""Model assembly (``repro.models.model``) for the dense, MoE, ``ssm``
+(RWKV6) and ``hybrid`` (RecurrentGemma) families: init, the
+full-sequence forward and loss for training, the decode caches and the
+decode step.
 
 Block parameters are stacked ``[L, ...]`` as in the reference's tree (the
 weight bridge relies on it). An MoE model stacks ``moe_block``s; a config
@@ -10,16 +10,29 @@ with ``first_layer_dense`` (DeepSeekMoE) puts a dense block of MLP width
 config with a ``window_pattern`` (Gemma3: 5 local layers, then a global
 one) stacks its blocks per pattern period, ``groups`` leaves
 ``[n_groups, period, ...]``, as the reference does, so each position of
-the period keeps its own window. The forward and the decode step walk the
-layers in a Python loop where the reference scans; in training each
-stacked block (each group of a patterned model) runs under
-``torch.utils.checkpoint`` when ``policy.remat`` is set, so only block (or
-group) inputs are stored across the forward (the reference's
-``jax.checkpoint`` around its scan body, paper §4.3); ``block0`` runs
-outside it, as in the reference. The cache is written in place; a
-patterned model's cache is keyed per position of the period (``l{i}``:
-a ring of ``window`` slots for a local layer whose window is shorter than
-the cache, else linear), stacked over groups.
+the period keeps its own window. An ``ssm`` model stacks RWKV6 blocks
+(``models/rwkv6.py``) as ``blocks``. A ``hybrid`` model keeps one
+``groups`` entry per position of its pattern (``l0``, ``l1``, ``l2`` for
+R, R, A: recurrent blocks of ``models/griffin.py`` and local-attention
+dense blocks), each stacked ``[n_groups, ...]``, and the layers past the
+last whole period as ``tail``, a *list* of unstacked blocks (the
+reference's layout; ``repro_torch/tree.py`` walks lists as it walks
+dicts).
+
+The forward and the decode step walk the layers in a Python loop where
+the reference scans; in training each stacked block (each group of a
+patterned or hybrid model) runs under ``torch.utils.checkpoint`` when
+``policy.remat`` is set, so only block (or group) inputs are stored
+across the forward (the reference's ``jax.checkpoint`` around its scan
+body, paper §4.3); ``block0`` and a hybrid's ``tail`` run outside it, as
+in the reference. The cache is written in place: a KV cache per
+attention layer (a patterned model's keyed per position of the period,
+``l{i}``: a ring of ``window`` slots for a local layer whose window is
+shorter than the cache, else linear, stacked over groups) and, for the
+recurrent families, the recurrent states, which each step overwrites.
+Every cache carries a ``[B]`` length vector: per slot for continuous
+batching, all equal for single-stream decode (the reference's scalar
+length, which ``ssm`` and ``hybrid`` caches always have).
 """
 from __future__ import annotations
 
@@ -31,11 +44,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.api.policy import STRUCTURED, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import quant, structured
-from repro_torch.models import layers
+from repro_torch.models import griffin, layers, rwkv6
 from repro_torch.models import moe as moe_lib
+from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
+
+#: families with a KV cache only: these take a per-slot cache
+_KV_FAMILIES = ("dense", "moe")
 
 
-def _require(cfg: ArchConfig, families) -> None:
+#: the families the port runs (the reference's vlm and audio wait)
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _require(cfg: ArchConfig, families=FAMILIES) -> None:
     if cfg.family not in families:
         raise NotImplementedError(
             f"the port runs the {'/'.join(families)} family here so far, "
@@ -55,13 +76,14 @@ def dense_block(bp, x, cfg: ArchConfig, *, cache, window: int = 0,
     return x, new_cache
 
 
-def moe_block(bp, x, cfg: ArchConfig, *,
+def moe_block(bp, x, cfg: ArchConfig, *, cache=None,
               policy: ExecutionPolicy = STRUCTURED):
     """Attention, then the MoE MLP (``models/moe.py``) in place of the
-    dense one; training only."""
+    dense one. With ``cache`` (decode) the attention reads and advances it
+    in place."""
     h, _ = layers.attention(
         bp["attn"], layers.norm(bp["ln1"], x, cfg, policy=policy), cfg,
-        policy=policy)
+        cache=cache, policy=policy)
     x = x + h
     return x + moe_lib.moe_mlp(bp["moe"],
                                layers.norm(bp["ln2"], x, cfg, policy=policy),
@@ -80,7 +102,7 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     time, which on the card gives other values of the same distribution,
     ``layers.linear_params``); LoRA factors, biases, norms, the router and
     the embedding stay in ``cfg.dtype``."""
-    _require(cfg, ("dense", "moe"))
+    _require(cfg)
     gen = generator
     dtype = getattr(torch, cfg.dtype)
     L, d = cfg.n_layers, cfg.d_model
@@ -107,6 +129,19 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
                        "moe": moe_lib.moe_params(gen, cfg, lead=(L,),
                                                  quantize=method)}
         return p
+    if cfg.family == "ssm":
+        p["blocks"] = rwkv6.rwkv_block_params(gen, cfg, lead=(L,),
+                                              quantize=method)
+        return p
+    if cfg.family == "hybrid":
+        pat = cfg.hybrid.pattern
+        n_groups = L // len(pat)
+        p["groups"] = {f"l{i}": _hybrid_params(gen, cfg, kind, (n_groups,),
+                                               method)
+                       for i, kind in enumerate(pat)}
+        p["tail"] = [_hybrid_params(gen, cfg, pat[i % len(pat)], (), method)
+                     for i in range(n_groups * len(pat), L)]
+        return p
     lead = (L,)
     if cfg.window_pattern:
         gsz = len(cfg.window_pattern)
@@ -114,36 +149,84 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
             raise ValueError(f"{cfg.name}: {L} layers are not whole periods "
                              f"of the window pattern {cfg.window_pattern}")
         lead = (L // gsz, gsz)
-    stack = {"ln1": ones(*lead, d),
-             "attn": layers.attention_params(gen, cfg, lead=lead,
-                                             quantize=method),
-             "ln2": ones(*lead, d),
-             "mlp": layers.mlp_params(gen, cfg, lead=lead, quantize=method)}
-    p["groups" if cfg.window_pattern else "blocks"] = stack
+    p["groups" if cfg.window_pattern else "blocks"] = _dense_params(
+        gen, cfg, lead, method)
     return p
 
 
-def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cpu"):
-    """Stacked per-layer, per-slot KV caches (the reference's
-    ``init_cache(per_slot=True)``): {"blocks": {"k", "v": [L,B,Hkv,S,D],
-    "len": [L,B]}}; with a window pattern {"groups": {"l{i}": {"k", "v":
-    [n_groups,B,Hkv,S_i,D], "len": [n_groups,B]}}}, S_i the window of
-    position i where that is shorter than ``max_len`` (a ring), else
-    ``max_len``."""
-    _require(cfg, ("dense",))
-    kv = functools.partial(layers.make_kv_cache, cfg, batch, max_len,
-                           getattr(torch, cfg.dtype), device=device)
+def _dense_params(gen, cfg: ArchConfig, lead, method):
+    ones = lambda *s: torch.ones(s, dtype=getattr(torch, cfg.dtype),
+                                 device=gen.device)
+    d = cfg.d_model
+    return {"ln1": ones(*lead, d),
+            "attn": layers.attention_params(gen, cfg, lead=lead,
+                                            quantize=method),
+            "ln2": ones(*lead, d),
+            "mlp": layers.mlp_params(gen, cfg, lead=lead, quantize=method)}
+
+
+def _hybrid_params(gen, cfg: ArchConfig, kind: str, lead, method):
+    """A hybrid's block of pattern letter ``kind``: "R" recurrent, "A" a
+    dense block with local attention."""
+    if kind == "R":
+        return griffin.recurrent_block_params(gen, cfg, lead=lead,
+                                              quantize=method)
+    return _dense_params(gen, cfg, lead, method)
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cpu",
+               per_slot: bool = True):
+    """Stacked per-layer decode caches. KV caches are {"k", "v":
+    [L,B,Hkv,S,D], "len": [L,B]} under "blocks" (with a window pattern
+    {"groups": {"l{i}": {"k", "v": [n_groups,B,Hkv,S_i,D], "len":
+    [n_groups,B]}}}, S_i the window of position i where that is shorter
+    than ``max_len`` (a ring), else ``max_len``); an MoE model's ``block0``
+    has its own, unstacked. An ``ssm`` model's "blocks" hold RWKV6 states
+    (``rwkv6.make_rwkv_state``); a ``hybrid`` model's "groups" hold, per
+    pattern position, recurrent states or local-attention KV caches
+    stacked over groups, and "tail" a list of them.
+
+    ``per_slot`` (the default: continuous batching) lets every slot sit at
+    its own position; the recurrent families have no such cache, and ask
+    for ``per_slot=False`` (single-stream decode: the whole batch at one
+    position), as the reference's ``init_cache`` does."""
+    _require(cfg)
+    if per_slot and cfg.family not in _KV_FAMILIES:
+        raise ValueError(f"per_slot decode caches unsupported for "
+                         f"{cfg.family!r}")
+    dtype = getattr(torch, cfg.dtype)
+    kv = functools.partial(layers.make_kv_cache, cfg, batch, max_len, dtype,
+                           device=device)
+    if cfg.family == "ssm":
+        return {"blocks": rwkv6.make_rwkv_state(
+            cfg, batch, dtype, lead=(cfg.n_layers,), device=device)}
+    if cfg.family == "hybrid":
+        pat, window = cfg.hybrid.pattern, cfg.hybrid.window
+        n_groups = cfg.n_layers // len(pat)
+
+        def state(kind, lead):
+            if kind == "R":
+                return griffin.make_recurrent_state(cfg, batch, dtype,
+                                                    lead=lead, device=device)
+            return kv(window=window, lead=lead)
+
+        return {"groups": {f"l{i}": state(kind, (n_groups,))
+                           for i, kind in enumerate(pat)},
+                "tail": [state(pat[i % len(pat)], ())
+                         for i in range(n_groups * len(pat), cfg.n_layers)]}
     if cfg.window_pattern:
         lead = (cfg.n_layers // len(cfg.window_pattern),)
         return {"groups": {f"l{i}": kv(window=w, lead=lead)
                            for i, w in enumerate(cfg.window_pattern)}}
-    return {"blocks": kv(lead=(cfg.n_layers,))}
+    dense0 = cfg.moe is not None and cfg.moe.first_layer_dense
+    c = {"blocks": kv(lead=(cfg.n_layers - dense0,))}
+    if dense0:
+        c["block0"] = kv()
+    return c
 
 
 def _layer(tree, i: int):
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+    return tree_map(lambda t: t[i], tree)
 
 
 def _unstack(tree, n: int, lead: int = 1):
@@ -158,35 +241,82 @@ def _unstack(tree, n: int, lead: int = 1):
 
 
 def _layer_list(params, cfg: ArchConfig):
-    """[(block params, window)] for every stacked layer, in order."""
+    """[(kind, block params, window)] for every layer past ``block0`` and
+    before a hybrid's ``tail``, in order. kind: "dense", "moe", "rwkv", or
+    "R" (a hybrid's recurrent block; its "A" blocks are dense blocks with
+    the local window)."""
+    if cfg.family == "hybrid":
+        pat = cfg.hybrid.pattern
+        n_groups = cfg.n_layers // len(pat)
+        per = [_unstack(params["groups"][f"l{i}"], n_groups)
+               for i in range(len(pat))]
+        return [_hybrid_layer(cfg, pat[i], per[i][g]) for g in range(n_groups)
+                for i in range(len(pat))]
     if "groups" in params:
-        return list(zip(_unstack(params["groups"], cfg.n_layers, 2),
-                        (cfg.layer_window(i) for i in range(cfg.n_layers))))
+        return [("dense", bp, cfg.layer_window(i)) for i, bp in enumerate(
+            _unstack(params["groups"], cfg.n_layers, 2))]
+    kind = {"moe": "moe", "ssm": "rwkv"}.get(cfg.family, "dense")
     blocks = params["blocks"]
-    return [(bp, 0) for bp in _unstack(blocks, blocks["ln1"].shape[0])]
+    return [(kind, bp, 0)
+            for bp in _unstack(blocks, blocks["ln1"].shape[0])]
+
+
+def _hybrid_layer(cfg: ArchConfig, letter: str, bp):
+    return ("R", bp, 0) if letter == "R" else ("dense", bp, cfg.hybrid.window)
+
+
+def _tail_list(params, cfg: ArchConfig):
+    """:func:`_layer_list`'s entries for a hybrid's ``tail`` (the layers
+    past the last whole pattern period, unstacked)."""
+    tail = params.get("tail", ())
+    if not tail:
+        return []
+    pat = cfg.hybrid.pattern
+    start = cfg.n_layers - len(tail)
+    return [_hybrid_layer(cfg, pat[(start + i) % len(pat)], bp)
+            for i, bp in enumerate(tail)]
+
+
+def _period(cfg: ArchConfig) -> int:
+    """Layers a checkpointed unit holds: one pattern period (the
+    reference's scan body), else one block."""
+    if cfg.family == "hybrid":
+        return len(cfg.hybrid.pattern)
+    return len(cfg.window_pattern) or 1
+
+
+def _run_block(kind, bp, x, cfg: ArchConfig, window: int, policy,
+               state=None, adapter_tiles=None):
+    """One layer of any kind; (x, new recurrent state or None).
+    ``state``: the layer's cache (decode) or None (training)."""
+    if kind == "moe":
+        return moe_block(bp, x, cfg, cache=state, policy=policy), None
+    if kind == "rwkv":
+        return rwkv6.rwkv_block(bp, x, cfg, state=state, policy=policy)
+    if kind == "R":
+        return griffin.recurrent_block(bp, x, cfg, state=state,
+                                       policy=policy)
+    return dense_block(bp, x, cfg, cache=state, window=window, policy=policy,
+                       adapter_tiles=adapter_tiles)[0], None
 
 
 def forward(params, cfg: ArchConfig, tokens, *,
             policy: ExecutionPolicy = STRUCTURED):
     """Full-sequence forward -> logits [B, N, vocab] in f32."""
-    _require(cfg, ("dense", "moe"))
+    _require(cfg)
     x = layers.embed(params["embed"], tokens, cfg)
     if "block0" in params:
         x = dense_block(params["block0"], x, cfg, cache=None,
                         policy=policy)[0]
 
     def body(x, group):
-        for bp, window in group:
-            if cfg.family == "moe":
-                x = moe_block(bp, x, cfg, policy=policy)
-            else:
-                x = dense_block(bp, x, cfg, cache=None, window=window,
-                                policy=policy)[0]
+        for kind, bp, window in group:
+            x = _run_block(kind, bp, x, cfg, window, policy)[0]
         return x
 
     # one checkpointed unit a block, or a pattern period (the reference's
     # scan body: its group inputs are all that is stored)
-    per = len(cfg.window_pattern) or 1
+    per = _period(cfg)
     layer_list = _layer_list(params, cfg)
     for g in range(0, len(layer_list), per):
         group = layer_list[g:g + per]
@@ -194,6 +324,9 @@ def forward(params, cfg: ArchConfig, tokens, *,
             x = checkpoint(body, x, group, use_reentrant=False)
         else:
             x = body(x, group)
+    # a hybrid's tail runs outside the checkpoint, as in the reference
+    for kind, bp, window in _tail_list(params, cfg):
+        x = _run_block(kind, bp, x, cfg, window, policy)[0]
     x = layers.norm(params["final_norm"], x, cfg, policy=policy)
     return layers.unembed(params["embed"], x, cfg)
 
@@ -206,6 +339,29 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *,
     return structured.softmax_xent(logits, batch["labels"])
 
 
+def _overwrite(dst, src) -> None:
+    """Copy a block's new recurrent state into its cache views, in
+    place."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        d.copy_(s)
+
+
+def _layer_caches(cache, cfg: ArchConfig):
+    """The per-layer cache views, in :func:`_layer_list`'s order."""
+    if cfg.family == "hybrid":
+        pat = cfg.hybrid.pattern
+        return [_layer(cache["groups"][f"l{i}"], g)
+                for g in range(cfg.n_layers // len(pat))
+                for i in range(len(pat))]
+    if cfg.window_pattern:
+        per = len(cfg.window_pattern)
+        return [_layer(cache["groups"][f"l{i % per}"], i // per)
+                for i in range(cfg.n_layers)]
+    blocks = cache["blocks"]
+    n = tree_leaves(blocks)[0].shape[0]
+    return [_layer(blocks, i) for i in range(n)]
+
+
 @torch.no_grad()
 def decode_step(params, cfg: ArchConfig, cache, tokens, *,
                 policy: ExecutionPolicy = STRUCTURED, adapter_tiles=None):
@@ -213,45 +369,43 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *,
     the cache advanced in place.
 
     ``adapter_tiles``: int32 device tensor [B // bm] routing each slot tile
-    to its resident adapter for tenant-stacked LoRA params.
+    to its resident adapter for tenant-stacked LoRA params (dense family
+    only: an MoE's expert stacks already take the group axis, and the
+    recurrent families serve one adapter set).
     """
-    _require(cfg, ("dense",))
+    _require(cfg)
+    if adapter_tiles is not None and cfg.family != "dense":
+        raise ValueError(f"adapter routing unsupported for {cfg.family!r}")
     x = layers.embed(params["embed"], tokens, cfg)
-    per = len(cfg.window_pattern) or 1
-    for i, (bp, window) in enumerate(_layer_list(params, cfg)):
-        lc = _layer(cache["groups"][f"l{i % per}"], i // per) \
-            if cfg.window_pattern else _layer(cache["blocks"], i)
-        x, _ = dense_block(bp, x, cfg, cache=lc, window=window,
-                           policy=policy, adapter_tiles=adapter_tiles)
+    if "block0" in params:
+        x = dense_block(params["block0"], x, cfg, cache=cache["block0"],
+                        policy=policy)[0]
+    blocks = _layer_list(params, cfg) + _tail_list(params, cfg)
+    states = _layer_caches(cache, cfg) + list(cache.get("tail", ()))
+    for (kind, bp, window), st in zip(blocks, states):
+        x, ns = _run_block(kind, bp, x, cfg, window, policy, state=st,
+                           adapter_tiles=adapter_tiles)
+        if ns is not None:
+            _overwrite(st, ns)
     x = layers.norm(params["final_norm"], x, cfg, policy=policy)
     return layers.unembed(params["embed"], x, cfg), cache
 
 
 def trainable_mask(params):
     """Same nesting as ``params``: True for LoRA factors ('a'/'b')."""
-    def mark(tree, key=None):
-        if isinstance(tree, dict):
-            return {k: mark(v, k) for k, v in tree.items()}
-        return key in ("a", "b")
-
-    return mark(params)
+    return tree_map_with_path(
+        lambda path, _: bool(path) and path[-1] in ("a", "b"), params)
 
 
 def split_params(params):
     """(trainable, frozen): two trees with the params' nesting, the LoRA
     leaves in the first and the others in the second, ``None`` elsewhere."""
     mask = trainable_mask(params)
-
-    def part(tree, m, keep):
-        if isinstance(tree, dict):
-            return {k: part(tree[k], m[k], keep) for k in tree}
-        return tree if m == keep else None
-
-    return part(params, mask, True), part(params, mask, False)
+    part = lambda keep: tree_map(lambda t, m: t if m == keep else None,
+                                 params, mask)
+    return part(True), part(False)
 
 
 def merge_params(train, frozen):
     """Inverse of :func:`split_params`."""
-    if isinstance(frozen, dict):
-        return {k: merge_params(train[k], frozen[k]) for k in frozen}
-    return train if frozen is None else frozen
+    return tree_map(lambda f, t: t if f is None else f, frozen, train)

@@ -14,21 +14,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.tree import tree_map
+
 OPTIMIZERS = ("sgd", "sgd_momentum", "adamw")
 
 
 class Optimizer(NamedTuple):
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple]  # (grads, state, params) -> (params, state)
-
-
-def _map(f, *trees):
-    """``f`` over the leaves of trees with the nesting of the first; a
-    ``None`` where the first tree has a dict stands for a tree of Nones."""
-    if isinstance(trees[0], dict):
-        return {k: _map(f, *(t[k] if isinstance(t, dict) else None
-                             for t in trees)) for k in trees[0]}
-    return f(*trees)
 
 
 def _lr(lr, step):
@@ -39,7 +32,7 @@ def _lr(lr, step):
 def sgd_apply(params, grads, lr: float):
     """``p - lr · g`` (g cast to p's dtype) where g is not None; frozen
     leaves are returned as they are."""
-    return _map(lambda p, g: p if g is None else p - lr * g.to(p.dtype),
+    return tree_map(lambda p, g: p if g is None else p - lr * g.to(p.dtype),
                 params, grads)
 
 
@@ -64,11 +57,11 @@ def sgd_momentum(lr, beta: float = 0.9) -> Optimizer:
     def update(grads, state, params):
         step = state["step"] + 1
         lr_t = _lr(lr, step)
-        m = _map(lambda g, m_, p: None if g is None else
+        m = tree_map(lambda g, m_, p: None if g is None else
                  beta * (m_ if m_ is not None else
                          torch.zeros_like(p, dtype=torch.float32))
                  + g.float(), grads, state["m"], params)
-        new = _map(lambda p, mi: p if mi is None else
+        new = tree_map(lambda p, mi: p if mi is None else
                    (p - lr_t * mi).to(p.dtype), params, m)
         return new, {"step": step, "m": m}
 
@@ -88,10 +81,10 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     def update(grads, state, params):
         step = state["step"] + 1
         lr_t = _lr(lr, step)
-        m = _map(lambda g, m_, p: None if g is None else
+        m = tree_map(lambda g, m_, p: None if g is None else
                  b1 * (m_ if m_ is not None else zeros(p))
                  + (1 - b1) * g.float(), grads, state["m"], params)
-        v = _map(lambda g, v_, p: None if g is None else
+        v = tree_map(lambda g, v_, p: None if g is None else
                  b2 * (v_ if v_ is not None else zeros(p))
                  + (1 - b2) * g.float().square(), grads, state["v"], params)
         c1, c2 = 1 - b1 ** step, 1 - b2 ** step
@@ -104,7 +97,7 @@ def adamw(lr, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                 upd = upd + weight_decay * p.float()
             return (p - lr_t * upd).to(p.dtype)
 
-        return _map(apply, params, m, v), {"step": step, "m": m, "v": v}
+        return tree_map(apply, params, m, v), {"step": step, "m": m, "v": v}
 
     return Optimizer(init, update)
 

@@ -47,6 +47,8 @@ import dataclasses
 import logging
 from typing import Iterator, Tuple
 
+from repro_torch.tree import leaves_with_paths, path_str, tree_map_with_path
+
 log = logging.getLogger("repro_torch.degrade")
 
 #: engine step-downs, leanest-retained-set direction
@@ -60,28 +62,14 @@ class LadderExhausted(RuntimeError):
     """No rung left: the spec is already at the floor of the ladder."""
 
 
-def _flatten_paths(tree, prefix: str = "") -> dict:
+def _flatten_paths(tree) -> dict:
     """{path: leaf} over nested dicts/lists, ``None`` leaves included."""
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(_flatten_paths(v, f"{prefix}/{k}"))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = {}
-        for i, v in enumerate(tree):
-            out.update(_flatten_paths(v, f"{prefix}/{i}"))
-        return out
-    return {prefix: tree}
+    return {path_str(p): x
+            for p, x in leaves_with_paths(tree, keep_none=True)}
 
 
-def _map_paths(tree, fn, prefix: str = ""):
-    if isinstance(tree, dict):
-        return {k: _map_paths(v, fn, f"{prefix}/{k}") for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_paths(v, fn, f"{prefix}/{i}")
-                          for i, v in enumerate(tree))
-    return fn(prefix)
+def _map_paths(tree, fn):
+    return tree_map_with_path(lambda p, _: fn(path_str(p)), tree)
 
 
 def carry_opt_state(opt_state, old_params, new_params):

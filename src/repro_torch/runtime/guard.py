@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.tree import tree_leaves
+
 log = logging.getLogger("repro_torch.guard")
 
 #: rejection categories, in check order
@@ -39,18 +41,6 @@ class GuardExhausted(RuntimeError):
     """Raised when a run rejects more steps than its guard budget allows."""
 
 
-def _leaf_pairs(old, new):
-    """(old, new) leaf pairs of two trees of one nesting."""
-    if isinstance(old, dict):
-        for k in old:
-            yield from _leaf_pairs(old[k], new[k])
-    elif isinstance(old, (list, tuple)):
-        for a, b in zip(old, new):
-            yield from _leaf_pairs(a, b)
-    else:
-        yield old, new
-
-
 def update_norm(old_params, new_params) -> float:
     """Global L2 norm of the parameter update over float leaves, each
     leaf's squared difference summed in f32 as the reference computes it
@@ -59,7 +49,8 @@ def update_norm(old_params, new_params) -> float:
     frozen W0 is such a leaf (and so are integer codes, which are never
     differentiated)."""
     total = None
-    for a, b in _leaf_pairs(old_params, new_params):
+    for a, b in zip(tree_leaves(old_params, keep_none=True),
+                    tree_leaves(new_params, keep_none=True)):
         if a is b or not isinstance(a, torch.Tensor) \
                 or not a.is_floating_point():
             continue

@@ -21,6 +21,12 @@ adapter store, the optional memory headroom (``mem_budget_mb`` against
 ``serve/residency.serve_residency``: the base in its own format, the
 resident adapters, the live KV pages and the decode working set, a model
 and not a measurement), KV pages for ``len(prompt) + max_new``.
+
+With a ``telemetry`` object (``repro_torch.telemetry.Telemetry``) the
+batcher registers its counters in the telemetry's registry, emits an
+``AdmissionEvent`` on every admit, reject and completion, and wraps the
+admission pass and each step in spans ("admission", and "prefill" or
+"decode" by what the step mostly served), as the reference does.
 """
 from __future__ import annotations
 
@@ -36,6 +42,8 @@ from repro_torch.models import model as model_lib
 from repro_torch.serve.paged import PagedKVAllocator
 from repro_torch.serve.residency import serve_residency
 from repro_torch.serve.store import AdapterStore, StoreFull
+from repro_torch.telemetry import DISABLED as _NO_TELEMETRY
+from repro_torch.telemetry import AdmissionEvent
 from repro_torch.telemetry.metrics import CounterGroup, MetricRegistry
 
 
@@ -90,7 +98,7 @@ class ContinuousBatcher:
     def __init__(self, cfg, store: AdapterStore, *, slots: int = 8,
                  tile: int = 2, max_len: int = 128, page_size: int = 16,
                  policy: ExecutionPolicy = STRUCTURED,
-                 mem_budget_mb: Optional[float] = None):
+                 mem_budget_mb: Optional[float] = None, telemetry=None):
         if slots % tile:
             raise ValueError(f"slots ({slots}) must be a multiple of the "
                              f"tile size ({tile})")
@@ -126,7 +134,9 @@ class ContinuousBatcher:
                       "decoded_tokens", "rejected_pages",
                       "rejected_headroom", "rejected_tiles",
                       "rejected_store"))
-        self.registry = MetricRegistry()
+        self._tel = telemetry if telemetry is not None else _NO_TELEMETRY
+        self.registry = (telemetry.registry if telemetry is not None
+                         else MetricRegistry())
         self.registry.register_group(self.counters)
         self.registry.register_group(self.store.counters)
         self.registry.register_group(self.alloc.counters)
@@ -140,8 +150,15 @@ class ContinuousBatcher:
         """Namespaced snapshot: serve.* / store.* / pages.*."""
         return self.registry.snapshot()
 
+    def _event(self, action: str, req: Request, reason: str = "") -> None:
+        if self._tel.enabled:
+            self._tel.emit(AdmissionEvent(
+                action=action, rid=req.rid, adapter=req.adapter,
+                reason=reason, step=self.counters["steps"]))
+
     def _reject(self, req: Request, reason: str) -> bool:
         self.counters[f"rejected_{reason}"] += 1
+        self._event("reject", req, reason)
         return False
 
     # -- admission ----------------------------------------------------------
@@ -207,6 +224,7 @@ class ContinuousBatcher:
         _reset_slot(self.cache, b)
         self._rows[b] = _Slot(req=req, pending=list(req.prompt))
         self.counters["admitted"] += 1
+        self._event("admit", req)
         return True
 
     def _admit(self) -> None:
@@ -226,6 +244,7 @@ class ContinuousBatcher:
         if all(self._rows[i].req is None for i in self._tile_rows(t)):
             self.tile_adapter[t] = None   # adapter now evictable
         self.counters["completed"] += 1
+        self._event("complete", row.req)
 
     # -- decode -------------------------------------------------------------
 
@@ -233,10 +252,23 @@ class ContinuousBatcher:
     def active(self) -> int:
         return sum(r.req is not None for r in self._rows)
 
+    def _decode(self, toks):
+        """One decode step over every slot: the logits; the cache kept."""
+        logits, self.cache = model_lib.decode_step(
+            self.store.params, self.cfg, self.cache,
+            torch.from_numpy(toks).to(self.device), policy=self.policy,
+            adapter_tiles=self._tile_gid_dev)
+        return logits
+
     def step(self) -> bool:
         """Admit, then advance every active row by one token. Returns False
         when there is nothing to do (no active rows, empty queue)."""
-        self._admit()
+        tel = self._tel
+        if tel.enabled:
+            with tel.span("admission"):
+                self._admit()
+        else:
+            self._admit()
         if self.active == 0:
             return False
         toks = np.zeros((self.slots, 1), np.int64)
@@ -244,10 +276,15 @@ class ContinuousBatcher:
             if row.req is not None:
                 toks[b, 0] = row.pending[0] if row.pending else row.last
         self._tile_gid_dev.copy_(torch.from_numpy(self.tile_gid))
-        logits, self.cache = model_lib.decode_step(
-            self.store.params, self.cfg, self.cache,
-            torch.from_numpy(toks).to(self.device), policy=self.policy,
-            adapter_tiles=self._tile_gid_dev)
+        if tel.enabled:
+            # prefill runs through the same step (prefill-as-decode); the
+            # span name records which phase this step mostly served
+            prefilling = any(r.req is not None and r.pending
+                             for r in self._rows)
+            with tel.span("prefill" if prefilling else "decode"):
+                logits = self._decode(toks)
+        else:
+            logits = self._decode(toks)
         self.last_logits = logits
         nxt = logits[:, 0].argmax(-1).cpu().numpy()
         self.counters["steps"] += 1

@@ -22,30 +22,17 @@ import numpy as np
 import torch
 
 from repro_torch.telemetry.metrics import CounterGroup
+from repro_torch.tree import leaves_with_paths, path_str, tree_map_with_path
 
 
 class StoreFull(RuntimeError):
     """Insert needed but every resident slot is pinned by a live request."""
 
 
-def _walk(tree, prefix=()):
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _walk(v, prefix + (k,))
-    else:
-        yield prefix, tree
-
-
 def _adapter_leaves(tree) -> Dict[str, torch.Tensor]:
     """Path-keyed LoRA leaves (final key 'a' or 'b') of a parameter tree."""
-    return {"/".join(p): leaf for p, leaf in _walk(tree)
+    return {path_str(p): leaf for p, leaf in leaves_with_paths(tree)
             if p and p[-1] in ("a", "b")}
-
-
-def _map(fn, tree, prefix=()):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v, prefix + (k,)) for k, v in tree.items()}
-    return fn(prefix, tree)
 
 
 def synthetic_adapters(params, seed: int, scale: float = 0.05):
@@ -60,7 +47,8 @@ def synthetic_adapters(params, seed: int, scale: float = 0.05):
         (scale * rng.standard_normal(tuple(leaves[p].shape))
          ).astype(np.float32)).to(leaves[p].device, leaves[p].dtype)
         for p in sorted(leaves)}
-    return _map(lambda p, leaf: drawn.get("/".join(p), leaf), params)
+    return tree_map_with_path(lambda p, leaf: drawn.get(path_str(p), leaf),
+                              params)
 
 
 class AdapterStore:
@@ -89,7 +77,7 @@ class AdapterStore:
                                    dtype=p.dtype, device=p.device)
             return p
 
-        self.params = _map(widen, params)
+        self.params = tree_map_with_path(widen, params)
         self._stacked = _adapter_leaves(self.params)
         self._slot_of: "OrderedDict[str, int]" = OrderedDict()  # LRU order
         self._free = list(range(capacity - 1, -1, -1))          # pop() -> 0,1,..

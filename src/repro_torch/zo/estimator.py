@@ -22,13 +22,12 @@ import torch
 
 from repro_torch.api.policy import PLAIN, ExecutionPolicy
 from repro_torch.configs.base import ArchConfig
+from repro_torch.tree import tree_map
 from repro_torch.zo.samplers import DenseSampler, PerturbationSampler, fold_in
 
 
 def _map2(f, train, z):
-    if isinstance(train, dict):
-        return {k: _map2(f, train[k], z[k]) for k in train}
-    return None if train is None else f(train, z)
+    return tree_map(lambda t, zi: None if t is None else f(t, zi), train, z)
 
 
 def perturb(train, z, eps_signed: float):

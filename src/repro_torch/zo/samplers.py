@@ -34,6 +34,8 @@ from typing import Callable, Dict, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch import tree as _tree
+
 _MASK64 = (1 << 64) - 1
 
 
@@ -47,25 +49,16 @@ def fold_in(seed: int, data: int) -> int:
     return (z ^ (z >> 31)) >> 1
 
 
-def leaves_with_paths(tree, path=()):
-    """[(path, leaf)] of a nested dict in sorted-key order, None skipped."""
-    if isinstance(tree, dict):
-        return [item for k in sorted(tree)
-                for item in leaves_with_paths(tree[k], path + (k,))]
-    return [] if tree is None else [(path, tree)]
+def leaves_with_paths(tree):
+    """[(path, leaf)] of a nested dict/list in sorted-key order, None
+    skipped."""
+    return _tree.leaves_with_paths(tree, sort=True)
 
 
 def unflatten(tree, leaves):
     """``tree``'s nesting with its non-None leaves replaced, in
     :func:`leaves_with_paths` order, by ``leaves``."""
-    it = iter(leaves)
-
-    def fill(t):
-        if isinstance(t, dict):
-            return {k: fill(t[k]) for k in sorted(t)}
-        return None if t is None else next(it)
-
-    return fill(tree)
+    return _tree.unflatten(tree, leaves, sort=True)
 
 
 def _generator(seed: int, leaves) -> torch.Generator:

@@ -500,9 +500,11 @@ def test_moe_value_and_grad_repeats_bitwise():
 
 
 def test_moe_refuses_quantize_and_decode():
-    """MoE decode (``init_cache``) is still refused. A quantized MoE base is
-    taken: ``init_params(quantize="nf4")`` gives packed expert leaves, and
-    the CLI trains one step with ``--quantize int8``."""
+    """MoE decode takes no adapter routing (the reference's refusal: the
+    expert stacks already take the group axis); its cache and a plain
+    decode step work. A quantized MoE base is taken:
+    ``init_params(quantize="nf4")`` gives packed expert leaves, and the CLI
+    trains one step with ``--quantize int8``."""
     cfg = get_config("olmoe-1b-7b").reduced()
     gen = torch.Generator().manual_seed(0)
     p = TM.init_params(cfg, generator=gen, quantize="nf4")
@@ -516,8 +518,16 @@ def test_moe_refuses_quantize_and_decode():
     assert gate["scale"].shape == (L, E, 1, f) and gate["code"].shape == (
         L, E, 16)
     assert moe["router"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="moe"):
-        TM.init_cache(cfg, 2, 16)
+    cache = TM.init_cache(cfg, 2, 16)
+    assert cache["blocks"]["len"].shape == (L, 2)
+    toks = torch.ones((2, 1), dtype=torch.long)
+    with pytest.raises(ValueError, match="adapter routing unsupported"):
+        TM.decode_step(p, cfg, cache, toks,
+                       adapter_tiles=torch.zeros(1, dtype=torch.int32))
+    logits, _ = TM.decode_step(p, cfg, cache, toks,
+                               policy=ExecutionPolicy(quantize="nf4"))
+    assert logits.shape == (2, 1, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
     out = ttrain.train(["--arch", "olmoe-1b-7b", "--reduced", "--device",
                         "cpu", "--steps", "1", "--seq", "16", "--quantize",
                         "int8"])
