@@ -258,6 +258,31 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    OLMoE-1B-7B over bf16 and nf4, qwen2.5-0.5b with ``--adapters 0``; 4
    sequences, 16 steps), exact counts a step (``decode_per_step``), ms a
    step and tokens/s.
+21. The ``vlm`` and ``audio`` families (``vlm_audio_phase``): (a) the
+   LoRA forward, dx and dA/dB at Whisper-tiny's three (K, N) at M 256
+   (the text) and 1,500 (the frames), the forward at single-stream
+   decode's M 4 and 6,000 (the cross-attention's k, v over 4 x 1,500
+   frames), the nf4 forward and dx at Whisper's training shapes, all
+   three at InternVL2-1B's four (K, N) at M 512 (256 patch
+   embeddings and 256 tokens), both RMSNorm kernels at [256, 384], [1,500,
+   384] and [512, 896], and the flash kernels at ``FLASH_VA_CASES``
+   (non-causal 1,500 x 1,500 and 256 x 1,500 over 6 heads, causal 256 at
+   G 1, causal 512 at G 7), each against its plain version and timed;
+   (b) InternVL2-1B (256 patch embeddings from the seed ahead of 256
+   tokens) and Whisper-tiny (1,500 frames from the seed, 256 tokens), and
+   Whisper over ``--quantize nf4``, at full width and depth, mesp_cuda,
+   batch 1, the step built as ``launch.train`` builds it, with exact
+   counts (``va_per_step``), finite losses, the loss and LoRA gradients
+   of every layer (the encoder's too) against the plain backend in bf16
+   and f32 (``compare_grads``, B at ``b_scale_for``), and the peak of one
+   ``value_and_grad``; (c) 64 positions decoded single-stream in f32
+   against the forward (``decode_vs_forward``; Whisper with
+   ``cache["enc_out"]`` its own encoder's output over the forward's
+   frames, InternVL on text alone); (d) ``launch.serve --arch
+   internvl2-1b --adapters 4`` (continuous: 168 grouped and 49 RMSNorm
+   launches a decode step) and ``--arch whisper-tiny`` single-stream (4
+   sequences: 40 dense LoRA forward and 13 RMSNorm launches a step), ms a
+   step and tokens/s.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
@@ -265,7 +290,7 @@ Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"train_moe_quant": ...}``, ``{"train_seq": ...}``, ``{"zo": ...}``,
 ``{"train_engines": ...}`` (with the run's seconds),
 ``{"core_flash": ...}``, ``{"trainer": ...}``, ``{"dense_catalog":
-...}`` and ``{"recurrent": ...}`` line each, the card's
+...}``, ``{"recurrent": ...}`` and ``{"vlm_audio": ...}`` line each, the card's
 name and power limit, and
 last ``{"ok": true, "device": ...}``. Any mismatch or exception exits
 non-zero. Imports nothing of JAX or of the JAX package ``repro``.
@@ -1353,26 +1378,27 @@ def _flash_errors(torch, fa, rope_tables, gen, cases):
 
 
 def _flash_times(torch, fa, gen, errs, shape, per_step, n_calls=2000):
-    """The flash kernels' figures at ``shape`` (a ``FLASH_CASES`` tuple),
-    bf16, with ``per_step`` launches a step and the errors of
-    ``_flash_errors``, ``n_calls`` calls a timing; warm: q, k, v were just
-    written by the q/k/v linears, g by the o linear's backward."""
+    """The flash kernels' figures at ``shape`` (a ``FLASH_CASES`` tuple:
+    Nq query rows over Nk keys, causal or not), bf16, with ``per_step``
+    launches a step and the errors of ``_flash_errors``, ``n_calls`` calls
+    a timing; warm: q, k, v were just written by the q/k/v linears, g by
+    the o linear's backward."""
     import torch.nn.functional as F
-    BHkv, G, N, _, D, causal, window, _ = shape
+    BHkv, G, N, Nk, D, causal, window, _ = shape
     BH = BHkv * G
     kw = dict(causal=causal, window=window, q_per_kv=G)
-    q, k, v, g = _flash_inputs(torch, gen, torch.bfloat16, BHkv, G, N, N, D)
+    q, k, v, g = _flash_inputs(torch, gen, torch.bfloat16, BHkv, G, N, Nk, D)
     out, lse = fa.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     delta = fa.bwd_delta(g, out)
     sets = [(q, k, v, g, lse, delta)] * 64
     # the pairs this mask leaves (the work depends on it) and the bytes of
     # each input read once and each output written once
-    pos = torch.arange(N)
-    ok = pos[:, None] >= pos[None, :]                           # causal
+    qp, kp = torch.arange(N)[:, None], torch.arange(Nk)[None]
+    ok = qp >= kp if causal else torch.ones(N, Nk, dtype=torch.bool)
     if window:
-        ok &= pos[:, None] - pos[None, :] < window
+        ok &= qp - kp < window
     pairs = BH * int(ok.sum())
-    tile, kv, rows = 2 * BH * N * D, 2 * BHkv * N * D, 4 * BH * N
+    tile, kv, rows = 2 * BH * N * D, 2 * BHkv * Nk * D, 4 * BH * N
     work = {"flash_fwd": (2 * tile + 2 * kv + rows, 4 * D * pairs),
             "flash_bwd_dq": (3 * tile + 2 * kv + 2 * rows, 6 * D * pairs),
             "flash_bwd_dkv": (2 * tile + 4 * kv + 2 * rows, 8 * D * pairs)}
@@ -1393,10 +1419,12 @@ def _flash_times(torch, fa, gen, errs, shape, per_step, n_calls=2000):
     }
     # the library yardstick, never called on the path: one PyTorch call,
     # forward, and forward plus backward through autograd
-    q4, k4, v4, g4 = (t.view(1, -1, N, D) for t in (q, k, v, g))
+    q4, g4 = (t.view(1, -1, N, D) for t in (q, g))
+    k4, v4 = (t.view(1, -1, Nk, D) for t in (k, v))
     mask = ok.cuda() if window else None     # a window takes a mask
     lib_fwd = lambda q, k, v, g: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask, is_causal=mask is None, enable_gqa=True)
+        q, k, v, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True)
     leaves = tuple(t.detach().clone().requires_grad_(True)
                    for t in (q4, k4, v4))
 
@@ -1411,7 +1439,8 @@ def _flash_times(torch, fa, gen, errs, shape, per_step, n_calls=2000):
         nbytes, flops = work[name]
         bound, by = _bound_ms(nbytes, flops)
         figures[name] = [{
-            "BH": BH, "BHkv": BHkv, "N": N, "D": D, "causal": causal,
+            "BH": BH, "BHkv": BHkv, "N": N, "Nk": Nk, "D": D,
+            "causal": causal,
             "window": window, "dtype": "bfloat16",
             "launches_per_train_step": per_step[name],
             "max_abs_err": errs[(name, torch.bfloat16)],
@@ -3400,7 +3429,8 @@ def recurrent_per_step(cfg, seq):
 def decode_per_step(cfg, quantize="none"):
     """Launches of every kernel in one single-stream decode step (a forward
     at one position: every LoRA linear once through the dense kernels, an
-    MoE's experts through the grouped forward, every norm once)."""
+    MoE's experts through the grouped forward, every norm once; Whisper's
+    decoder blocks 10 linears and 3 norms each)."""
     want = {k: 0 for k in KERNEL_NAMES}
     fwd = QUANT_KERNELS.get(quantize, ("lora_fused_fwd",))[0]
     L = cfg.n_layers
@@ -3413,6 +3443,8 @@ def decode_per_step(cfg, quantize="none"):
         grouped = {"none": "lora_grouped_gemm", "int8": GROUPED_TRAIN_Q[
             "int8"][0]}.get(quantize, GROUPED_TRAIN_Q["nf4"][0])
         want.update({fwd: 4 * L, grouped: 3 * L, "rmsnorm_fwd": 2 * L + 1})
+    elif cfg.family == "audio":
+        want.update({fwd: 10 * L, "rmsnorm_fwd": 3 * L + 1})
     else:
         want.update({fwd: 7 * L, "rmsnorm_fwd": 2 * L + 1})
     return want
@@ -3572,14 +3604,21 @@ def check_ragged_op(torch, quant, ops, lg, method, sizes):
     return counts
 
 
-def _decode_and_forward(torch, cfg, params, toks, pol):
+def _decode_and_forward(torch, cfg, params, toks, pol, frames=None):
     """(forward logits, the logits of ``DecodeServer`` decoding ``toks``
-    one position a step) of the model on ``pol``'s backend."""
+    one position a step) of the model on ``pol``'s backend; an audio
+    model's forward over ``frames``, its decode with ``cache["enc_out"]``
+    its own encoder's output over them."""
     from repro_torch.launch.serve import DecodeServer
     from repro_torch.models import model as model_lib
+    extra = {} if frames is None else {"enc_frames": frames}
     with torch.no_grad():
-        fwd = model_lib.forward(params, cfg, toks, policy=pol)
+        fwd = model_lib.forward(params, cfg, toks, policy=pol, **extra)
     server = DecodeServer(cfg, params, toks.shape[0], toks.shape[1], pol)
+    if frames is not None:
+        with torch.no_grad():
+            server.cache["enc_out"] = model_lib._encoder_forward(
+                params, cfg, frames, pol)
     dec = torch.empty_like(fwd)
     for t in range(toks.shape[1]):
         server.step(toks[:, t:t + 1])
@@ -3606,7 +3645,9 @@ def decode_vs_forward(torch, cfg):
     by both f32 runs is right at full width, and their distance is
     rounding), and both f32 runs' forward and decode are read against the
     f64 forward, beside ``DECODE_SPREAD_SAMPLES`` plain f32 forwards of
-    weights moved one ulp (the spread rounding alone gives)."""
+    weights moved one ulp (the spread rounding alone gives). An audio
+    model decodes against its own encoder's output over ``FRAMES_STD``
+    frames from the seed, the forward over the same frames."""
     from repro_torch.api.policy import ExecutionPolicy
     from repro_torch.models import model as model_lib
     from repro_torch.tree import tree_map
@@ -3616,6 +3657,11 @@ def decode_vs_forward(torch, cfg):
                      b_scale_for(cfg))
     toks = torch.randint(0, cfg.vocab, (DECODE_BATCH, DECODE_POSITIONS),
                          generator=gen, device="cuda")
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.randn(DECODE_BATCH, cfg.encdec.encoder_seq,
+                             cfg.d_model, generator=gen,
+                             device="cuda") * FRAMES_STD
     out = {"positions": DECODE_POSITIONS, "batch": DECODE_BATCH,
            "tol": DECODE_F32_TOL}
     rel = lambda u, v, scale: ((u.double() - v.double()).abs().amax((0, 2))
@@ -3638,7 +3684,7 @@ def decode_vs_forward(torch, cfg):
     for name, backend in (("kernels", "cuda"), ("plain", "structured")):
         fwd, dec = _decode_and_forward(
             torch, f32, params, toks,
-            ExecutionPolicy(backend=backend, device="cuda"))
+            ExecutionPolicy(backend=backend, device="cuda"), frames)
         scale = float(fwd.abs().max())
         per_pos = rel(dec, fwd, scale)
         out[name] = {"worst_rel": max(per_pos), "per_position_rel": per_pos,
@@ -3675,7 +3721,7 @@ def decode_vs_forward(torch, cfg):
         raise AssertionError(f"{cfg.name}: decode against the forward in "
                              f"f32 {worst}, the plain path's "
                              f"{out['plain']['worst_rel']}")
-    del params, ref
+    del params, ref, frames
     _release(torch)
     return out
 
@@ -3854,6 +3900,335 @@ def recurrent_phase(torch, build, ops, fa, lf, lg, rn, lq, lp4, quant,
             "launches": c, "launches_per_step": {k: v for k, v in
                                                  per.items() if v},
             "params_bytes": out["params_bytes"],
+            "allocated_at_start": start,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        del out
+    fig["seconds"] = time.monotonic() - t_phase
+    return fig, counts, shapes
+
+
+# ---------- step 21: the vlm and audio families
+#: InternVL2-1B (configs/internvl2_1b.py): qwen2.5-0.5b's backbone shapes
+#: (24 layers, d 896, 14/2 heads of 64, d_ff 4864) without qkv bias,
+#: untied, vocab 151,655, and 256 patch embeddings ahead of the text;
+#: Whisper-tiny (configs/whisper_tiny.py): 4 encoder layers over 1,500
+#: frames, 4 decoder layers, d 384, 6 heads of 64 (G 1), d_ff 1,536, vocab
+#: 51,865, untied
+VLM_ARCH, AUDIO_ARCH = "internvl2-1b", "whisper-tiny"
+#: text tokens a training sample (InternVL: after its 256 patch embeddings,
+#: 512 rows; Whisper: beside its 1,500 frames); steps a run, and over nf4
+VA_TEXT, VA_STEPS, VA_NF4_STEPS = 256, 3, 2
+#: std of the random patch embeddings and frame embeddings
+FRONTEND_STD, FRAMES_STD = 0.02, 1.0
+#: flash at the two families' shapes (B*Hkv, G, Nq, Nk, D, causal, window,
+#: rope): Whisper's encoder (1,500 keys: 23 tiles of 64 and a tail of 28,
+#: masked only by the key count, since nothing causal hides it), its
+#: cross-attention (256 queries over the 1,500 frames), its decoder, all
+#: at 6 heads (a key read past Nk would land on the next head's keys);
+#: InternVL at 512 rows, G 7
+FLASH_VA_CASES = {
+    "whisper_encoder": (6, 1, 1500, 1500, 64, False, 0, False),
+    "whisper_cross": (6, 1, VA_TEXT, 1500, 64, False, 0, False),
+    "whisper_decoder": (6, 1, VA_TEXT, VA_TEXT, 64, True, 0, False),
+    "internvl": (2, 7, 512, 512, 64, True, 0, False),
+}
+#: InternVL served continuously: 8 slots in tiles of 2, 4 tenants
+VLM_SERVE_CMD = ["--arch", VLM_ARCH, "--engine", "mesp_cuda", "--device",
+                 "cuda", "--batch", "8", "--tile", "2", "--adapters", "4",
+                 "--store-capacity", "4", "--requests", "8", "--prompt-len",
+                 "8", "--max-new", "8", "--max-len", "32", "--seed", "0"]
+
+
+def audio_shapes_per_step(cfg, text, batch=1):
+    """{kernel: {(M, K, N): launches}} of Whisper's LoRA kernels in a
+    mesp_cuda training step at ``text`` tokens over the encoder's frames:
+    an encoder block's q, k, v, o, up, down at M = batch x frames; a
+    decoder block's q, k, v, o, the cross-attention's q and o at M = batch
+    x text, its k and v at M = batch x frames (they read the encoder's
+    output), up and down at M = batch x text. Each linear's forward twice
+    (remat), its dA/dB once, its dx once but for the q, k, v of encoder
+    layer 0 and decoder layer 0 (they read the frames or the embedding,
+    with their sinusoid, through a frozen norm: no input gradient)."""
+    d, f = cfg.d_model, cfg.d_ff
+    mt, me = batch * text, batch * cfg.encdec.encoder_seq
+    enc = [(me, d, d)] * 4 + [(me, d, f), (me, f, d)]
+    dec = [(mt, d, d)] * 4 + [(mt, d, d), (me, d, d), (me, d, d),
+                              (mt, d, d), (mt, d, f), (mt, f, d)]
+    out = {k: {} for k in ("lora_fused_fwd", "lora_dx", "lora_dab")}
+    for n_layers, lin in ((cfg.encdec.encoder_layers, enc),
+                          (cfg.n_layers, dec)):
+        for i in range(n_layers):
+            for j, s in enumerate(lin):
+                for name, n in (("lora_fused_fwd", 2), ("lora_dab", 1),
+                                ("lora_dx", 0 if i == 0 and j < 3 else 1)):
+                    out[name][s] = out[name].get(s, 0) + n
+    return out
+
+
+def audio_per_step(cfg, text, quantize="none"):
+    """Launches of every kernel in a mesp_cuda training step of Whisper at
+    ``text`` tokens over a base in ``quantize``'s format:
+    ``audio_shapes_per_step``'s LoRA kernels; the RMSNorm forward of an
+    encoder block's ln1, ln2 and a decoder block's ln1, lnx, ln2 twice
+    (remat), enc_norm and the final norm once; its backward of every norm
+    but the first of each stack (its input is the frames' or the
+    embedding's); the flash kernels for every attention whose queries
+    number 64 or more (the encoder's over the frames, the decoder's self-
+    and cross-attention over the text: forward twice, backward once)."""
+    E, L = cfg.encdec.encoder_layers, cfg.n_layers
+    fwd, dx = QUANT_KERNELS.get(quantize, ("lora_fused_fwd", "lora_dx"))
+    per = {k: sum(v.values())
+           for k, v in audio_shapes_per_step(cfg, text).items()}
+    want = {k: 0 for k in KERNEL_NAMES}
+    want.update({fwd: per["lora_fused_fwd"], dx: per["lora_dx"],
+                 "lora_dab": per["lora_dab"],
+                 "rmsnorm_fwd": 2 * (2 * E + 3 * L) + 2,
+                 "rmsnorm_bwd": 2 * E + 3 * L})
+    attn = (E if cfg.encdec.encoder_seq >= 64 else 0) + \
+        (2 * L if text >= 64 else 0)
+    if attn:
+        want.update({"flash_fwd": 2 * attn, "flash_bwd_dq": attn,
+                     "flash_bwd_dkv": attn})
+    return want
+
+
+def va_per_step(cfg, quantize="none"):
+    """A training step's launches of either family at ``VA_TEXT`` tokens:
+    InternVL's are a dense model's over 256 + ``VA_TEXT`` rows."""
+    if cfg.family == "audio":
+        return audio_per_step(cfg, VA_TEXT, quantize)
+    return dense_per_step(cfg, cfg.frontend_tokens + VA_TEXT, quantize)
+
+
+def family_inputs(torch, cfg, batch, gen):
+    """The family's input from ``gen`` in ``cfg.dtype``: InternVL's patch
+    embeddings [batch, 256, d] (std ``FRONTEND_STD``), Whisper's frames
+    [batch, 1500, d] (std ``FRAMES_STD``)."""
+    dt = getattr(torch, cfg.dtype)
+    if cfg.family == "vlm":
+        return {"frontend_embeds": (torch.randn(
+            batch, cfg.frontend_tokens, cfg.d_model, generator=gen,
+            device="cuda") * FRONTEND_STD).to(dt)}
+    return {"enc_frames": (torch.randn(
+        batch, cfg.encdec.encoder_seq, cfg.d_model, generator=gen,
+        device="cuda") * FRAMES_STD).to(dt)}
+
+
+def train_with_inputs(torch, ops, cfg, quantize, steps, want, what):
+    """``steps`` mesp_cuda steps of ``cfg`` at full width and depth, batch
+    1 x ``VA_TEXT`` tokens of the data pipeline beside the family's input
+    from the seed (``family_inputs``), the step built as ``launch.train``
+    builds it (its TrainSpec, the registry's mesp_cuda, SGD; its data
+    pipeline yields tokens only, as the reference's); counts zeroed just
+    before and read just after, checked against ``want`` a step; losses
+    finite. Returns (figures, the trained params, the last batch)."""
+    from repro_torch.api.registry import get_engine
+    from repro_torch.api.spec import TrainSpec
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import optimizers, schedules
+    spec = TrainSpec.from_cli_args([
+        "--arch", cfg.name, "--engine", "mesp_cuda", "--device", "cuda",
+        "--batch", "1", "--seq", str(VA_TEXT), "--steps", str(steps),
+        "--seed", "0", "--quantize", quantize])
+    opt = optimizers.make_optimizer(spec.optimizer,
+                                    schedules.constant(spec.lr))
+    step_fn = get_engine(spec.engine).build_step(spec, cfg, opt,
+                                                 spec.policy())
+    _release(torch)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(spec.seed)
+    params = model_lib.init_params(cfg, generator=gen, quantize=quantize)
+    state = opt.init(params)
+    data = make_batch_iterator(cfg.vocab, VA_TEXT, 1, seed=spec.seed)
+    extra = family_inputs(torch, cfg, 1, gen)
+    losses, secs = [], []
+    ops.reset_launch_counts()
+    for _ in range(steps):
+        batch = {k: torch.from_numpy(v).long().cuda()
+                 for k, v in next(data).items()}
+        batch.update(extra)
+        t0 = time.monotonic()
+        params, state, loss = step_fn(params, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        losses.append(float(loss))
+    counts = ops.launch_counts()
+    _check_counts(counts, {k: v * steps for k, v in want.items()}, what)
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"{what}: losses {losses}")
+    return {"steps": steps, "losses": losses, "seconds": secs,
+            "ms_per_step": 1e3 * sum(secs[1:]) / max(1, len(secs) - 1),
+            "first_step_ms": 1e3 * secs[0], "launches": counts,
+            "launches_per_step": want,
+            "run_peak_above_start_bytes": torch.cuda.max_memory_allocated()
+            - base}, params, batch
+
+
+def vlm_audio_phase(torch, build, ops, fa, lf, lg, rn, lq, lp4, quant,
+                    rope_tables, train_cli, serve_cli):
+    """Step 21: the kernels at InternVL2-1B's and Whisper-tiny's shapes;
+    both trained at full width and depth with their gradients, peak memory
+    and decode against the forward; InternVL served continuously and
+    Whisper single-stream. Every run's counts zeroed just before and read
+    just after it. Returns (figures, {path: counts}, {kernel: shape
+    figures})."""
+    t_phase = time.monotonic()
+    fig, counts, shapes = {}, {}, {}
+    vlm, audio = get_config(VLM_ARCH), get_config(AUDIO_ARCH)
+
+    def add(figs, **tags):
+        for name, fs in figs.items():
+            for f in fs:
+                f.update(tags)
+            shapes.setdefault(name, []).extend(fs)
+
+    # (a) the LoRA training kernels at Whisper's three (K, N), M 256 (the
+    # text) and M 1,500 (the frames), and the nf4 forward and dx there
+    # (its --quantize nf4 run); the forward at single-stream
+    # decode's M 4 and 6,000 (the cross-attention's k, v over 4 x 1,500
+    # frames); InternVL's four (K, N) at M 512; the norms at their rows
+    d, T = audio.d_model, audio.encdec.encoder_seq
+    per = audio_shapes_per_step(audio, VA_TEXT)
+    step = audio_per_step(audio, VA_TEXT)
+    for i, M_ in enumerate((VA_TEXT, T)):
+        lin = {(K, N): {k: v.get((M_, K, N), 0) for k, v in per.items()}
+               for (m, K, N) in per["lora_fused_fwd"] if m == M_}
+        rows = {VA_TEXT: 3 * audio.n_layers,
+                T: 2 * audio.encdec.encoder_layers}
+        add(check_training_kernels(
+            torch, lf, rn, M_, lin, d, rows[M_], seed=80 + 3 * i,
+            n_calls=CATALOG_CALLS), arch=AUDIO_ARCH, path="train")
+        add(check_quant_shapes(
+            torch, quant, lq, lp4, "nf4", list(lin),
+            {"lora_fused_q4": {s: n["lora_fused_fwd"]
+                               for s, n in lin.items()},
+             "lora_dx_q4": {s: n["lora_dx"] for s, n in lin.items()}},
+            M_=M_, seed=82 + 3 * i), arch=AUDIO_ARCH, path="train_nf4")
+        fwd_rows = {VA_TEXT: 2 * 3 * audio.n_layers + 1,
+                    T: 2 * 2 * audio.encdec.encoder_layers + 1}
+        add({"rmsnorm_fwd": [rmsnorm_train_shape(
+            torch, rn, M_, d, fwd_rows[M_], seed=81 + 3 * i,
+            calls=CATALOG_CALLS)]}, arch=AUDIO_ARCH, path="train")
+    if sum(f["launches_per_train_step"] for f in shapes["rmsnorm_bwd"]) \
+            != step["rmsnorm_bwd"] or sum(
+                f["launches_per_train_step"] for f in shapes["rmsnorm_fwd"]) \
+            != step["rmsnorm_fwd"]:
+        raise AssertionError("step 21: RMSNorm rows do not sum to a step")
+    L = audio.n_layers
+    dec = {(d, d): {"lora_fused_fwd": 6 * L}, (d, audio.d_ff):
+           {"lora_fused_fwd": L}, (audio.d_ff, d): {"lora_fused_fwd": L}}
+    add(check_training_kernels(
+        torch, lf, rn, SS_BATCH, dec, seed=86, kernels=("lora_fused_fwd",),
+        n_calls=CATALOG_CALLS), arch=AUDIO_ARCH, path="single_stream")
+    add(check_training_kernels(
+        torch, lf, rn, SS_BATCH * T, {(d, d): {"lora_fused_fwd": 2 * L}},
+        seed=87, kernels=("lora_fused_fwd",), n_calls=CATALOG_CALLS),
+        arch=AUDIO_ARCH, path="single_stream")
+    vrows = vlm.frontend_tokens + VA_TEXT
+    vper = dense_shapes_per_step(vlm)
+    vstep = va_per_step(vlm)
+    add(check_training_kernels(
+        torch, lf, rn, vrows, {s: {k: v[s] for k, v in vper.items()}
+                               for s in dense_linears(vlm)},
+        vlm.d_model, vstep["rmsnorm_bwd"], seed=88, n_calls=CATALOG_CALLS),
+        arch=VLM_ARCH, path="train")
+    add({"rmsnorm_fwd": [rmsnorm_train_shape(
+        torch, rn, vrows, vlm.d_model, vstep["rmsnorm_fwd"], seed=89,
+        calls=CATALOG_CALLS)]}, arch=VLM_ARCH, path="train")
+    # flash: non-causal over 1,500 keys, 256 x 1,500, and the causal paths
+    gen = torch.Generator(device="cuda").manual_seed(90)
+    errs = _flash_errors(torch, fa, rope_tables, gen, FLASH_VA_CASES)
+    enc, dec_attn = audio.encdec.encoder_layers, audio.n_layers
+    for case, n in (("whisper_encoder", enc), ("whisper_cross", dec_attn),
+                    ("whisper_decoder", dec_attn),
+                    ("internvl", vlm.n_layers)):
+        per_step = {"flash_fwd": 2 * n, "flash_bwd_dq": n,
+                    "flash_bwd_dkv": n}
+        add(_flash_times(torch, fa, gen, errs, FLASH_VA_CASES[case],
+                         per_step, CATALOG_CALLS),
+            arch=AUDIO_ARCH if case.startswith("whisper") else VLM_ARCH,
+            path="train", case=case)
+    fig["kernel_checks_seconds"] = time.monotonic() - t_phase
+    _release(torch)
+
+    # (b) training at full width and depth, 1 x 256 text tokens; the
+    # gradients against the plain backend in bf16 and f32, every layer (the
+    # encoder's leaves too); the peak of one value_and_grad
+    fig["train"] = {}
+    runs = ((VLM_ARCH, vlm, "none", VA_STEPS, 14),
+            (AUDIO_ARCH, audio, "none", VA_STEPS, 32),
+            (f"{AUDIO_ARCH}/nf4", audio, "nf4", VA_NF4_STEPS, 32))
+    for key, cfg, method, steps, n_leaves in runs:
+        f, params, batch = train_with_inputs(
+            torch, ops, cfg, method, steps, va_per_step(cfg, method), key)
+        counts[f"train_{key}"] = f["launches"]
+        f["layers"] = cfg.n_layers
+        f["rows"] = {"text": VA_TEXT, **{
+            k: list(v.shape[1:]) for k, v in batch.items()
+            if k in ("frontend_embeds", "enc_frames")}}
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = _with_b(torch, params, gen, b_scale_for(cfg))
+        f["b_scale_checks"] = b_scale_for(cfg)
+        f["params_bytes"] = quant.tree_bytes(params)
+        f["grads"] = compare_grads(torch, cfg, params, batch, method,
+                                   n_leaves=n_leaves)
+        engines = [("mesp_cuda", True), ("mebp", True)]
+        if cfg.family == "audio" and method == "none":
+            # mesp: core/flash.py's chunks over the 1,500 frames (1,024 +
+            # 476, non-causal)
+            engines.append(("mesp", True))
+        f["peak_memory_one_value_and_grad"] = peak_memory(
+            torch, cfg, params, batch, engines, method)
+        del params, batch
+        _release(torch)
+        fig["train"][key] = f
+
+    # (c) decode against the forward in f32, 64 positions: Whisper against
+    # its own encoder's output, InternVL on text alone
+    fig["decode_vs_forward_f32"] = {
+        VLM_ARCH: decode_vs_forward(torch, vlm),
+        AUDIO_ARCH: decode_vs_forward(torch, audio)}
+
+    # (d) serving: InternVL continuous (the grouped decode forward), Whisper
+    # single-stream (the dense LoRA forward; its cross k/v at M 4 x 1,500)
+    fig["serve"] = {}
+    for key, argv in (
+            (VLM_ARCH, VLM_SERVE_CMD),
+            (AUDIO_ARCH, ["--arch", AUDIO_ARCH, "--engine", "mesp_cuda",
+                          "--device", "cuda", "--batch", str(SS_BATCH),
+                          "--steps", str(SS_STEPS), "--max-len",
+                          str(SS_MAX_LEN), "--seed", "0"])):
+        _release(torch)
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        out = serve_cli.serve(argv)
+        counts[f"serve_{key}"] = c = ops.launch_counts()
+        torch.cuda.synchronize()
+        cfg = out["cfg"]
+        steps = out["steps"] + out["warmup_steps"]
+        if out["mode"] == "continuous":
+            per = {"lora_grouped_fwd": 7 * cfg.n_layers,
+                   "rmsnorm_fwd": 2 * cfg.n_layers + 1}
+            want_tokens = 8 * 8
+        else:
+            per = {k: v for k, v in decode_per_step(cfg).items() if v}
+            want_tokens = SS_BATCH * SS_STEPS
+        _check_counts(c, {k: v * steps for k, v in per.items()},
+                      f"{key} serve ({out['mode']}), {steps} decode steps")
+        if out["tokens"] != want_tokens or out["mode"] != (
+                "continuous" if cfg.family == "vlm" else "single_stream"):
+            raise AssertionError(f"{key} serve: {out['mode']}, "
+                                 f"{out['tokens']} tokens")
+        fig["serve"][key] = {
+            "mode": out["mode"], "layers": cfg.n_layers,
+            "requests": out["requests"], "tokens": out["tokens"],
+            "steps": out["steps"], "warmup_steps": out["warmup_steps"],
+            "seconds": out["seconds"], "tok_s": out["tok_s"],
+            "ms_per_step": out["ms_per_step"], "launches": c,
+            "launches_per_step": per, "params_bytes": out["params_bytes"],
             "allocated_at_start": start,
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
         del out
@@ -4268,8 +4643,15 @@ def main() -> int:
         torch, build, ops, fa, lf, lg, rn, lq, lp4, quant, rope_tables,
         train_cli, serve_cli)
 
+    # the vlm and audio families: every run's counts zeroed just before
+    # and read just after it, inside the phase
+    vlm_audio, vcounts, vshapes = vlm_audio_phase(
+        torch, build, ops, fa, lf, lg, rn, lq, lp4, quant, rope_tables,
+        train_cli, serve_cli)
+
     paths = lambda k: {**{p: c[k] for p, c in ccounts.items()},
                        **{p: c.get(k, 0) for p, c in rcounts.items()},
+                       **{p: c.get(k, 0) for p, c in vcounts.items()},
                        "serve": counts[k],
                        **{f"serve_{m}": c[k] for m, c in scounts.items()},
                        "train": tcounts[k],
@@ -4559,7 +4941,8 @@ def main() -> int:
     # MLP over nf4), their errors in its own
     for e in kernels:
         for key, by_name in (("catalog_shapes", cshapes),
-                             ("recurrent_shapes", rshapes)):
+                             ("recurrent_shapes", rshapes),
+                             ("vlm_audio_shapes", vshapes)):
             figs = by_name.get(e["name"])
             if figs:
                 e[key] = figs
@@ -4671,6 +5054,12 @@ def main() -> int:
         "archs": list(RECURRENT_ARCHS), "engine": "mesp_cuda",
         "dtype": "bfloat16", "batch": PAPER_BATCH, "seq": PAPER_SEQ,
         "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, **recurrent,
+        "device": name, "power": smi,
+        "run_seconds": time.monotonic() - t_start}}))
+    print(json.dumps({"vlm_audio": {
+        "archs": [VLM_ARCH, AUDIO_ARCH], "engine": "mesp_cuda",
+        "dtype": "bfloat16", "batch": 1, "text": VA_TEXT,
+        "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, **vlm_audio,
         "device": name, "power": smi,
         "run_seconds": time.monotonic() - t_start}}))
     print(smi)

@@ -1,11 +1,12 @@
 """Architecture configuration (the port's own copy of ``repro.configs.base``).
 
 Only what the ported families read is kept: :class:`LoRAConfig`,
-:class:`MoEConfig`, :class:`HybridConfig` and the dense, MoE, ``ssm`` and
-``hybrid`` fields of :class:`ArchConfig` (with the per-layer sliding
-windows, ``window_pattern``), with the same ``reduced()`` cut to size as
-the reference, so a reduced config names the same shapes in both
-packages.
+:class:`MoEConfig`, :class:`HybridConfig`, :class:`EncDecConfig` and the
+fields of :class:`ArchConfig` that the six families (dense, MoE, ``vlm``,
+``audio``, ``ssm``, ``hybrid``) read (with the per-layer sliding windows,
+``window_pattern``, and the frontend stub's ``frontend_tokens``), with the
+same ``reduced()`` cut to size as the reference, so a reduced config names
+the same shapes in both packages.
 """
 from __future__ import annotations
 
@@ -46,6 +47,14 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    """Whisper-style encoder-decoder."""
+
+    encoder_layers: int = 4
+    encoder_seq: int = 1500  # precomputed mel-frame embeddings (stub frontend)
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str
@@ -66,7 +75,11 @@ class ArchConfig:
     window_pattern: Tuple[int, ...] = ()  # 0 = global, >0 = local window
     moe: Optional[MoEConfig] = None
     hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
     lora: LoRAConfig = field(default_factory=LoRAConfig)
+    # frontend stub for vlm: this many precomputed patch embeddings are
+    # prepended to the text
+    frontend_tokens: int = 0
     notes: str = ""
 
     @property
@@ -111,7 +124,8 @@ class ArchConfig:
         """Approximate parameter count, as the reference counts it (every
         layer an MoE layer for the MoE family; RWKV6's time and channel
         mix for ``ssm``; a hybrid's layers all counted as attention and MLP;
-        no biases or norms)."""
+        an encoder's layers as 4 d² of attention and 2 d·d_ff of MLP, a
+        decoder's cross-attention not at all; no biases or norms)."""
         d = self.d_model
         if self.family == "ssm":
             return self._emb_params() + self.n_layers * (
@@ -122,7 +136,12 @@ class ArchConfig:
                 + d * m.n_experts                    # + the router
         else:
             ff = 3 * d * self.d_ff
-        return self._emb_params() + self.n_layers * (self._attn_params() + ff)
+        total = self._emb_params() + self.n_layers * (self._attn_params()
+                                                      + ff)
+        if self.encdec is not None:
+            total += self.encdec.encoder_layers * (4 * d * d
+                                                   + 2 * d * self.d_ff)
+        return total
 
     def n_active_params(self) -> int:
         """Parameters a token meets (MoE: its top-k and the shared
@@ -138,13 +157,16 @@ class ArchConfig:
         experts, top-2, d_expert 32, at most one shared expert, and a dense
         layer 0 kept where the full config has one; a window pattern cut to
         a 2-layer (local 8, global) period; a hybrid to 3 layers, an RG-LRU
-        64 wide and a local window of 8)."""
+        64 wide and a local window of 8; at most 4 frontend tokens; an
+        encoder to 2 layers over 8 frames)."""
         moe = self.moe
         if moe is not None:
             moe = MoEConfig(n_experts=4, top_k=2, d_expert=32,
                             n_shared=min(moe.n_shared, 1),
                             first_layer_dense=moe.first_layer_dense)
         pattern = {"window_pattern": (8, 0)} if self.window_pattern else {}
+        encdec = None if self.encdec is None else EncDecConfig(
+            encoder_layers=2, encoder_seq=8)
         hybrid = self.hybrid
         if hybrid is not None:
             hybrid = HybridConfig(pattern=hybrid.pattern, lru_width=64,
@@ -161,6 +183,8 @@ class ArchConfig:
             dtype="float32",
             moe=moe,
             hybrid=hybrid,
+            encdec=encdec,
+            frontend_tokens=min(self.frontend_tokens, 4),
             lora=LoRAConfig(rank=4, alpha=8.0, targets=self.lora.targets),
             **pattern,
         )

@@ -1,7 +1,7 @@
 """Serving launcher of the port (``repro.launch.serve``), in two modes
 picked by the model family, as the reference picks them.
 
-* **Continuous batching** (dense, ``--adapters`` >= 1): requests
+* **Continuous batching** (dense and vlm, ``--adapters`` >= 1): requests
   round-robin over ``--adapters`` synthetic tenant adapters; an
   :class:`~repro_torch.serve.AdapterStore` holds ``--store-capacity`` of
   them resident, and the :class:`~repro_torch.serve.ContinuousBatcher`
@@ -11,12 +11,14 @@ picked by the model family, as the reference picks them.
   admits a request only while the modelled resident set
   (``serve/residency.py``, the base in its format) stays within it.
 * **Single-stream decode** (:class:`DecodeServer`: MoE, ``ssm``,
-  ``hybrid``, and dense with ``--adapters 0``): one batch of ``--batch``
-  sequences at one shared position, greedy, for ``--steps`` steps, over
-  the model's own LoRA factors. Under ``mesp_cuda`` every LoRA linear
-  runs the dense LoRA kernels at M = batch, the MoE experts the grouped
-  ones, and every norm the RMSNorm kernel. ``--adapters`` above 1 needs a
-  dense arch.
+  ``hybrid``, ``audio``, and dense or vlm with ``--adapters 0``): one
+  batch of ``--batch`` sequences at one shared position, greedy, for
+  ``--steps`` steps, over the model's own LoRA factors. Under
+  ``mesp_cuda`` every LoRA linear runs the dense LoRA kernels at M =
+  batch (an ``audio`` model's cross-attention k/v at M = batch x its
+  encoder's frames, against a zero encoder output, as the reference
+  serves it), the MoE experts the grouped ones, and every norm the RMSNorm
+  kernel. ``--adapters`` above 1 needs a dense or vlm arch.
 
 ``--engine mesp`` runs the plain PyTorch forwards. ``--quantize
 int8|int4|nf4`` keeps the frozen base in that format: under
@@ -115,7 +117,8 @@ class DecodeServer:
     """Single-stream batched decode: ``batch`` sequences at one shared
     position over the model's own LoRA factors (families without per-slot
     caches, and dense models served without tenants). The cache lives on
-    ``policy.device``."""
+    ``policy.device``; an ``audio`` model's ``cache["enc_out"]`` is zeros
+    (as in the reference) until the caller sets it."""
 
     def __init__(self, cfg, params, batch: int, max_len: int,
                  policy: ExecutionPolicy):
@@ -186,9 +189,9 @@ def serve(argv=None) -> dict:
     cfg = get_config(ns.arch)
     if ns.reduced:
         cfg = cfg.reduced()
-    continuous = cfg.family == "dense" and ns.adapters >= 1
+    continuous = cfg.family in ("dense", "vlm") and ns.adapters >= 1
     if not continuous and ns.adapters > 1:
-        ap.error(f"--adapters > 1 needs a dense arch (got family "
+        ap.error(f"--adapters > 1 needs a dense/vlm arch (got family "
                  f"{cfg.family!r})")
     policy = ExecutionPolicy(backend=ENGINES[ns.engine], device=device,
                              quantize=ns.quantize)

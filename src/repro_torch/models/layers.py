@@ -1,9 +1,10 @@
-"""Shared model components (``repro.models.layers``) for the dense and MoE
-families: LoRA-adapted linears (single and tenant-stacked), RMSNorm, RoPE,
-GQA attention with an optional sliding window (full-sequence for training,
-or over a per-slot KV cache for decode: a ring buffer of ``window`` slots
-for a local layer whose window is shorter than the cache), the SwiGLU MLP
-and the embedding with a tied or untied head.
+"""Shared model components (``repro.models.layers``): LoRA-adapted
+linears (single and tenant-stacked), RMSNorm, RoPE, GQA attention, causal
+or not, with an optional sliding window, with or without RoPE, as self- or
+cross-attention (full-sequence for training, or over a per-slot KV cache
+for decode: a ring buffer of ``window`` slots for a local layer whose
+window is shorter than the cache), the SwiGLU MLP and Whisper's plain GeLU
+MLP, and the embedding with a tied or untied head.
 
 Every trainable-path op takes an :class:`ExecutionPolicy` whose backend
 selects the backward regime: ``structured`` (the hand-derived autograd
@@ -201,57 +202,67 @@ def attention_params(gen, cfg: ArchConfig, *, lead: Tuple[int, ...] = (),
     }
 
 
-def attention(p, x, cfg: ArchConfig, *, window: int = 0, cache=None,
+def attention(p, x, cfg: ArchConfig, *, window: int = 0, causal: bool = True,
+              cache=None, kv_x=None, use_rope: bool = True,
               policy: ExecutionPolicy = STRUCTURED, adapter_tiles=None):
-    """Causal GQA attention, over keys less than ``window`` positions back
-    when ``window`` > 0. Without ``cache`` (training) over the whole
-    sequence x [B, N, d] at positions 0..N-1. With one (decode): ``cache``
-    is {"k": [B,Hkv,S,D], "v": ..., "len": int32 [B]}; new k/v are written
-    at each slot's ``len`` in place (at ``len % window`` when the cache is
-    a ring of S == window slots), and ``len`` advances by N in place.
+    """GQA attention, causal unless ``causal`` is False, over keys less
+    than ``window`` positions back when ``window`` > 0. k and v come from
+    ``kv_x`` [B, Nk, d] when it is given (cross-attention), else from x;
+    ``use_rope`` False applies no rotation (Whisper's sinusoid positions
+    are added to the activations instead). Without ``cache`` (training, or
+    a decode step's cross-attention) over the whole sequence x [B, N, d]
+    at positions 0..N-1 (kv_x's keys at 0..Nk-1). With one (decode):
+    ``cache`` is {"k": [B,Hkv,S,D], "v": ..., "len": int32 [B]}; new k/v
+    are written at each slot's ``len`` in place (at ``len % window`` when
+    the cache is a ring of S == window slots), and ``len`` advances by N
+    in place.
 
-    Training attention: ``plain`` autograd of the plain forward, ``cuda``
-    the kernel dispatch (``kops.sdpa``: the flash kernels from 64 query
-    rows, the structured Function below), else (``structured``,
+    Attention without a cache: ``plain`` autograd of the plain forward,
+    ``cuda`` the kernel dispatch (``kops.sdpa``: the flash kernels from 64
+    query rows, the structured Function below), else (``structured``,
     ``store_h``) the chunked flash Function of ``core/flash.py`` from
-    ``policy.flash_min_seq`` rows in chunks of ``policy.flash_chunk``, the
-    structured sdpa Function below that, as in the reference. Under
-    ``cuda`` with ``policy.fuse_rope`` q and k reach ``kops.sdpa``
-    unrotated, with the RoPE tables, and the flash kernels rotate them on
-    load."""
+    ``policy.flash_min_seq`` query rows in chunks of ``policy.flash_chunk``,
+    the structured sdpa Function below that, as in the reference. Under
+    ``cuda`` with ``policy.fuse_rope`` (self-attention with RoPE only, as
+    in the reference) q and k reach ``kops.sdpa`` unrotated, with the RoPE
+    tables, and the flash kernels rotate them on load."""
     B, N, _ = x.shape
     hd = cfg.resolved_head_dim
+    src = x if kv_x is None else kv_x
+    Nk = src.shape[1]
     lin = functools.partial(apply_linear, cfg=cfg, policy=policy,
                             adapter_tiles=adapter_tiles)
     q = lin(p["q"], x).reshape(B, N, cfg.n_heads, hd)
-    k = lin(p["k"], x).reshape(B, N, cfg.n_kv_heads, hd)
-    v = lin(p["v"], x).reshape(B, N, cfg.n_kv_heads, hd)
+    k = lin(p["k"], src).reshape(B, Nk, cfg.n_kv_heads, hd)
+    v = lin(p["v"], src).reshape(B, Nk, cfg.n_kv_heads, hd)
 
     if cache is None:
         qpos = torch.arange(N, device=x.device)
-        fuse = policy.backend == "cuda" and policy.fuse_rope
-        if not fuse:
+        fuse = policy.backend == "cuda" and policy.fuse_rope and use_rope \
+            and kv_x is None
+        if use_rope and not fuse:
             q = rope(q, qpos, cfg.rope_theta)
-            k = rope(k, qpos, cfg.rope_theta)
+            k = rope(k, torch.arange(Nk, device=x.device), cfg.rope_theta)
         q, k, v = (t.transpose(1, 2) for t in (q, k, v))   # [B,H,N,D]
         if policy.backend == "plain":
-            out = structured._sdpa_ref(q, k, v, window, True, 0, None)
+            out = structured._sdpa_ref(q, k, v, window, causal, 0, None)
         elif policy.backend == "cuda":
             tabs = krope.rope_tables(qpos, cfg.rope_theta, hd) if fuse \
                 else None
-            out = kops.sdpa(q, k, v, causal=True, window=window, rope=tabs)
+            out = kops.sdpa(q, k, v, causal=causal, window=window, rope=tabs)
         elif N >= policy.flash_min_seq:
-            out = flash.flash_attention(q, k, v, window, True,
+            out = flash.flash_attention(q, k, v, window, causal,
                                         policy.flash_chunk, policy.flash_chunk)
         else:
-            out = structured.sdpa(q, k, v, window, True)
+            out = structured.sdpa(q, k, v, window, causal)
         out = out.transpose(1, 2).reshape(B, N, cfg.n_heads * hd)
         return lin(p["o"], out), None
 
     ln = cache["len"]
-    qpos = torch.arange(N, device=x.device) + ln[:, None]
-    q = rope(q, qpos, cfg.rope_theta)
-    k = rope(k, qpos, cfg.rope_theta)
+    if use_rope:
+        qpos = torch.arange(N, device=x.device) + ln[:, None]
+        q = rope(q, qpos, cfg.rope_theta)
+        k = rope(k, qpos, cfg.rope_theta)
 
     q, k, v = (t.transpose(1, 2) for t in (q, k, v))  # [B,H,N,D]
     ring = window if 0 < window == cache["k"].shape[2] else 0
@@ -260,7 +271,7 @@ def attention(p, x, cfg: ArchConfig, *, window: int = 0, cache=None,
     if ring:
         out = _ring_attend(q, kc, vc, ln, ring)
     else:
-        out = structured.sdpa(q, kc, vc, window, True, ln, ln + N)
+        out = structured.sdpa(q, kc, vc, window, causal, ln, ln + N)
     cache["len"] += N
 
     out = out.transpose(1, 2).reshape(B, N, cfg.n_heads * hd)
@@ -320,29 +331,36 @@ def make_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, *,
 
 
 # ---------------------------------------------------------------------------
-# gated MLP (SwiGLU) with LoRA on gate/up/down
+# MLPs with LoRA: gated (SwiGLU) on gate/up/down, or plain GeLU on up/down
 # ---------------------------------------------------------------------------
 
 
 def mlp_params(gen, cfg: ArchConfig, *, d_ff: Optional[int] = None,
-               lead: Tuple[int, ...] = (), quantize: Optional[str] = None):
-    """The gated MLP's three linears, ``d_ff`` wide (``cfg.d_ff`` unless
-    given: MoE's shared experts and DeepSeek's dense layer 0 differ)."""
+               act: str = "silu", lead: Tuple[int, ...] = (),
+               quantize: Optional[str] = None):
+    """The MLP's linears, ``d_ff`` wide (``cfg.d_ff`` unless given: MoE's
+    shared experts and DeepSeek's dense layer 0 differ): the gated MLP's
+    gate, up and down, or with ``act`` "gelu" (Whisper) the plain MLP's up
+    and down only."""
     tg = cfg.lora.targets
     f = d_ff or cfg.d_ff
     lin = functools.partial(linear_params, gen, cfg=cfg, lead=lead,
                             quantize=quantize)
-    return {
-        "gate": lin(cfg.d_model, f, lora="gate" in tg),
-        "up": lin(cfg.d_model, f, lora="up" in tg),
-        "down": lin(f, cfg.d_model, lora="down" in tg),
-    }
+    p = {} if act == "gelu" else {"gate": lin(cfg.d_model, f,
+                                               lora="gate" in tg)}
+    p["up"] = lin(cfg.d_model, f, lora="up" in tg)
+    p["down"] = lin(f, cfg.d_model, lora="down" in tg)
+    return p
 
 
 def mlp(p, x, cfg: ArchConfig, *, policy: ExecutionPolicy = STRUCTURED,
         adapter_tiles=None):
+    """down(silu(gate(x)) * up(x)), or down(gelu(up(x))) for an MLP
+    without a gate."""
     lin = functools.partial(apply_linear, cfg=cfg, policy=policy,
                             adapter_tiles=adapter_tiles)
+    if "gate" not in p:
+        return lin(p["down"], act_gelu(lin(p["up"], x), policy))
     g = lin(p["gate"], x)
     u = lin(p["up"], x)
     return lin(p["down"], act_silu(g, policy) * u)

@@ -1,5 +1,6 @@
-"""Model assembly (``repro.models.model``) for the dense, MoE, ``ssm``
-(RWKV6) and ``hybrid`` (RecurrentGemma) families: init, the
+"""Model assembly (``repro.models.model``) for all six families of the
+reference's catalog: dense, MoE, ``vlm`` (InternVL2), ``audio``
+(Whisper), ``ssm`` (RWKV6) and ``hybrid`` (RecurrentGemma): init, the
 full-sequence forward and loss for training, the decode caches and the
 decode step.
 
@@ -17,7 +18,15 @@ R, R, A: recurrent blocks of ``models/griffin.py`` and local-attention
 dense blocks), each stacked ``[n_groups, ...]``, and the layers past the
 last whole period as ``tail``, a *list* of unstacked blocks (the
 reference's layout; ``repro_torch/tree.py`` walks lists as it walks
-dicts).
+dicts). A ``vlm`` model is a dense model whose forward takes
+``frontend_embeds`` [B, P, d], precomputed patch embeddings prepended to
+the text, whose labels the loss pads with -1. An ``audio`` model stacks
+its encoder's blocks (non-causal attention without RoPE, a GeLU MLP) as
+``enc_blocks`` with ``enc_norm`` after them, and its decoder's as
+``blocks`` (causal self-attention, cross-attention over the encoder's
+output ``xattn`` after its norm ``lnx``, a GeLU MLP); both add sinusoid
+positions, and its forward needs ``enc_frames`` [B, T, d], precomputed
+frame embeddings.
 
 The forward and the decode step walk the layers in a Python loop where
 the reference scans; in training each stacked block (each group of a
@@ -49,11 +58,13 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.tree import tree_leaves, tree_map, tree_map_with_path
 
 #: families with a KV cache only: these take a per-slot cache
-_KV_FAMILIES = ("dense", "moe")
+_KV_FAMILIES = ("dense", "vlm", "moe")
+#: families whose decode takes adapter routing (tenant-stacked LoRA)
+_ROUTED_FAMILIES = ("dense", "vlm")
 
 
-#: the families the port runs (the reference's vlm and audio wait)
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+#: the families the port runs: the reference's six
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 def _require(cfg: ArchConfig, families=FAMILIES) -> None:
@@ -88,6 +99,38 @@ def moe_block(bp, x, cfg: ArchConfig, *, cache=None,
     return x + moe_lib.moe_mlp(bp["moe"],
                                layers.norm(bp["ln2"], x, cfg, policy=policy),
                                cfg, policy=policy)
+
+
+def enc_block(bp, x, cfg: ArchConfig, *,
+              policy: ExecutionPolicy = STRUCTURED):
+    """A Whisper encoder block: non-causal attention without RoPE, then
+    the GeLU MLP."""
+    h, _ = layers.attention(
+        bp["attn"], layers.norm(bp["ln1"], x, cfg, policy=policy), cfg,
+        causal=False, use_rope=False, policy=policy)
+    x = x + h
+    return x + layers.mlp(bp["mlp"],
+                          layers.norm(bp["ln2"], x, cfg, policy=policy),
+                          cfg, policy=policy)
+
+
+def dec_block(bp, x, cfg: ArchConfig, *, enc_out, cache=None,
+              policy: ExecutionPolicy = STRUCTURED):
+    """A Whisper decoder block: causal self-attention without RoPE (over
+    ``cache`` in decode), cross-attention over ``enc_out`` [B, T, d]
+    (non-causal, no RoPE, no cache: its k/v are recomputed from
+    ``enc_out`` every call, as in the reference), then the GeLU MLP."""
+    h, _ = layers.attention(
+        bp["attn"], layers.norm(bp["ln1"], x, cfg, policy=policy), cfg,
+        cache=cache, use_rope=False, policy=policy)
+    x = x + h
+    h, _ = layers.attention(
+        bp["xattn"], layers.norm(bp["lnx"], x, cfg, policy=policy), cfg,
+        causal=False, kv_x=enc_out, use_rope=False, policy=policy)
+    x = x + h
+    return x + layers.mlp(bp["mlp"],
+                          layers.norm(bp["ln2"], x, cfg, policy=policy),
+                          cfg, policy=policy)
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,
@@ -142,6 +185,12 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
         p["tail"] = [_hybrid_params(gen, cfg, pat[i % len(pat)], (), method)
                      for i in range(n_groups * len(pat), L)]
         return p
+    if cfg.family == "audio":
+        p["enc_blocks"] = _dense_params(
+            gen, cfg, (cfg.encdec.encoder_layers,), method, act="gelu")
+        p["enc_norm"] = ones(d)
+        p["blocks"] = _dec_params(gen, cfg, (L,), method)
+        return p
     lead = (L,)
     if cfg.window_pattern:
         gsz = len(cfg.window_pattern)
@@ -154,7 +203,9 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     return p
 
 
-def _dense_params(gen, cfg: ArchConfig, lead, method):
+def _dense_params(gen, cfg: ArchConfig, lead, method, act="silu"):
+    """A dense block's params (with ``act`` "gelu", Whisper's encoder
+    block: the MLP without a gate)."""
     ones = lambda *s: torch.ones(s, dtype=getattr(torch, cfg.dtype),
                                  device=gen.device)
     d = cfg.d_model
@@ -162,7 +213,22 @@ def _dense_params(gen, cfg: ArchConfig, lead, method):
             "attn": layers.attention_params(gen, cfg, lead=lead,
                                             quantize=method),
             "ln2": ones(*lead, d),
-            "mlp": layers.mlp_params(gen, cfg, lead=lead, quantize=method)}
+            "mlp": layers.mlp_params(gen, cfg, act=act, lead=lead,
+                                     quantize=method)}
+
+
+def _dec_params(gen, cfg: ArchConfig, lead, method):
+    """A Whisper decoder block's params: ``attn``, the cross-attention
+    ``xattn`` with its norm ``lnx``, and the MLP without a gate."""
+    ones = lambda *s: torch.ones(s, dtype=getattr(torch, cfg.dtype),
+                                 device=gen.device)
+    d = cfg.d_model
+    att = functools.partial(layers.attention_params, gen, cfg, lead=lead,
+                            quantize=method)
+    return {"ln1": ones(*lead, d), "attn": att(), "lnx": ones(*lead, d),
+            "xattn": att(), "ln2": ones(*lead, d),
+            "mlp": layers.mlp_params(gen, cfg, act="gelu", lead=lead,
+                                     quantize=method)}
 
 
 def _hybrid_params(gen, cfg: ArchConfig, kind: str, lead, method):
@@ -184,12 +250,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cpu",
     has its own, unstacked. An ``ssm`` model's "blocks" hold RWKV6 states
     (``rwkv6.make_rwkv_state``); a ``hybrid`` model's "groups" hold, per
     pattern position, recurrent states or local-attention KV caches
-    stacked over groups, and "tail" a list of them.
+    stacked over groups, and "tail" a list of them. An ``audio`` model's
+    "blocks" hold its decoder's self-attention caches, and "enc_out" [B,
+    encoder_seq, d] the encoder's output its cross-attention reads, zeros
+    until the caller sets it (the reference's ``DecodeServer`` decodes
+    against those zeros).
 
     ``per_slot`` (the default: continuous batching) lets every slot sit at
-    its own position; the recurrent families have no such cache, and ask
-    for ``per_slot=False`` (single-stream decode: the whole batch at one
-    position), as the reference's ``init_cache`` does."""
+    its own position; the recurrent and ``audio`` families have no such
+    cache, and ask for ``per_slot=False`` (single-stream decode: the whole
+    batch at one position), as the reference's ``init_cache`` does."""
     _require(cfg)
     if per_slot and cfg.family not in _KV_FAMILIES:
         raise ValueError(f"per_slot decode caches unsupported for "
@@ -218,6 +288,11 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, *, device="cpu",
         lead = (cfg.n_layers // len(cfg.window_pattern),)
         return {"groups": {f"l{i}": kv(window=w, lead=lead)
                            for i, w in enumerate(cfg.window_pattern)}}
+    if cfg.family == "audio":
+        return {"blocks": kv(lead=(cfg.n_layers,)),
+                "enc_out": torch.zeros(
+                    (batch, cfg.encdec.encoder_seq, cfg.d_model),
+                    dtype=dtype, device=device)}
     dense0 = cfg.moe is not None and cfg.moe.first_layer_dense
     c = {"blocks": kv(lead=(cfg.n_layers - dense0,))}
     if dense0:
@@ -242,9 +317,9 @@ def _unstack(tree, n: int, lead: int = 1):
 
 def _layer_list(params, cfg: ArchConfig):
     """[(kind, block params, window)] for every layer past ``block0`` and
-    before a hybrid's ``tail``, in order. kind: "dense", "moe", "rwkv", or
-    "R" (a hybrid's recurrent block; its "A" blocks are dense blocks with
-    the local window)."""
+    before a hybrid's ``tail``, in order. kind: "dense", "moe", "rwkv",
+    "dec" (a Whisper decoder block), or "R" (a hybrid's recurrent block;
+    its "A" blocks are dense blocks with the local window)."""
     if cfg.family == "hybrid":
         pat = cfg.hybrid.pattern
         n_groups = cfg.n_layers // len(pat)
@@ -255,7 +330,8 @@ def _layer_list(params, cfg: ArchConfig):
     if "groups" in params:
         return [("dense", bp, cfg.layer_window(i)) for i, bp in enumerate(
             _unstack(params["groups"], cfg.n_layers, 2))]
-    kind = {"moe": "moe", "ssm": "rwkv"}.get(cfg.family, "dense")
+    kind = {"moe": "moe", "ssm": "rwkv", "audio": "dec"}.get(cfg.family,
+                                                            "dense")
     blocks = params["blocks"]
     return [(kind, bp, 0)
             for bp in _unstack(blocks, blocks["ln1"].shape[0])]
@@ -286,9 +362,13 @@ def _period(cfg: ArchConfig) -> int:
 
 
 def _run_block(kind, bp, x, cfg: ArchConfig, window: int, policy,
-               state=None, adapter_tiles=None):
+               state=None, adapter_tiles=None, enc_out=None):
     """One layer of any kind; (x, new recurrent state or None).
-    ``state``: the layer's cache (decode) or None (training)."""
+    ``state``: the layer's cache (decode) or None (training); ``enc_out``:
+    the encoder's output a decoder block cross-attends to."""
+    if kind == "dec":
+        return dec_block(bp, x, cfg, enc_out=enc_out, cache=state,
+                         policy=policy), None
     if kind == "moe":
         return moe_block(bp, x, cfg, cache=state, policy=policy), None
     if kind == "rwkv":
@@ -300,18 +380,71 @@ def _run_block(kind, bp, x, cfg: ArchConfig, window: int, policy,
                        adapter_tiles=adapter_tiles)[0], None
 
 
+def _sinusoid(n: int, d: int, device):
+    """Sinusoid positions [1, n, d] in f32 (sin then cos over d/2
+    frequencies), as the reference's ``_sinusoid``."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    return _sinusoid_angles(pos, d)[None]
+
+
+def _sinusoid_at(pos, d: int):
+    """The sinusoid row of each position of ``pos`` [B] -> [B, 1, d], f32
+    (the reference's ``_sinusoid_at``, per slot)."""
+    return _sinusoid_angles(pos.float()[:, None], d)[:, None]
+
+
+def _sinusoid_angles(pos, d: int):
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)[None]
+    ang = pos / (10000 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+
+
+def _encoder_forward(params, cfg: ArchConfig, frames, policy):
+    """Whisper's encoder over precomputed frame embeddings [B, T, d], in
+    the activations' type (the embedding table's, as the vlm prefix is
+    cast): sinusoid positions (rounded to that type before the add, as the
+    reference rounds them), the ``enc_blocks``, each under
+    torch.utils.checkpoint when ``policy.remat`` is set, then
+    ``enc_norm``."""
+    frames = frames.to(params["embed"]["tok"].dtype)
+    x = frames + _sinusoid(frames.shape[1], cfg.d_model,
+                           frames.device).to(frames.dtype)
+    body = functools.partial(enc_block, cfg=cfg, policy=policy)
+    blocks = params["enc_blocks"]
+    for bp in _unstack(blocks, blocks["ln1"].shape[0]):
+        x = checkpoint(body, bp, x, use_reentrant=False) if policy.remat \
+            else body(bp, x)
+    return layers.norm(params["enc_norm"], x, cfg, policy=policy)
+
+
 def forward(params, cfg: ArchConfig, tokens, *,
-            policy: ExecutionPolicy = STRUCTURED):
-    """Full-sequence forward -> logits [B, N, vocab] in f32."""
+            policy: ExecutionPolicy = STRUCTURED, frontend_embeds=None,
+            enc_frames=None):
+    """Full-sequence forward -> logits [B, N, vocab] in f32; with
+    ``frontend_embeds`` [B, P, d] (vlm) the patch embeddings go ahead of
+    the text, and the logits are [B, P + N, vocab]. An ``audio`` model
+    needs ``enc_frames`` [B, T, d]."""
     _require(cfg)
     x = layers.embed(params["embed"], tokens, cfg)
+    if frontend_embeds is not None:   # vlm: precomputed patch embeddings
+        x = torch.cat([frontend_embeds.to(x.dtype), x], 1)
     if "block0" in params:
         x = dense_block(params["block0"], x, cfg, cache=None,
                         policy=policy)[0]
+    enc_out = None
+    if cfg.family == "audio":
+        if enc_frames is None:
+            raise ValueError(f"{cfg.name} (audio) needs enc_frames: the "
+                             "encoder's frame embeddings [B, T, d]")
+        enc_out = _encoder_forward(params, cfg, enc_frames, policy)
+        x = x + _sinusoid(x.shape[1], cfg.d_model, x.device).to(x.dtype)
 
-    def body(x, group):
+    # enc_out is an input of every checkpointed unit, so that its gradient
+    # (the cross-attention's dk/dv) reaches the encoder's LoRA leaves
+    def body(x, enc_out, group):
         for kind, bp, window in group:
-            x = _run_block(kind, bp, x, cfg, window, policy)[0]
+            x = _run_block(kind, bp, x, cfg, window, policy,
+                           enc_out=enc_out)[0]
         return x
 
     # one checkpointed unit a block, or a pattern period (the reference's
@@ -321,9 +454,9 @@ def forward(params, cfg: ArchConfig, tokens, *,
     for g in range(0, len(layer_list), per):
         group = layer_list[g:g + per]
         if policy.remat:
-            x = checkpoint(body, x, group, use_reentrant=False)
+            x = checkpoint(body, x, enc_out, group, use_reentrant=False)
         else:
-            x = body(x, group)
+            x = body(x, enc_out, group)
     # a hybrid's tail runs outside the checkpoint, as in the reference
     for kind, bp, window in _tail_list(params, cfg):
         x = _run_block(kind, bp, x, cfg, window, policy)[0]
@@ -334,9 +467,17 @@ def forward(params, cfg: ArchConfig, tokens, *,
 def loss_fn(params, cfg: ArchConfig, batch: dict, *,
             policy: ExecutionPolicy = STRUCTURED):
     """Mean next-token cross-entropy. batch: tokens / labels [B, N]
-    (label -1 is ignored)."""
-    logits = forward(params, cfg, batch["tokens"], policy=policy)
-    return structured.softmax_xent(logits, batch["labels"])
+    (label -1 is ignored), and ``frontend_embeds`` (vlm: the prefix's
+    labels are -1) or ``enc_frames`` (audio) where the model takes them."""
+    fe = batch.get("frontend_embeds")
+    logits = forward(params, cfg, batch["tokens"], policy=policy,
+                     frontend_embeds=fe,
+                     enc_frames=batch.get("enc_frames"))
+    labels = batch["labels"]
+    if cfg.frontend_tokens and fe is not None:   # the prefix has no labels
+        labels = torch.cat([labels.new_full((labels.shape[0], fe.shape[1]),
+                                            -1), labels], 1)
+    return structured.softmax_xent(logits, labels)
 
 
 def _overwrite(dst, src) -> None:
@@ -369,14 +510,22 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *,
     the cache advanced in place.
 
     ``adapter_tiles``: int32 device tensor [B // bm] routing each slot tile
-    to its resident adapter for tenant-stacked LoRA params (dense family
-    only: an MoE's expert stacks already take the group axis, and the
-    recurrent families serve one adapter set).
+    to its resident adapter for tenant-stacked LoRA params (dense and vlm
+    families only: an MoE's expert stacks already take the group axis, and
+    the recurrent and audio families serve one adapter set).
+
+    An ``audio`` model adds the sinusoid row of each slot's position and
+    cross-attends to ``cache["enc_out"]``, its k/v recomputed every step
+    (as the reference does).
     """
     _require(cfg)
-    if adapter_tiles is not None and cfg.family != "dense":
+    if adapter_tiles is not None and cfg.family not in _ROUTED_FAMILIES:
         raise ValueError(f"adapter routing unsupported for {cfg.family!r}")
     x = layers.embed(params["embed"], tokens, cfg)
+    enc_out = cache.get("enc_out")
+    if cfg.family == "audio":
+        x = x + _sinusoid_at(cache["blocks"]["len"][0],
+                             cfg.d_model).to(x.dtype)
     if "block0" in params:
         x = dense_block(params["block0"], x, cfg, cache=cache["block0"],
                         policy=policy)[0]
@@ -384,7 +533,7 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *,
     states = _layer_caches(cache, cfg) + list(cache.get("tail", ()))
     for (kind, bp, window), st in zip(blocks, states):
         x, ns = _run_block(kind, bp, x, cfg, window, policy, state=st,
-                           adapter_tiles=adapter_tiles)
+                           adapter_tiles=adapter_tiles, enc_out=enc_out)
         if ns is not None:
             _overwrite(st, ns)
     x = layers.norm(params["final_norm"], x, cfg, policy=policy)

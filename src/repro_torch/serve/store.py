@@ -69,7 +69,7 @@ class AdapterStore:
         if any("moe" in p for p in self._paths):
             raise ValueError(
                 "multi-tenant AdapterStore does not support per-expert MoE "
-                "adapters; serve dense archs")
+                "adapters; serve dense/vlm archs")
 
         def widen(path, p):
             if path and path[-1] in ("a", "b"):

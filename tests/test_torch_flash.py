@@ -289,6 +289,15 @@ CARD_CASES = {
     "d256-nq-ne-nk": (2, 2, 200, 136, 256, True, 0, False),
     "d200-window48": (2, 2, 256, 256, 200, True, 48, True),
     "d256-G1": (4, 1, 256, 256, 256, False, 0, False),
+    # Whisper-tiny over 6 heads (a key read past Nk would land on the next
+    # head's keys): its encoder, non-causal over 1,500 frames (23 tiles of
+    # 64 and a tail of 28, masked by the key count alone); its
+    # cross-attention, 256 queries over them (dk/dv of every key tile back
+    # to the encoder); its causal decoder; InternVL2-1B at 512 rows, G 7
+    "whisper-encoder": (6, 1, 1500, 1500, 64, False, 0, False),
+    "whisper-cross": (6, 1, 256, 1500, 64, False, 0, False),
+    "whisper-decoder": (6, 1, 256, 256, 64, True, 0, False),
+    "internvl": (2, 7, 512, 512, 64, True, 0, False),
 }
 
 

@@ -327,7 +327,8 @@ def test_grouped_kernel_marks_bad_gid_and_rejects_bad_input():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,d", [(8, 896), (3, 1000), (64, 72), (1, 896),
                                  (256, 896), (256, 2048), (5, 899),
-                                 (3, 5000)])
+                                 (3, 5000), (256, 384), (1500, 384),
+                                 (512, 896)])
 def test_rmsnorm_kernel_matches_plain_on_card(M, d, dtype):
     _need_card()
     dt = getattr(torch, dtype)
@@ -456,13 +457,21 @@ TC_CASES = [
 DEEPEST_SPLIT = (256, 4864, 128)
 
 
+# Whisper-tiny's three (K, N) (K 384: the K split at its narrowest) at the
+# text's 256 rows and the frames' 1,500 (an M tail); single-stream decode's
+# M 4 and the cross-attention's k, v over 4 x 1,500 frames
+WHISPER_CASES = [(m, k, n, 8) for m in (256, 1500)
+                 for k, n in ((384, 384), (384, 1536), (1536, 384))] + [
+    (4, 384, 384, 8), (6000, 384, 384, 8)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,K,N,r", FUSED_CASES + [
     (192, 896, 896, 8), (192, 896, 128, 8), (192, 896, 4864, 8),
     (192, 4864, 896, 8), (130, 300, 70, 32), (64, 64, 64, 1),
     (40, 97, 131, 1), (256, 2048, 2048, 32),
-] + TC_CASES)
+] + TC_CASES + WHISPER_CASES)
 def test_lora_training_kernels_match_plain_on_card(M, K, N, r, dtype):
     """lora_fused_fwd, lora_dx and lora_dab against their plain versions.
     f32: summation order only. bf16: one output rounding (2^-8 relative),
@@ -861,7 +870,8 @@ def _check_rms_bwd(x, w, g, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("M,d", [(192, 896), (3, 1000), (64, 72), (1, 896),
                                  (8, 896), (256, 896), (256, 2048), (5, 899),
-                                 (3, 5000)])
+                                 (3, 5000), (256, 384), (1500, 384),
+                                 (512, 896)])
 def test_rmsnorm_bwd_kernel_matches_plain_on_card(M, d, dtype):
     _need_card()
     _check_rms_bwd(*_rms_bwd_inputs(M, d, dtype, 8), dtype)
