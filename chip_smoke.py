@@ -283,6 +283,32 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    launches a decode step) and ``--arch whisper-tiny`` single-stream (4
    sequences: 40 dense LoRA forward and 13 RMSNorm launches a step), ms a
    step and tokens/s.
+22. The autotuner and the data axis: (a) ``autotune_phase`` sweeps
+   (``kernels/autotune.autotune``) the bf16 dense forward and dx over a
+   bf16 and an nf4 base at qwen2.5-0.5b's seven linears at M 256 and
+   Gemma3-12B's MLP at M 2048 (every split the hard limits allow, 1..8)
+   and the grouped decode body at qwen2.5-0.5b's serve shapes, M 8 (every
+   split x bn 64 / 128), each candidate held against its plain version
+   (a refused one fails the phase: all are within the entries' limits)
+   and timed by CUDA graph replays; beside each shape the heuristic's
+   and the winner's plans and ms (warm in the sweep, cold by
+   ``_time_ms``), ``torch.matmul``'s and the bound. The winners go to a
+   temporary file (never into the repo) and into a fresh cache; every
+   swept shape must be answered with its winner by ``choose_blocks``, and
+   relaunched with no plan must hit the cache and give the bits of the
+   winner's explicit launch; a lookup's host cost is timed (a cached
+   plan, the heuristic, a fixed plan). The cache is
+   left empty, so every other phase runs the heuristic's plans. (b)
+   ``data_parallel_phase``: an ``nccl`` process group of world size 1 on
+   a free local port and an explicit data mesh of one rank; qwen2.5-0.5b
+   at full width, mesp_cuda, 1 x 256, 3 steps through the Trainer with
+   the mesh (exact counts) and without one, bit for bit; ``to_bf16`` and
+   ``topk_sparsify`` on the card's LoRA gradients against the CPU's, bit
+   for bit. Step 20's RWKV6 check also reads 10 plain and 3 kernel
+   forwards with weights nudged one ulp, the kernel path with the group
+   norm swapped for the structured norm and with the LoRA linears swapped
+   for the structured ones, and the f32 LoRA forward kernel and cuBLAS
+   against f64 at RWKV6's shapes (``lora_f32_accuracy``).
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
@@ -290,8 +316,9 @@ Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"train_moe_quant": ...}``, ``{"train_seq": ...}``, ``{"zo": ...}``,
 ``{"train_engines": ...}`` (with the run's seconds),
 ``{"core_flash": ...}``, ``{"trainer": ...}``, ``{"dense_catalog":
-...}``, ``{"recurrent": ...}`` and ``{"vlm_audio": ...}`` line each, the card's
-name and power limit, and
+...}``, ``{"recurrent": ...}``, ``{"vlm_audio": ...}``, ``{"autotune":
+...}`` and ``{"data_parallel": ...}`` line each, the card's name and power
+limit, and
 last ``{"ok": true, "device": ...}``. Any mismatch or exception exits
 non-zero. Imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -3339,8 +3366,10 @@ DECODE_POSITIONS, DECODE_BATCH, DECODE_F32_TOL = 64, 2, 1e-3
 DECODE_F64_TOL = 1e-8
 #: forwards of RWKV6's plain f32 path with every weight moved one f32 ulp
 #: up or down at random, each read against the f64 forward: the spread
-#: that f32 rounding alone gives the f32 runs' distance from f64
-DECODE_SPREAD_SAMPLES = 3
+#: that f32 rounding alone gives the f32 runs' distance from f64; and as
+#: many of the kernel path's, for its own spread
+DECODE_SPREAD_SAMPLES = 10
+DECODE_KERNEL_SPREAD_SAMPLES = 3
 #: the ragged grouped op at OLMoE's expert shapes (d 2048 -> d_expert 1024,
 #: rank 8), tiles of 8 rows: groups interleaved with empty ones, and 64
 #: ragged groups, every fifth empty
@@ -3630,6 +3659,28 @@ def _decode_and_forward(torch, cfg, params, toks, pol, frames=None):
     return fwd, dec
 
 
+def lora_f32_accuracy(torch, cfg, gen, M_=DECODE_BATCH * DECODE_POSITIONS):
+    """The f32 LoRA forward kernel and its plain version (``torch.matmul``
+    in f32, TF32 off) against the same product in f64 at ``cfg``'s linear
+    shapes, M_ rows: each one's largest |error| over the largest |f64
+    output| (the summation's rounding alone)."""
+    from repro_torch.kernels import lora_fused as lf
+    out = {}
+    for K, N in sorted({(cfg.d_model, cfg.d_model), (cfg.d_model, cfg.d_ff),
+                        (cfg.d_ff, cfg.d_model)}):
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        x, w, a, b = (rn(M_, K), rn(K, N) * K ** -0.5,
+                      rn(K, RANK) * RANK ** -0.5,
+                      rn(RANK, N) * b_scale_for(cfg))
+        xd, wd, ad, bd = (t.double() for t in (x, w, a, b))
+        want = xd @ wd + 2.0 * ((xd @ ad) @ bd)     # the f64 product
+        got, plain = lf.lora_fused(x, w, a, b), lf.lora_fused_ref(x, w, a, b)
+        scale = float(want.abs().max())
+        err = lambda y: float((y.double() - want).abs().max()) / scale
+        out[f"{K}x{N}"] = {"kernel": err(got), "plain": err(plain)}
+    return out
+
+
 def decode_vs_forward(torch, cfg):
     """The model in f32 at full width (every LoRA B nonzero at
     ``b_scale_for``) decoding ``DECODE_POSITIONS`` positions of a batch of
@@ -3697,21 +3748,74 @@ def decode_vs_forward(torch, cfg):
                 out[name][f"{what}_vs_f64_per_position_rel"] = per_pos
         del fwd, dec
     if ref is not None:
-        pol = ExecutionPolicy(backend="structured", device="cuda")
-        out["rounding_spread_forward_vs_f64_rel"] = []
-        out["rounding_spread_per_position_rel"] = []
-        for i in range(DECODE_SPREAD_SAMPLES):
-            g = torch.Generator(device="cuda").manual_seed(100 + i)
-            inf = torch.tensor(math.inf, device="cuda")
-            nudged = tree_map(lambda t: torch.nextafter(t, torch.where(
-                torch.rand(t.shape, generator=g, device="cuda") < 0.5,
-                inf, -inf)) if t.is_floating_point() else t, params)
+        r64 = float(ref.abs().max())
+        inf = torch.tensor(math.inf, device="cuda")
+        for key, backend, n in (
+                ("rounding_spread", "structured", DECODE_SPREAD_SAMPLES),
+                ("kernels_rounding_spread", "cuda",
+                 DECODE_KERNEL_SPREAD_SAMPLES)):
+            pol = ExecutionPolicy(backend=backend, device="cuda")
+            out[f"{key}_forward_vs_f64_rel"] = []
+            out[f"{key}_per_position_rel"] = []
+            for i in range(n):
+                g = torch.Generator(device="cuda").manual_seed(100 + i)
+                nudged = tree_map(lambda t: torch.nextafter(t, torch.where(
+                    torch.rand(t.shape, generator=g, device="cuda") < 0.5,
+                    inf, -inf)) if t.is_floating_point() else t, params)
+                with torch.no_grad():
+                    fwd = model_lib.forward(nudged, f32, toks, policy=pol)
+                per_pos = rel(fwd, ref, r64)
+                out[f"{key}_forward_vs_f64_rel"].append(max(per_pos))
+                out[f"{key}_per_position_rel"].append(per_pos)
+                del nudged, fwd
+        # the kernel path with the per-head group norm's #13 / #14 swapped
+        # for the structured path's norm (every other op still a kernel):
+        # whether the norm kernels' rounding order sets the kernels' reading
+        from repro_torch.models import layers as layers_lib
+        from repro_torch.models import rwkv6 as rwkv_lib
+        norm, hd = layers_lib.norm, cfg.resolved_head_dim
+
+        def group_norm_plain(p, x, cfg_, *, policy):
+            if p.ndim == 1 and p.shape[0] == hd and x.shape[-1] == hd:
+                policy = dataclasses.replace(policy, backend="structured")
+            return norm(p, x, cfg_, policy=policy)
+
+        rwkv_lib.layers.norm = group_norm_plain
+        try:
             with torch.no_grad():
-                fwd = model_lib.forward(nudged, f32, toks, policy=pol)
-            per_pos = rel(fwd, ref, float(ref.abs().max()))
-            out["rounding_spread_forward_vs_f64_rel"].append(max(per_pos))
-            out["rounding_spread_per_position_rel"].append(per_pos)
-            del nudged, fwd
+                fwd = model_lib.forward(params, f32, toks,
+                                        policy=ExecutionPolicy(
+                                            backend="cuda", device="cuda"))
+        finally:
+            rwkv_lib.layers.norm = norm
+        per_pos = rel(fwd, ref, r64)
+        out["kernels_plain_group_norm"] = {
+            "forward_vs_f64_rel": max(per_pos),
+            "forward_vs_f64_per_position_rel": per_pos}
+        del fwd
+        # the kernel path with every LoRA linear on the structured path
+        # instead (the norms still kernels): whether the f32 LoRA kernels'
+        # summation sets the reading
+        lin = layers_lib.apply_linear
+
+        def linear_structured(p, x, *args, policy, **kw):
+            return lin(p, x, *args, policy=dataclasses.replace(
+                policy, backend="structured"), **kw)
+
+        rwkv_lib.layers.apply_linear = linear_structured
+        try:
+            with torch.no_grad():
+                fwd = model_lib.forward(params, f32, toks,
+                                        policy=ExecutionPolicy(
+                                            backend="cuda", device="cuda"))
+        finally:
+            rwkv_lib.layers.apply_linear = lin
+        per_pos = rel(fwd, ref, r64)
+        out["kernels_structured_lora"] = {
+            "forward_vs_f64_rel": max(per_pos),
+            "forward_vs_f64_per_position_rel": per_pos}
+        del fwd
+        out["lora_f32_vs_f64"] = lora_f32_accuracy(torch, cfg, gen)
     if ref is not None and out["f64"]["worst_rel"] > DECODE_F64_TOL:
         raise AssertionError(f"{cfg.name}: decode against the forward in "
                              f"f64 {out['f64']['worst_rel']} (limit "
@@ -4236,6 +4340,361 @@ def vlm_audio_phase(torch, build, ops, fa, lf, lg, rn, lq, lp4, quant,
     return fig, counts, shapes
 
 
+# ---------------------------------------------------------------------------
+# step 22: the autotuner (kernels/autotune.py) and the data axis
+# ---------------------------------------------------------------------------
+
+GEMMA_MLP = get_config("gemma3-12b")
+#: the dense sweep's shapes: (model, M) -> {linears: (K, N)}: qwen2.5-0.5b's
+#: seven linears at the paper's 256 rows, Gemma3-12B's MLP at 1 x 2048
+AUTOTUNE_DENSE = {
+    ("qwen2.5-0.5b", QM): {"q,o": (D_MODEL, D_MODEL), "k,v": (D_MODEL, KV),
+                           "gate,up": (D_MODEL, D_FF),
+                           "down": (D_FF, D_MODEL)},
+    ("gemma3-12b", 2048): {"gate,up": (GEMMA_MLP.d_model, GEMMA_MLP.d_ff),
+                           "down": (GEMMA_MLP.d_ff, GEMMA_MLP.d_model)},
+}
+AUTOTUNE_FORMATS = ("none", "nf4")
+#: each candidate: a warm-up launch (checked against the plain version),
+#: then this many rounds of autotune.LAUNCHES_PER_ROUND launches
+AUTOTUNE_REPEATS = 3
+#: the cold timings' calls: about AUTOTUNE_MS of launches each, 20 to 400
+AUTOTUNE_MS, AUTOTUNE_CALLS = 40.0, 400
+#: lookups timed a case for the host cost of ``choose_blocks``
+LOOKUP_CALLS = 20000
+#: the data-parallel phase: qwen2.5-0.5b at 1 x 256, mesp_cuda, 3 steps
+DP_STEPS = 3
+#: the compression check's top-k fraction
+DP_TOPK = 0.05
+
+
+def _dense_sweep_cases(torch, quant, gen, method, M_, K, N):
+    """make() of one dense shape's bf16 inputs: x, W0 as the format stores
+    it (bf16 W0 and a dummy scale, or nf4's q4 and scale), a, b, g, and W0
+    in bf16 (the matmul context's operand)."""
+    def make():
+        rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+        w = rn(K, N) * K ** -0.5
+        if method == "none":
+            w = w.to(torch.bfloat16)
+            codes, scale, dense = w, torch.ones(1, device="cuda"), w
+        else:
+            leaf = quant.quantize_leaf(w, method)
+            codes, scale = leaf["q4"], leaf["scale"]
+            dense = quant.maybe_dequant(leaf, torch.bfloat16)
+        return (rn(M_, K).to(torch.bfloat16), codes, scale,
+                (rn(K, RANK) * RANK ** -0.5).to(torch.bfloat16),
+                (rn(RANK, N) * 0.1).to(torch.bfloat16),
+                rn(M_, N).to(torch.bfloat16), dense)
+    return make
+
+
+def _dense_sweep_call(lf, lp4, method, body):
+    """(op, kernel(*args, split=None), plain(*args), matmul(*args)) of the
+    dense bf16 forward or dx over ``method``'s base, on
+    ``_dense_sweep_cases``' inputs."""
+    import torch
+    if method == "none":
+        fwd = lambda x, q, s, a, b, g, w, split=None: lf.lora_fused(
+            x, q, a, b, split=split)
+        dx = lambda x, q, s, a, b, g, w, split=None: lf.lora_dx(
+            g, q, a, b, split=split)
+        fref = lambda x, q, s, a, b, g, w: lf.lora_fused_ref(x, q, a, b)
+        dref = lambda x, q, s, a, b, g, w: lf.lora_dx_ref(g, q, a, b)
+        ops = ("lora_fused", "lora_dx")
+    else:
+        fwd = lambda x, q, s, a, b, g, w, split=None: lp4.lora_fused_q4(
+            x, q, s, a, b, method=method, split=split)
+        dx = lambda x, q, s, a, b, g, w, split=None: lp4.lora_dx_q4(
+            g, q, s, a, b, method=method, split=split)
+        fref = lambda x, q, s, a, b, g, w: lp4.lora_fused_q4_ref(
+            x, q, s, a, b, method=method)
+        dref = lambda x, q, s, a, b, g, w: lp4.lora_dx_q4_ref(
+            g, q, s, a, b, method=method)
+        ops = ("lora_fused_q4", "lora_dx_q4")
+    if body == "fwd":
+        return ops[0], fwd, fref, \
+            lambda x, q, s, a, b, g, w: torch.matmul(x, w)
+    return ops[1], dx, dref, \
+        lambda x, q, s, a, b, g, w: torch.matmul(g, w.T)
+
+
+def _sweep_figures(torch, tune, op, kern, plain, mm, make, dims, nbytes,
+                   flops, candidates, heuristic):
+    """One sweep: ``autotune.autotune`` over ``candidates`` (each held
+    against the plain version at KERNEL_TOL, the absolute floor scaled to
+    the output's largest magnitude; a candidate refused at launch fails
+    the phase, as every one is within the entries' hard limits and so a
+    plan the heuristic may choose), then the heuristic's and the winner's
+    plans and x @ W0 (or g @ W0^T) timed cold (``_time_ms``) beside the
+    bound."""
+    args = make()
+    want = plain(*args)
+    torch.cuda.synchronize()
+    scale = max(1.0, float(want.float().abs().max()))
+    tol = dict(rtol=KERNEL_TOL["rtol"], atol=KERNEL_TOL["atol"] * scale)
+    best = tune.autotune(op, lambda plan: kern(*args, plan),
+                         candidates=candidates, dtype=torch.bfloat16,
+                         repeats=AUTOTUNE_REPEATS, want=want, tol=tol,
+                         **dims)
+    refused = [p for p, ms in tune.LAST_SWEEP["times"] if ms is None]
+    if refused:     # every candidate here is within the entries' limits
+        raise AssertionError(f"autotune: {op} at {dims} refused the plans "
+                             f"{refused}, which the heuristic may choose")
+    sweep = [{"plan": p, "ms": ms} for p, ms in tune.LAST_SWEEP["times"]]
+    warm = {json.dumps(p, sort_keys=True): ms
+            for p, ms in tune.LAST_SWEEP["times"]}
+    sets = _cold_sets(make, nbytes)
+    bound, by = _bound_ms(nbytes, flops)
+    calls = int(max(20, min(AUTOTUNE_CALLS, AUTOTUNE_MS / max(
+        ms for _, ms in tune.LAST_SWEEP["times"]))))
+    out = {**dims, "op": op, "candidates": len(candidates), "sweep": sweep,
+           "heuristic": heuristic,
+           "heuristic_warm_ms": warm[json.dumps(heuristic, sort_keys=True)],
+           "heuristic_ms": _time_ms(lambda *a: kern(*a, heuristic), sets,
+                                    calls),
+           "winner": best,
+           "winner_warm_ms": warm[json.dumps(best, sort_keys=True)],
+           "winner_ms": _time_ms(lambda *a: kern(*a, best), sets, calls),
+           "matmul_ms": _time_ms(mm, sets, calls), "cold_calls": calls,
+           "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+           "flops": flops}
+    del sets
+    return out
+
+
+def _lookup_us(torch, tune, op, dims):
+    """µs a ``choose_blocks`` call of ``op`` at ``dims`` by the host
+    clock, over ``LOOKUP_CALLS`` calls."""
+    t0 = time.perf_counter()
+    for _ in range(LOOKUP_CALLS):
+        tune.choose_blocks(op, torch.bfloat16, **dims)
+    return 1e6 * (time.perf_counter() - t0) / LOOKUP_CALLS
+
+
+def autotune_phase(torch, lf, lp4, lg, quant):
+    """Step 22 (a): the measured autotuner on the card. Sweeps the bf16
+    dense forward and dx over a bf16 and an nf4 base at
+    ``AUTOTUNE_DENSE``'s shapes (every split 1..8 the hard limits allow)
+    and the grouped decode body at qwen2.5-0.5b's serve shapes, M 8 (every
+    split x bn 64 / 128), each candidate held against the plain version;
+    saves the winners to a temporary file (never into the repo), loads
+    them into a fresh cache, checks that ``choose_blocks`` answers each
+    shape with its winner, relaunches every swept shape with no explicit
+    plan and checks that each launch hit the cache and gave the bits of a
+    launch given the winner's plan. Then times the host cost of a lookup
+    (a cached plan, the heuristic, a fixed plan). The cache is left empty,
+    so the phases' plans stay the heuristic's."""
+    import tempfile
+    from repro_torch.kernels import autotune as tune
+    tune.clear_cache()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    dense, relaunch = [], []
+    for (model, M_), shapes in AUTOTUNE_DENSE.items():
+        for linears, (K, N) in shapes.items():
+            for method in AUTOTUNE_FORMATS:
+                make = _dense_sweep_cases(torch, quant, gen, method, M_, K,
+                                          N)
+                wbytes = 2 * K * N if method == "none" else \
+                    (K + 1) // 2 * N + 4 * N
+                nbytes = 2 * (M_ * K + K * RANK + RANK * N + M_ * N) + wbytes
+                flops = 2 * M_ * K * N + 2 * M_ * RANK * (K + N)
+                for body in ("fwd", "dx"):
+                    op, kern, plain, mm = _dense_sweep_call(lf, lp4, method,
+                                                            body)
+                    call = lambda *a, _k=kern: _k(*a[:-1], split=a[-1][
+                        "split"])
+                    dims = {"M": M_, "K": K, "N": N}
+                    limit = tune.dense_split_limit(K if body == "fwd" else N)
+                    cands = [{"split": s} for s in range(1, limit + 1)]
+                    fig = _sweep_figures(
+                        torch, tune, op, call, plain, mm, make, dims, nbytes,
+                        flops, cands, tune._heuristic(op, dims,
+                                                      torch.bfloat16))
+                    dense.append({"model": model, "linears": linears,
+                                  "format": method, "body": body, **fig})
+                    relaunch.append((op, kern, make, dims, fig["winner"]))
+    decode = []
+    gid = torch.tensor(PATH_GID, dtype=torch.int32, device="cuda")
+    used = int(torch.unique(gid).numel())
+    for (K, N) in GROUPED_SHAPES:
+        def make(K=K, N=N):
+            rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+            return ((rn(M, K)).to(torch.bfloat16),
+                    (rn(K, N) * K ** -0.5).to(torch.bfloat16),
+                    (rn(R, K, RANK) * RANK ** -0.5).to(torch.bfloat16),
+                    (rn(R, RANK, N) * 0.05).to(torch.bfloat16), gid.clone())
+        kern = lambda x, w, a, b, g, plan=None: lg.lora_grouped(
+            x, w, a, b, g, 2.0, bm=BM, plan=plan)
+        plain = lambda x, w, a, b, g: lg.lora_grouped_ref(x, w, a, b, g, 2.0,
+                                                          bm=BM)
+        mm = lambda x, w, a, b, g: torch.matmul(x, w)
+        dims = {"M": M, "K": K, "N": N, "r": RANK, "bm": BM}
+        nk = -(-K // lg.DECODE_KD)
+        cands = [{"split": s, "bn": bn}
+                 for s in range(1, min(lg.DECODE_MAX_SPLIT, nk) + 1)
+                 for bn in (64, 128)]
+        nbytes = 2 * (M * K + K * N + used * (K * RANK + RANK * N) + M * N) \
+            + 4 * gid.numel()
+        flops = 2 * M * K * N + 2 * M * RANK * (K + N)
+        fig = _sweep_figures(torch, tune, "lora_grouped", kern, plain, mm,
+                             make, dims, nbytes, flops, cands,
+                             tune._heuristic("lora_grouped", dims,
+                                             torch.bfloat16))
+        decode.append({"model": "qwen2.5-0.5b", "body": "decode",
+                       "format": "none", **fig})
+        relaunch.append(("lora_grouped", kern, make, dims, fig["winner"]))
+
+    # the winners through a file into a fresh cache, then hit on relaunch
+    path = Path(tempfile.mkdtemp(prefix="repro_torch_autotune_")) / \
+        f"{tune.backend_generation()}.json"
+    tune.save_cache(str(path))
+    saved = json.loads(path.read_text())
+    tune.clear_cache()
+    loaded = tune.load_cache(str(path))
+    if loaded != len(relaunch) or len(saved) != len(relaunch):
+        raise AssertionError(f"autotune: {len(relaunch)} sweeps, {loaded} "
+                             f"plans loaded from {len(saved)} saved")
+    for op, kern, make, dims, best in relaunch:
+        chosen = tune.choose_blocks(op, torch.bfloat16, **dims)
+        if chosen != best:
+            raise AssertionError(f"autotune: {op} at {dims} chooses "
+                                 f"{chosen}, the cache holds {best}")
+    hits0 = tune.cache_stats()["cache_hit"]
+    for op, kern, make, dims, best in relaunch:
+        args = make()
+        got = kern(*args)                       # no plan: the cache's
+        explicit = kern(*args, best) if op == "lora_grouped" else \
+            kern(*args, split=best["split"])
+        torch.cuda.synchronize()
+        if not torch.equal(got, explicit):
+            raise AssertionError(f"autotune: {op} at {dims} launched "
+                                 f"other bits than the cached {best}")
+    hits = tune.cache_stats()["cache_hit"] - hits0
+    if hits != len(relaunch):
+        raise AssertionError(f"autotune: {hits} cache hits on "
+                             f"{len(relaunch)} relaunches")
+    counters = tune.cache_stats()
+    # the host cost of a dispatch's lookup: a cached plan, the heuristic,
+    # a fixed plan (µs a call by the host clock, LOOKUP_CALLS calls)
+    op, _, _, dims, _ = relaunch[0]
+    lookup_us = {"cache_hit": _lookup_us(torch, tune, op, dims)}
+    tune.clear_cache()
+    lookup_us["heuristic"] = _lookup_us(torch, tune, op, dims)
+    lookup_us["fixed"] = _lookup_us(torch, tune, "rmsnorm",
+                                    {"M": QM, "d": D_MODEL})
+    path.unlink()
+    path.parent.rmdir()
+    return {"dense": dense, "decode": decode, "saved_plans": len(saved),
+            "loaded_plans": loaded, "relaunch_cache_hits": hits,
+            "generation": tune.backend_generation(),
+            "counters": counters, "lookup_us": lookup_us,
+            "lookup_calls": LOOKUP_CALLS, "repeats": AUTOTUNE_REPEATS,
+            "launches_per_round": tune.LAUNCHES_PER_ROUND}
+
+
+def data_parallel_phase(torch, ops, cfg):
+    """Step 22 (b): the data axis on the card. An ``nccl`` process group of
+    world size 1 (a free local port) and an explicit data mesh of one rank;
+    qwen2.5-0.5b at full width trains ``DP_STEPS`` ``mesp_cuda`` steps at 1
+    x 256 through the Trainer with the mesh (exact launch counts) and
+    through the same Trainer with none: losses and LoRA state bit for bit.
+    Then ``to_bf16`` and ``topk_sparsify`` (with error feedback) on the
+    mesh run's LoRA gradients as CUDA tensors, against their CPU results,
+    bit for bit."""
+    import socket
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.api.spec import TrainSpec
+    from repro_torch.api.trainer import Trainer
+    from repro_torch.core import mesp
+    from repro_torch.optim import compression
+    from repro_torch.runtime import elastic
+    from repro_torch.tree import tree_leaves, tree_map
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    try:
+        spec = TrainSpec(arch=cfg.name, engine="mesp_cuda", device="cuda",
+                         batch=PAPER_BATCH, seq=PAPER_SEQ, steps=DP_STEPS,
+                         seed=0, lr=ENGINES_LR,
+                         ckpt_dir=tempfile.mkdtemp(prefix="repro_torch_dp_"))
+        runs = {}
+        for name, mesh in (("mesh", elastic.make_mesh_from_devices([0], 1)),
+                           ("no_mesh", None)):
+            _release(torch)
+            tr = Trainer.from_spec(spec, mesh=mesh)
+            params, opt = tr.shard_state(*tr.init_state())
+            data = tr.make_data()
+            losses, secs = [], []
+            ops.reset_launch_counts()
+            for _ in range(DP_STEPS):
+                batch = next(data)       # this rank's rows
+                t0 = time.monotonic()
+                params, opt, loss = tr.step_fn(params, opt, batch)
+                torch.cuda.synchronize()
+                secs.append(time.monotonic() - t0)
+                losses.append(float(loss))
+            counts = ops.launch_counts()
+            want = {k: v * DP_STEPS for k, v in PAPER_PER_STEP.items()}
+            _check_counts(counts, {**{k: 0 for k in counts}, **want},
+                          f"data_parallel {name}")
+            runs[name] = {"losses": losses, "seconds": secs,
+                          "launches": counts, "lora": _lora_leaves(params),
+                          "dp": tr.dp, "batch": batch, "params": params}
+            if name == "no_mesh":
+                break
+            del params, opt
+        m, n = runs["mesh"], runs["no_mesh"]
+        if m["losses"] != n["losses"] or any(
+                not torch.equal(a, b) for a, b in zip(m["lora"].values(),
+                                                      n["lora"].values())):
+            raise AssertionError(f"data_parallel: a mesh of one rank is not "
+                                 f"no mesh bit for bit: {m['losses']} vs "
+                                 f"{n['losses']}")
+        if m["dp"].size != 1 or m["dp"].bytes_all_reduced != 0:
+            raise AssertionError("data_parallel: one rank all-reduced "
+                                 f"{m['dp'].bytes_all_reduced} bytes")
+        # compression on the card against the CPU on a step's gradients
+        batch = {k: torch.from_numpy(v).long().cuda()
+                 for k, v in n["batch"].items()}
+        _, grads = mesp.value_and_grad(n["params"], cfg, batch,
+                                       policy=spec.policy())
+        cpu = tree_map(lambda t: None if t is None else t.cpu(), grads)
+        b16 = compression.to_bf16(grads)
+        same = lambda u, v: all(torch.equal(a.cpu(), b) for a, b in zip(
+            tree_leaves(u), tree_leaves(v)))
+        comp = {"bf16_bitwise": same(b16, compression.to_bf16(cpu)),
+                "f32_round_trip_bitwise": same(
+                    compression.from_bf16(b16),
+                    compression.from_bf16(compression.to_bf16(cpu)))}
+        err_g = err_c = None
+        sent_ok = True
+        for _ in range(3):
+            sg, err_g = compression.topk_sparsify(grads, DP_TOPK, err_g)
+            sc, err_c = compression.topk_sparsify(cpu, DP_TOPK, err_c)
+            sent_ok = sent_ok and same(sg, sc) and same(err_g, err_c)
+        comp["topk_bitwise"] = sent_ok
+        comp["topk_frac"] = DP_TOPK
+        comp["sent_nonzero"] = int(sum(int((t != 0).sum())
+                                       for t in tree_leaves(sg)))
+        if not all(comp[k] for k in ("bf16_bitwise",
+                                     "f32_round_trip_bitwise",
+                                     "topk_bitwise")):
+            raise AssertionError(f"data_parallel: compression on the card "
+                                 f"differs from the CPU: {comp}")
+    finally:
+        dist.destroy_process_group()
+    return {"backend": "nccl", "world_size": 1, "mesh": {"data": 1,
+                                                          "model": 1},
+            "steps": DP_STEPS, "losses": m["losses"],
+            "seconds_mesh": m["seconds"], "seconds_no_mesh": n["seconds"],
+            "launches": m["launches"], "bitwise_vs_no_mesh": True,
+            "bytes_all_reduced": 0, "compression": comp}
+
+
 def main() -> int:
     t_start = time.monotonic()
     import torch
@@ -4648,6 +5107,18 @@ def main() -> int:
     vlm_audio, vcounts, vshapes = vlm_audio_phase(
         torch, build, ops, fa, lf, lg, rn, lq, lp4, quant, rope_tables,
         train_cli, serve_cli)
+
+    # step 22: the autotuner's sweeps (the cache left empty after them, so
+    # every phase above and below runs the heuristic's plans), then the
+    # data axis over nccl at world size 1 (counts zeroed just before each
+    # run and read just after it, inside the phase)
+    t22 = time.monotonic()
+    autotune_fig = autotune_phase(torch, lf, lp4, lg, quant)
+    t22b = time.monotonic()
+    _release(torch)
+    dp_fig = data_parallel_phase(torch, ops, cfg)
+    autotune_fig["seconds"] = t22b - t22
+    dp_fig["seconds"] = time.monotonic() - t22b
 
     paths = lambda k: {**{p: c[k] for p, c in ccounts.items()},
                        **{p: c.get(k, 0) for p, c in rcounts.items()},
@@ -5062,6 +5533,12 @@ def main() -> int:
         "grad_tol": GRAD_TOL, "loss_tol": LOSS_TOL, **vlm_audio,
         "device": name, "power": smi,
         "run_seconds": time.monotonic() - t_start}}))
+    print(json.dumps({"autotune": {
+        **autotune_fig, "dtype": "bfloat16", "device": name, "power": smi}}))
+    print(json.dumps({"data_parallel": {
+        "arch": cfg.name, "engine": "mesp_cuda", "dtype": "bfloat16",
+        "batch": PAPER_BATCH, "seq": PAPER_SEQ, **dp_fig, "device": name,
+        "power": smi, "run_seconds": time.monotonic() - t_start}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

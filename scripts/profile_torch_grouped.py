@@ -349,6 +349,9 @@ def _dense_dx_calls(method):
 #: does this tree's bf16 dense dx sum dh in its kernel (a C entry that
 #: takes B and the scale)?
 DX_SUMS_DH = hasattr(lf, "dx_plan")
+#: does this tree's dense bf16 C entry take its split from the caller
+#: (``lora_fused.split_of``: a measured plan, else the heuristic)?
+TAKES_SPLIT = hasattr(lf, "split_of")
 
 
 def _dense_dx_kernel(method):
@@ -362,10 +365,11 @@ def _dense_dx_kernel(method):
                                                          "lora_dx_q4")
     lead = () if method in ("bf16", "int8") else (lp4.METHOD_CODES[method],)
     n_ptr = 5 if method == "bf16" else 6
+    op = {"bf16": "lora_dx", "int8": "lora_dx_q"}.get(method, "lora_dx_q4")
     if DX_SUMS_DH:
         entry += "_tc"
         fn = _build.function(lib, entry, [I] * len(lead) + [P] * n_ptr
-                             + [I] * 4 + [F, P])
+                             + [I] * 4 + [F] + [I] * TAKES_SPLIT + [P])
     else:
         fn = _build.function(lib, entry, [I] * (1 + len(lead)) + [P] * n_ptr
                              + [I] * 4 + [P])
@@ -381,8 +385,9 @@ def _dense_dx_kernel(method):
         dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
         stream = torch.cuda.current_stream().cuda_stream
         if DX_SUMS_DH:
+            split = (lf.split_of(op, g.dtype, M, K, N),) * TAKES_SPLIT
             rc = fn(*lead, *(t.data_ptr() for t in ptrs), b.data_ptr(),
-                    dx.data_ptr(), M, K, N, r, 2.0, stream)
+                    dx.data_ptr(), M, K, N, r, 2.0, *split, stream)
         else:
             rc = fn(1, *lead, *(t.data_ptr() for t in ptrs),
                     args[-1].data_ptr(), dx.data_ptr(), M, K, N, r, stream)

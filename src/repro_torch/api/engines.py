@@ -23,11 +23,15 @@ from repro_torch.api.registry import list_engines, register_engine
 
 def _grad_builder(spec, cfg, opt, policy):
     """Step-builder of the engines that are ``mesp.value_and_grad`` under
-    one backend, followed by the optimizer."""
+    one backend, followed by the optimizer; under a data axis
+    (``policy.dp``) the LoRA gradients and the loss are all-reduced over it
+    in between."""
     from repro_torch.core import mesp
 
     def step(params, opt_state, batch):
         loss, grads = mesp.value_and_grad(params, cfg, batch, policy=policy)
+        if policy.dp is not None:
+            loss, grads = policy.dp.reduce(loss, grads, batch["labels"])
         params, opt_state = opt.update(grads, opt_state, params)
         return params, opt_state, loss
 

@@ -27,10 +27,15 @@
   and k never reach device memory) instead of a separate RoPE pass. The
   gradients are the same; other backends ignore it, as the reference's
   backends other than ``pallas`` do.
+* ``dp``: the data axis of a mesh (``runtime.elastic.DataParallel``) or
+  None: each engine's step all-reduces its LoRA gradients and loss over
+  it (``api/engines.py``, ``core/mesp.sequential_train_step``, the MeZO
+  engines' two losses). The Trainer sets it; the model stack ignores it.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -49,6 +54,7 @@ class ExecutionPolicy:
     flash_chunk: int = 1024
     remat: bool = True
     fuse_rope: bool = False
+    dp: Optional[object] = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:

@@ -13,8 +13,9 @@ come from the port's engine registry and ``--quantize`` choices from
 ``--pallas-interpret`` (the port has no interpreter: a CPU tensor takes each
 kernel's plain version) and plus ``--device`` (``cuda``, the default, or
 ``cpu``). The reference's ``act_spec`` (an activation sharding) has no
-counterpart: the port runs on one device, and ``--model-parallel`` above 1
-is refused (``ROADMAP.md`` item 8).
+counterpart: the port's mesh has a data axis only (one process a rank,
+``runtime/elastic.py``), and ``--model-parallel`` above 1 is refused until
+the model axis is ported (``ROADMAP.md`` §1, item 3).
 """
 from __future__ import annotations
 
@@ -64,7 +65,7 @@ class TrainSpec:
     profile: str = "off"           # torch.profiler capture around the run
     mem_budget_mb: float = 0.0     # watermark-pressure degrade limit (0=off)
     quiet: bool = False            # console: warnings only
-    # --- sharding: one device only (ROADMAP.md item 8) ---------------------
+    # --- sharding: the data axis only (the model axis: ROADMAP.md §1, 3) ---
     model_parallel: int = 1
 
     # ------------------------------------------------------------------ API
@@ -94,8 +95,9 @@ class TrainSpec:
                              f"got {self.model_parallel}")
         if self.model_parallel > 1:
             raise ValueError(
-                f"--model-parallel {self.model_parallel}: the port trains on "
-                "one device; the mesh is not ported yet (ROADMAP.md item 8)")
+                f"--model-parallel {self.model_parallel}: the port's mesh has "
+                "a data axis only; the model axis (Megatron tensor "
+                "parallelism) is not ported yet (ROADMAP.md §1, item 3)")
         if self.inject_faults:
             from repro_torch.runtime.faults import FaultPlan
             # parse errors (unknown kind, bad syntax) surface before compute
@@ -230,6 +232,7 @@ def build_arg_parser(prog: str = "repro_torch.launch.train"
                     help="suppress per-step and summary console logging "
                          "(structured telemetry sinks are unaffected)")
     ap.add_argument("--model-parallel", type=int, default=d.model_parallel,
-                    help="model-axis size; the port runs on one device, so "
-                         "only 1 is accepted (ROADMAP.md item 8)")
+                    help="model-axis size; the port's mesh has a data axis "
+                         "only, so only 1 is accepted (ROADMAP.md §1, item "
+                         "3)")
     return ap

@@ -15,10 +15,20 @@ spec that produced it, so a restore after a crash reconstitutes the exact
 (possibly degraded) program, and an OOM walks the ladder to a cheaper spec
 while carrying the optimizer state across compatible transitions.
 
-The port runs on one device (``spec.device``; ``cuda`` fails without a
-card rather than falling back), so the reference's mesh, ``shard_state``
-and elastic ``resize`` have no counterpart here (``ROADMAP.md`` item 8).
-Each engine's step is called as built: there is no jit. Restore templates
+Each rank runs on one device (``spec.device``; ``cuda`` fails without a
+card rather than falling back). Over several ranks of a ``torch.
+distributed`` process group the Trainer holds a data-parallel mesh
+(``runtime/elastic.py``): every rank keeps the whole model, steps on its
+rows of the global batch (``spec.batch``) and all-reduces the LoRA
+gradients and the loss over the data axis inside each engine's step
+(``policy.dp``); ``shard_state`` replicates the state from the mesh's
+first rank and ``resize`` moves the run onto a surviving rank set, keeping
+the global batch. Only rank 0 touches the checkpoints: it writes them,
+and on a restore it alone picks the step (quarantining corrupt ones),
+which every other rank then loads read-only; telemetry writes
+``worker_<rank>.jsonl``.
+The model axis is not ported (``ROADMAP.md`` §1, item 3). Each engine's
+step is called as built: there is no jit. Restore templates
 are made on the ``meta`` device (shapes and dtypes only), so a restore never
 holds a second model's worth of weights beside the one it loads.
 """
@@ -26,12 +36,16 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 from typing import Any, Callable, List, Optional
 
 import torch
 
 from repro_torch.api.registry import Engine, get_engine
 from repro_torch.api.spec import TrainSpec
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.checkpoint.checkpointer import load_checkpoint
+from repro_torch.runtime import elastic
 from repro_torch.tree import tree_map
 
 log = logging.getLogger("repro_torch.trainer")
@@ -73,9 +87,87 @@ def _spec_manifest(spec: TrainSpec) -> dict:
     return {name: getattr(spec, name) for name in _SPEC_FIELDS}
 
 
+def _to_device(v, device):
+    """A batch entry on ``device``: token ids and labels as int64, float
+    inputs (a vlm's ``frontend_embeds``, an audio model's ``enc_frames``)
+    as they are."""
+    t = torch.from_numpy(v)
+    return (t if t.is_floating_point() else t.long()).to(device)
+
+
 def _to_meta(tree):
     return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
                                           device="meta"), tree)
+
+
+class _RankZeroCheckpointer(Checkpointer):
+    """A data-parallel run's checkpointer. Rank 0 (the mesh's first) alone
+    changes the directory: it writes each checkpoint, and on a restore it
+    alone picks the step, quarantining the corrupt ones. Every save and
+    restore ends with rank 0's outcome broadcast over the mesh: the other
+    ranks load the step it picked read-only, and a save or restore that
+    failed on rank 0 raises on every rank, so no rank waits in a
+    collective for one that left."""
+
+    def __init__(self, directory, interval, dp):
+        super().__init__(directory, interval=interval)
+        self.dp = dp
+
+    def _agree(self, outcome):
+        """Rank 0's ``outcome``, on every rank of the mesh."""
+        box = [outcome]
+        if self.dp.size > 1:
+            torch.distributed.broadcast_object_list(
+                box, src=self.dp.mesh.rank_list[0], group=self.dp.group)
+        return box[0]
+
+    def save(self, step, params, opt_state=None, data_state=None,
+             extra=None):
+        path = os.path.join(self.directory, f"step_{step:08d}")
+        if self.dp.index == 0:
+            try:
+                path = super().save(step, params, opt_state, data_state,
+                                    extra)
+            except Exception as e:
+                self._agree(f"{type(e).__name__}: {e}")
+                raise
+        failed = self._agree(None)
+        if failed is not None:
+            raise RuntimeError(f"rank 0 failed to save step {step}: "
+                               f"{failed}")
+        return path     # every rank: the loop's save bookkeeping agrees
+
+    def restore_latest(self, params_template=None, opt_template=None, *,
+                       template_fn=None, **kw):
+        if self.dp.index == 0:
+            seen = len(self.quarantined)
+            try:
+                restored = super().restore_latest(
+                    params_template, opt_template, template_fn=template_fn,
+                    **kw)
+            except Exception as e:
+                self._agree({"error": f"{type(e).__name__}: {e}",
+                             "io": isinstance(e, IOError),
+                             "quarantined": self.quarantined[seen:]})
+                raise
+            self._agree({"step": restored and restored["step"],
+                         "quarantined": self.quarantined[seen:]})
+            return restored
+        told = self._agree(None)
+        self.quarantined.extend(told["quarantined"])
+        if "error" in told:
+            raise (IOError if told["io"] else RuntimeError)(
+                f"rank 0's restore failed: {told['error']}")
+        step = told["step"]
+        if step is None:
+            return None
+        pt, ot = params_template, opt_template
+        if template_fn is not None:
+            pt, ot = template_fn(self.read_manifest(step).get("extra", {}))
+        params, opt, data_state, extra = load_checkpoint(
+            self.directory, step, pt, ot, **kw)
+        return {"step": step, "params": params, "opt_state": opt,
+                "data_state": data_state, "extra": extra}
 
 
 class Trainer:
@@ -85,7 +177,7 @@ class Trainer:
     explicit ArchConfig.
     """
 
-    def __init__(self, spec: TrainSpec, *, cfg=None):
+    def __init__(self, spec: TrainSpec, *, cfg=None, mesh=None):
         from repro_torch.configs import get_config
         from repro_torch.optim.optimizers import make_optimizer
         from repro_torch.optim.schedules import constant
@@ -103,29 +195,108 @@ class Trainer:
         self.cfg = cfg
         self.opt = make_optimizer(spec.optimizer, constant(spec.lr))
         self._live_spec: Optional[TrainSpec] = None
+        self._set_mesh(mesh if mesh is not None else self._auto_mesh(spec))
         self._switch_to(self.spec)
 
     @classmethod
-    def from_spec(cls, spec: TrainSpec, *, cfg=None) -> "Trainer":
-        return cls(spec, cfg=cfg)
+    def from_spec(cls, spec: TrainSpec, *, cfg=None, mesh=None
+                  ) -> "Trainer":
+        return cls(spec, cfg=cfg, mesh=mesh)
+
+    # -------------------------------------------------------------- sharding
+    @staticmethod
+    def _auto_mesh(spec: TrainSpec):
+        """A (data, model) mesh over the process group's ranks; ``None``
+        (no mesh, the single-process run) at world size 1 with
+        ``model_parallel == 1``, as in the reference."""
+        n = elastic.world_size()
+        if n == 1 and spec.model_parallel == 1:
+            return None
+        return elastic.make_mesh_from_devices(list(range(n)),
+                                              spec.model_parallel)
+
+    def _set_mesh(self, mesh) -> None:
+        """Adopt ``mesh`` (None: no mesh). Collective: every rank of the
+        world calls it with the same mesh (its process group is made here).
+        A rank left off the mesh gets ``dp`` None and waits for the next
+        resize; it must not step."""
+        self.mesh = mesh
+        self.dp = None
+        self.on_mesh = True
+        if mesh is None:
+            return
+        group = elastic.group_of(mesh)
+        self.on_mesh = elastic.rank() in mesh.rank_list
+        if self.on_mesh:
+            self.dp = elastic.DataParallel(mesh, group)
+
+    def shard_state(self, params, opt_state=None, *, mesh=None):
+        """Data-parallel placement of the state on the mesh
+        (``runtime.elastic.reshard_tree``: replicated from the mesh's first
+        rank; values untouched). Returns ``params`` or ``(params,
+        opt_state)`` mirroring the arguments."""
+        mesh = mesh if mesh is not None else self.mesh
+        if mesh is not None and elastic.rank() in mesh.rank_list:
+            params = elastic.reshard_tree(params, mesh)
+            if opt_state is not None:
+                opt_state = elastic.reshard_tree(opt_state, mesh)
+        return params if opt_state is None else (params, opt_state)
+
+    def resize(self, devices=None, *, model_parallel=None, params=None,
+               opt_state=None):
+        """Elastic resize onto the surviving ranks ``devices`` (default:
+        every rank of the world): a mesh and its process group over them
+        (``dist.new_group``, so every rank of the world calls this alike),
+        the live spec's step rebuilt for it, and, when ``params`` /
+        ``opt_state`` are passed, the state replicated onto it from the new
+        mesh's first rank. The global batch is kept: each rank's rows follow
+        ``runtime.elastic.rebalance_batch``. Ranks left off the new mesh
+        wait (``on_mesh`` false). Returns ``None``, ``params`` or
+        ``(params, opt_state)`` mirroring the state arguments."""
+        devices = list(devices) if devices is not None \
+            else list(range(elastic.world_size()))
+        if model_parallel is None:
+            model_parallel = (self.mesh.shape.get("model", 1)
+                              if self.mesh is not None
+                              else self.live_spec.model_parallel)
+        self._set_mesh(elastic.make_mesh_from_devices(devices,
+                                                      model_parallel))
+        live = self.live_spec
+        self._live_spec = None    # rebuild the step over the new data axis
+        self._switch_to(live)
+        if params is None:
+            return None
+        return self.shard_state(params, opt_state)
+
+    def local_batch(self, batch: dict) -> dict:
+        """This rank's rows of a global batch (the whole of it without a
+        mesh, or where its rows do not divide over the data axis:
+        ``DataParallel.rows``)."""
+        if self.dp is None:
+            return batch
+        rows = self.dp.rows(len(next(iter(batch.values()))))
+        return {k: v[rows] for k, v in batch.items()}
 
     # ------------------------------------------------------------ live spec
     def _switch_to(self, spec: TrainSpec) -> None:
         """(Re)build engine + step for ``spec``; no-op if unchanged. Raises
         (without changing live state) when the engine refuses the spec —
         the degradation path uses that to skip unbuildable rungs. The step
-        takes the data pipeline's numpy batch and moves it to the device."""
+        takes the data pipeline's numpy batch and moves it to the device;
+        over a data mesh it all-reduces the LoRA gradients and the loss
+        (``policy.dp``)."""
         if spec == self._live_spec:
             return
         spec = spec.validate()
         engine: Engine = get_engine(spec.engine)
         policy = spec.policy()
+        if self.dp is not None:
+            policy = dataclasses.replace(policy, dp=self.dp)
         build = engine.build_step(spec, self.cfg, self.opt, policy)
         device = self.device
 
         def step_fn(params, opt_state, batch, _build=build):
-            batch = {k: torch.from_numpy(v).long().to(device)
-                     for k, v in batch.items()}
+            batch = {k: _to_device(v, device) for k, v in batch.items()}
             return _build(params, opt_state, batch)
 
         self.engine, self.policy, self.step_fn = engine, policy, step_fn
@@ -163,12 +334,23 @@ class Trainer:
         return params, self.opt.init(params)
 
     def make_data(self, state=None):
+        """This rank's stream of the live spec's global batches: its
+        host shard of the corpus and its share of the rows over a data
+        mesh (``host_index`` / ``host_count``), or, where the batch does
+        not divide over the mesh (a halved batch below the data size), the
+        whole corpus and batch on every rank, so that the sync averages
+        identical copies. The one rule of which rows a rank reads: a
+        restore and a rung that changes the batch both rebuild the stream
+        here."""
         from repro_torch.data import make_batch_iterator
 
         live = self.live_spec
+        index, count = 0, 1
+        if self.dp is not None and live.batch % self.dp.size == 0:
+            index, count = self.dp.index, self.dp.size
         return make_batch_iterator(
-            self.cfg.vocab, live.seq, live.batch, host_index=0, host_count=1,
-            seed=self.spec.seed, state=state)
+            self.cfg.vocab, live.seq, live.batch, host_index=index,
+            host_count=count, seed=self.spec.seed, state=state)
 
     # ------------------------------------------------------------------ fit
     def fit(self, steps: Optional[int] = None, *,
@@ -180,7 +362,6 @@ class Trainer:
         all driven by the spec's resilience fields; observability by the
         spec's telemetry fields (or an explicitly passed ``telemetry``)."""
         from repro_torch import telemetry as tele
-        from repro_torch.checkpoint import Checkpointer
         from repro_torch.core import quant
         from repro_torch.data.pipeline import DataState, TokenStream
         from repro_torch.runtime import degrade as degrade_mod
@@ -191,17 +372,26 @@ class Trainer:
 
         spec0 = self.spec
         total = steps if steps is not None else spec0.steps
+        if not self.on_mesh:
+            raise RuntimeError(f"rank {elastic.rank()} is not on the mesh "
+                               f"{self.mesh.rank_list}: it cannot fit")
         self._switch_to(spec0)
-        ckpt = Checkpointer(spec0.ckpt_dir, interval=spec0.ckpt_interval)
+        ckpt = (Checkpointer(spec0.ckpt_dir, interval=spec0.ckpt_interval)
+                if self.dp is None else _RankZeroCheckpointer(
+                    spec0.ckpt_dir, spec0.ckpt_interval, self.dp))
 
         tel = telemetry if telemetry is not None \
-            else tele.Telemetry.from_spec(spec0)
+            else tele.Telemetry.from_spec(
+                spec0, worker=None if self.mesh is None else elastic.rank())
         injector = None
         if spec0.inject_faults:
             plan = faults_mod.FaultPlan.from_string(
                 spec0.inject_faults, total_steps=total, seed=spec0.seed)
-            injector = faults_mod.FaultInjector(plan,
-                                               ckpt_dir=spec0.ckpt_dir)
+            # over a data mesh only rank 0 corrupts the files it wrote;
+            # the others fire the event alike and touch nothing
+            injector = faults_mod.FaultInjector(
+                plan, ckpt_dir=spec0.ckpt_dir,
+                corrupts=self.dp is None or self.dp.index == 0)
             log.warning("chaos run: injecting faults [%s]", plan.to_string())
             if tel.enabled:
                 injector.on_fire = lambda step, kind: tel.emit(
@@ -296,16 +486,23 @@ class Trainer:
                 return None
             for cand, rung in cands:
                 new_it = loop.batch_iter
-                if cand.batch != live.batch or cand.seq != live.seq:
-                    if not isinstance(new_it, TokenStream):
-                        continue    # can't re-window an opaque iterator
-                    new_it = TokenStream(new_it.tokens, cand.seq, cand.batch,
-                                         state=new_it.state)
+                rewindow = cand.batch != live.batch or cand.seq != live.seq
+                # a caller's iterator is re-windowed only when it is a
+                # TokenStream of the whole batch (no data mesh)
+                if rewindow and data is not None and (
+                        self.dp is not None
+                        or not isinstance(new_it, TokenStream)):
+                    continue
                 try:
                     self._switch_to(cand)
                 except Exception as e:
                     log.debug("rung %s unbuildable: %s", rung, e)
                     continue
+                if rewindow:
+                    state = dataclasses.replace(new_it.state)
+                    new_it = (self.make_data(state=state) if data is None
+                              else TokenStream(new_it.tokens, cand.seq,
+                                               cand.batch, state=state))
                 params, opt_state = loop.params, loop.opt_state
                 if cand.quantize != live.quantize:
                     # in place on the tree only the loop holds: each frozen

@@ -96,12 +96,16 @@ def sequential_train_step(params, cfg: ArchConfig, batch: dict, lr: float,
     runs no input-gradient work (as in :func:`value_and_grad`). The
     updates go, under ``no_grad``, into rows of copies of the stacked LoRA
     leaves made once per step; nothing of block i's graph or gradients
-    outlives its iteration."""
+    outlives its iteration. Under a data axis (``policy.dp``) each block's
+    LoRA gradients are all-reduced over it before that block's update, and
+    the returned loss is the global batch's."""
     if cfg.family != "dense" or cfg.window_pattern:
         raise ValueError("sequential_train_step runs the dense family "
                          "without a window pattern only, not "
                          f"{cfg.name!r} ({cfg.family})")
     _check_base(params, policy)
+    dp = policy.dp
+    w = dp.weight(batch["labels"]) if dp is not None else None
     mask = model_lib.trainable_mask(params["blocks"])
     blocks = _lora_copy(params["blocks"], mask)
     n = blocks["ln1"].shape[0]
@@ -136,10 +140,16 @@ def sequential_train_step(params, cfg: ArchConfig, batch: dict, lr: float,
             y = block(_lift(bp, mask, leaves), xi)
             grads = torch.autograd.grad(y, leaves + [xi] * (i > 0), g)
         del y
+        lora = grads[:len(leaves)]
+        if dp is not None:
+            lora = dp.all_reduce(lora, w)
         with torch.no_grad():
-            for p, gp in zip(_views(bp, mask), grads):
+            for p, gp in zip(_views(bp, mask), lora):
                 p.sub_(lr * gp.to(p.dtype))
         g = grads[-1] if i > 0 else None
         inputs[i] = None
-        del grads, leaves, bp, xi
-    return {**params, "blocks": blocks}, loss.detach()
+        del grads, lora, leaves, bp, xi
+    loss = loss.detach()
+    if dp is not None:
+        loss = dp.all_reduce([loss.reshape(1)], w)[0].reshape(loss.shape)
+    return {**params, "blocks": blocks}, loss

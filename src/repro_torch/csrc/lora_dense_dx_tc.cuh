@@ -57,9 +57,9 @@
 //   in registers for that mma, each product rounded as the plain version
 //   rounds it.
 // * The contraction N is split across a thread-block cluster of up to 8
-//   (grid z), by the dense forward's split_of with N in K's place: q, o 7;
-//   k, v 1 (a 4-slab contraction: 28 blocks at M 256, a member's chain is
-//   short); gate, up 8; down 2; 2048 x 2048 5. The forward's tile is kept
+//   (grid z), the caller's split (the forward's rule with N in K's place
+//   gives q, o 7; k, v 1, a 4-slab contraction: 28 blocks at M 256, a
+//   member's chain is short; gate, up 8; down 2; 2048 x 2048 5). The forward's tile is kept
 //   for every shape, k, v included.
 // * Epilogue, as the forward's: after a cluster barrier each member writes
 //   its f32 partials of acc and dh for every row into the owner's shared
@@ -556,7 +556,7 @@ __global__ void __launch_bounds__(THREADS, 3)
 template <int MF, WFmt F>
 int launch_mf(const void* g, const void* Q, const float* S, const void* A,
               const void* B, void* dx, int M, int K, int N, int r,
-              float scale, cudaStream_t s) {
+              float scale, int split, cudaStream_t s) {
   using C = typename wfmt::WStore<bf16, F>::type;
   const long long row_tiles = (M + ROWS - 1) / ROWS;
   if (row_tiles > 65535)
@@ -572,7 +572,6 @@ int launch_mf(const void* g, const void* Q, const float* S, const void* A,
           kern, cudaFuncAttributePreferredSharedMemoryCarveout,
           cudaSharedmemCarveoutMaxShared))
     return static_cast<int>(rc);
-  const int split = dense_tc::split_of(M, N, K);  // the contraction is N
   int flags = 0;
   if (N % 8 == 0 && aligned16(g)) flags |= kVecX;
   if (N % (F == WFmt::kDense ? 8 : 16) == 0 && aligned16(Q)) flags |= kVecW;
@@ -611,28 +610,37 @@ int launch_mf(const void* g, const void* Q, const float* S, const void* A,
 template <WFmt F>
 int launch(const void* g, const void* Q, const void* S, const void* A,
            const void* B, void* dx, int M, int K, int N, int r, float scale,
-           void* stream) {
-  if (M < 0 || K < 1 || N < 1 || r < 1 || r > RMAX)
+           int split, void* stream) {
+  // the contraction is N: its slabs bound the split
+  if (M < 0 || K < 1 || N < 1 || r < 1 || r > RMAX ||
+      !dense_tc::split_ok(split, N))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const float* sc = static_cast<const float*>(S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dense_tc::frags_of(M)) {
-    case 1: return launch_mf<1, F>(g, Q, sc, A, B, dx, M, K, N, r, scale, s);
-    case 2: return launch_mf<2, F>(g, Q, sc, A, B, dx, M, K, N, r, scale, s);
-    case 3: return launch_mf<3, F>(g, Q, sc, A, B, dx, M, K, N, r, scale, s);
-    default: return launch_mf<4, F>(g, Q, sc, A, B, dx, M, K, N, r, scale, s);
+    case 1:
+      return launch_mf<1, F>(g, Q, sc, A, B, dx, M, K, N, r, scale, split,
+                               s);
+    case 2:
+      return launch_mf<2, F>(g, Q, sc, A, B, dx, M, K, N, r, scale, split,
+                               s);
+    case 3:
+      return launch_mf<3, F>(g, Q, sc, A, B, dx, M, K, N, r, scale, split,
+                               s);
+    default: return launch_mf<4, F>(g, Q, sc, A, B, dx, M, K, N, r, scale, split, s);
   }
 }
 
-// The launch plan of format F's dx at g [M, N] -> dx [M, K]: the split of
-// N (members of a cluster), and the dynamic shared memory (bytes) the CUDA
-// runtime holds for the instance M selects (what its last launch set).
+// The launch plan of format F's dx at g [M, N] -> dx [M, K] with N split
+// `split` ways (members of a cluster): the dynamic shared memory (bytes)
+// the CUDA runtime holds for the instance M selects (what its last launch
+// set); cudaErrorInvalidValue for a split outside split_ok over N.
 template <WFmt F>
-int plan(int M, int K, int N, int* split, int* smem) {
-  *split = *smem = -1;
-  if (M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  *split = dense_tc::split_of(M, N, K);
+int plan(int M, int K, int N, int split, int* smem) {
+  *smem = -1;
+  if (M < 1 || K < 1 || N < 1 || !dense_tc::split_ok(split, N))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;
   cudaError_t rc;
   switch (dense_tc::frags_of(M)) {

@@ -45,9 +45,10 @@
 //   their ends staged as zero).
 // * The K range is split across a thread-block cluster of C blocks (grid z,
 //   at most 8, the portable limit): member z sums slabs [z nk / C,
-//   (z + 1) nk / C) of both x @ W0 and h. The host picks C per shape
-//   (split_of): enough blocks for two an SM, at least kMinSlabs slabs a
-//   member. At M 256: q, o 7; k, v 7; gate, up 2; down 8; 2048 x 2048 5.
+//   (z + 1) nk / C) of both x @ W0 and h. The caller passes C per shape
+//   (kernels/autotune.py's choose_blocks: a measured plan, else the rule
+//   of enough blocks for two an SM, at least 4 slabs a member). The rule
+//   at M 256: q, o 7; k, v 7; gate, up 2; down 8; 2048 x 2048 5.
 // * The tile's rows are shared out: member z owns ceil(rows / C)
 //   consecutive rows. After a cluster barrier (every ring free), each
 //   member writes its f32 partials of acc and h for every row into the
@@ -92,7 +93,6 @@ constexpr int WARPS = 4, THREADS = 32 * WARPS;
 constexpr int BN = 32 * WARPS;  // output columns a block, 32 a warp
 constexpr int ROWS = 64;        // rows a block at most (MF <= 4)
 constexpr int kMaxSplit = 8;    // the portable cluster size
-constexpr int kMinSlabs = 4;    // slabs of BK a member at least
 constexpr int NSTAGES = 4;      // ring stages
 // row strides of the partial tile (f32), of h's partial and rounding (f32)
 // and of B's columns (bf16)
@@ -519,28 +519,17 @@ __global__ void __launch_bounds__(THREADS, 3)
 // rows a block holds for M rows, as m16 fragments
 inline int frags_of(int M) { return ((M < ROWS ? M : ROWS) + 15) / 16; }
 
-// The K split for M x K -> N: enough blocks for two on each of the card's
-// SMs, at most kMaxSplit members, each at least kMinSlabs slabs of BK.
-inline int split_of(int M, int K, int N) {
-  static const int sms = [] {
-    int dev = 0, n = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    return n > 0 ? n : 1;
-  }();
-  const long long tiles =
-      (long long)((M + ROWS - 1) / ROWS) * ((N + BN - 1) / BN);
-  const int nk = (K + BK - 1) / BK;
-  long long c = (2LL * sms + tiles - 1) / tiles;
-  if (c > kMaxSplit) c = kMaxSplit;
-  if (c > nk / kMinSlabs) c = nk / kMinSlabs;
-  return c < 1 ? 1 : static_cast<int>(c);
+// The hard limits of a K split: 1 .. kMaxSplit members (the portable
+// cluster size), at most one a slab of BK. The split itself is the host's
+// choice (kernels/autotune.py: a measured plan, else the heuristic).
+inline bool split_ok(int split, int K) {
+  return split >= 1 && split <= kMaxSplit && split <= (K + BK - 1) / BK;
 }
 
 template <int MF, WFmt F>
 int launch_mf(const void* x, const void* Q, const float* S, const void* A,
               const void* B, void* y, int M, int K, int N, int r, float scale,
-              cudaStream_t s) {
+              int split, cudaStream_t s) {
   using C = typename wfmt::WStore<bf16, F>::type;
   const long long row_tiles = (M + ROWS - 1) / ROWS;
   if (row_tiles > 65535)
@@ -556,7 +545,6 @@ int launch_mf(const void* x, const void* Q, const float* S, const void* A,
           kern, cudaFuncAttributePreferredSharedMemoryCarveout,
           cudaSharedmemCarveoutMaxShared))
     return static_cast<int>(rc);
-  const int split = split_of(M, K, N);
   int flags = vec_flags(F, x, Q, A, B, y, K, N, r, S);
   const int all = kVecX | kVecW | kVecA;
   const long long lim = 1LL << 31;
@@ -585,32 +573,40 @@ int launch_mf(const void* x, const void* Q, const float* S, const void* A,
 }
 
 // The bf16 forward of format F: x [M, K], Q W0 as stored, S f32 [N]
-// (nullptr for kDense), A [K, r], B [r, N], y [M, N].
+// (nullptr for kDense), A [K, r], B [r, N], y [M, N], K split across
+// `split` members (cudaErrorInvalidValue outside split_ok: never clamped).
 template <WFmt F>
 int launch(const void* x, const void* Q, const void* S, const void* A,
            const void* B, void* y, int M, int K, int N, int r, float scale,
-           void* stream) {
-  if (M < 0 || K < 1 || N < 1 || r < 1 || r > RMAX)
+           int split, void* stream) {
+  if (M < 0 || K < 1 || N < 1 || r < 1 || r > RMAX || !split_ok(split, K))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M == 0) return 0;
   const float* sc = static_cast<const float*>(S);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (frags_of(M)) {
-    case 1: return launch_mf<1, F>(x, Q, sc, A, B, y, M, K, N, r, scale, s);
-    case 2: return launch_mf<2, F>(x, Q, sc, A, B, y, M, K, N, r, scale, s);
-    case 3: return launch_mf<3, F>(x, Q, sc, A, B, y, M, K, N, r, scale, s);
-    default: return launch_mf<4, F>(x, Q, sc, A, B, y, M, K, N, r, scale, s);
+    case 1:
+      return launch_mf<1, F>(x, Q, sc, A, B, y, M, K, N, r, scale, split,
+                               s);
+    case 2:
+      return launch_mf<2, F>(x, Q, sc, A, B, y, M, K, N, r, scale, split,
+                               s);
+    case 3:
+      return launch_mf<3, F>(x, Q, sc, A, B, y, M, K, N, r, scale, split,
+                               s);
+    default: return launch_mf<4, F>(x, Q, sc, A, B, y, M, K, N, r, scale, split, s);
   }
 }
 
-// The launch plan of format F at M x K -> N: the K split, and the dynamic
-// shared memory (bytes) the CUDA runtime allows the instance M selects:
-// what launch set before that instance's last launch.
+// The launch plan of format F at M x K -> N split `split` ways: the
+// dynamic shared memory (bytes) the CUDA runtime allows the instance M
+// selects, what launch set before that instance's last launch
+// (cudaErrorInvalidValue for a split outside split_ok).
 template <WFmt F>
-int plan(int M, int K, int N, int* split, int* smem) {
-  *split = *smem = -1;
-  if (M < 1 || K < 1 || N < 1) return static_cast<int>(cudaErrorInvalidValue);
-  *split = split_of(M, K, N);
+int plan(int M, int K, int N, int split, int* smem) {
+  *smem = -1;
+  if (M < 1 || K < 1 || N < 1 || !split_ok(split, K))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaFuncAttributes a;
   cudaError_t rc;
   switch (frags_of(M)) {

@@ -39,14 +39,15 @@ extern "C" int lora_dx(const void* g, const void* w0, const void* a,
 // The bf16 dx, dh = round(round(s g) @ B^T) summed in the kernel.
 extern "C" int lora_dx_tc(const void* g, const void* w0, const void* a,
                           const void* b, void* dx, int M, int K, int N, int r,
-                          float scale, void* stream) {
+                          float scale, int split, void* stream) {
   return dense_dx_tc::launch<WFmt::kDense>(g, w0, nullptr, a, b, dx, M, K, N,
-                                           r, scale, stream);
+                                           r, scale, split, stream);
 }
 
-// The bf16 dx's launch plan at g [M, N] -> dx [M, K]: the split of N
-// (members of a cluster) and the dynamic shared memory (bytes) the runtime
-// holds for the instance M selects. Returns a CUDA error code.
-extern "C" int lora_dx_plan(int M, int K, int N, int* split, int* smem) {
+// The bf16 dx's launch plan at g [M, N] -> dx [M, K] under the caller's
+// split of N (members of a cluster, checked against its limits): the
+// dynamic shared memory (bytes) the runtime holds for the instance M
+// selects. Returns a CUDA error code.
+extern "C" int lora_dx_plan(int M, int K, int N, int split, int* smem) {
   return dense_dx_tc::plan<WFmt::kDense>(M, K, N, split, smem);
 }

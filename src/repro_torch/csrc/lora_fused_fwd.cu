@@ -29,23 +29,25 @@
 using wfmt::WFmt;
 
 // Returns cudaGetLastError() after the launch (0 when it was accepted).
+// split: the bf16 body's K split (the f32 body takes none).
 extern "C" int lora_fused_fwd(int dtype, const void* x, const void* w0,
                               const void* a, const void* b, void* y, int M,
-                              int K, int N, int r, float scale,
+                              int K, int N, int r, float scale, int split,
                               void* stream) {
   if (dtype == DTYPE_BF16)
     return dense_tc::launch<WFmt::kDense>(x, w0, nullptr, a, b, y, M, K, N,
-                                          r, scale, stream);
+                                          r, scale, split, stream);
   if (dtype == DTYPE_F32)
     return lora_gemm::launch_as<false, WFmt::kDense, float>(
         x, w0, nullptr, a, b, y, M, K, N, r, scale, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The bf16 launch plan at M x K -> N: the K split (members of a cluster)
-// and the dynamic shared memory (bytes) the runtime holds for the instance
-// M selects. Returns a CUDA error code.
-extern "C" int lora_fused_fwd_plan(int M, int K, int N, int* split,
+// The bf16 launch plan at M x K -> N under the caller's K split (members
+// of a cluster, checked against its limits): the dynamic shared memory
+// (bytes) the runtime holds for the instance M selects. Returns a CUDA
+// error code.
+extern "C" int lora_fused_fwd_plan(int M, int K, int N, int split,
                                    int* smem) {
   return dense_tc::plan<WFmt::kDense>(M, K, N, split, smem);
 }

@@ -43,9 +43,10 @@ namespace {
 template <WFmt F>
 int fused_q4(int dtype, const void* x, const void* q4, const void* s,
              const void* a, const void* b, void* y, int M, int K, int N,
-             int r, float scale, void* stream) {
+             int r, float scale, int split, void* stream) {
   if (dtype == DTYPE_BF16)
-    return dense_tc::launch<F>(x, q4, s, a, b, y, M, K, N, r, scale, stream);
+    return dense_tc::launch<F>(x, q4, s, a, b, y, M, K, N, r, scale, split,
+                               stream);
   if (dtype == DTYPE_F32)
     return lora_gemm::launch_as<false, F, float>(x, q4, s, a, b, y, M, K, N,
                                                  r, scale, stream);
@@ -58,13 +59,13 @@ int fused_q4(int dtype, const void* x, const void* q4, const void* s,
 extern "C" int lora_fused_q4(int dtype, int method, const void* x,
                              const void* q4, const void* s, const void* a,
                              const void* b, void* y, int M, int K, int N,
-                             int r, float scale, void* stream) {
+                             int r, float scale, int split, void* stream) {
   if (method == 0)
     return fused_q4<WFmt::kInt4>(dtype, x, q4, s, a, b, y, M, K, N, r, scale,
-                                 stream);
+                                 split, stream);
   if (method == 1)
     return fused_q4<WFmt::kNF4>(dtype, x, q4, s, a, b, y, M, K, N, r, scale,
-                                stream);
+                                split, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -87,27 +88,27 @@ extern "C" int lora_dx_q4(int method, const void* g, const void* q4,
 extern "C" int lora_dx_q4_tc(int method, const void* g, const void* q4,
                              const void* s, const void* a, const void* b,
                              void* dx, int M, int K, int N, int r,
-                             float scale, void* stream) {
+                             float scale, int split, void* stream) {
   if (method == 0)
     return dense_dx_tc::launch<WFmt::kInt4>(g, q4, s, a, b, dx, M, K, N, r,
-                                            scale, stream);
+                                            scale, split, stream);
   if (method == 1)
     return dense_dx_tc::launch<WFmt::kNF4>(g, q4, s, a, b, dx, M, K, N, r,
-                                           scale, stream);
+                                           scale, split, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The bf16 forward's launch plan at M x K -> N (lora_fused_fwd_plan's);
 // method 0 int4, 1 nf4.
 extern "C" int lora_fused_q4_plan(int method, int M, int K, int N,
-                                  int* split, int* smem) {
+                                  int split, int* smem) {
   if (method == 0) return dense_tc::plan<WFmt::kInt4>(M, K, N, split, smem);
   if (method == 1) return dense_tc::plan<WFmt::kNF4>(M, K, N, split, smem);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The bf16 dx's launch plan at g [M, N] -> dx [M, K]; method 0 int4, 1 nf4.
-extern "C" int lora_dx_q4_plan(int method, int M, int K, int N, int* split,
+extern "C" int lora_dx_q4_plan(int method, int M, int K, int N, int split,
                                int* smem) {
   if (method == 0) return dense_dx_tc::plan<WFmt::kInt4>(M, K, N, split, smem);
   if (method == 1) return dense_dx_tc::plan<WFmt::kNF4>(M, K, N, split, smem);

@@ -45,10 +45,10 @@ using wfmt::WFmt;
 extern "C" int lora_fused_q(int dtype, const void* x, const void* q,
                             const void* s, const void* a, const void* b,
                             void* y, int M, int K, int N, int r, float scale,
-                            void* stream) {
+                            int split, void* stream) {
   if (dtype == DTYPE_BF16)
     return dense_tc::launch<WFmt::kInt8>(x, q, s, a, b, y, M, K, N, r, scale,
-                                         stream);
+                                         split, stream);
   if (dtype == DTYPE_F32)
     return lora_gemm::launch_as<false, WFmt::kInt8, float>(
         x, q, s, a, b, y, M, K, N, r, scale, stream);
@@ -66,18 +66,19 @@ extern "C" int lora_dx_q(const void* g, const void* q, const void* s,
 // The bf16 dx, dh = round(round(s_lora g) @ B^T) summed in the kernel.
 extern "C" int lora_dx_q_tc(const void* g, const void* q, const void* s,
                             const void* a, const void* b, void* dx, int M,
-                            int K, int N, int r, float scale, void* stream) {
+                            int K, int N, int r, float scale, int split,
+                            void* stream) {
   return dense_dx_tc::launch<WFmt::kInt8>(g, q, s, a, b, dx, M, K, N, r,
-                                          scale, stream);
+                                          scale, split, stream);
 }
 
 // The bf16 forward's launch plan at M x K -> N (lora_fused_fwd_plan's).
-extern "C" int lora_fused_q_plan(int M, int K, int N, int* split,
+extern "C" int lora_fused_q_plan(int M, int K, int N, int split,
                                  int* smem) {
   return dense_tc::plan<WFmt::kInt8>(M, K, N, split, smem);
 }
 
 // The bf16 dx's launch plan at g [M, N] -> dx [M, K] (lora_dx_plan's).
-extern "C" int lora_dx_q_plan(int M, int K, int N, int* split, int* smem) {
+extern "C" int lora_dx_q_plan(int M, int K, int N, int split, int* smem) {
   return dense_dx_tc::plan<WFmt::kInt8>(M, K, N, split, smem);
 }

@@ -111,7 +111,20 @@ def function(lib_name: str, fn: str, argtypes: Sequence, restype=C_INT):
     return f
 
 
+#: the runtime's codes for a launch refused for its configuration:
+#: cudaErrorInvalidValue (an entry's own refusal of a plan past its hard
+#: limits), cudaErrorInvalidConfiguration, cudaErrorLaunchOutOfResources
+#: and cudaErrorInvalidClusterSize (a cluster the card cannot hold)
+REFUSED_CODES = (1, 9, 701, 912)
+
+
+class LaunchRefused(RuntimeError):
+    """A launch refused for its configuration (``REFUSED_CODES``): the
+    plan cannot run here, nothing ran, and the card is sound."""
+
+
 def check(lib_name: str, rc: int, what: str) -> None:
     if rc != 0:
         msg = _LIBS[lib_name].cuda_error_string(rc).decode()
-        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
+        raise (LaunchRefused if rc in REFUSED_CODES else RuntimeError)(
+            f"{what}: CUDA error {rc} ({msg})")

@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.rope import apply_rope_tables
 
 NEG_INF = -1e30
@@ -233,6 +233,15 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def _blocks(Nq, Nk, D, dtype, causal, window):
+    """The kernels' fixed tiles (64 query and 64 key rows,
+    ``csrc/flash_common.cuh``), asked of ``autotune`` where the reference's
+    dispatch asks, once for the forward and once for the backward; the
+    mask keys the cache, as there."""
+    return autotune.choose_blocks("flash", dtype, Nq=Nq, Nk=Nk, D=D,
+                                  causal=int(causal), window=window)
+
+
 def flash_attention_fwd(q, k, v, rope=None, *, causal: bool = True,
                         window: int = 0, q_per_kv: int = 1,
                         return_lse: bool = False):
@@ -250,6 +259,7 @@ def flash_attention_fwd(q, k, v, rope=None, *, causal: bool = True,
     lse = torch.empty((BH, Nq), dtype=torch.float32, device=q.device)
     fn = _build.function("flash_fwd", "flash_fwd", _FWD_ARGS)
     with torch.cuda.device(q.device):
+        _blocks(Nq, Nk, D, q.dtype, causal, window)
         rc = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 _ptr(cos), _ptr(sin), out.data_ptr(), lse.data_ptr(), BH,
                 q_per_kv, Nq, Nk, D, int(causal), int(window), _stream())
@@ -313,6 +323,10 @@ def flash_attention_bwd(q, k, v, out, lse, g, rope=None, *,
     :func:`flash_bwd_dkv`."""
     delta, gq = bwd_delta(g, out), g.to(q.dtype).contiguous()
     kw = dict(causal=causal, window=window, q_per_kv=q_per_kv)
+    if q.is_cuda:
+        with torch.cuda.device(q.device):
+            _blocks(q.shape[1], k.shape[1], q.shape[2], q.dtype, causal,
+                    window)
     dq = flash_bwd_dq(q, k, v, gq, lse, delta, rope, **kw)
     return (dq, *flash_bwd_dkv(q, k, v, gq, lse, delta, rope, **kw))
 

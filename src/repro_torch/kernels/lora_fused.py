@@ -32,16 +32,16 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: largest LoRA rank the kernels take (``RMAX`` in the sources)
 MAX_RANK = 32
 
 _P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
-_FWD_ARGS = [_I] + [_P] * 5 + [_I] * 4 + [_F, _P]
+_FWD_ARGS = [_I] + [_P] * 5 + [_I] * 4 + [_F, _I, _P]
 _DX_ARGS = [_P] * 5 + [_I] * 4 + [_P]
-_DX_TC_ARGS = [_P] * 5 + [_I] * 4 + [_F, _P]
+_DX_TC_ARGS = [_P] * 5 + [_I] * 4 + [_F, _I, _P]
 _DAB_ARGS = [_I] + [_P] * 8 + [_I] * 4 + [_F, _P]
 
 
@@ -109,8 +109,21 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def lora_fused(x, w0, a, b, scale: float = 2.0):
-    """x [M,K], w0 [K,N], a [K,r], b [r,N] -> y [M,N] in x's dtype."""
+def split_of(op: str, dtype, M: int, K: int, N: int, split=None) -> int:
+    """The bf16 dense body's split for ``op`` at M x K -> N (dx: g [M, N]
+    -> dx [M, K]): ``split`` when the caller gives one, else
+    ``autotune.choose_blocks``'s (a measured plan, else the heuristic);
+    the f32 bodies take none (1 is passed and ignored). Call it with the
+    launch's device current."""
+    if split is not None:
+        return int(split)
+    return int(autotune.choose_blocks(op, dtype, M=M, K=K, N=N
+                                      ).get("split", 1))
+
+
+def lora_fused(x, w0, a, b, scale: float = 2.0, *, split=None):
+    """x [M,K], w0 [K,N], a [K,r], b [r,N] -> y [M,N] in x's dtype.
+    ``split``: the bf16 body's K split (default: ``split_of``'s)."""
     if not x.is_cuda:
         return lora_fused_ref(x, w0, a, b, scale)
     r = _dims(x, w0, a)
@@ -122,54 +135,62 @@ def lora_fused(x, w0, a, b, scale: float = 2.0):
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     fn = _build.function("lora_fused_fwd", "lora_fused_fwd", _FWD_ARGS)
     with torch.cuda.device(x.device):
+        split = split_of("lora_fused", x.dtype, M, K, N, split)
         rc = fn(_DTYPES[x.dtype], x.data_ptr(), w0.data_ptr(), a.data_ptr(),
-                b.data_ptr(), y.data_ptr(), M, K, N, r, float(scale),
+                b.data_ptr(), y.data_ptr(), M, K, N, r, float(scale), split,
                 _stream())
-    _build.check("lora_fused_fwd", rc, "lora_fused_fwd launch")
+    _build.check("lora_fused_fwd", rc, f"lora_fused_fwd launch (split "
+                 f"{split})")
     lora_fused.launches += 1
     return y
 
 
-#: each base format's bf16 forward: (library, plan entry, leading args)
-_PLANS = {"none": ("lora_fused_fwd", "lora_fused_fwd_plan", ()),
-          "int8": ("lora_quant", "lora_fused_q_plan", ()),
-          "int4": ("lora_pack4", "lora_fused_q4_plan", (0,)),
-          "nf4": ("lora_pack4", "lora_fused_q4_plan", (1,))}
-#: each base format's bf16 dx: (library, plan entry, leading args)
-_DX_PLANS = {"none": ("lora_dx", "lora_dx_plan", ()),
-             "int8": ("lora_quant", "lora_dx_q_plan", ()),
-             "int4": ("lora_pack4", "lora_dx_q4_plan", (0,)),
-             "nf4": ("lora_pack4", "lora_dx_q4_plan", (1,))}
+#: each base format's bf16 forward: (op, library, plan entry, leading args)
+_PLANS = {"none": ("lora_fused", "lora_fused_fwd", "lora_fused_fwd_plan",
+                   ()),
+          "int8": ("lora_fused_q", "lora_quant", "lora_fused_q_plan", ()),
+          "int4": ("lora_fused_q4", "lora_pack4", "lora_fused_q4_plan", (0,)),
+          "nf4": ("lora_fused_q4", "lora_pack4", "lora_fused_q4_plan", (1,))}
+#: each base format's bf16 dx: (op, library, plan entry, leading args)
+_DX_PLANS = {"none": ("lora_dx", "lora_dx", "lora_dx_plan", ()),
+             "int8": ("lora_dx_q", "lora_quant", "lora_dx_q_plan", ()),
+             "int4": ("lora_dx_q4", "lora_pack4", "lora_dx_q4_plan", (0,)),
+             "nf4": ("lora_dx_q4", "lora_pack4", "lora_dx_q4_plan", (1,))}
 
 
-def _plan(lib, name, lead, M, K, N):
-    out = ctypes.POINTER(ctypes.c_int)
-    fn = _build.function(lib, name, [_I] * (len(lead) + 3) + [out, out])
-    split, smem = ctypes.c_int(-1), ctypes.c_int(-1)
-    _build.check(lib, fn(*lead, M, K, N, ctypes.byref(split),
-                         ctypes.byref(smem)), name)
-    return {"split": split.value, "smem_bytes": smem.value}
+def _plan(op, lib, name, lead, M, K, N, split):
+    fn = _build.function(lib, name, [_I] * (len(lead) + 4)
+                         + [ctypes.POINTER(ctypes.c_int)])
+    split = split_of(op, torch.bfloat16, M, K, N, split)
+    smem = ctypes.c_int(-1)
+    _build.check(lib, fn(*lead, M, K, N, split, ctypes.byref(smem)),
+                 f"{name} (split {split})")
+    return {"split": split, "smem_bytes": smem.value}
 
 
-def forward_plan(M: int, K: int, N: int, method: str = "none") -> dict:
+def forward_plan(M: int, K: int, N: int, method: str = "none",
+                 split=None) -> dict:
     """The bf16 forward's launch plan on the card at M x K -> N over a W0
     in ``method``'s format (``none``: bf16): ``split``, the blocks of each
-    output tile's cluster, which share K; ``smem_bytes``, the dynamic
-    shared memory the CUDA runtime holds for the instance M selects (what
-    that instance's last launch set)."""
-    return _plan(*_PLANS[method], M, K, N)
+    output tile's cluster, which share K (the one given, else
+    ``split_of``'s; the C entry checks its limits); ``smem_bytes``, the
+    dynamic shared memory the CUDA runtime holds for the instance M
+    selects (what that instance's last launch set)."""
+    return _plan(*_PLANS[method], M, K, N, split)
 
 
-def dx_plan(M: int, K: int, N: int, method: str = "none") -> dict:
+def dx_plan(M: int, K: int, N: int, method: str = "none",
+            split=None) -> dict:
     """The bf16 dx's launch plan on the card for g [M, N] -> dx [M, K] over
     a W0 [K, N] in ``method``'s format: ``split``, the blocks of each
     output tile's cluster, which share the contraction N; ``smem_bytes``
     as in :func:`forward_plan`."""
-    return _plan(*_DX_PLANS[method], M, K, N)
+    return _plan(*_DX_PLANS[method], M, K, N, split)
 
 
-def lora_dx(g, w0, a, b, scale: float = 2.0):
-    """g [M,N], w0 [K,N], a [K,r], b [r,N] -> dx [M,K] in g's dtype."""
+def lora_dx(g, w0, a, b, scale: float = 2.0, *, split=None):
+    """g [M,N], w0 [K,N], a [K,r], b [r,N] -> dx [M,K] in g's dtype.
+    ``split``: the bf16 body's split of N (default: ``split_of``'s)."""
     if not g.is_cuda:
         return lora_dx_ref(g, w0, a, b, scale)
     r = _dims(g, w0, a)
@@ -179,16 +200,18 @@ def lora_dx(g, w0, a, b, scale: float = 2.0):
               {"g": (M, N), "w0": (K, N), "a": (K, r), "b": (r, N)})
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
     with torch.cuda.device(g.device):
+        split = split_of("lora_dx", g.dtype, M, K, N, split)
         if g.dtype == torch.bfloat16:
             fn = _build.function("lora_dx", "lora_dx_tc", _DX_TC_ARGS)
             rc = fn(g.data_ptr(), w0.data_ptr(), a.data_ptr(), b.data_ptr(),
-                    dx.data_ptr(), M, K, N, r, float(scale), _stream())
+                    dx.data_ptr(), M, K, N, r, float(scale), split,
+                    _stream())
         else:
             dh = _dh(g, b, scale)
             fn = _build.function("lora_dx", "lora_dx", _DX_ARGS)
             rc = fn(g.data_ptr(), w0.data_ptr(), a.data_ptr(), dh.data_ptr(),
                     dx.data_ptr(), M, K, N, r, _stream())
-    _build.check("lora_dx", rc, "lora_dx launch")
+    _build.check("lora_dx", rc, f"lora_dx launch (split {split})")
     lora_dx.launches += 1
     return dx
 
@@ -245,6 +268,9 @@ def lora_dab(x, g, a, b, scale: float = 2.0):
               {"x": (M, K), "g": (M, N), "a": (K, r), "b": (r, N)})
     cnt = None
     with torch.cuda.device(x.device):
+        # the plan is the shapes' (dab_plan): nothing for the cache to
+        # choose, but the reference's dispatch asks here too
+        autotune.choose_blocks("lora_dab", x.dtype, M=M, K=K, N=N)
         if x.dtype == torch.bfloat16:
             plan = dab_plan(M, K, N, r)
             size = plan["workspace"]

@@ -37,8 +37,9 @@ In bf16 all three run one tensor-core body (``csrc/lora_grouped_decode_tc.
 cuh``): W0 read once for up to 16 rows through a ring of 16-byte copies,
 mma.sync on x and W0's fragments built in registers from every format,
 h = x @ A[g] summed on the tensor cores in the same loop and kept on chip,
-K split across a thread-block cluster by the plan :func:`decode_plan`
-chooses per shape on the host and passes to the C entry. In f32 they run
+K split across a thread-block cluster by the plan chosen per shape on the
+host (``autotune.choose_blocks``: a measured plan, else
+:func:`decode_plan`'s) and passed to the C entry. In f32 they run
 the CUDA-core body of ``lora_grouped_fwd.cu``. Ragged edges are masked
 instead of padded (the sources' headers have the details).
 
@@ -92,7 +93,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels.lora_fused import dab_plan_of
 from repro_torch.kernels.lora_pack4 import METHOD_CODES, unpack_weights
 from repro_torch.kernels.lora_quant import validate_base
@@ -279,39 +280,58 @@ def _sms(device) -> int:
     return _SMS[idx]
 
 
+#: the decode entries -> the reference's op names
+_DECODE_OPS = {"lora_grouped_fwd": "lora_grouped",
+               "lora_grouped_q": "lora_grouped_q",
+               "lora_grouped_q4": "lora_grouped_q4"}
+
+
 def _launch(lib_fn, argtypes, lead, x, base, a, b, gid, M, K, N, R, r, bm,
-            scale):
+            scale, plan=None):
     """Allocate y, launch ``lib_fn`` of ``lora_grouped_fwd`` with the
     leading int arguments ``lead``, the base's pointers ``base`` and the
-    bf16 body's plan (the f32 body takes none), check the launch."""
+    bf16 body's plan (the f32 body takes none), check the launch. The
+    plan's ``split`` and ``bn`` are ``plan``'s when given, else
+    ``autotune.choose_blocks``'s (a measured plan, else
+    :func:`decode_plan`'s); ``part`` and ``h_cols`` are the shapes'."""
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     fn = _build.function("lora_grouped_fwd", lib_fn, argtypes)
-    plan = decode_plan(M, K, N, r, bm=bm, sms=_sms(x.device))
+    shape_plan = decode_plan(M, K, N, r, bm=bm, sms=_sms(x.device))
     with torch.cuda.device(x.device):
+        if plan is None:
+            plan = autotune.choose_blocks(_DECODE_OPS[lib_fn], x.dtype, M=M,
+                                          K=K, N=N, r=r, bm=bm)
+        split = plan.get("split", shape_plan["split"])
+        bn = plan.get("bn", shape_plan["bn"])
         rc = fn(*lead, x.data_ptr(), *(t.data_ptr() for t in base),
                 a.data_ptr(), b.data_ptr(), gid.data_ptr(), y.data_ptr(), M,
-                K, N, R, r, bm, float(scale), plan["split"], plan["bn"],
-                plan["part"], plan["h_cols"],
+                K, N, R, r, bm, float(scale), split, bn, shape_plan["part"],
+                shape_plan["h_cols"],
                 torch.cuda.current_stream().cuda_stream)
-    _build.check("lora_grouped_fwd", rc, f"{lib_fn} launch")
+    _build.check("lora_grouped_fwd", rc,
+                 f"{lib_fn} launch (split {split}, bn {bn})")
     return y
 
 
-def lora_grouped(x, w0, a, b, gid, scale: float = 2.0, *, bm: int):
+def lora_grouped(x, w0, a, b, gid, scale: float = 2.0, *, bm: int,
+                 plan=None):
     """x [M,K] (M % bm == 0), w0 [K,N], a [R,K,r], b [R,r,N],
-    gid int32 [M // bm] -> y [M,N] in x's dtype."""
+    gid int32 [M // bm] -> y [M,N] in x's dtype. ``plan``: the bf16
+    body's ``split`` and ``bn`` (default: ``autotune.choose_blocks``'s)."""
     if not x.is_cuda:
         return lora_grouped_ref(x, w0, a, b, gid, scale, bm=bm)
     M, K, R, r = _validate(x, w0, a, b, gid, bm)
     y = _launch("lora_grouped_fwd", _ARGTYPES, (_DTYPES[x.dtype],), x, (w0,),
-                a, b, gid, M, K, w0.shape[1], R, r, bm, scale)
+                a, b, gid, M, K, w0.shape[1], R, r, bm, scale, plan)
     lora_grouped.launches += 1
     return y
 
 
-def lora_grouped_q(x, q, s, a, b, gid, scale: float = 2.0, *, bm: int):
+def lora_grouped_q(x, q, s, a, b, gid, scale: float = 2.0, *, bm: int,
+                   plan=None):
     """x [M,K] (M % bm == 0), q int8 [K,N], s f32 [1,N], a [R,K,r],
-    b [R,r,N], gid int32 [M // bm] -> y [M,N] in x's dtype."""
+    b [R,r,N], gid int32 [M // bm] -> y [M,N] in x's dtype. ``plan`` as
+    :func:`lora_grouped`'s."""
     if not x.is_cuda:
         return lora_grouped_q_ref(x, q, s, a, b, gid, scale, bm=bm)
     if q.ndim != 2:
@@ -321,16 +341,17 @@ def lora_grouped_q(x, q, s, a, b, gid, scale: float = 2.0, *, bm: int):
     M, K, R, r = _validate_adapters("lora_grouped_q", x, a, b, gid, bm, N)
     validate_base("lora_grouped_q", x, q, s, torch.int8, (K, N), N)
     y = _launch("lora_grouped_q", _Q_ARGTYPES, (_DTYPES[x.dtype],), x,
-                (q, s), a, b, gid, M, K, N, R, r, bm, scale)
+                (q, s), a, b, gid, M, K, N, R, r, bm, scale, plan)
     lora_grouped_q.launches += 1
     return y
 
 
 def lora_grouped_q4(x, q4, s, a, b, gid, scale: float = 2.0, *, bm: int,
-                    method: str = "int4"):
+                    method: str = "int4", plan=None):
     """x [M,K] (M % bm == 0), q4 uint8 [ceil(K/2),N], s f32 [1,N],
     a [R,K,r], b [R,r,N], gid int32 [M // bm] -> y [M,N] in x's dtype.
-    K comes from x: an odd K's pad nibble meets no column of x."""
+    K comes from x: an odd K's pad nibble meets no column of x. ``plan``
+    as :func:`lora_grouped`'s."""
     if method not in METHOD_CODES:
         raise ValueError(f"unknown packed method {method!r}; expected one "
                          f"of {tuple(METHOD_CODES)}")
@@ -346,7 +367,7 @@ def lora_grouped_q4(x, q4, s, a, b, gid, scale: float = 2.0, *, bm: int,
                   ((K + 1) // 2, N), N)
     y = _launch("lora_grouped_q4", _Q4_ARGTYPES,
                 (_DTYPES[x.dtype], METHOD_CODES[method]), x, (q4, s), a, b,
-                gid, M, K, N, R, r, bm, scale)
+                gid, M, K, N, R, r, bm, scale, plan)
     lora_grouped_q4.launches += 1
     return y
 
@@ -547,15 +568,29 @@ def _cols(what, name, t, n):
                          f"expected {n}")
 
 
+#: the training forward's and dx's entries -> the reference's op names
+#: (their plans are compile-time: ``autotune`` returns them as fixed)
+_TRAIN_OPS = {"lora_grouped_gemm": "lora_grouped",
+              "lora_grouped_gemm_q": "lora_grouped_q",
+              "lora_grouped_gemm_q4": "lora_grouped_q4",
+              "lora_grouped_dx": "lora_grouped_dx",
+              "lora_grouped_dx_q": "lora_grouped_dx_q",
+              "lora_grouped_dx_q4": "lora_grouped_dx_q4"}
+
+
 def _launch_train(entry, argtypes, lead, act, ptrs, out_shape, dims,
                   scale=None):
     """Allocate the output, launch ``entry`` of ``lora_grouped_train`` with
     the leading ints ``lead``, the pointers ``ptrs`` and the output's, the
-    ints ``dims`` (and ``scale``), check the launch."""
+    ints ``dims`` (M, K, N, E, r, bm; and ``scale``), check the launch."""
     out = torch.empty(out_shape, dtype=act.dtype, device=act.device)
     fn = _build.function("lora_grouped_train", entry, argtypes)
     tail = () if scale is None else (float(scale),)
     with torch.cuda.device(act.device):
+        if entry in _TRAIN_OPS:
+            M, K, N, E, _, bm = dims
+            autotune.choose_blocks(_TRAIN_OPS[entry], act.dtype, M=M, K=K,
+                                   N=N, E=E, bm=bm)
         rc = fn(*lead, *(t.data_ptr() for t in ptrs), out.data_ptr(), *dims,
                 *tail, torch.cuda.current_stream().cuda_stream)
     _build.check("lora_grouped_train", rc, f"{entry} launch")

@@ -32,9 +32,9 @@ from repro_torch.kernels.lora_quant import validate_base
 METHOD_CODES = {"int4": 0, "nf4": 1}
 
 _P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
-_FWD_ARGS = [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _P]
+_FWD_ARGS = [_I, _I] + [_P] * 6 + [_I] * 4 + [_F, _I, _P]
 _DX_ARGS = [_I] + [_P] * 6 + [_I] * 4 + [_P]
-_DX_TC_ARGS = [_I] + [_P] * 6 + [_I] * 4 + [_F, _P]
+_DX_TC_ARGS = [_I] + [_P] * 6 + [_I] * 4 + [_F, _I, _P]
 
 
 def _method(method: str) -> int:
@@ -79,9 +79,10 @@ def lora_dx_q4_ref(g, q4, s, a, b, scale: float = 2.0, *,
 
 
 def lora_fused_q4(x, q4, s, a, b, scale: float = 2.0, *,
-                  method: str = "int4"):
+                  method: str = "int4", split=None):
     """x [M,K], q4 uint8 [ceil(K/2),N], s f32 [1,N], a [K,r], b [r,N] ->
-    y [M,N] in x's dtype."""
+    y [M,N] in x's dtype. ``split``: the bf16 body's K split
+    (``lora_fused.split_of`` by default)."""
     code = _method(method)
     if not x.is_cuda:
         return lora_fused_q4_ref(x, q4, s, a, b, scale, method=method)
@@ -95,17 +96,20 @@ def lora_fused_q4(x, q4, s, a, b, scale: float = 2.0, *,
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     fn = _build.function("lora_pack4", "lora_fused_q4", _FWD_ARGS)
     with torch.cuda.device(x.device):
+        split = _lf.split_of("lora_fused_q4", x.dtype, M, K, N, split)
         rc = fn(_lf._DTYPES[x.dtype], code, x.data_ptr(), q4.data_ptr(),
                 s.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), M, K,
-                N, r, float(scale), _lf._stream())
-    _build.check("lora_pack4", rc, "lora_fused_q4 launch")
+                N, r, float(scale), split, _lf._stream())
+    _build.check("lora_pack4", rc, f"lora_fused_q4 launch (split {split})")
     lora_fused_q4.launches += 1
     return y
 
 
-def lora_dx_q4(g, q4, s, a, b, scale: float = 2.0, *, method: str = "int4"):
+def lora_dx_q4(g, q4, s, a, b, scale: float = 2.0, *, method: str = "int4",
+               split=None):
     """g [M,N], q4 uint8 [ceil(K/2),N], s f32 [1,N], a [K,r], b [r,N] ->
-    dx [M,K] in g's dtype (K from a)."""
+    dx [M,K] in g's dtype (K from a). ``split``: the bf16 body's split of
+    N."""
     code = _method(method)
     if not g.is_cuda:
         return lora_dx_q4_ref(g, q4, s, a, b, scale, method=method)
@@ -117,18 +121,19 @@ def lora_dx_q4(g, q4, s, a, b, scale: float = 2.0, *, method: str = "int4"):
     validate_base("lora_dx_q4", g, q4, s, torch.uint8, ((K + 1) // 2, N), N)
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
     with torch.cuda.device(g.device):
+        split = _lf.split_of("lora_dx_q4", g.dtype, M, K, N, split)
         if g.dtype == torch.bfloat16:
             fn = _build.function("lora_pack4", "lora_dx_q4_tc", _DX_TC_ARGS)
             rc = fn(code, g.data_ptr(), q4.data_ptr(), s.data_ptr(),
                     a.data_ptr(), b.data_ptr(), dx.data_ptr(), M, K, N, r,
-                    float(scale), _lf._stream())
+                    float(scale), split, _lf._stream())
         else:
             dh = _lf._dh(g, b, scale)
             fn = _build.function("lora_pack4", "lora_dx_q4", _DX_ARGS)
             rc = fn(code, g.data_ptr(), q4.data_ptr(), s.data_ptr(),
                     a.data_ptr(), dh.data_ptr(), dx.data_ptr(), M, K, N, r,
                     _lf._stream())
-    _build.check("lora_pack4", rc, "lora_dx_q4 launch")
+    _build.check("lora_pack4", rc, f"lora_dx_q4 launch (split {split})")
     lora_dx_q4.launches += 1
     return dx
 

@@ -30,9 +30,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import lora_fused as _lf
 
 _P, _I, _F = _build.C_PTR, _build.C_INT, _build.C_FLOAT
-_FWD_ARGS = [_I] + [_P] * 6 + [_I] * 4 + [_F, _P]
+_FWD_ARGS = [_I] + [_P] * 6 + [_I] * 4 + [_F, _I, _P]
 _DX_ARGS = [_P] * 6 + [_I] * 4 + [_P]
-_DX_TC_ARGS = [_P] * 6 + [_I] * 4 + [_F, _P]
+_DX_TC_ARGS = [_P] * 6 + [_I] * 4 + [_F, _I, _P]
 
 
 # ------------------------------------------------------------ plain versions
@@ -77,9 +77,10 @@ def validate_base(what, x, q, s, q_dtype, q_shape, n):
                              f"expected {tuple(shape)}")
 
 
-def lora_fused_q(x, q, s, a, b, scale: float = 2.0):
+def lora_fused_q(x, q, s, a, b, scale: float = 2.0, *, split=None):
     """x [M,K], q int8 [K,N], s f32 [1,N], a [K,r], b [r,N] -> y [M,N] in
-    x's dtype."""
+    x's dtype. ``split``: the bf16 body's K split (``lora_fused.split_of``
+    by default)."""
     if not x.is_cuda:
         return lora_fused_q_ref(x, q, s, a, b, scale)
     r = _lf._dims(x, q, a)
@@ -91,17 +92,18 @@ def lora_fused_q(x, q, s, a, b, scale: float = 2.0):
     y = torch.empty((M, N), dtype=x.dtype, device=x.device)
     fn = _build.function("lora_quant", "lora_fused_q", _FWD_ARGS)
     with torch.cuda.device(x.device):
+        split = _lf.split_of("lora_fused_q", x.dtype, M, K, N, split)
         rc = fn(_lf._DTYPES[x.dtype], x.data_ptr(), q.data_ptr(),
                 s.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(), M, K,
-                N, r, float(scale), _lf._stream())
-    _build.check("lora_quant", rc, "lora_fused_q launch")
+                N, r, float(scale), split, _lf._stream())
+    _build.check("lora_quant", rc, f"lora_fused_q launch (split {split})")
     lora_fused_q.launches += 1
     return y
 
 
-def lora_dx_q(g, q, s, a, b, scale: float = 2.0):
+def lora_dx_q(g, q, s, a, b, scale: float = 2.0, *, split=None):
     """g [M,N], q int8 [K,N], s f32 [1,N], a [K,r], b [r,N] -> dx [M,K] in
-    g's dtype."""
+    g's dtype. ``split``: the bf16 body's split of N."""
     if not g.is_cuda:
         return lora_dx_q_ref(g, q, s, a, b, scale)
     r = _lf._dims(g, q, a)
@@ -112,17 +114,18 @@ def lora_dx_q(g, q, s, a, b, scale: float = 2.0):
     validate_base("lora_dx_q", g, q, s, torch.int8, (K, N), N)
     dx = torch.empty((M, K), dtype=g.dtype, device=g.device)
     with torch.cuda.device(g.device):
+        split = _lf.split_of("lora_dx_q", g.dtype, M, K, N, split)
         if g.dtype == torch.bfloat16:
             fn = _build.function("lora_quant", "lora_dx_q_tc", _DX_TC_ARGS)
             rc = fn(g.data_ptr(), q.data_ptr(), s.data_ptr(), a.data_ptr(),
                     b.data_ptr(), dx.data_ptr(), M, K, N, r, float(scale),
-                    _lf._stream())
+                    split, _lf._stream())
         else:
             dh = _lf._dh(g, b, scale)
             fn = _build.function("lora_quant", "lora_dx_q", _DX_ARGS)
             rc = fn(g.data_ptr(), q.data_ptr(), s.data_ptr(), a.data_ptr(),
                     dh.data_ptr(), dx.data_ptr(), M, K, N, r, _lf._stream())
-    _build.check("lora_quant", rc, "lora_dx_q launch")
+    _build.check("lora_quant", rc, f"lora_dx_q launch (split {split})")
     lora_dx_q.launches += 1
     return dx
 

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([_build.C_INT] + [_build.C_PTR] * 3 + [_build.C_INT] * 2
@@ -84,6 +84,7 @@ def rmsnorm(x, w, eps: float = 1e-6):
     y = torch.empty_like(x)
     fn = _build.function("rmsnorm_fwd", "rmsnorm_fwd", _ARGTYPES)
     with torch.cuda.device(x.device):
+        autotune.choose_blocks("rmsnorm", x.dtype, M=M, d=d)   # fixed plan
         rc = fn(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), y.data_ptr(),
                 M, d, float(eps), torch.cuda.current_stream().cuda_stream)
     _build.check("rmsnorm_fwd", rc, "rmsnorm_fwd launch")
@@ -104,6 +105,7 @@ def rmsnorm_bwd(x, w, g, eps: float = 1e-6, *, need_dw: bool = True):
            if need_dw else None)
     fn = _build.function("rmsnorm_bwd", "rmsnorm_bwd", _BWD_ARGTYPES)
     with torch.cuda.device(x.device):
+        autotune.choose_blocks("rmsnorm", x.dtype, M=M, d=d)   # fixed plan
         rc = fn(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), g.data_ptr(),
                 dx.data_ptr(), dwp.data_ptr() if need_dw else None, M, d,
                 float(eps), torch.cuda.current_stream().cuda_stream)

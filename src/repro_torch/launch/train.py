@@ -56,14 +56,27 @@ falling back.
         --device cpu --steps 6 --ckpt-dir /path/to/run2 \\
         --inject-faults 'oom@2,crash@4,nan@5'
 
+Data-parallel (``torchrun``): with ``WORLD_SIZE`` above 1 in the
+environment, :func:`run` joins a process group first (``gloo`` for
+``--device cpu``, ``nccl`` for the card, one card a rank by
+``LOCAL_RANK``; ``--device cuda`` without ``nccl`` raises, it never falls
+back to the CPU), and the Trainer trains over a data mesh of every rank:
+``--batch`` is the global batch, each rank reads its rows, and the LoRA
+gradients are all-reduced in each step.
+
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --reduced \
+        --device cpu --batch 4 --steps 3 --ckpt-dir /path/to/run3
+
 The reference's schedule flags are not ported yet.
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import telemetry
 from repro_torch.api.registry import get_engine
@@ -128,13 +141,44 @@ def train(argv=None) -> dict:
             "cfg": cfg, "policy": policy}
 
 
+def join_process_group(device: str) -> bool:
+    """Join ``torchrun``'s process group when ``WORLD_SIZE`` > 1 (its
+    ``MASTER_ADDR`` / ``MASTER_PORT``, ``RANK``): ``gloo`` on the CPU,
+    ``nccl`` on the card with this rank's card (``LOCAL_RANK``) made
+    current. Returns whether it joined one (False at world size 1 or when
+    a group exists already). ``cuda`` without ``nccl`` raises."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return False
+    if device == "cuda":
+        if not (torch.cuda.is_available() and dist.is_nccl_available()):
+            raise RuntimeError("--device cuda over several ranks needs CUDA "
+                               "cards and nccl; pass --device cpu to train "
+                               "over gloo on the CPU")
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
+    return True
+
+
 def run(argv=None):
     """The launcher's run: ``argv`` as a TrainSpec, through the Trainer,
-    with the end-of-run summary logged. Returns the TrainResult."""
+    with the end-of-run summary logged. Returns the TrainResult. Under
+    ``torchrun`` (``WORLD_SIZE`` > 1) the run is data-parallel over the
+    process group it joins (:func:`join_process_group`)."""
     spec = TrainSpec.from_cli_args(argv).validate()
 
     logging.basicConfig(
         level=logging.WARNING if spec.quiet else logging.INFO)
+    joined = join_process_group(spec.device)
+    try:
+        return _run(spec)
+    finally:
+        if joined:
+            dist.destroy_process_group()
+
+
+def _run(spec):
     trainer = Trainer.from_spec(spec)
     cfg = trainer.cfg
     log.info("arch=%s layers=%d d_model=%d engine=%s quantize=%s device=%s",

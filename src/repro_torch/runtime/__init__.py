@@ -1,6 +1,7 @@
 """The training runtime around the step (``repro.runtime``): fault
-injection, the step guard, the degradation ladder and the supervised
-resilient loop. The reference's ``runtime/elastic.py`` (a mesh helper) is
-not ported: the port runs on one device (``ROADMAP.md`` item 8)."""
-from repro_torch.runtime import (degrade, fault_tolerance, faults,  # noqa: F401
-                                 guard)
+injection, the step guard, the degradation ladder, the supervised
+resilient loop, and elastic data parallelism over ``torch.distributed``
+(``runtime/elastic.py``: the mesh's data axis; the model axis is not
+ported yet, ``ROADMAP.md`` §1, item 3)."""
+from repro_torch.runtime import (degrade, elastic,  # noqa: F401
+                                 fault_tolerance, faults, guard)

@@ -193,9 +193,14 @@ class FaultInjector:
     and fire at the first step boundary where one does.
     """
 
-    def __init__(self, plan: FaultPlan, ckpt_dir: Optional[str] = None):
+    def __init__(self, plan: FaultPlan, ckpt_dir: Optional[str] = None,
+                 corrupts: bool = True):
         self.plan = plan
         self.ckpt_dir = ckpt_dir
+        #: whether ``corrupt`` flips the files; False on the ranks of a
+        #: data mesh that do not write the checkpoints: they fire the event
+        #: at the same step and leave the files to the rank that writes
+        self.corrupts = corrupts
         self._fired: set = set()
         self.log: list = []          # (step_fired, kind) in firing order
         #: optional ``(step, kind) -> None`` hook fired on every injection
@@ -218,7 +223,11 @@ class FaultInjector:
             if ev.kind == "corrupt":
                 # pending until a checkpoint exists to corrupt
                 if ev.step <= step and self.ckpt_dir is not None:
-                    if corrupt_latest_checkpoint(self.ckpt_dir) is not None:
+                    from repro_torch.checkpoint.checkpointer import \
+                        latest_step
+                    if (corrupt_latest_checkpoint(self.ckpt_dir)
+                            if self.corrupts
+                            else latest_step(self.ckpt_dir)) is not None:
                         self._fire(idx, step, ev)
                 continue
             if ev.step != step:

@@ -15,8 +15,9 @@ Enabled, it owns
 * optional ``torch.profiler`` capture (``--profile on``), exported as a
   Chrome trace under ``<telemetry-dir>/profile``.
 
-The reference also adopts its kernel autotuner's counters into every
-registry; the port has no autotuner (``ROADMAP.md`` item 8).
+Every registry also adopts the kernel autotuner's module-global counters
+(``kernels/autotune.py``'s ``autotune.*``: cache hits and misses, sweeps
+and their candidates), as the reference's does.
 
 The module also hosts the structured *console* logging choke point
 (:func:`log_step`, :func:`log_run_summary`) — both respect ``--quiet``.
@@ -77,6 +78,11 @@ class Telemetry:
         if profile and out_dir:
             self._profiling = sp.start_profiler(
                 os.path.join(out_dir, "profile"))
+        # the autotuner's counters are module-global (kernel dispatch cannot
+        # depend on a run-scoped object): adopt them so that snapshots
+        # include the cache traffic
+        from repro_torch.kernels import autotune
+        self.registry.register_group(autotune.COUNTERS)
 
     @classmethod
     def from_spec(cls, spec, worker: Optional[int] = None) -> "Telemetry":
@@ -127,7 +133,10 @@ class Telemetry:
             sp.stop_profiler(self._profiling)
             self._profiling = None
         if self.out_dir and self.tracer.finished:
-            self.tracer.save(os.path.join(self.out_dir, "trace.json"))
+            # one trace a rank where ranks share the directory
+            name = ("trace.json" if self.worker is None
+                    else f"trace_{self.worker}.json")
+            self.tracer.save(os.path.join(self.out_dir, name))
         for s in self.sinks:
             s.close()
 

@@ -10,7 +10,10 @@ only, no backward) marks an engine as zeroth-order
 
 A step's probe seed is ``samplers.fold_in(spec.seed, step)`` with the
 optimizer's step count before the update, the counterpart of the
-reference's ``fold_in(PRNGKey(seed), step)``.
+reference's ``fold_in(PRNGKey(seed), step)``. Under a data axis
+(``policy.dp``) every rank draws the same probes and the two losses of
+each probe are all-reduced (weighted by the rank's share of the valid
+tokens), so every rank computes the global estimate.
 """
 from __future__ import annotations
 
@@ -66,9 +69,15 @@ def _register(v: _Variant):
                      value_and_grad=vag, description=v.description)
     def build(spec, cfg, opt, policy):
         def step(params, opt_state, batch):
+            reduce = None
+            if policy.dp is not None:   # every rank draws the same probes
+                w = policy.dp.weight(batch["labels"])
+                reduce = lambda l: policy.dp.all_reduce(
+                    [l.reshape(1)], w)[0].reshape(l.shape)
             loss, grads = estimator.spsa_grad(
                 params, cfg, batch, fold_in(spec.seed, opt_state["step"]),
-                sampler=sampler, queries=v.queries, policy=policy)
+                sampler=sampler, queries=v.queries, policy=policy,
+                loss_reduce=reduce)
             params, opt_state = opt.update(grads, opt_state, params)
             return params, opt_state, loss
 

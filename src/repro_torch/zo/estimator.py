@@ -68,19 +68,23 @@ def spsa_grad_from_loss(loss_fn, train, seed: int, *,
 
 def spsa_grad(params, cfg: ArchConfig, batch: dict, seed: int, *,
               sampler: PerturbationSampler | None = None, eps: float = 1e-3,
-              queries: int = 1, policy: ExecutionPolicy = PLAIN):
+              queries: int = 1, policy: ExecutionPolicy = PLAIN,
+              loss_reduce=None):
     """ZO gradient estimate over the LoRA params of the full model: (loss,
     grads with the params' nesting, None at frozen leaves). ``policy``
     selects the probe forwards' regime (no backward ever runs): ``plain``
-    is the MeZO setting, ``cuda`` runs the forward kernels."""
+    is the MeZO setting, ``cuda`` runs the forward kernels.
+    ``loss_reduce`` maps each probe's local loss to the global one (the
+    data axis's all-reduce)."""
     from repro_torch.models import model as model_lib
 
     sampler = sampler if sampler is not None else DenseSampler()
     train, frozen = model_lib.split_params(params)
 
     def loss(t):
-        return model_lib.loss_fn(model_lib.merge_params(t, frozen), cfg,
-                                 batch, policy=policy)
+        out = model_lib.loss_fn(model_lib.merge_params(t, frozen), cfg,
+                                batch, policy=policy)
+        return out if loss_reduce is None else loss_reduce(out)
 
     return spsa_grad_from_loss(loss, train, seed, sampler=sampler, eps=eps,
                                queries=queries)

@@ -521,6 +521,47 @@ def test_lora_fused_bf16_is_bitwise_on_repeat(M, K, N, r):
         assert plan["split"] == 8
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", ["fwd", "dx"])
+def test_dense_split_is_the_callers_and_checked_on_card(body):
+    """The bf16 dense bodies take their split from the caller: every split
+    the hard limits allow matches the plain version; one past them (0, 9,
+    or more members than K's or N's slabs) is refused by the C entry
+    (cudaErrorInvalidValue), never clamped; a plan in the autotuner's
+    cache reaches the launch, and a cached plan the kernel refuses raises
+    rather than giving way to the heuristic."""
+    _need_card()
+    from repro_torch.kernels import autotune
+    M, K, N = (256, 896, 128) if body == "fwd" else (256, 896, 96)
+    x, w0, a, b, g = [t.to(torch.bfloat16).cuda() for t in _t(
+        *_fused_inputs(31, M, K, N, 8))]
+    if body == "fwd":
+        op, call = "lora_fused", lambda s: tlf.lora_fused(x, w0, a, b,
+                                                          split=s)
+        want, slabs = tlf.lora_fused_ref(x, w0, a, b), -(-K // 32)
+    else:
+        op, call = "lora_dx", lambda s: tlf.lora_dx(g, w0, a, b, split=s)
+        want, slabs = tlf.lora_dx_ref(g, w0, a, b), -(-N // 32)
+    for split in range(1, min(8, slabs) + 1):
+        _assert_close_scaled(call(split), want, dict(rtol=2.0 ** -6,
+                                                     atol=1e-2))
+    for split in (0, 9, slabs + 1):
+        with pytest.raises(RuntimeError, match=f"split {split}"):
+            call(split)
+    key = autotune._key(op, {"M": M, "K": K, "N": N}, torch.bfloat16)
+    autotune._ensure_loaded()
+    try:
+        autotune._CACHE[key] = {"split": 2}
+        assert torch.equal(call(None), call(2))
+        assert autotune.choose_blocks(op, torch.bfloat16, M=M, K=K,
+                                      N=N) == {"split": 2}
+        autotune._CACHE[key] = {"split": 9}
+        with pytest.raises(RuntimeError, match="split 9"):
+            call(None)
+    finally:
+        autotune._CACHE.pop(key, None)
+
+
 # the bf16 dx's card cases, g [M, N] -> dx [M, K] at r 8: every path shape
 # (K, N) of q, o; k, v; gate, up; down and OLMoE's q, k, v, o at M 1, 17,
 # 65, 192 and 256 (one to four m16 fragments, a row tile plus one row);
