@@ -309,6 +309,25 @@ card: the quickest proof that the port builds, serves and trains on the GPU.
    norm swapped for the structured norm and with the LoRA linears swapped
    for the structured ones, and the f32 LoRA forward kernel and cuBLAS
    against f64 at RWKV6's shapes (``lora_f32_accuracy``).
+23. The model axis (``tensor_parallel_phase``): the kernels at a rank's
+   TP-2 shard shapes of qwen2.5-0.5b (``TP_LINEARS``: q [896, 448], k and
+   v [896, 64], o [448, 896], gate and up [896, 2,432], down [2,432, 896]
+   at M 256, bf16 and over int8 and nf4; RMSNorm over a rank's 128 rows;
+   flash at G 7 over one KV head) against their plain versions and
+   timed (``tp_shapes`` in the ``{"kernels"}`` line); the single process's
+   peak of one ``value_and_grad``; then, every kernel built here first,
+   two processes on the one card in a ``gloo`` group of CUDA tensors, a
+   (data 1, model 2) mesh (``tensor_parallel_worker``): 3 mesp_cuda steps
+   of full-width qwen2.5-0.5b at 1 x 256 over a bf16 and an nf4 base,
+   each rank's counts a step the single process's, the bytes handed to
+   the model axis equal to ``tp_model_axis_bytes``; the LoRA gradients of
+   one ``value_and_grad`` gathered whole against the single process's
+   plain bf16 and f32 ones (``GRAD_TOL``; the kernels in f32 within
+   ``CATALOG_F32_GRAD_TOL``); each rank's peak beside the single
+   process's; whether gloo takes CUDA tensors in ``all_gather_into_
+   tensor`` and ``reduce_scatter_tensor``. Two ranks on one card check
+   the shard shapes and the collectives; their times are not a
+   tensor-parallel speed.
 
 Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"serve_quant": ...}``, ``{"train": ...}``, ``{"train_paper": ...}``,
@@ -317,8 +336,8 @@ Prints one ``{"build"}``, ``{"kernels": [...]}``, ``{"serve": ...}``,
 ``{"train_engines": ...}`` (with the run's seconds),
 ``{"core_flash": ...}``, ``{"trainer": ...}``, ``{"dense_catalog":
 ...}``, ``{"recurrent": ...}``, ``{"vlm_audio": ...}``, ``{"autotune":
-...}`` and ``{"data_parallel": ...}`` line each, the card's name and power
-limit, and
+...}``, ``{"data_parallel": ...}`` and ``{"tensor_parallel": ...}`` line
+each, the card's name and power limit, and
 last ``{"ok": true, "device": ...}``. Any mismatch or exception exits
 non-zero. Imports nothing of JAX or of the JAX package ``repro``.
 """
@@ -4695,6 +4714,319 @@ def data_parallel_phase(torch, ops, cfg):
             "bytes_all_reduced": 0, "compression": comp}
 
 
+# ----------------------------------------------------- step 23: model axis
+
+#: the model axis of step 23: two ranks on the one card over gloo
+TP = 2
+TP_STEPS = 3
+TP_RUNS = ("none", "nf4")
+TP_FLAG = "--tensor-parallel-rank"
+#: seconds the two ranks may take together
+TP_TIMEOUT = 420
+#: one rank's part of qwen2.5-0.5b's layer at TP 2: 7 q heads over 1 KV
+#: head, d_ff 2,432 (its linears are the kernels' shard shapes)
+TP_SHARD = dataclasses.replace(QWEN, n_heads=QWEN.n_heads // TP,
+                               n_kv_heads=QWEN.n_kv_heads // TP,
+                               d_ff=QWEN.d_ff // TP)
+TP_LINEARS = dense_linears(TP_SHARD)
+TP_SHAPES = dense_shapes_per_step(TP_SHARD)
+# flash on a rank: B*Hkv 1, G 7, N 256, D 64, causal
+TP_FLASH = (1, N_HEADS // TP, PAPER_SEQ, PAPER_SEQ, HEAD_DIM, True, 0, False)
+
+
+def tp_partial_numel(cfg):
+    """LoRA elements whose gradient each rank holds a part of: A of q, k,
+    v, gate and up, B of o and down (``models/parallel.partial_lora``)."""
+    r, d = cfg.lora.rank, cfg.d_model
+    return cfg.n_layers * r * (5 * d + 2 * d)
+
+
+def tp_model_axis_bytes(cfg, tokens, mp, sp, partial, act):
+    """Bytes a rank hands to the model axis in one remat step of the dense
+    family (the derivation of ``tests/test_torch_tensor_parallel.py``):
+    sums travel in f32 over the whole [tokens, d], gathers in the
+    activations' type (``act`` bytes) over [tokens / mp, d]; a block's
+    forward collectives run twice (the recompute stops after the down
+    linear, skipping its sum), its backward ones once; block 0's ln1
+    output needs no gradient; then the embedding's sum, the head's gather
+    and its gradient's sum, the loss's two all-reduces and the partial
+    LoRA leaves in f32."""
+    d, L = cfg.d_model, cfg.n_layers
+    whole = tokens * d * 4
+    if sp:
+        ag = tokens // mp * d * act
+        fwd, bwd, head = 2 * (ag + whole), 2 * (whole + ag), ag + whole
+    else:
+        fwd = bwd = 2 * whole
+        head = whole
+    return (L * (fwd + (fwd - whole) + bwd) - whole + whole + head
+            + 3 * tokens * 4 + 4 * partial)
+
+
+def tp_kernel_figures(torch, lf, rn, lq, lp4, fa, quant, rope_tables):
+    """The kernels of a rank's TP-2 step against their plain versions at
+    the shard shapes, timed (bf16): the LoRA forward, dx and dA/dB at M
+    256 over ``TP_LINEARS``, the quantized forward and dx over int8 and
+    nf4 there, RMSNorm forward and backward over a rank's 128 rows, flash
+    at G 7 over one KV head. Returns {kernel: [shape figures]}."""
+    lin = {s: {k: v[s] for k, v in TP_SHAPES.items()} for s in TP_LINEARS}
+    out = check_training_kernels(torch, lf, rn, QM, lin, seed=41, kernels=(
+        "lora_fused_fwd", "lora_dx", "lora_dab"))
+    rows = QM // TP
+    out.update(check_training_kernels(
+        torch, lf, rn, rows, {}, D_MODEL, PAPER_PER_STEP["rmsnorm_bwd"],
+        seed=42, kernels=("rmsnorm_bwd",)))
+    out["rmsnorm_fwd"] = [rmsnorm_train_shape(
+        torch, rn, rows, D_MODEL, PAPER_PER_STEP["rmsnorm_fwd"], seed=43)]
+    for method in ("int8", "nf4"):
+        fwd, dx = QUANT_KERNELS[method]
+        out.update(check_quant_shapes(
+            torch, quant, lq, lp4, method, TP_LINEARS,
+            {fwd: TP_SHAPES["lora_fused_fwd"], dx: TP_SHAPES["lora_dx"]},
+            seed=44))
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    errs = _flash_errors(torch, fa, rope_tables, gen, {"tp": TP_FLASH})
+    out.update(_flash_times(torch, fa, gen, errs, TP_FLASH, FLASH_PER_STEP))
+    return out
+
+
+def _gloo_cuda_ops(torch, dist):
+    """Whether this gloo group takes CUDA tensors in the all-gather and
+    reduce-scatter of ``runtime/elastic.ModelParallel``: "ok" or the
+    error each raised (a record: the phase's steps have used both by
+    then, and a refusal there fails the phase)."""
+    out = {}
+    x = torch.arange(4, dtype=torch.float32, device="cuda") + dist.get_rank()
+    calls = {"all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+        torch.empty(8, device="cuda"), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device="cuda"), x)}
+    for name, call in calls.items():
+        try:
+            call()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except Exception as e:   # recorded, not a phase
+            out[name] = f"{type(e).__name__}: {e}"[:300]
+    return out
+
+
+def tensor_parallel_worker(rank, port, out_dir):
+    """One rank of step 23 (``python chip_smoke.py --tensor-parallel-rank
+    R PORT DIR``, started by ``tensor_parallel_phase``): a gloo group of 2
+    over CUDA tensors on card 0, the Trainer on a (data 1, model 2) mesh.
+    For each base of ``TP_RUNS``: ``TP_STEPS`` mesp_cuda steps of
+    qwen2.5-0.5b at 1 x 256 with the counts zeroed just before and read
+    just after (each step: the single process's), the bytes handed to the
+    model axis against ``tp_model_axis_bytes``. Over the bf16 base: one
+    ``value_and_grad``'s LoRA gradients on step 8's weights and batch
+    (every B drawn nonzero), gathered whole, against the single process's plain bf16 and f32 ones (rank 0
+    runs those) in bf16 and with the kernels in f32; the peak of one
+    ``value_and_grad`` with remat on and off. Writes rank_<R>.json."""
+    import datetime
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api.spec import TrainSpec
+    from repro_torch.api.trainer import Trainer
+    from repro_torch.core import mesp
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_lib
+    from repro_torch.runtime import elastic
+    rank = int(rank)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+        world_size=TP, timeout=datetime.timedelta(seconds=TP_TIMEOUT))
+    cfg = QWEN
+    tokens = PAPER_BATCH * PAPER_SEQ
+    res = {"rank": rank, "runs": {}}
+    for method in TP_RUNS:
+        spec = TrainSpec(arch=cfg.name, engine="mesp_cuda", device="cuda",
+                         batch=PAPER_BATCH, seq=PAPER_SEQ, steps=TP_STEPS,
+                         seed=0, lr=ENGINES_LR, quantize=method,
+                         model_parallel=TP,
+                         ckpt_dir=tempfile.mkdtemp(prefix="repro_torch_tp_"))
+        tr = Trainer.from_spec(spec)
+        if tr.mesh.shape != {"data": 1, "model": TP} or not tr.policy.sp:
+            raise AssertionError(f"tensor_parallel: mesh {tr.mesh.shape}, "
+                                 f"sp {tr.policy.sp}")
+        # every rank draws the whole model from the seed and keeps its part
+        params, opt = tr.place_state(*tr.init_state())
+        _release(torch)
+        state_bytes = torch.cuda.memory_allocated()
+        data = tr.make_data()
+        losses, secs = [], []
+        want = PAPER_PER_STEP if method == "none" else quant_per_step(method)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        tr.tp.bytes_model_axis = 0
+        for _ in range(TP_STEPS):
+            batch = next(data)
+            t0 = time.monotonic()
+            params, opt, loss = tr.step_fn(params, opt, batch)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            secs.append(time.monotonic() - t0)
+        counts = ops.launch_counts()
+        _check_counts(counts, {k: v * TP_STEPS for k, v in want.items()},
+                      f"tensor_parallel rank {rank} {method}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"tensor_parallel {method}: losses "
+                                 f"{losses}")
+        per_step = tr.tp.bytes_model_axis / TP_STEPS
+        partial = tp_partial_numel(cfg)
+        want_bytes = tp_model_axis_bytes(cfg, tokens, TP, True, partial, 2)
+        if per_step != want_bytes:
+            raise AssertionError(f"tensor_parallel {method}: "
+                                 f"{per_step} bytes a step to the model "
+                                 f"axis, derived {want_bytes}")
+        res["runs"][method] = {
+            "losses": losses, "seconds": secs, "launches": counts,
+            "bytes_model_axis_per_step": per_step,
+            "bytes_model_axis_derived": want_bytes,
+            "partial_lora_bytes_per_step": 4 * partial,
+            "state_bytes": state_bytes}
+        if method == "none":
+            # the peak of one value_and_grad above the rank's state
+            res["peak_memory_one_value_and_grad"] = {
+                "mesp_cuda" if remat else "mesp_cuda/remat_off": _peak(
+                    torch, lambda: mesp.value_and_grad(
+                        params, cfg, {k: torch.from_numpy(v).long().cuda()
+                                      for k, v in batch.items()},
+                        policy=dataclasses.replace(tr.policy, remat=remat)))
+                for remat in (True, False)}
+        del params, opt
+        if method != "none":
+            continue
+        # gradients: the TP kernels (bf16, and in f32) vs one process, on
+        # step 8's weights (B drawn on from the init's generator) and batch
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        W = _with_b(torch, model_lib.init_params(cfg, generator=gen), gen)
+        batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+            make_batch_iterator(cfg.vocab, PAPER_SEQ, PAPER_BATCH,
+                                seed=0)).items()}
+        pspec = tr.param_specs()
+        f32 = dataclasses.replace(cfg, dtype="float32")
+
+        def tp_run(c, whole):
+            loss, g = mesp.value_and_grad(
+                elastic.place_tree(whole, tr.mesh, pspec), c, batch,
+                policy=tr.policy)
+            return float(loss), _grad_leaves(elastic.gather_tree(
+                g, tr.mesh, pspec, tr.tp.group))
+        loss, grads = {}, {}
+        loss["kernels"], grads["kernels"] = tp_run(cfg, W)
+        loss["kernels_f32"], grads["kernels_f32"] = tp_run(f32, _f32(W))
+        if rank == 0:     # the single process's plain runs, no collective
+            one = _grad_runs(torch, cfg, W, batch)
+            for name in ("plain", "f32"):
+                loss[name] = one[0][name]
+                grads[name] = one[1][name]
+            d = _distances(torch, loss, grads)
+            # the single process's kernels on the same inputs, beside them
+            d["single_process_worst"] = _distances(torch, *one)["worst"]
+            _check_grads(d)
+            _check_f32_kernels(d, CATALOG_F32_GRAD_TOL)
+            res["grads_vs_single_process"] = d
+            del one
+        # nothing of the check outlives it: the next run's state_bytes
+        del W, loss, grads
+        _release(torch)
+    res["gloo_cuda"] = _gloo_cuda_ops(torch, dist)
+    dist.barrier()
+    dist.destroy_process_group()
+    Path(out_dir, f"rank_{rank}.json").write_text(json.dumps(res))
+    return 0
+
+
+def tensor_parallel_phase(torch, lf, rn, lq, lp4, fa, quant, rope_tables):
+    """Step 23: the model axis. The kernels at a rank's TP-2 shard shapes
+    (``tp_kernel_figures``); the single process's peak of one mesp_cuda
+    ``value_and_grad`` (remat on and off); then two ranks on the one card
+    over gloo (``tensor_parallel_worker``), every kernel built here first,
+    so the two never run ``nvcc`` into one directory. The two ranks check
+    themselves and fail the phase on any miss. Returns (figure, {kernel:
+    [TP shape figures]}, {run: rank 0's launch counts})."""
+    import os
+    import socket
+    import tempfile
+    from repro_torch.data import make_batch_iterator
+    from repro_torch.models import model as model_lib
+    t0 = time.monotonic()
+    shapes = tp_kernel_figures(torch, lf, rn, lq, lp4, fa, quant,
+                               rope_tables)
+    t_kernels = time.monotonic() - t0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model_lib.init_params(QWEN, generator=gen)
+    batch = {k: torch.from_numpy(v).long().cuda() for k, v in next(
+        make_batch_iterator(QWEN.vocab, PAPER_SEQ, PAPER_BATCH,
+                            seed=0)).items()}
+    single = peak_memory(torch, QWEN, params, batch,
+                         runs=[("mesp_cuda", True), ("mesp_cuda", False)])
+    del params, batch
+    _release(torch)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_tp_ranks_")
+    logs = [open(Path(out_dir, f"stderr_{r}"), "w+") for r in range(TP)]
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), TP_FLAG, str(r),
+         str(port), out_dir], stdout=subprocess.DEVNULL, stderr=logs[r],
+        env=dict(os.environ)) for r in range(TP)]
+    t1 = time.monotonic()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() - t1 > TP_TIMEOUT:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = []
+    for r, log in enumerate(logs):
+        log.seek(0)
+        tails.append(f"--- rank {r} rc={procs[r].returncode}\n"
+                     + log.read()[-4000:])
+        log.close()
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("tensor_parallel: a rank failed\n"
+                             + "\n".join(tails))
+    ranks = [json.loads(Path(out_dir, f"rank_{r}.json").read_text())
+             for r in range(TP)]
+    r0 = ranks[0]
+    fig = {
+        "mesh": {"data": 1, "model": TP}, "backend": "gloo (CUDA tensors)",
+        "ranks_on_one_card": TP, "steps": TP_STEPS,
+        "runs": {m: {**r0["runs"][m], "losses_rank1":
+                     ranks[1]["runs"][m]["losses"]} for m in TP_RUNS},
+        "grads_vs_single_process": r0["grads_vs_single_process"],
+        "grad_tol": GRAD_TOL, "f32_kernels_tol": CATALOG_F32_GRAD_TOL,
+        "b_scale": B_SCALE,
+        "peak_memory_one_value_and_grad": {
+            "rank0": r0["peak_memory_one_value_and_grad"],
+            "rank1": ranks[1]["peak_memory_one_value_and_grad"],
+            "single_process": single},
+        "state_bytes": {m: [r["runs"][m]["state_bytes"] for r in ranks]
+                        for m in TP_RUNS},
+        "gloo_cuda": r0["gloo_cuda"], "kernel_figures_seconds": t_kernels,
+        "ranks_seconds": time.monotonic() - t1,
+        "note": "two ranks share one card over gloo: a check of the "
+                "shard shapes and the collectives, not a tensor-parallel "
+                "speed"}
+    for m in TP_RUNS:
+        if ranks[1]["runs"][m]["losses"] != r0["runs"][m]["losses"]:
+            raise AssertionError(f"tensor_parallel {m}: the ranks' losses "
+                                 f"differ: {fig['runs'][m]}")
+    return fig, shapes, {m: r0["runs"][m]["launches"] for m in TP_RUNS}
+
+
 def main() -> int:
     t_start = time.monotonic()
     import torch
@@ -5120,6 +5452,14 @@ def main() -> int:
     autotune_fig["seconds"] = t22b - t22
     dp_fig["seconds"] = time.monotonic() - t22b
 
+    # step 23: the model axis, two ranks on the one card (each rank's
+    # counts zeroed just before and read just after each run, inside it)
+    t23 = time.monotonic()
+    _release(torch)
+    tp_fig, tp_shapes, tp_counts = tensor_parallel_phase(
+        torch, lf, rn, lq, lp4, fa, quant, rope_tables)
+    tp_fig["seconds"] = time.monotonic() - t23
+
     paths = lambda k: {**{p: c[k] for p, c in ccounts.items()},
                        **{p: c.get(k, 0) for p, c in rcounts.items()},
                        **{p: c.get(k, 0) for p, c in vcounts.items()},
@@ -5130,7 +5470,9 @@ def main() -> int:
                        **{f"train_{m}": c[k] for m, c in qcounts.items()},
                        "train_moe": mcounts[k],
                        **{f"train_moe_{m}": c[k]
-                          for m, c in mq_counts.items()}}
+                          for m, c in mq_counts.items()},
+                       **{f"tensor_parallel_{m}": c[k]
+                          for m, c in tp_counts.items()}}
     def with_moe(e, moe_shapes):
         """``e`` with the kernel's figures at the MoE path's shapes (each
         per launch, with its launches a step), their errors in its own."""
@@ -5413,7 +5755,8 @@ def main() -> int:
     for e in kernels:
         for key, by_name in (("catalog_shapes", cshapes),
                              ("recurrent_shapes", rshapes),
-                             ("vlm_audio_shapes", vshapes)):
+                             ("vlm_audio_shapes", vshapes),
+                             ("tp_shapes", tp_shapes)):
             figs = by_name.get(e["name"])
             if figs:
                 e[key] = figs
@@ -5539,6 +5882,10 @@ def main() -> int:
         "arch": cfg.name, "engine": "mesp_cuda", "dtype": "bfloat16",
         "batch": PAPER_BATCH, "seq": PAPER_SEQ, **dp_fig, "device": name,
         "power": smi, "run_seconds": time.monotonic() - t_start}}))
+    print(json.dumps({"tensor_parallel": {
+        "arch": "qwen2.5-0.5b", "engine": "mesp_cuda", "dtype": "bfloat16",
+        "batch": PAPER_BATCH, "seq": PAPER_SEQ, **tp_fig, "device": name,
+        "power": smi, "run_seconds": time.monotonic() - t_start}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -5547,4 +5894,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == TP_FLAG:
+        sys.exit(tensor_parallel_worker(*sys.argv[2:5]))
     sys.exit(main())

@@ -31,6 +31,13 @@
   None: each engine's step all-reduces its LoRA gradients and loss over
   it (``api/engines.py``, ``core/mesp.sequential_train_step``, the MeZO
   engines' two losses). The Trainer sets it; the model stack ignores it.
+* ``tp``: the model axis of a mesh (``runtime.elastic.ModelParallel``) or
+  None: the dense family's linears run on this rank's shards, with the
+  Megatron collectives of ``models/parallel.py`` around them, and
+  ``core/mesp.value_and_grad`` sums the partial LoRA gradients over it.
+* ``sp``: with ``tp``, Megatron sequence parallelism: the activations
+  between blocks (and every norm) hold this rank's part of the sequence.
+  The Trainer derives it (the sequence divides over the model axis).
 """
 from __future__ import annotations
 
@@ -55,6 +62,8 @@ class ExecutionPolicy:
     remat: bool = True
     fuse_rope: bool = False
     dp: Optional[object] = None
+    tp: Optional[object] = None
+    sp: bool = False
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -64,6 +73,9 @@ class ExecutionPolicy:
             raise ValueError(f"unknown quantize method {self.quantize!r}; "
                              f"expected one of {METHODS}")
         object.__setattr__(self, "device", torch.device(self.device))
+        if self.sp and self.tp is None:
+            raise ValueError("sequence parallelism (sp) needs a model axis "
+                             "(tp)")
 
 
 STRUCTURED = ExecutionPolicy()

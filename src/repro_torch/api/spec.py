@@ -13,9 +13,13 @@ come from the port's engine registry and ``--quantize`` choices from
 ``--pallas-interpret`` (the port has no interpreter: a CPU tensor takes each
 kernel's plain version) and plus ``--device`` (``cuda``, the default, or
 ``cpu``). The reference's ``act_spec`` (an activation sharding) has no
-counterpart: the port's mesh has a data axis only (one process a rank,
-``runtime/elastic.py``), and ``--model-parallel`` above 1 is refused until
-the model axis is ported (``ROADMAP.md`` §1, item 3).
+field here: the Trainer derives sequence parallelism from its mesh on
+every switch (``policy.sp``). ``--model-parallel`` above 1 runs the model
+axis (Megatron tensor and sequence parallelism, ``models/parallel.py``)
+for the dense family under the engines of :data:`MODEL_AXIS_ENGINES`,
+where it divides the heads, the KV heads, d_ff and the vocabulary
+(:func:`check_model_axis`); the other families, ``mesp_seq`` and the ZO
+engines are refused there (``ROADMAP.md`` §1, item 3).
 """
 from __future__ import annotations
 
@@ -29,6 +33,48 @@ from repro_torch.api.registry import get_engine, list_engines
 
 OPTIMIZERS = ("sgd", "sgd_momentum", "adamw")
 DEVICES = ("cuda", "cpu")
+#: the engines that run under a model axis above 1
+MODEL_AXIS_ENGINES = ("mesp", "mesp_cuda", "mebp", "store_h")
+
+
+def check_model_axis(cfg, model_parallel: int, engine: str = "mesp",
+                     quantize: str = "none") -> None:
+    """Raise ValueError unless ``cfg`` trains under ``engine`` on a model
+    axis of ``model_parallel``: the dense family, an engine of
+    :data:`MODEL_AXIS_ENGINES`, and an axis that divides the heads, the KV
+    heads, d_ff and the vocabulary (a packed 4-bit base also needs the
+    row-parallel linears' input shards even: two rows share a byte). The
+    reference's placement rules would replicate a leaf the axis does not
+    divide, and its partitioner split a head; the port's kernels cannot,
+    so it refuses (``ROADMAP.md`` §3)."""
+    mp = model_parallel
+    if mp == 1:
+        return
+    if cfg.family != "dense":
+        raise ValueError(
+            f"--model-parallel {mp}: the {cfg.family} family "
+            f"({cfg.name}) has no model axis in the port yet (ROADMAP.md "
+            "§1, item 3: expert-parallel MoE, ssm, hybrid, vlm and audio "
+            "tensor parallelism)")
+    if engine not in MODEL_AXIS_ENGINES:
+        raise ValueError(
+            f"--model-parallel {mp}: engine {engine!r} does not run under a "
+            f"model axis yet (ROADMAP.md §1, item 3: mesp_seq and the ZO "
+            f"engines at mp > 1); it runs {MODEL_AXIS_ENGINES}")
+    for name in ("n_heads", "n_kv_heads", "d_ff", "vocab"):
+        dim = getattr(cfg, name)
+        if dim % mp:
+            raise ValueError(
+                f"--model-parallel {mp} does not divide {name} = {dim} of "
+                f"{cfg.name}: the port does not split a head, a column of "
+                "d_ff or a row of the vocabulary (ROADMAP.md §3)")
+    if quantize in ("int4", "nf4"):
+        for name, k in (("q_size", cfg.q_size), ("d_ff", cfg.d_ff)):
+            if (k // mp) % 2:
+                raise ValueError(
+                    f"--model-parallel {mp} --quantize {quantize}: a "
+                    f"row-parallel shard of {name} = {k} has {k // mp} "
+                    "rows, odd, and packed rows pair them (no padding)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,7 +111,7 @@ class TrainSpec:
     profile: str = "off"           # torch.profiler capture around the run
     mem_budget_mb: float = 0.0     # watermark-pressure degrade limit (0=off)
     quiet: bool = False            # console: warnings only
-    # --- sharding: the data axis only (the model axis: ROADMAP.md §1, 3) ---
+    # --- sharding: the model axis's size (the data axis takes the rest) ---
     model_parallel: int = 1
 
     # ------------------------------------------------------------------ API
@@ -94,10 +140,10 @@ class TrainSpec:
             raise ValueError(f"--model-parallel must be >= 1, "
                              f"got {self.model_parallel}")
         if self.model_parallel > 1:
-            raise ValueError(
-                f"--model-parallel {self.model_parallel}: the port's mesh has "
-                "a data axis only; the model axis (Megatron tensor "
-                "parallelism) is not ported yet (ROADMAP.md §1, item 3)")
+            from repro_torch.configs import get_config
+            cfg = get_config(self.arch)
+            check_model_axis(cfg.reduced() if self.reduced else cfg,
+                             self.model_parallel, self.engine, self.quantize)
         if self.inject_faults:
             from repro_torch.runtime.faults import FaultPlan
             # parse errors (unknown kind, bad syntax) surface before compute
@@ -232,7 +278,10 @@ def build_arg_parser(prog: str = "repro_torch.launch.train"
                     help="suppress per-step and summary console logging "
                          "(structured telemetry sinks are unaffected)")
     ap.add_argument("--model-parallel", type=int, default=d.model_parallel,
-                    help="model-axis size; the port's mesh has a data axis "
-                         "only, so only 1 is accepted (ROADMAP.md §1, item "
-                         "3)")
+                    help="model-axis size (Megatron tensor and sequence "
+                         "parallelism): the dense family under mesp, "
+                         "mesp_cuda, mebp or store_h, where it divides the "
+                         "heads, KV heads, d_ff and vocab; the ranks of a "
+                         "torchrun world take (data, model) = (world / "
+                         "model, model)")
     return ap

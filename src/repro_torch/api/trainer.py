@@ -17,34 +17,40 @@ while carrying the optimizer state across compatible transitions.
 
 Each rank runs on one device (``spec.device``; ``cuda`` fails without a
 card rather than falling back). Over several ranks of a ``torch.
-distributed`` process group the Trainer holds a data-parallel mesh
-(``runtime/elastic.py``): every rank keeps the whole model, steps on its
-rows of the global batch (``spec.batch``) and all-reduces the LoRA
-gradients and the loss over the data axis inside each engine's step
-(``policy.dp``); ``shard_state`` replicates the state from the mesh's
-first rank and ``resize`` moves the run onto a surviving rank set, keeping
-the global batch. Only rank 0 touches the checkpoints: it writes them,
-and on a restore it alone picks the step (quarantining corrupt ones),
-which every other rank then loads read-only; telemetry writes
-``worker_<rank>.jsonl``.
-The model axis is not ported (``ROADMAP.md`` §1, item 3). Each engine's
-step is called as built: there is no jit. Restore templates
-are made on the ``meta`` device (shapes and dtypes only), so a restore never
-holds a second model's worth of weights beside the one it loads.
+distributed`` process group the Trainer holds a (data, model) mesh
+(``runtime/elastic.py``; ``spec.model_parallel`` ranks on the model
+axis): every rank keeps its shard of the model (the placement rules of
+``launch/sharding.py``: Megatron tensor parallelism for the dense family,
+with sequence parallelism where the sequence divides over the model axis,
+derived on every switch as the reference's ``act_spec`` is), steps on its
+data index's rows of the global batch (``spec.batch``), sums its partial
+LoRA gradients over the model axis and all-reduces the LoRA gradients and
+the loss over the data axis inside each engine's step (``policy.tp``,
+``policy.dp``); ``shard_state`` places the state from the mesh's first
+rank by its specs, ``gather_state`` gathers it whole, and ``resize``
+moves the run onto a surviving rank set or another model axis, keeping
+the global batch. Only rank 0 touches the checkpoints: a save gathers the
+state whole, rank 0 writes it, and on a restore it alone picks the step
+(quarantining corrupt ones), which every other rank then loads read-only
+and places by the live mesh's specs (``checkpoint/mesh.py``); telemetry
+writes ``worker_<rank>.jsonl``. Each engine's step is called as built:
+there is no jit. Restore templates are made on the ``meta`` device
+(shapes and dtypes only), so a restore never holds a second model's worth
+of weights beside the one it loads.
 """
 from __future__ import annotations
 
 import dataclasses
 import logging
-import os
 from typing import Any, Callable, List, Optional
 
 import torch
 
 from repro_torch.api.registry import Engine, get_engine
-from repro_torch.api.spec import TrainSpec
+from repro_torch.api.spec import TrainSpec, check_model_axis
 from repro_torch.checkpoint import Checkpointer
-from repro_torch.checkpoint.checkpointer import load_checkpoint
+from repro_torch.checkpoint.mesh import MeshCheckpointer
+from repro_torch.launch import sharding
 from repro_torch.runtime import elastic
 from repro_torch.tree import tree_map
 
@@ -100,76 +106,6 @@ def _to_meta(tree):
                                           device="meta"), tree)
 
 
-class _RankZeroCheckpointer(Checkpointer):
-    """A data-parallel run's checkpointer. Rank 0 (the mesh's first) alone
-    changes the directory: it writes each checkpoint, and on a restore it
-    alone picks the step, quarantining the corrupt ones. Every save and
-    restore ends with rank 0's outcome broadcast over the mesh: the other
-    ranks load the step it picked read-only, and a save or restore that
-    failed on rank 0 raises on every rank, so no rank waits in a
-    collective for one that left."""
-
-    def __init__(self, directory, interval, dp):
-        super().__init__(directory, interval=interval)
-        self.dp = dp
-
-    def _agree(self, outcome):
-        """Rank 0's ``outcome``, on every rank of the mesh."""
-        box = [outcome]
-        if self.dp.size > 1:
-            torch.distributed.broadcast_object_list(
-                box, src=self.dp.mesh.rank_list[0], group=self.dp.group)
-        return box[0]
-
-    def save(self, step, params, opt_state=None, data_state=None,
-             extra=None):
-        path = os.path.join(self.directory, f"step_{step:08d}")
-        if self.dp.index == 0:
-            try:
-                path = super().save(step, params, opt_state, data_state,
-                                    extra)
-            except Exception as e:
-                self._agree(f"{type(e).__name__}: {e}")
-                raise
-        failed = self._agree(None)
-        if failed is not None:
-            raise RuntimeError(f"rank 0 failed to save step {step}: "
-                               f"{failed}")
-        return path     # every rank: the loop's save bookkeeping agrees
-
-    def restore_latest(self, params_template=None, opt_template=None, *,
-                       template_fn=None, **kw):
-        if self.dp.index == 0:
-            seen = len(self.quarantined)
-            try:
-                restored = super().restore_latest(
-                    params_template, opt_template, template_fn=template_fn,
-                    **kw)
-            except Exception as e:
-                self._agree({"error": f"{type(e).__name__}: {e}",
-                             "io": isinstance(e, IOError),
-                             "quarantined": self.quarantined[seen:]})
-                raise
-            self._agree({"step": restored and restored["step"],
-                         "quarantined": self.quarantined[seen:]})
-            return restored
-        told = self._agree(None)
-        self.quarantined.extend(told["quarantined"])
-        if "error" in told:
-            raise (IOError if told["io"] else RuntimeError)(
-                f"rank 0's restore failed: {told['error']}")
-        step = told["step"]
-        if step is None:
-            return None
-        pt, ot = params_template, opt_template
-        if template_fn is not None:
-            pt, ot = template_fn(self.read_manifest(step).get("extra", {}))
-        params, opt, data_state, extra = load_checkpoint(
-            self.directory, step, pt, ot, **kw)
-        return {"step": step, "params": params, "opt_state": opt,
-                "data_state": data_state, "extra": extra}
-
-
 class Trainer:
     """One training run, fully described by a TrainSpec.
 
@@ -217,56 +153,113 @@ class Trainer:
 
     def _set_mesh(self, mesh) -> None:
         """Adopt ``mesh`` (None: no mesh). Collective: every rank of the
-        world calls it with the same mesh (its process group is made here).
-        A rank left off the mesh gets ``dp`` None and waits for the next
-        resize; it must not step."""
+        world calls it with the same mesh (its process groups are made
+        here). A rank left off the mesh gets ``dp`` and ``tp`` None and
+        waits for the next resize; it must not step. ``tp`` is None too on
+        a mesh whose model axis is 1."""
         self.mesh = mesh
-        self.dp = None
+        self.dp = self.tp = self.mesh_group = None
         self.on_mesh = True
+        self._specs = {}
         if mesh is None:
             return
-        group = elastic.group_of(mesh)
+        self.mesh_group, data_group, model_group = elastic.mesh_groups(mesh)
         self.on_mesh = elastic.rank() in mesh.rank_list
         if self.on_mesh:
-            self.dp = elastic.DataParallel(mesh, group)
+            self.dp = elastic.DataParallel(mesh, data_group)
+            if mesh.model_size > 1:
+                self.tp = elastic.ModelParallel(mesh, model_group)
+
+    def param_specs(self):
+        """The spec tree of the live spec's whole params on the mesh
+        (``launch/sharding.py``, from ``state_template``), or None without
+        a model axis."""
+        if self.mesh is None or self.mesh.model_size == 1:
+            return None
+        key = self.live_spec.quantize
+        if key not in self._specs:
+            self._specs[key] = sharding.param_specs(
+                self.cfg, self.state_template()[0], self.mesh)
+        return self._specs[key]
+
+    def _opt_specs(self, opt_state):
+        pspec = self.param_specs()
+        return None if pspec is None or opt_state is None \
+            else sharding.opt_specs_like(opt_state, pspec)
+
+    def place_state(self, params, opt_state=None):
+        """This rank's shards of a whole state that every rank of the mesh
+        holds alike (made from the seed, or read from a checkpoint):
+        sliced by the live specs, nothing sent."""
+        if self.mesh is not None:
+            params = elastic.place_tree(params, self.mesh,
+                                        self.param_specs())
+            if opt_state is not None:
+                opt_state = elastic.place_tree(opt_state, self.mesh,
+                                               self._opt_specs(opt_state))
+        return params if opt_state is None else (params, opt_state)
 
     def shard_state(self, params, opt_state=None, *, mesh=None):
-        """Data-parallel placement of the state on the mesh
-        (``runtime.elastic.reshard_tree``: replicated from the mesh's first
-        rank; values untouched). Returns ``params`` or ``(params,
-        opt_state)`` mirroring the arguments."""
+        """Placement of a whole state on the mesh (``runtime.elastic.
+        reshard_tree``: broadcast from the mesh's first rank, then sliced
+        by ``launch/sharding.py``'s specs; values untouched). Returns
+        ``params`` or ``(params, opt_state)`` mirroring the arguments."""
         mesh = mesh if mesh is not None else self.mesh
         if mesh is not None and elastic.rank() in mesh.rank_list:
-            params = elastic.reshard_tree(params, mesh)
+            group = self.mesh_group if mesh is self.mesh else None
+            pspec = sharding.param_specs(self.cfg, params, mesh)
+            params = elastic.reshard_tree(params, mesh, pspec, group)
             if opt_state is not None:
-                opt_state = elastic.reshard_tree(opt_state, mesh)
+                opt_state = elastic.reshard_tree(
+                    opt_state, mesh,
+                    sharding.opt_specs_like(opt_state, pspec), group)
+        return params if opt_state is None else (params, opt_state)
+
+    def gather_state(self, params, opt_state=None):
+        """The whole state from this rank's shards (``runtime.elastic.
+        gather_tree`` over its model axis); collective over the mesh. A
+        round trip through :meth:`shard_state` is bit-exact."""
+        if self.on_mesh and self.mesh is not None:
+            group = self.tp.group if self.tp is not None else None
+            ospec = self._opt_specs(opt_state)
+            params = elastic.gather_tree(params, self.mesh,
+                                         self.param_specs(), group)
+            if opt_state is not None:
+                opt_state = elastic.gather_tree(opt_state, self.mesh, ospec,
+                                                group)
         return params if opt_state is None else (params, opt_state)
 
     def resize(self, devices=None, *, model_parallel=None, params=None,
                opt_state=None):
         """Elastic resize onto the surviving ranks ``devices`` (default:
-        every rank of the world): a mesh and its process group over them
-        (``dist.new_group``, so every rank of the world calls this alike),
-        the live spec's step rebuilt for it, and, when ``params`` /
-        ``opt_state`` are passed, the state replicated onto it from the new
-        mesh's first rank. The global batch is kept: each rank's rows follow
+        every rank of the world), and onto a model axis of
+        ``model_parallel`` (default: the mesh's): a mesh and its process
+        groups over them (``dist.new_group``, so every rank of the world
+        calls this alike), the live spec's step rebuilt for it, and, when
+        ``params`` / ``opt_state`` are passed, the state gathered whole on
+        the old mesh and placed on the new one from its first rank. The
+        global batch is kept: each rank's rows follow
         ``runtime.elastic.rebalance_batch``. Ranks left off the new mesh
-        wait (``on_mesh`` false). Returns ``None``, ``params`` or
-        ``(params, opt_state)`` mirroring the state arguments."""
+        keep the whole state and wait (``on_mesh`` false). Returns
+        ``None``, ``params`` or ``(params, opt_state)`` mirroring the state
+        arguments."""
         devices = list(devices) if devices is not None \
             else list(range(elastic.world_size()))
         if model_parallel is None:
-            model_parallel = (self.mesh.shape.get("model", 1)
-                              if self.mesh is not None
+            model_parallel = (self.mesh.model_size if self.mesh is not None
                               else self.live_spec.model_parallel)
+        if params is not None:
+            params, opt_state = self.gather_state(params, opt_state)
         self._set_mesh(elastic.make_mesh_from_devices(devices,
                                                       model_parallel))
         live = self.live_spec
-        self._live_spec = None    # rebuild the step over the new data axis
+        self._live_spec = None    # rebuild the step over the new mesh
         self._switch_to(live)
         if params is None:
             return None
-        return self.shard_state(params, opt_state)
+        if self.on_mesh:
+            params, opt_state = self.shard_state(params, opt_state)
+        return params if opt_state is None else (params, opt_state)
 
     def local_batch(self, batch: dict) -> dict:
         """This rank's rows of a global batch (the whole of it without a
@@ -281,17 +274,26 @@ class Trainer:
     def _switch_to(self, spec: TrainSpec) -> None:
         """(Re)build engine + step for ``spec``; no-op if unchanged. Raises
         (without changing live state) when the engine refuses the spec —
-        the degradation path uses that to skip unbuildable rungs. The step
-        takes the data pipeline's numpy batch and moves it to the device;
-        over a data mesh it all-reduces the LoRA gradients and the loss
+        the degradation path uses that to skip unbuildable rungs (an engine
+        or base the model axis refuses among them). The step takes the data
+        pipeline's numpy batch and moves it to the device; over a mesh it
+        sums the partial LoRA gradients over the model axis (``policy.tp``,
+        with ``policy.sp`` where the sequence divides over it) and
+        all-reduces the LoRA gradients and the loss over the data axis
         (``policy.dp``)."""
         if spec == self._live_spec:
             return
         spec = spec.validate()
         engine: Engine = get_engine(spec.engine)
+        mp = 1 if self.mesh is None else self.mesh.model_size
+        check_model_axis(self.cfg, mp, spec.engine, spec.quantize)
         policy = spec.policy()
         if self.dp is not None:
-            policy = dataclasses.replace(policy, dp=self.dp)
+            # sequence parallelism is derived state: on where this spec's
+            # sequence divides over the model axis (a truncated one may not)
+            policy = dataclasses.replace(
+                policy, dp=self.dp, tp=self.tp,
+                sp=self.tp is not None and spec.seq % mp == 0)
         build = engine.build_step(spec, self.cfg, self.opt, policy)
         device = self.device
 
@@ -301,6 +303,23 @@ class Trainer:
 
         self.engine, self.policy, self.step_fn = engine, policy, step_fn
         self._live_spec = spec
+
+    def absmax_reducer(self):
+        """``quant.quantize_frozen_``'s ``reduce_for`` on this mesh: for a
+        row-parallel weight shard (its input dim on ``model``), whose
+        per-column absmax covers only this rank's rows, an all-reduce MAX
+        over the model axis, so that the codes and scales are the single
+        process's, sliced. None without a model axis."""
+        if self.tp is None:
+            return None
+        tp = self.tp
+
+        def reduce_for(path):
+            if not sharding.row_parallel(path):
+                return None
+            return lambda amax: tp.all_reduce(amax, "max")
+
+        return reduce_for
 
     @property
     def live_spec(self) -> TrainSpec:
@@ -377,8 +396,9 @@ class Trainer:
                                f"{self.mesh.rank_list}: it cannot fit")
         self._switch_to(spec0)
         ckpt = (Checkpointer(spec0.ckpt_dir, interval=spec0.ckpt_interval)
-                if self.dp is None else _RankZeroCheckpointer(
-                    spec0.ckpt_dir, spec0.ckpt_interval, self.dp))
+                if self.mesh is None else MeshCheckpointer(
+                    spec0.ckpt_dir, spec0.ckpt_interval, self.mesh,
+                    self.mesh_group, self.gather_state))
 
         tel = telemetry if telemetry is not None \
             else tele.Telemetry.from_spec(
@@ -461,7 +481,7 @@ class Trainer:
                 restored = None
             if restored is None:
                 self._switch_to(spec0)
-                params, opt_state = self.init_state()
+                params, opt_state = self.place_state(*self.init_state())
                 _sync_iter(loop, None)
                 loop.step_fn = self.step_fn
                 return 0, params, opt_state
@@ -473,7 +493,8 @@ class Trainer:
                      if restored["data_state"] else None)
             _sync_iter(loop, state)
             loop.step_fn = self.step_fn
-            return restored["step"], restored["params"], restored["opt_state"]
+            return (restored["step"],) + self.place_state(
+                restored["params"], restored["opt_state"])
 
         def on_oom(loop):
             if ladder is None:
@@ -508,7 +529,8 @@ class Trainer:
                     # in place on the tree only the loop holds: each frozen
                     # leaf's source is freed as its codes land, one matrix
                     # of a stack at a time
-                    quant.quantize_frozen_(params, method=cand.quantize)
+                    quant.quantize_frozen_(params, method=cand.quantize,
+                                           reduce_for=self.absmax_reducer())
                     opt_state = degrade_mod.carry_opt_state(
                         opt_state, None, params)
                 loop.batch_iter = new_it

@@ -25,6 +25,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import quant, structured
 from repro_torch.models import layers
 from repro_torch.models import model as model_lib
+from repro_torch.models import parallel
 from repro_torch.optim import optimizers
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -53,7 +54,13 @@ def value_and_grad(params, cfg: ArchConfig, batch: dict, *,
     """(loss, grads over the LoRA factors): the grads tree has the params'
     nesting, with None at frozen leaves. ``params`` is left as it is: the
     trainable leaves are differentiated through detached copies. The
-    frozen base's format must be ``policy.quantize``."""
+    frozen base's format must be ``policy.quantize``.
+
+    Under a model axis (``policy.tp``) ``params`` are this rank's shards,
+    and the LoRA leaves of which each rank holds a part of the gradient
+    (column-parallel A, row-parallel B: ``models/parallel.py``) are summed
+    over the axis here, in one f32 buffer, so the grads returned are this
+    rank's shards of the whole gradient (before any data-axis sync)."""
     _check_base(params, policy)
 
     def fill(mask, grads):
@@ -62,8 +69,8 @@ def value_and_grad(params, cfg: ArchConfig, batch: dict, *,
     mask, leaves = model_lib.trainable_mask(params), []
     loss = model_lib.loss_fn(_lift(params, mask, leaves), cfg, batch,
                              policy=policy)
-    grads = torch.autograd.grad(loss, leaves)
-    return loss.detach(), fill(mask, iter(grads))
+    grads = fill(mask, iter(torch.autograd.grad(loss, leaves)))
+    return loss.detach(), parallel.sum_partials(grads, policy.tp)
 
 
 def train_step(params, cfg: ArchConfig, batch: dict, lr: float, *,
@@ -99,6 +106,9 @@ def sequential_train_step(params, cfg: ArchConfig, batch: dict, lr: float,
     outlives its iteration. Under a data axis (``policy.dp``) each block's
     LoRA gradients are all-reduced over it before that block's update, and
     the returned loss is the global batch's."""
+    if policy.tp is not None:
+        raise ValueError("sequential_train_step (mesp_seq) does not run "
+                         "under a model axis yet (ROADMAP.md §1, item 3)")
     if cfg.family != "dense" or cfg.window_pattern:
         raise ValueError("sequential_train_step runs the dense family "
                          "without a window pattern only, not "

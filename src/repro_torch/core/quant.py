@@ -62,14 +62,17 @@ def codebook(device, dtype=torch.float32) -> torch.Tensor:
                         device=device).to(dtype)
 
 
-def _absmax(w: torch.Tensor) -> torch.Tensor:
-    """Per output channel: max |w| over the input axis, f32 [..., 1, N]."""
-    return w.float().abs().amax(dim=-2, keepdim=True)
+def _absmax(w: torch.Tensor, reduce=None) -> torch.Tensor:
+    """Per output channel: max |w| over the input axis, f32 [..., 1, N];
+    ``reduce`` (a row-parallel shard's all-reduce MAX over the model axis)
+    makes it the whole weight's."""
+    amax = w.float().abs().amax(dim=-2, keepdim=True)
+    return amax if reduce is None else reduce(amax)
 
 
-def quantize_int8(w: torch.Tensor):
+def quantize_int8(w: torch.Tensor, reduce=None):
     """w [..., K, N] -> (q int8 [..., K, N], scale f32 [..., 1, N])."""
-    scale = torch.clamp_min(_absmax(w), 1e-8) / 127.0
+    scale = torch.clamp_min(_absmax(w, reduce), 1e-8) / 127.0
     q = torch.clamp(torch.round(w.float() / scale), -127, 127)
     return q.to(torch.int8), scale
 
@@ -107,22 +110,22 @@ def sign_extend4(nibbles: torch.Tensor) -> torch.Tensor:
     return (nibbles ^ 8) - 8
 
 
-def quantize_int4(w: torch.Tensor):
+def quantize_int4(w: torch.Tensor, reduce=None):
     """w [..., K, N] -> (q4 uint8 [..., ceil(K/2), N], scale [..., 1, N]):
     symmetric per output channel, q in [-7, 7], scale = absmax / 7."""
-    scale = torch.clamp_min(_absmax(w), 1e-8) / 7.0
+    scale = torch.clamp_min(_absmax(w, reduce), 1e-8) / 7.0
     q = torch.clamp(torch.round(w.float() / scale), -7, 7)
     return pack_nibbles(q.to(torch.int32) & 0xF,
                         pad_value=INT4_ZERO_NIBBLE), scale
 
 
-def quantize_nf4(w: torch.Tensor):
+def quantize_nf4(w: torch.Tensor, reduce=None):
     """w [..., K, N] -> (q4 uint8 [..., ceil(K/2), N], scale [..., 1, N]):
     per-channel absmax scaling to [-1, 1], then the nearest codebook entry
     through the midpoints (a left search, as the reference's)."""
     code = codebook(w.device)
     mids = (code[1:] + code[:-1]) / 2.0
-    scale = torch.clamp_min(_absmax(w), 1e-8)
+    scale = torch.clamp_min(_absmax(w, reduce), 1e-8)
     idx = torch.searchsorted(mids, (w.float() / scale).contiguous())
     return pack_nibbles(idx, pad_value=NF4_ZERO_NIBBLE), scale
 
@@ -159,17 +162,20 @@ def _stacked(n: int, part) -> dict:
     return out
 
 
-def quantize_leaf(w: torch.Tensor, method: str) -> dict:
+def quantize_leaf(w: torch.Tensor, method: str, reduce=None) -> dict:
     """Dense frozen weight -> the quantized leaf dict of ``method``. A
     stacked ``[..., K, N]`` weight is quantized one matrix at a time into
-    outputs made once, so the f32 transients stay one matrix's size."""
+    outputs made once, so the f32 transients stay one matrix's size.
+    ``reduce``: see :func:`_absmax`."""
     if w.ndim > 2:
-        return _stacked(w.shape[0], lambda i: quantize_leaf(w[i], method))
+        return _stacked(w.shape[0], lambda i: quantize_leaf(w[i], method,
+                                                            reduce))
     if method == "int8":
-        q, s = quantize_int8(w)
+        q, s = quantize_int8(w, reduce)
         return {"q": q, "scale": s}
     if method in ("int4", "nf4"):
-        q4, s = (quantize_int4 if method == "int4" else quantize_nf4)(w)
+        q4, s = (quantize_int4 if method == "int4" else quantize_nf4)(
+            w, reduce)
         leaf = {"q4": q4, "scale": s}
         lead = tuple(w.shape[:-2])
         if method == "nf4":
@@ -248,41 +254,49 @@ def maybe_dequant(p, dtype=torch.bfloat16):
     return p
 
 
-def _requantize_leaf(leaf: dict, method: str) -> dict:
+def _requantize_leaf(leaf: dict, method: str, reduce=None) -> dict:
     """A quantized leaf in ``method``'s format, one matrix of a stack at a
     time: each matrix dequantized to f32 and quantized again, so the f32
     transients stay one matrix's size."""
     codes = leaf["q"] if is_quantized(leaf) else leaf["q4"]
     if codes.ndim > 2:
         return _stacked(codes.shape[0], lambda i: _requantize_leaf(
-            {k: v[i] for k, v in leaf.items()}, method))
-    return quantize_leaf(maybe_dequant(leaf, torch.float32), method)
+            {k: v[i] for k, v in leaf.items()}, method, reduce))
+    return quantize_leaf(maybe_dequant(leaf, torch.float32), method, reduce)
 
 
 def quantize_frozen_(params, *, method: str = "int8",
-                     skip_keys=("a", "b", "bias")):
+                     skip_keys=("a", "b", "bias"), reduce_for=None):
     """:func:`quantize_frozen` in place, for a tree of dicts and lists the
     caller owns: each frozen leaf's codes replace it in its container as
     soon as they are made, so its source (a bf16 stack, or the codes of
     another format) is freed there, before the next leaf is read, when
     nothing else holds it. Stacks go one matrix at a time. Returns
-    ``params``."""
-    def walk(node):
+    ``params``.
+
+    ``reduce_for(path)``, for a tree of a model axis's shards, gives the
+    absmax reduction (:func:`_absmax`) of the weight at ``path`` (the path
+    of its ``"w"`` key) or None: a row-parallel shard's per-column absmax
+    covers only its rows, and must be the whole weight's for its codes
+    and scales to be the single process's, sliced."""
+    def walk(node, path):
         keys = list(node) if isinstance(node, dict) else range(len(node))
         for key in keys:
             leaf = node[key] if key not in skip_keys else None
+            at = path + (key,)
+            reduce = reduce_for(at) if reduce_for is not None else None
             if is_quantized(leaf) or is_packed(leaf):
                 node[key] = None
-                node[key] = _requantize_leaf(leaf, method)
+                node[key] = _requantize_leaf(leaf, method, reduce)
             elif isinstance(leaf, (dict, list)):
-                walk(leaf)
+                walk(leaf, at)
             elif key == "w" and isinstance(leaf, torch.Tensor) \
                     and leaf.ndim >= 2:
                 node[key] = None
-                node[key] = quantize_leaf(leaf, method)
+                node[key] = quantize_leaf(leaf, method, reduce)
             del leaf
 
-    walk(params)
+    walk(params, ())
     return params
 
 

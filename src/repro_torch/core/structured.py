@@ -329,7 +329,44 @@ class _SoftmaxXent(torch.autograd.Function):
         return dlogits.to(logits.dtype), None
 
 
-def softmax_xent(logits, labels):
+class _VocabParallelXent(torch.autograd.Function):
+    """The loss over vocab-parallel logits [B, N, V/mp]: the row max by an
+    all-reduce MAX, then the sum of exps and the target's logit (from the
+    rank whose shard holds it, zero elsewhere) by one all-reduce; saves
+    the logits, labels and the log-sum-exp, and its backward is local."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        lf = logits.float()
+        v = lf.shape[-1]
+        valid = labels >= 0
+        local = labels - tp.index * v
+        inside = valid & (local >= 0) & (local < v)
+        safe = torch.where(inside, local, 0)[..., None].long()
+        m = tp.all_reduce(lf.amax(-1), "max")
+        se = torch.exp(lf - m[..., None]).sum(-1)
+        tl = torch.where(inside, torch.gather(lf, -1, safe)[..., 0], 0.0)
+        se, ll = tp.all_reduce(torch.stack([se, tl]))
+        lse = m + torch.log(se)
+        ctx.save_for_backward(logits, lse, safe, inside, valid)
+        n = valid.sum().clamp(min=1)
+        return ((lse - ll) * valid).sum() / n
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, safe, inside, valid = ctx.saved_tensors
+        p = torch.exp(logits.float() - lse[..., None])         # recomputed
+        p.scatter_add_(-1, safe, -inside[..., None].float())
+        n = valid.sum().clamp(min=1)
+        dlogits = (g / n) * p * valid[..., None]
+        return dlogits.to(logits.dtype), None, None
+
+
+def softmax_xent(logits, labels, tp=None):
     """Mean token cross-entropy; positions with label == -1 are ignored.
-    logits [B, N, V] (any dtype), labels [B, N] int."""
+    logits [B, N, V] (any dtype), labels [B, N] int. With ``tp`` (a model
+    axis, ``runtime.elastic.ModelParallel``) the logits are this rank's
+    vocab shard [B, N, V/mp] and the loss is the whole vocabulary's."""
+    if tp is not None and tp.size > 1:
+        return _VocabParallelXent.apply(logits, labels, tp)
     return _SoftmaxXent.apply(logits, labels)

@@ -1,11 +1,13 @@
 """A fleet of ranks on one host (``repro.launch.fleet``): real
-multi-process data-parallel training over ``torch.distributed``.
+multi-process data- and tensor-parallel training over
+``torch.distributed``.
 
 The reference emulates N devices in one XLA process. The port's
 counterpart is N processes joined in a ``gloo`` process group on a free
 local port (``tcp://localhost:<port>``), each one rank of the Trainer's
-data mesh (``api/trainer.py``, ``runtime/elastic.py``). So the whole
-data-parallel stack, the gradient sync, ``shard_state``, elastic
+(data, model) mesh (``api/trainer.py``, ``runtime/elastic.py``; the spec's
+``model_parallel`` ranks on the model axis). So the whole stack, the
+Megatron collectives, the gradient sync, ``shard_state``, elastic
 ``resize``, rank-0 checkpoints and per-rank telemetry, runs for real on
 the CPU, with no card.
 
@@ -19,18 +21,24 @@ Tasks (the reference's):
 
 * ``train``: deterministic synthetic batches (a function of the seed, the
   step and the *global* shape) through the Trainer; each rank takes its
-  rows; returns the global losses;
+  data index's rows; returns the global losses (and with ``"out"`` the
+  final state, gathered whole);
 * ``collectives``: one step, with the bytes the sync handed to
-  ``all_reduce`` (counted in ``DataParallel`` itself) beside
-  ``predicted_grad_sync_bytes``, the f32 bytes of the LoRA leaves and the
-  two scalars (the valid-token count and the loss); a world of 1
+  ``all_reduce`` (counted in ``DataParallel`` itself) beside the f32
+  bytes of the rank's LoRA leaves and the two scalars (the valid-token
+  count and the loss), ``runtime.elastic.predicted_grad_sync_bytes``, and
+  the bytes handed to the model axis (``ModelParallel``); a world of 1
   all-reduces nothing;
-* ``elastic``: a live N → N/2 → N resize through ``Trainer.resize``
-  against the checkpoint path (host copies, a fresh Trainer a mesh) and an
+* ``saved``: one ``value_and_grad`` under ``saved_tensors_hooks``, the
+  shapes of what each rank's forward keeps (remat on and off);
+* ``elastic``: a live resize through ``Trainer.resize`` along a plan of
+  (ranks, model axis, steps), by default N → N/2 → N, against the
+  checkpoint path (whole host copies, a fresh Trainer a mesh) and an
   uninterrupted run, all inside the fleet;
 * ``ladder``: every degradation-ladder rung from the spec builds and takes
-  a step on the data mesh (a halved batch below the data size included:
-  every rank then takes the whole batch);
+  a step on the mesh (a halved batch below the data size included: every
+  rank then takes the whole batch), with a digest of the frozen base
+  gathered whole after each quantize rung;
 * ``fit``: ``Trainer.fit`` itself on the data mesh, faults, ladder,
   rank 0's checkpoints and restores included, with the rows each rank
   read a step;
@@ -38,11 +46,13 @@ Tasks (the reference's):
 * ``sequence``: several of the above in one process group
   (``"payloads"``), to share the workers' start-up.
 
-Only the data axis is ported: a task with ``model_parallel`` above 1
-raises (``ROADMAP.md`` §1, item 3).
+A task at ``model_parallel`` above 1 runs what ``TrainSpec.validate``
+takes (the dense family under mesp, mesp_cuda, mebp or store_h) and
+raises for the rest (``ROADMAP.md`` §1, item 3).
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import glob
 import json
@@ -187,13 +197,12 @@ def synth_batch(cfg, batch: int, seq: int, seed: int, step: int,
 
 
 def _refuse_model_axis(payload: dict) -> None:
-    mp = max(int(payload.get("model_parallel", 1)),
-             int(payload.get("spec", {}).get("model_parallel", 1)))
-    if mp > 1:
-        raise ValueError(f"model_parallel={mp}: the port's fleet has a data "
-                         "axis only; the model axis (Megatron tensor "
-                         "parallelism) is not ported yet (ROADMAP.md §1, "
-                         "item 3)")
+    """A task's spec at a model axis above 1 must be one the model axis
+    runs (``TrainSpec.validate``: the dense family, an engine of
+    ``MODEL_AXIS_ENGINES``, an axis that divides the heads, d_ff and the
+    vocabulary); it raises before any rank builds a Trainer."""
+    if int(payload.get("spec", {}).get("model_parallel", 1)) > 1:
+        _spec(payload).validate()
 
 
 def _spec(payload: dict):
@@ -284,8 +293,10 @@ def task_train(payload: dict) -> dict:
                                final_loss=losses[-1] if losses else 0.0))
     finally:
         tel.close()
-    if payload.get("out") and elastic.rank() == 0:
-        torch.save({"params": params, "opt": opt_state}, payload["out"])
+    if payload.get("out"):
+        params, opt_state = tr.gather_state(params, opt_state)
+        if elastic.rank() == 0:
+            torch.save({"params": params, "opt": opt_state}, payload["out"])
     steady = times[WARMUP_STEPS:] or times
     result = {"losses": losses, "step_times_s": times,
               "step_time_s": float(np.median(steady)),
@@ -299,39 +310,91 @@ def task_train(payload: dict) -> dict:
 
 def task_collectives(payload: dict) -> dict:
     from repro_torch.models.model import split_params
+    from repro_torch.models.parallel import partial_numel
     from repro_torch.runtime import elastic
     from repro_torch.tree import tree_leaves
 
     tr = _make_trainer(payload)
-    params, opt_state = tr.shard_state(*tr.init_state())
+    whole, opt_state = tr.init_state()
+    n_trainable = sum(t.numel() for t in tree_leaves(split_params(whole)[0]))
+    params, opt_state = tr.shard_state(whole, opt_state)
+    del whole
     train, _ = split_params(params)
-    n_trainable = sum(t.numel() for t in tree_leaves(train))
+    n_rank = sum(t.numel() for t in tree_leaves(train))
     if tr.dp is not None:
         tr.dp.bytes_all_reduced = 0
+    if tr.tp is not None:
+        tr.tp.bytes_model_axis = 0
     _steps(tr, params, opt_state, payload, 0, 1, [])
+    shape = {} if tr.mesh is None else tr.mesh.shape
     data = 1 if tr.mesh is None else tr.mesh.data_size
     return {"all_reduce_bytes": 0 if tr.dp is None
             else tr.dp.bytes_all_reduced,
+            "bytes_model_axis": 0 if tr.tp is None
+            else tr.tp.bytes_model_axis,
             "n_trainable": int(n_trainable),
-            "trainable_f32_bytes": 4 * int(n_trainable),
-            # the LoRA leaves in f32 plus the valid-token count and the loss
+            "rank_trainable": int(n_rank),
+            "partial_numel": int(partial_numel(train)),
+            "trainable_f32_bytes": 4 * int(n_rank),
+            # the rank's LoRA leaves in f32 plus the valid-token count and
+            # the loss
             "predicted_grad_sync_bytes":
-                4 * (int(n_trainable) + 2) if data > 1 else 0,
-            "devices": elastic.world_size(),
+                4 * (int(n_rank) + 2) if data > 1 else 0,
+            "grad_sync_floor": elastic.predicted_grad_sync_bytes(
+                int(n_trainable), shape),
+            "sp": bool(tr.policy.sp),
+            "devices": elastic.world_size(), "mesh": shape}
+
+
+def task_saved(payload: dict) -> dict:
+    """The shapes of the tensors one ``value_and_grad`` on this rank's rows
+    hands to autograd to keep (``saved_tensors_hooks``), with remat on and
+    off; those that share storage with a parameter are left out."""
+    import torch
+
+    from repro_torch.core import mesp
+    from repro_torch.tree import tree_leaves
+
+    tr = _make_trainer(payload)
+    params, _ = tr.shard_state(*tr.init_state())
+    spec = tr.live_spec
+    batch = {k: torch.from_numpy(v).long() for k, v in tr.local_batch(
+        synth_batch(tr.cfg, spec.batch, spec.seq, spec.seed, 0)).items()}
+    stores = {t.untyped_storage().data_ptr() for t in tree_leaves(params)}
+    out = {}
+    for remat in (True, False):
+        shapes = []
+
+        def pack(t):
+            if t.untyped_storage().data_ptr() not in stores:
+                shapes.append(list(t.shape))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            mesp.value_and_grad(params, tr.cfg, batch, policy=dataclasses
+                                .replace(tr.policy, remat=remat))
+        out["remat" if remat else "no_remat"] = shapes
+    return {**out, "sp": bool(tr.policy.sp),
             "mesh": {} if tr.mesh is None else tr.mesh.shape}
 
 
 def task_elastic(payload: dict) -> dict:
-    """N → N/2 → N elastic resize, three ways, inside the fleet:
+    """A live resize along ``payload["plan"]``, [[ranks, model axis,
+    steps], ...] (by default N → N/2 → N at the spec's model axis, the
+    steps of ``"phases"``), three ways, inside the fleet:
 
-    * A: uninterrupted on every rank (the reference trajectory);
+    * A: uninterrupted on the first phase's mesh (the reference
+      trajectory);
     * B: live resize through ``Trainer.resize`` at the phase boundaries;
-    * C: the checkpoint path: the state through host copies and a fresh
-      Trainer a mesh (what a real restore does).
+    * C: the checkpoint path: the state gathered whole, through host
+      copies, and a fresh Trainer a mesh placing it (what a real restore
+      does).
 
     B and C run the same sequence of steps on the same meshes, so they
     must be bit-identical; A sums the ranks' gradients over another
-    grouping, so it agrees only to float tolerance."""
+    grouping, so it agrees only to float tolerance. Also a
+    ``reshard_tree`` / ``gather_tree`` round trip onto the second phase's
+    mesh and back, which must be bit-exact."""
     import torch
 
     from repro_torch.api.trainer import Trainer
@@ -339,60 +402,68 @@ def task_elastic(payload: dict) -> dict:
     from repro_torch.tree import tree_leaves, tree_map
 
     spec = _spec(payload)
-    phases = payload.get("phases", [2, 2, 2])
     n_full = elastic.world_size()
-    n_small = int(payload.get("shrink_to", max(n_full // 2, 1)))
-    dev_full, dev_small = list(range(n_full)), list(range(n_small))
-    plan = [(dev_full, phases[0]), (dev_small, phases[1]),
-            (dev_full, phases[2])]
+    phases = payload.get("phases", [2, 2, 2])
+    mp = spec.model_parallel
+    plan = payload.get("plan") or [
+        [n_full, mp, phases[0]],
+        [int(payload.get("shrink_to", max(n_full // 2, 1))), mp, phases[1]],
+        [n_full, mp, phases[2]]]
+    meshes = [elastic.make_mesh_from_devices(list(range(n)), m)
+              for n, m, _ in plan]
+    total = sum(n for _, _, n in plan)
     me = elastic.rank()
 
-    # --- A: uninterrupted on the whole fleet
-    tr_a = Trainer.from_spec(spec)
+    # --- A: uninterrupted on the first mesh
+    tr_a = Trainer.from_spec(spec, mesh=meshes[0])
     params_a, opt_a = tr_a.shard_state(*tr_a.init_state())
     losses_a = []
-    params_a, opt_a = _steps(tr_a, params_a, opt_a, payload, 0, sum(phases),
+    params_a, opt_a = _steps(tr_a, params_a, opt_a, payload, 0, total,
                              losses_a)
+    whole_a = tr_a.gather_state(params_a)
 
-    # --- reshard_tree round trip is placement only (bit-exact)
-    mesh_small = elastic.make_mesh_from_devices(dev_small, 1)
-    elastic.group_of(mesh_small)          # collective: every rank makes it
-    moved = _clone(params_a)
-    if me in dev_small:
-        moved = elastic.reshard_tree(moved, mesh_small)
-    back = elastic.reshard_tree(moved, tr_a.mesh)
+    # --- reshard_tree / gather_tree round trip (placement only)
+    from repro_torch.launch import sharding
+    moved = meshes[1]
+    groups = elastic.mesh_groups(moved)  # collective: every rank makes them
+    back = whole_a
+    if me in moved.rank_list:
+        specs = sharding.param_specs(tr_a.cfg, whole_a, moved)
+        placed = elastic.reshard_tree(_clone(whole_a), moved, specs,
+                                      groups[0])
+        back = elastic.gather_tree(placed, moved, specs, groups[2])
     reshard_bitexact = all(torch.equal(x, y) for x, y in zip(
-        tree_leaves(params_a), tree_leaves(back)))
+        tree_leaves(whole_a), tree_leaves(back)))
 
     # --- B: live resize through the Trainer
-    tr = Trainer.from_spec(spec)
+    tr = Trainer.from_spec(spec, mesh=meshes[0])
     params_b, opt_b = tr.shard_state(*tr.init_state())
     losses_b, step = [], 0
-    for i, (devs, n) in enumerate(plan):
+    for i, (n, m, k) in enumerate(plan):
         if i > 0:
-            params_b, opt_b = tr.resize(devs, params=params_b,
-                                        opt_state=opt_b)
+            params_b, opt_b = tr.resize(list(range(n)), model_parallel=m,
+                                        params=params_b, opt_state=opt_b)
         if tr.on_mesh:
-            params_b, opt_b = _steps(tr, params_b, opt_b, payload, step, n,
+            params_b, opt_b = _steps(tr, params_b, opt_b, payload, step, k,
                                      losses_b)
-        step += n
+        step += k
+    params_b, opt_b = tr.gather_state(params_b, opt_b)
 
-    # --- C: the checkpoint path (host copies, a fresh Trainer a mesh)
+    # --- C: the checkpoint path (whole host copies, a fresh Trainer a mesh)
     to_host = lambda tree: tree_map(
         lambda t: t.detach().cpu().clone() if hasattr(t, "clone") else t,
         tree)
     losses_c, state, step = [], None, 0
-    for devs, n in plan:
-        trc = Trainer.from_spec(spec, mesh=elastic.make_mesh_from_devices(
-            devs, 1))
+    for mesh, (_, _, k) in zip(meshes, plan):
+        trc = Trainer.from_spec(spec, mesh=mesh)
         if state is None:
             state = trc.init_state()
-        params_c, opt_c = trc.shard_state(*state)
         if trc.on_mesh:
-            params_c, opt_c = _steps(trc, params_c, opt_c, payload, step, n,
+            params_c, opt_c = trc.shard_state(*state)
+            params_c, opt_c = _steps(trc, params_c, opt_c, payload, step, k,
                                      losses_c)
-        step += n
-        state = (to_host(params_c), to_host(opt_c))
+            state = to_host(trc.gather_state(params_c, opt_c))
+        step += k
 
     same = lambda u, v: all(
         torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
@@ -400,22 +471,32 @@ def task_elastic(payload: dict) -> dict:
     b_vs_c_bitwise = (losses_b == losses_c and same(params_b, state[0])
                       and same(opt_b, state[1]))
     b_vs_a_maxdiff = max(float((x.double() - y.double()).abs().max())
-                         for x, y in zip(tree_leaves(params_a),
+                         for x, y in zip(tree_leaves(whole_a),
                                          tree_leaves(params_b))
                          if x.is_floating_point())
     return {"reshard_bitexact": bool(reshard_bitexact),
             "b_vs_c_bitwise": bool(b_vs_c_bitwise),
             "b_vs_a_maxdiff": b_vs_a_maxdiff,
             "losses_a": losses_a, "losses_b": losses_b,
-            "losses_c": losses_c, "devices": n_full, "shrink_to": n_small}
+            "losses_c": losses_c, "devices": n_full,
+            "shrink_to": plan[1][0], "plan": plan}
 
 
 def task_ladder(payload: dict) -> dict:
     """Every degradation-ladder rung reachable from the spec builds and
-    takes a step on the data mesh: a halved batch below the data size
-    (every rank takes the whole batch), the int8 rung's ``{"q", "scale"}``
-    leaves, a truncated sequence."""
+    takes a step on the mesh: a halved batch below the data size (every
+    rank takes the whole batch), the int8 rung's ``{"q", "scale"}``
+    leaves (and from an int8 base the int4 rung's), a truncated sequence.
+    After a quantize rung, the SHA-256 of the frozen base gathered whole
+    (``"base_sha256"``: every rank's shards quantized in place, the
+    row-parallel ones over the model axis's absmax)."""
+    import hashlib
     import math
+
+    import torch
+
+    from repro_torch.models.model import split_params
+    from repro_torch.tree import tree_leaves
 
     from repro_torch.core import quant
     from repro_torch.runtime import degrade as degrade_mod
@@ -433,9 +514,17 @@ def task_ladder(payload: dict) -> dict:
                           "reason": f"{type(e).__name__}: {e}"})
             continue
         params, opt_state = _clone(params0), opt0
+        digest = None
         if cand.quantize != base.quantize:
-            quant.quantize_frozen_(params, method=cand.quantize)
+            quant.quantize_frozen_(params, method=cand.quantize,
+                                   reduce_for=tr.absmax_reducer())
             opt_state = degrade_mod.carry_opt_state(opt_state, None, params)
+            h = hashlib.sha256()
+            for t in tree_leaves(split_params(tr.gather_state(params))[1],
+                                 sort=True):
+                h.update(t.contiguous().view(-1).view(torch.uint8)
+                         .numpy().tobytes())
+            digest = h.hexdigest()
         live = tr.live_spec
         losses = []
         _steps(tr, params, opt_state, payload, 0, 1, losses)
@@ -444,7 +533,8 @@ def task_ladder(payload: dict) -> dict:
                       "finite": math.isfinite(losses[0]),
                       "batch": live.batch, "seq": live.seq,
                       "engine": live.engine, "quantize": live.quantize,
-                      "rows": rows.stop - rows.start})
+                      "rows": rows.stop - rows.start, "sp": tr.policy.sp,
+                      "base_sha256": digest})
         tr._switch_to(base)   # reset for the next rung
     return {"rungs": rungs, "devices": elastic.world_size(),
             "mesh": {} if tr.mesh is None else tr.mesh.shape}
@@ -500,7 +590,7 @@ def task_fit(payload: dict) -> dict:
     tr.make_data = lambda state=None: _Recorded(make_data(state=state), read)
     res = tr.fit()
     h = hashlib.sha256()
-    for t in tree_leaves(res.params):
+    for t in tree_leaves(tr.gather_state(res.params)):
         if isinstance(t, torch.Tensor):
             h.update(t.detach().contiguous().view(-1).view(
                 torch.uint8).numpy().tobytes())
@@ -533,6 +623,7 @@ def task_sequence(payload: dict) -> dict:
 
 
 TASKS = {"train": task_train, "collectives": task_collectives,
+         "saved": task_saved,
          "elastic": task_elastic, "ladder": task_ladder, "fit": task_fit,
          "probe": task_probe, "sequence": task_sequence}
 

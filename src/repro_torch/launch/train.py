@@ -56,16 +56,23 @@ falling back.
         --device cpu --steps 6 --ckpt-dir /path/to/run2 \\
         --inject-faults 'oom@2,crash@4,nan@5'
 
-Data-parallel (``torchrun``): with ``WORLD_SIZE`` above 1 in the
-environment, :func:`run` joins a process group first (``gloo`` for
+Data- and tensor-parallel (``torchrun``): with ``WORLD_SIZE`` above 1 in
+the environment, :func:`run` joins a process group first (``gloo`` for
 ``--device cpu``, ``nccl`` for the card, one card a rank by
-``LOCAL_RANK``; ``--device cuda`` without ``nccl`` raises, it never falls
-back to the CPU), and the Trainer trains over a data mesh of every rank:
-``--batch`` is the global batch, each rank reads its rows, and the LoRA
-gradients are all-reduced in each step.
+``LOCAL_RANK``; ``--device cuda`` without ``nccl``, or with more ranks on
+a host than visible cards, raises: it never falls back to ``gloo`` or the
+CPU), and the Trainer trains over a (data, model) mesh of every rank,
+``--model-parallel`` of them on the model axis (Megatron tensor and
+sequence parallelism, dense family): ``--batch`` is the global batch,
+each rank reads its data index's rows, the partial LoRA gradients are
+summed over the model axis and the LoRA gradients all-reduced over the
+data axis in each step.
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train --reduced \
         --device cpu --batch 4 --steps 3 --ckpt-dir /path/to/run3
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --reduced \
+        --device cpu --batch 4 --steps 3 --model-parallel 2 \
+        --ckpt-dir /path/to/run4
 
 The reference's schedule flags are not ported yet.
 """
@@ -105,6 +112,9 @@ def train(argv=None) -> dict:
     if spec.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda needs a CUDA card and none is "
                            "visible; pass --device cpu to train on the CPU")
+    if spec.model_parallel > 1:
+        raise ValueError("the bare loop runs one process; --model-parallel "
+                         "runs through the launcher (main, under torchrun)")
     device = torch.device(spec.device)
     cfg = get_config(spec.arch)
     if spec.reduced:
@@ -145,8 +155,10 @@ def join_process_group(device: str) -> bool:
     """Join ``torchrun``'s process group when ``WORLD_SIZE`` > 1 (its
     ``MASTER_ADDR`` / ``MASTER_PORT``, ``RANK``): ``gloo`` on the CPU,
     ``nccl`` on the card with this rank's card (``LOCAL_RANK``) made
-    current. Returns whether it joined one (False at world size 1 or when
-    a group exists already). ``cuda`` without ``nccl`` raises."""
+    current, one card a rank. Returns whether it joined one (False at
+    world size 1 or when a group exists already). ``cuda`` without
+    ``nccl``, or with more ranks on this host (``LOCAL_WORLD_SIZE``) than
+    visible cards, raises."""
     if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
         return False
     if device == "cuda":
@@ -154,6 +166,12 @@ def join_process_group(device: str) -> bool:
             raise RuntimeError("--device cuda over several ranks needs CUDA "
                                "cards and nccl; pass --device cpu to train "
                                "over gloo on the CPU")
+        local = int(os.environ.get("LOCAL_WORLD_SIZE",
+                                   os.environ["WORLD_SIZE"]))
+        if local > torch.cuda.device_count():
+            raise RuntimeError(
+                f"--device cuda runs one card a rank: {local} ranks on this "
+                f"host, {torch.cuda.device_count()} visible cards")
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
         dist.init_process_group("nccl")
     else:

@@ -18,6 +18,14 @@ quantized leaf (``core/quant.py``). Layouts are the
 reference's: q/k/v are ``[B, H, N, D]`` and a cache is ``[B, Hkv, S, D]``.
 Unlike the reference, a decode step writes the cache in place (the
 reference returns a new cache); the step returns the same dict.
+
+Under a model axis (``policy.tp``, the dense family) every function takes
+this rank's shards (``launch/sharding.py``): the attention runs its q
+heads and the KV heads they map to, the MLP its columns of d_ff, the
+embedding and the head its rows of the vocabulary, each with the Megatron
+collectives of ``models/parallel.py`` around the linears; the norms run
+on whatever rows they are given (this rank's part of the sequence under
+``policy.sp``).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import flash, quant, structured
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rope as krope
+from repro_torch.models import parallel
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -225,16 +234,29 @@ def attention(p, x, cfg: ArchConfig, *, window: int = 0, causal: bool = True,
     the structured sdpa Function below that, as in the reference. Under
     ``cuda`` with ``policy.fuse_rope`` (self-attention with RoPE only, as
     in the reference) q and k reach ``kops.sdpa`` unrotated, with the RoPE
-    tables, and the flash kernels rotate them on load."""
+    tables, and the flash kernels rotate them on load.
+
+    Under a model axis (``policy.tp``, self-attention without a cache) x
+    is replicated, or this rank's part of the sequence under ``policy.sp``
+    (gathered first); the rank runs its ``n_heads / mp`` q heads over its
+    ``n_kv_heads / mp`` KV heads, and its part of o's output is summed over
+    the axis (reduce-scattered under SP)."""
+    tp = policy.tp
+    if tp is not None and (cache is not None or kv_x is not None):
+        raise ValueError("a model axis runs self-attention without a cache "
+                         "only (decode under a mesh: ROADMAP.md §1, item 3)")
+    x = parallel.enter(x, policy)
     B, N, _ = x.shape
     hd = cfg.resolved_head_dim
+    mp = 1 if tp is None else tp.size
+    n_heads, n_kv = cfg.n_heads // mp, cfg.n_kv_heads // mp
     src = x if kv_x is None else kv_x
     Nk = src.shape[1]
     lin = functools.partial(apply_linear, cfg=cfg, policy=policy,
                             adapter_tiles=adapter_tiles)
-    q = lin(p["q"], x).reshape(B, N, cfg.n_heads, hd)
-    k = lin(p["k"], src).reshape(B, Nk, cfg.n_kv_heads, hd)
-    v = lin(p["v"], src).reshape(B, Nk, cfg.n_kv_heads, hd)
+    q = lin(p["q"], x).reshape(B, N, n_heads, hd)
+    k = lin(p["k"], src).reshape(B, Nk, n_kv, hd)
+    v = lin(p["v"], src).reshape(B, Nk, n_kv, hd)
 
     if cache is None:
         qpos = torch.arange(N, device=x.device)
@@ -255,8 +277,8 @@ def attention(p, x, cfg: ArchConfig, *, window: int = 0, causal: bool = True,
                                         policy.flash_chunk, policy.flash_chunk)
         else:
             out = structured.sdpa(q, k, v, window, causal)
-        out = out.transpose(1, 2).reshape(B, N, cfg.n_heads * hd)
-        return lin(p["o"], out), None
+        out = out.transpose(1, 2).reshape(B, N, n_heads * hd)
+        return _row_linear(p["o"], out, cfg, policy), None
 
     ln = cache["len"]
     if use_rope:
@@ -359,11 +381,29 @@ def mlp(p, x, cfg: ArchConfig, *, policy: ExecutionPolicy = STRUCTURED,
     without a gate."""
     lin = functools.partial(apply_linear, cfg=cfg, policy=policy,
                             adapter_tiles=adapter_tiles)
+    if policy.tp is not None:
+        x = parallel.enter(x, policy)
+        down = functools.partial(_row_linear, p["down"], cfg=cfg,
+                                 policy=policy)
+    else:
+        down = functools.partial(lin, p["down"])
     if "gate" not in p:
-        return lin(p["down"], act_gelu(lin(p["up"], x), policy))
+        return down(act_gelu(lin(p["up"], x), policy))
     g = lin(p["gate"], x)
     u = lin(p["up"], x)
-    return lin(p["down"], act_silu(g, policy) * u)
+    return down(act_silu(g, policy) * u)
+
+
+def _row_linear(p, x, cfg: ArchConfig, policy: ExecutionPolicy):
+    """A row-parallel linear (o, down): under a model axis this rank's
+    partial output, summed over it (``parallel.leave``), then the bias,
+    once."""
+    if policy.tp is None:
+        return apply_linear(p, x, cfg, policy=policy)
+    y = parallel.leave(apply_linear({k: v for k, v in p.items()
+                                     if k != "bias"}, x, cfg, policy=policy),
+                       policy)
+    return y + p["bias"] if "bias" in p else y
 
 
 # ---------------------------------------------------------------------------
@@ -382,17 +422,24 @@ def embed_params(gen, cfg: ArchConfig):
     return p
 
 
-def embed(p, tokens, cfg: ArchConfig):
+def embed(p, tokens, cfg: ArchConfig, *,
+          policy: ExecutionPolicy = STRUCTURED):
     """Token rows, times ``cfg.embed_scale`` where there is one (rounded to
-    the table's type first, as the reference does)."""
-    x = p["tok"][tokens]
+    the table's type first, as the reference does). Under a model axis
+    ``tok`` is this rank's vocab shard (``parallel.vocab_embed``)."""
+    x = p["tok"][tokens] if policy.tp is None \
+        else parallel.vocab_embed(p["tok"], tokens, policy)
     if cfg.embed_scale is not None:
         x = x * torch.tensor(cfg.embed_scale, dtype=x.dtype)
     return x
 
 
-def unembed(p, x, cfg: ArchConfig):
+def unembed(p, x, cfg: ArchConfig, *,
+            policy: ExecutionPolicy = STRUCTURED):
     """logits = x @ tokᵀ (tied) or x @ head (untied), in f32 (f64 in an
-    f64 run)."""
+    f64 run). Under a model axis the logits of this rank's vocab shard,
+    [B, N, vocab / mp], from x gathered along the sequence (SP) or copied
+    (``parallel.enter``)."""
+    x = parallel.enter(x, policy)
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     return wide(x @ w)

@@ -425,7 +425,8 @@ def forward(params, cfg: ArchConfig, tokens, *,
     the text, and the logits are [B, P + N, vocab]. An ``audio`` model
     needs ``enc_frames`` [B, T, d]."""
     _require(cfg)
-    x = layers.embed(params["embed"], tokens, cfg)
+    _check_model_axis(cfg, policy, tokens.shape[1])
+    x = layers.embed(params["embed"], tokens, cfg, policy=policy)
     if frontend_embeds is not None:   # vlm: precomputed patch embeddings
         x = torch.cat([frontend_embeds.to(x.dtype), x], 1)
     if "block0" in params:
@@ -461,14 +462,31 @@ def forward(params, cfg: ArchConfig, tokens, *,
     for kind, bp, window in _tail_list(params, cfg):
         x = _run_block(kind, bp, x, cfg, window, policy)[0]
     x = layers.norm(params["final_norm"], x, cfg, policy=policy)
-    return layers.unembed(params["embed"], x, cfg)
+    return layers.unembed(params["embed"], x, cfg, policy=policy)
+
+
+def _check_model_axis(cfg: ArchConfig, policy: ExecutionPolicy, n: int):
+    """Under a model axis: the dense family only, and under SP a sequence
+    that divides over the axis."""
+    tp = policy.tp
+    if tp is None:
+        return
+    if cfg.family != "dense":
+        raise ValueError(f"the model axis runs the dense family only, not "
+                         f"{cfg.name!r} ({cfg.family}; ROADMAP.md §1, "
+                         "item 3)")
+    if policy.sp and n % tp.size:
+        raise ValueError(f"sequence parallelism needs the sequence ({n}) "
+                         f"to divide over the model axis ({tp.size})")
 
 
 def loss_fn(params, cfg: ArchConfig, batch: dict, *,
             policy: ExecutionPolicy = STRUCTURED):
     """Mean next-token cross-entropy. batch: tokens / labels [B, N]
     (label -1 is ignored), and ``frontend_embeds`` (vlm: the prefix's
-    labels are -1) or ``enc_frames`` (audio) where the model takes them."""
+    labels are -1) or ``enc_frames`` (audio) where the model takes them.
+    Under a model axis the logits are vocab-parallel and so is the loss
+    (``structured.softmax_xent``'s ``tp``)."""
     fe = batch.get("frontend_embeds")
     logits = forward(params, cfg, batch["tokens"], policy=policy,
                      frontend_embeds=fe,
@@ -477,7 +495,7 @@ def loss_fn(params, cfg: ArchConfig, batch: dict, *,
     if cfg.frontend_tokens and fe is not None:   # the prefix has no labels
         labels = torch.cat([labels.new_full((labels.shape[0], fe.shape[1]),
                                             -1), labels], 1)
-    return structured.softmax_xent(logits, labels)
+    return structured.softmax_xent(logits, labels, tp=policy.tp)
 
 
 def _overwrite(dst, src) -> None:
@@ -519,6 +537,9 @@ def decode_step(params, cfg: ArchConfig, cache, tokens, *,
     (as the reference does).
     """
     _require(cfg)
+    if policy.tp is not None:
+        raise ValueError("decode under a model axis is not ported "
+                         "(ROADMAP.md §1, item 3)")
     if adapter_tiles is not None and cfg.family not in _ROUTED_FAMILIES:
         raise ValueError(f"adapter routing unsupported for {cfg.family!r}")
     x = layers.embed(params["embed"], tokens, cfg)

@@ -35,6 +35,14 @@ benchmark), so every registry-valid rung is offered, as the reference does
 when memsim is absent. The Trainer applies the first rung that also
 *builds* (e.g. ``mesp_seq`` refuses non-SGD optimizers at build time).
 
+Under a model axis the quantize rungs quantize each rank's shards in
+place (``quant.quantize_frozen_`` with the Trainer's ``absmax_reducer``):
+a row-parallel shard's per-column absmax covers only its rows, so it is
+all-reduced (MAX) over the model axis first, and the codes and scales
+are the single process's, sliced. A packed rung whose row-parallel shard
+would hold an odd number of rows is refused by ``TrainSpec.validate``
+(two rows share a byte; nothing is padded), so the ladder skips it.
+
 Optimizer state carries across compatible transitions: batch/seq/engine
 rungs leave the param tree untouched, so the state carries verbatim; the
 quantize rungs rewrite frozen ``w`` leaves into format dicts, and

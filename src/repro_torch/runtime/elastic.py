@@ -1,22 +1,32 @@
-"""Elastic data parallelism on ``torch.distributed`` (``repro.runtime.
-elastic``): the mesh of ranks, placement onto it, the global batch across a
-resize, and the data axis's gradient sync.
+"""Elastic data and tensor parallelism on ``torch.distributed``
+(``repro.runtime.elastic``): the mesh of ranks, placement onto it, the
+global batch across a resize, the data axis's gradient sync and the model
+axis's collectives.
 
 The reference reshards a jitted program onto a ``jax.sharding.Mesh``. The
 port runs one process a rank (``gloo`` for CPU tensors, ``nccl`` for the
-card), each holding the whole model and its own rows of the global batch:
+card), each holding its shard of the model and its rows of the global
+batch:
 
 * :func:`make_mesh_from_devices` lays the surviving ranks out as a
   :class:`DeviceMesh` with the reference's axes (``("data", "model")``, or
-  ``("pod", "data", "model")`` over several pods) and its errors;
-* :func:`reshard_tree` is data-parallel placement: every leaf replicated on
-  the mesh's ranks by a broadcast from its first rank. Values are not
-  touched, so a round trip is bit-exact;
+  ``("pod", "data", "model")`` over several pods) and its errors; its
+  process groups are those of the whole mesh, of this rank's data axis
+  (the ranks that share its model index) and of its model axis (the ranks
+  that share its data index), :func:`mesh_groups`;
+* :func:`reshard_tree` places a whole tree on the mesh: every leaf
+  broadcast from the mesh's first rank, then sliced along the dim its
+  spec (``launch/sharding.py``) puts on ``model``; :func:`gather_tree`
+  gathers the slices back. Values are not touched, so a round trip is
+  bit-exact;
 * :func:`rebalance_batch` keeps the global batch over a new rank count;
 * :class:`DataParallel` is the data axis of a mesh: between
   ``value_and_grad`` and the optimizer each engine's step all-reduces the
   LoRA gradients and the loss over it (``api/engines.py``), so that every
-  rank applies the update of the whole global batch.
+  rank applies the update of the whole global batch;
+* :class:`ModelParallel` is the model axis: this rank's index on it and
+  its collectives, which ``models/parallel.py`` wraps as autograd
+  Functions (Megatron tensor and sequence parallelism).
 
 The loss is a mean over the valid tokens (label -1 ignored). Rank r holds
 n_r of the N valid tokens of the global batch, so the sync weights rank
@@ -27,11 +37,12 @@ single-process batch's mean and gradient, for any split of the labels
 mesh. The gradients travel as f32 whatever the model's dtype: one f32
 buffer of every LoRA leaf and the loss a step (the count of valid tokens
 goes first, alone). The bytes handed to ``all_reduce`` are counted in
-:attr:`DataParallel.bytes_all_reduced`.
+:attr:`DataParallel.bytes_all_reduced`; those of the model axis in
+:attr:`ModelParallel.bytes_model_axis`.
 
-Only the data axis is ported: a mesh with a model axis above 1 can be laid
-out (its geometry is the reference's) but no Trainer takes it
-(``TrainSpec.validate``; ``ROADMAP.md`` §1, item 3, the model axis).
+The ranks of one model group take the same rows (their data index picks
+them). The model axis runs the dense family (``api/spec.py`` refuses the
+others, ``ROADMAP.md`` §1, item 3).
 """
 from __future__ import annotations
 
@@ -42,13 +53,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch.sharding import MODEL, model_dim
 from repro_torch.tree import tree_leaves, tree_map, unflatten
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class DeviceMesh:
     """Ranks laid out over named axes: ``ranks`` is an int array of shape
-    ``[sizes of axis_names]``."""
+    ``[sizes of axis_names]``; ``model`` is the last axis."""
     ranks: np.ndarray
     axis_names: Tuple[str, ...]
 
@@ -69,6 +81,25 @@ class DeviceMesh:
         """Ranks along the data-parallel axes (pod x data)."""
         s = self.shape
         return s.get("pod", 1) * s.get("data", 1)
+
+    @property
+    def model_size(self) -> int:
+        return self.shape.get(MODEL, 1)
+
+    def coords(self, r: int) -> Tuple[int, int]:
+        """(data index, model index) of rank ``r``: its row of the
+        flattened (pod x data) axes and its column of ``model``."""
+        flat = self.rank_list.index(r)
+        return flat // self.model_size, flat % self.model_size
+
+    def data_ranks(self, model_index: int) -> List[int]:
+        """The ranks of one data axis: those at ``model_index``."""
+        return self.rank_list[model_index::self.model_size]
+
+    def model_ranks(self, data_index: int) -> List[int]:
+        """The ranks of one model axis: those at ``data_index``."""
+        m = self.model_size
+        return self.rank_list[data_index * m:(data_index + 1) * m]
 
 
 def make_mesh_from_devices(devices: Sequence[int], model_parallel: int,
@@ -98,26 +129,49 @@ def make_mesh_from_devices(devices: Sequence[int], model_parallel: int,
 
 
 #: process groups by their ranks: ``dist.new_group`` is collective over the
-#: whole world, so every rank asks for the same meshes in the same order
+#: whole world, so every rank asks for the same groups in the same order
 _GROUPS: Dict[Tuple[int, ...], object] = {}
 
 
-def group_of(mesh: DeviceMesh):
-    """The process group over ``mesh``'s ranks, or None when there is no
-    process group (a mesh of one rank in a process of its own). The world
-    group when the mesh is the whole world in order; else made once by
+def group_over(ranks: Sequence[int]):
+    """The process group over ``ranks``, or None when there is no process
+    group (one rank in a process of its own). The world group when
+    ``ranks`` is the whole world in order; else made once by
     ``dist.new_group``, which every rank of the world must call alike."""
+    ranks = tuple(int(r) for r in ranks)
     if not dist.is_initialized():
-        if mesh.size > 1:
-            raise RuntimeError(f"a mesh of {mesh.size} ranks needs a process "
-                               "group; torch.distributed is not initialized")
+        if len(ranks) > 1:
+            raise RuntimeError(f"a mesh of {len(ranks)} ranks needs a "
+                               "process group; torch.distributed is not "
+                               "initialized")
         return None
-    ranks = tuple(mesh.rank_list)
     if ranks == tuple(range(dist.get_world_size())):
         return dist.group.WORLD
     if ranks not in _GROUPS:
         _GROUPS[ranks] = dist.new_group(list(ranks))
     return _GROUPS[ranks]
+
+
+def group_of(mesh: DeviceMesh):
+    """The process group over all of ``mesh``'s ranks (:func:`group_over`)."""
+    return group_over(mesh.rank_list)
+
+
+def mesh_groups(mesh: DeviceMesh):
+    """(mesh group, this rank's data-axis group, its model-axis group).
+    Collective: every rank of the world makes every group of the mesh, in
+    one order (the whole mesh, the data axes by model index, the model
+    axes by data index); a rank off the mesh gets None for its axes."""
+    whole = group_of(mesh)
+    data = [group_over(mesh.data_ranks(m)) if mesh.data_size > 1 else None
+            for m in range(mesh.model_size)]
+    model = [group_over(mesh.model_ranks(i)) if mesh.model_size > 1
+             else None for i in range(mesh.data_size)]
+    me = rank()
+    if me not in mesh.rank_list:
+        return whole, None, None
+    di, mi = mesh.coords(me)
+    return whole, data[mi], model[di]
 
 
 def rank() -> int:
@@ -129,11 +183,39 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
-def reshard_tree(tree, mesh: DeviceMesh, group=None):
-    """Data-parallel placement: every tensor leaf of ``tree`` replicated on
-    ``mesh``'s ranks by a broadcast from its first rank (in place on the
-    other members; None and non-tensor leaves pass through). On a mesh of
-    one rank nothing moves. Call it on every member of the mesh."""
+def place_tree(tree, mesh: DeviceMesh, specs):
+    """This rank's slice of each leaf of a whole ``tree``: along the dim
+    its spec (``launch/sharding.py``) puts on ``model``, the model index's
+    part, copied out so that the whole leaf can be freed; other leaves as
+    they are. Local: nothing is sent."""
+    if mesh.model_size == 1 or specs is None:
+        return tree
+    me = rank()
+    if me not in mesh.rank_list:
+        return tree
+    mi, m = mesh.coords(me)[1], mesh.model_size
+
+    def put(leaf, spec):
+        d = model_dim(spec)
+        if d is None or not isinstance(leaf, torch.Tensor):
+            return leaf
+        if leaf.shape[d] % m:
+            raise ValueError(f"a dim of {leaf.shape[d]} does not divide "
+                             f"over a model axis of {m}")
+        n = leaf.shape[d] // m
+        return leaf.narrow(d, mi * n, n).clone(
+            memory_format=torch.contiguous_format)
+
+    return tree_map(put, tree, specs)
+
+
+def reshard_tree(tree, mesh: DeviceMesh, specs=None, group=None):
+    """Placement of a whole ``tree`` on ``mesh``: every tensor leaf
+    broadcast from the mesh's first rank (in place on the other members,
+    whose trees must have the same shapes), then, with ``specs``, sliced
+    by :func:`place_tree`. None and non-tensor leaves pass through. On a
+    mesh of one rank nothing moves. Call it on every member of the mesh;
+    :func:`gather_tree` inverts it bit for bit."""
     if mesh.size == 1:
         return tree
     group = group if group is not None else group_of(mesh)
@@ -144,7 +226,25 @@ def reshard_tree(tree, mesh: DeviceMesh, group=None):
             dist.broadcast(leaf, src=src, group=group)
         return leaf
 
-    return tree_map(put, tree)
+    return place_tree(tree_map(put, tree), mesh, specs)
+
+
+def gather_tree(tree, mesh: DeviceMesh, specs, group):
+    """The whole tree from this rank's slices: each leaf whose spec puts a
+    dim on ``model`` all-gathered along it over this rank's model axis
+    (``group``: :func:`mesh_groups`' third). Call it on every member of
+    the mesh."""
+    if mesh.model_size == 1 or specs is None:
+        return tree
+    tp = ModelParallel(mesh, group)
+
+    def get(leaf, spec):
+        d = model_dim(spec)
+        if d is None or not isinstance(leaf, torch.Tensor):
+            return leaf
+        return tp.all_gather(leaf, d)
+
+    return tree_map(get, tree, specs)
 
 
 def rebalance_batch(global_batch: int, old_hosts: int, new_hosts: int) -> int:
@@ -156,15 +256,32 @@ def rebalance_batch(global_batch: int, old_hosts: int, new_hosts: int) -> int:
     return global_batch // new_hosts
 
 
+def predicted_grad_sync_bytes(n_trainable: int, mesh_axes: Dict[str, int],
+                              dtype_bytes: int = 4) -> int:
+    """Analytic lower bound on the per-rank data-parallel gradient-sync
+    payload of one train step (``repro.roofline.analysis``): every
+    trainable element is reduced over the data axes once a step, and a
+    rank holds at least ``1/model`` of the elements (model-sharded LoRA
+    factors), so ``bytes >= n_trainable * dtype_bytes / model`` when the
+    data axes hold more than one rank; with a single data shard there is
+    nothing to sync (0). :attr:`DataParallel.bytes_all_reduced` is held to
+    it."""
+    dp = 1
+    for a in ("pod", "data"):
+        dp *= mesh_axes.get(a, 1)
+    if dp <= 1:
+        return 0
+    return (n_trainable * dtype_bytes) // max(mesh_axes.get(MODEL, 1), 1)
+
+
 class DataParallel:
     """The data axis of ``mesh`` for this rank: the gradient and loss sync
-    of every engine's step (see the module docstring)."""
+    of every engine's step (see the module docstring). ``group`` is this
+    rank's data-axis group (:func:`mesh_groups`); over a mesh with a model
+    axis the ranks of one model group sync over their own data axes, each
+    with the rows of its data index."""
 
     def __init__(self, mesh: DeviceMesh, group=None):
-        if mesh.shape.get("model", 1) != 1:
-            raise ValueError("only the data axis is ported: the mesh has a "
-                             f"model axis of {mesh.shape['model']} "
-                             "(ROADMAP.md §1, item 3)")
         self.mesh = mesh
         self.group = group
         self.size = mesh.data_size
@@ -172,7 +289,7 @@ class DataParallel:
         if me not in mesh.rank_list:
             raise ValueError(f"rank {me} is not on the mesh "
                              f"{mesh.rank_list}")
-        self.index = mesh.rank_list.index(me)
+        self.index = mesh.coords(me)[0]
         #: bytes handed to ``all_reduce`` since the last reset
         self.bytes_all_reduced = 0
 
@@ -221,3 +338,75 @@ class DataParallel:
         leaves = tree_leaves(grads)
         out = self.all_reduce([loss.reshape(1)] + leaves, w)
         return out[0].reshape(loss.shape), unflatten(grads, out[1:])
+
+
+_HALF = (torch.bfloat16, torch.float16)
+
+
+class ModelParallel:
+    """The model axis of ``mesh`` for this rank: its index on the axis and
+    the collectives over its model group (``group``, :func:`mesh_groups`).
+    Every collective counts the bytes of the buffer it hands over in
+    :attr:`bytes_model_axis`.
+
+    A sum of a bf16 or f16 tensor (all-reduce, reduce-scatter) runs in
+    f32: the partials are widened, summed and rounded once, as the
+    single-process kernels sum in f32 and round once (a bf16 sum would
+    round again at every rank's addition). The collectives are the
+    process group's own: ``gloo`` takes CPU tensors and, in the PyTorch
+    of the card's machine (2.11), CUDA tensors in all four
+    (``chip_smoke.py`` step 23 records it), ``nccl`` CUDA tensors; a
+    group that refuses one raises. The bytes counted are those of the
+    buffer handed over: a reduce-scatter's whole input, an all-gather's
+    part."""
+
+    def __init__(self, mesh: DeviceMesh, group=None):
+        self.mesh = mesh
+        self.group = group
+        self.size = mesh.model_size
+        me = rank()
+        if me not in mesh.rank_list:
+            raise ValueError(f"rank {me} is not on the mesh "
+                             f"{mesh.rank_list}")
+        self.index = mesh.coords(me)[1]
+        #: bytes handed to the model axis's collectives since the last reset
+        self.bytes_model_axis = 0
+
+    def _hand(self, buf: torch.Tensor) -> None:
+        self.bytes_model_axis += buf.numel() * buf.element_size()
+
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (or ``op`` "max") of ``t`` over the axis, in ``t``'s
+        dtype; ``t`` is left as it is."""
+        if self.size == 1:
+            return t
+        wide = op == "sum" and t.dtype in _HALF
+        buf = t.detach().to(torch.float32 if wide else t.dtype,
+                            copy=True).contiguous()
+        self._hand(buf)
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=self.group)
+        return buf.to(t.dtype)
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along ``dim`` in rank order."""
+        if self.size == 1:
+            return t
+        x = t.detach().movedim(dim, 0).contiguous()
+        out = x.new_empty((self.size * x.shape[0], *x.shape[1:]))
+        self._hand(x)
+        dist.all_gather_into_tensor(out, x, group=self.group)
+        return out.movedim(0, dim).contiguous()
+
+    def reduce_scatter(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's part along ``dim`` of the sum of ``t`` over the
+        axis, in ``t``'s dtype."""
+        if self.size == 1:
+            return t
+        wide = t.dtype in _HALF
+        x = t.detach().movedim(dim, 0).to(
+            torch.float32 if wide else t.dtype, copy=True).contiguous()
+        self._hand(x)
+        out = x.new_empty((x.shape[0] // self.size, *x.shape[1:]))
+        dist.reduce_scatter_tensor(out, x, group=self.group)
+        return out.movedim(0, dim).to(t.dtype).contiguous()

@@ -349,14 +349,22 @@ def test_rebalance_batch_is_the_reference_s(args):
 
 
 def test_the_model_axis_is_refused():
-    for payload in ({"task": "probe", "model_parallel": 2},
-                    {"task": "train", "spec": dict(BASE, model_parallel=2)}):
+    """What the model axis still refuses (``ROADMAP.md`` §1, item 3): a
+    family other than dense, an engine other than mesp / mesp_cuda / mebp
+    / store_h, and an axis that splits a head."""
+    for payload in ({"task": "train", "spec": dict(BASE, model_parallel=2,
+                                                   arch="olmoe-1b-7b")},
+                    {"task": "train", "spec": dict(BASE, model_parallel=2,
+                                                   engine="mesp_seq")}):
         with pytest.raises(ValueError, match="item 3"):
             fleet._run_task(payload)
     with pytest.raises(ValueError, match="item 3"):
-        TrainSpec(model_parallel=2).validate()
-    with pytest.raises(ValueError, match="model axis"):
-        elastic.DataParallel(elastic.make_mesh_from_devices([0, 1], 2))
+        TrainSpec(model_parallel=2, arch="rwkv6-1.6b").validate()
+    with pytest.raises(ValueError, match="n_heads = 14"):
+        TrainSpec(model_parallel=4).validate()
+    assert TrainSpec(model_parallel=2).validate().model_parallel == 2
+    dp = elastic.DataParallel(elastic.make_mesh_from_devices([0, 1], 2))
+    assert (dp.size, dp.index) == (1, 0)
 
 
 # ------------------------------------------------------------ compression

@@ -222,7 +222,7 @@ def test_spec_cli_round_trip(tmp_path):
     assert TrainSpec.from_cli_args(spec.to_cli_args()) == spec
     assert TrainSpec.from_cli_args([]) == TrainSpec()
     with pytest.raises(ValueError, match=r"model axis .* item 3"):
-        TrainSpec(model_parallel=2).validate()
+        TrainSpec(model_parallel=2, engine="mezo").validate()
     with pytest.raises(ValueError, match="bad fault entry"):
         TrainSpec(inject_faults="meteor@3").validate()
 
